@@ -1,7 +1,10 @@
 """Smoke test of tpurt_torch on one NVIDIA GPU: builds the CUDA kernels,
-holds each against its plain PyTorch version, then drives the main path
-(Cornell spheres, 1920x1080, depth 30, photons on) through
-``tpurt_torch.render`` with ``backend="pallas"`` and ``resolve_image``.
+holds each against its plain PyTorch version, then drives the main paths
+through ``tpurt_torch.render`` and ``resolve_image``: Cornell spheres at
+1920x1080, depth 30, photons on, with ``backend="pallas"`` (the regen
+kernel); the dispersive scene at 1920x1080, depth 30, with
+``backend="wavefront_pallas"`` (the sweep kernel) and with tpurt's bench
+config 5, ``backend="wavefront_fused"`` (the fused kernel).
 
     python3 chip_smoke.py
 
@@ -46,6 +49,41 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profiled(fn, reps: int = 1):
+    """Run fn() reps times under torch.profiler, after one warm-up. Returns
+    (wall ms per run, device ms per run by kernel name, device busy ms per
+    run): the kernels' own device time, summed per name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    by_name = {}
+    for e in prof.key_averages():
+        # device-side entries only (kernels, copies): a CPU op's own
+        # device time repeats its kernels'
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3 / reps
+    if not by_name:
+        print("  (torch.profiler saw no device time: CUDA-event and host "
+              "times only)")
+    return wall, by_name, sum(by_name.values())
+
+
+def named_ms(by_name: dict, part: str) -> float:
+    return sum(v for k, v in by_name.items() if part in k)
 
 
 def image_gap(a: np.ndarray, b: np.ndarray):
@@ -206,47 +244,243 @@ def main() -> int:
           f"{report['regen']['plain_ms']:.2f} ms")
 
     # 5. the main path, through the public entry points
-    spp = 4
-    mega_regen.LAUNCHES = 0
-    blit.LAUNCHES = 0
+    launches = {}
+    launches.update(drive("main", scene, cfg, cam, 4, {
+        "regen": mega_regen, "blit": blit}, gpu))
+
+    # 6. the wavefront kernels on the dispersive scene of tpurt's bench
+    #    config 5, each against its plain version
+    launches.update(wavefront_phases(dev, report, gpu))
+
+    src = {"regen": ("tpurt_torch/csrc/mega_regen.cu",
+                     "tpurt/kernels/mega_regen.py:84"),
+           "blit": ("tpurt_torch/csrc/tonemap.cu",
+                    "tpurt/kernels/tonemap_pallas.py:31"),
+           "wf_sweep": ("tpurt_torch/csrc/wavefront_sweep.cu",
+                        "tpurt/kernels/wavefront_pallas.py:102"),
+           "wf_fused": ("tpurt_torch/csrc/wavefront_fused.cu",
+                        "tpurt/kernels/wavefront_pallas.py:572")}
+    print(json.dumps({"kernels": [
+        dict(name=k, route="cuda", source=src[k][0], replaces=src[k][1],
+             launches=launches[k], **report[k]) for k in src]}))
+    print(gpu)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def drive(name, scene, cfg, cam, spp, modules, gpu) -> dict:
+    """One main path through the public entry points: render ``spp``
+    samples from a fresh state, then resolve_image, with every kernel count
+    of ``modules`` set to 0 just before and read just after. Checks the
+    image and that each kernel launched; returns the counts."""
+    import tpurt_torch as tt
+    for mod in modules.values():
+        mod.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state = tt.render(scene, cfg, cam, tt.init_state(cfg, dev), 1234, spp)
+    state = tt.render(scene, cfg, cam, tt.init_state(cfg, scene.device),
+                      1234, spp)
     img = tt.resolve_image(cfg, state)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {"regen": mega_regen.LAUNCHES, "blit": blit.LAUNCHES}
+    launches = {k: mod.LAUNCHES for k, mod in modules.items()}
     rays = int(state.rays)
     # single-wavelength samples tonemap to out-of-gamut values (negative,
     # or past 1) at low spp, so "not black" is judged on what a display
     # shows and on the mean radiance
     shown = float(img.clamp(0.0, 1.0).mean())
     radiance = float(tt.resolve_radiance(cfg, state).mean())
-    print(f"[main] render+resolve 1920x1080 depth 30 spp {spp}: {secs:.3f} s,"
-          f" rays {rays}, {rays / secs / 1e6:.1f} Mrays/s, launches "
-          f"{launches}, image mean {float(img.mean()):.4f} (in [0,1]: "
-          f"{shown:.4f}), radiance mean {radiance:.4f} | {gpu}")
-    if img.shape != (1080, 1920, 3) or not bool(torch.isfinite(img).all()):
-        raise AssertionError("main path image is not finite (1080, 1920, 3)")
+    print(f"[{name}] {cfg.backend} render+resolve {cfg.width}x{cfg.height} "
+          f"depth {cfg.depth} spp {spp}: {secs:.3f} s, rays {rays}, "
+          f"{rays / secs / 1e6:.1f} Mrays/s, launches {launches}, image mean "
+          f"{float(img.mean()):.4f} (in [0,1]: {shown:.4f}), radiance mean "
+          f"{radiance:.4f} | {gpu}")
+    if img.shape != (cfg.height, cfg.width, 3) \
+            or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{name}: image is not finite "
+                             f"({cfg.height}, {cfg.width}, 3)")
+    n = cfg.n_pixels
     if not (shown > 0.0 and radiance > 0.0 and rays > 0
-            and state.iteration == spp):
-        raise AssertionError("main path traced nothing")
+            and state.iteration == spp
+            and bool((state.n_samples[:n] == spp).all())):
+        raise AssertionError(f"{name}: traced nothing or lost samples")
     if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never launched: "
+        raise AssertionError(f"{name}: a kernel of the path never launched: "
                              f"{launches}")
+    return launches
 
-    src = {"regen": ("tpurt_torch/csrc/mega_regen.cu",
-                     "tpurt/kernels/mega_regen.py:84"),
-           "blit": ("tpurt_torch/csrc/tonemap.cu",
-                    "tpurt/kernels/tonemap_pallas.py:31")}
-    print(json.dumps({"kernels": [
-        dict(name=k, route="cuda", source=src[k][0], replaces=src[k][1],
-             launches=launches[k], **report[k]) for k in ("regen", "blit")]}))
-    print(gpu)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+
+def dispersive_camera(cfg):
+    """tpurt's bench config 5 camera (bench.py:117-122)."""
+    import tpurt_torch as tt
+    return tt.make_camera((0.0, 3.0, -4.0), (0.0, 1.0, 5.0), vfov=55.0,
+                          aspect_ratio=cfg.width / cfg.height)
+
+
+def wavefront_phases(dev, report, gpu) -> dict:
+    """The sweep kernel and the fused kernel (both modes) against their
+    plain versions, then the wavefront_pallas and config 5 main paths.
+    Fills ``report`` and returns the main paths' launch counts."""
+    import tpurt_torch as tt
+    from tpurt_torch import wavefront
+    from tpurt_torch.kernels import tonemap as blit
+    from tpurt_torch.kernels import wavefront_fused, wavefront_sweep
+    from tpurt_torch.scene import freeze_scene
+
+    scene = tt.dispersive_scene().to(dev)
+    fs = freeze_scene(scene)
+    # tpurt's bench config 5 (bench.py:117-122)
+    cfg5 = tt.RenderConfig(width=1920, height=1080, depth=30,
+                           backend="wavefront_fused", enable_photons=False,
+                           wf_pool=262144)
+    cam5 = dispersive_camera(cfg5)
+
+    # [wf-sweep] a 1080p pool in mid flight: camera rays from the middle
+    # rows of the image (the top rows see sky), two plain sweeps with
+    # refills, a last refill; then one sweep of each version
+    pool = wavefront.new_pool(cfg5.wf_pool, dev)
+    nxt = (torch.zeros((), dtype=torch.int64, device=dev),
+           torch.tensor((cfg5.n_pixels - cfg5.wf_pool) // 2, device=dev))
+    for k in range(3):
+        pool, *nxt = wavefront._regen(cfg5, cam5, pool, *nxt, 1, 1234, 0, 0,
+                                      cfg5.n_pixels)
+        if k < 2:
+            pool = wavefront._sweep(fs, cfg5, pool)[0]
+    got = wavefront_sweep.sweep(fs, cfg5, pool)
+    want = wavefront._sweep(fs, cfg5, pool)
+    torch.cuda.synchronize()
+    pairs = list(zip((got[0].pf, got[0].pi, got[0].rng, got[1], got[2]),
+                     (want[0].pf, want[0].pi, want[0].rng, want[1], want[2])))
+    equal = [torch.equal(a, b) for a, b in pairs]
+    err = float((got[0].pf - want[0].pf).abs().max())
+    bounces = pool.pi[wavefront.BOUNCE][pool.active].float()
+    print(f"[wf-sweep] 1920x1080 dispersive, Q={cfg5.wf_pool} "
+          f"({float(pool.active.float().mean()):.3f} active, mean bounce "
+          f"{float(bounces.mean()):.2f}): planes/pix/rng/mask/rays equal "
+          f"{equal}, rays {int(got[2])} vs {int(want[2])}, terminated "
+          f"{int(got[1].sum())}, max |diff| {err}")
+    if not all(equal):
+        raise AssertionError("sweep kernel differs from wavefront._sweep")
+    call_ms, by_name, _ = profiled(
+        lambda: wavefront_sweep.sweep(fs, cfg5, pool), 20)
+    report["wf_sweep"] = dict(
+        max_abs_err=err, ms=named_ms(by_name, "sweep_kernel") or call_ms,
+        plain_ms=cuda_ms(lambda: wavefront._sweep(fs, cfg5, pool), 3))
+    print(f"  one sweep: kernel {report['wf_sweep']['ms']:.4f} ms of device "
+          f"time ({call_ms:.4f} ms per wrapper call), plain "
+          f"{report['wf_sweep']['plain_ms']:.3f} ms")
+
+    def pair(cfg, backend, spp, plain="wavefront"):
+        """The kernel backend and the plain pool from fresh states."""
+        cam = dispersive_camera(cfg)
+        kcfg = cfg.with_(backend=backend)
+        sk = tt.render(scene, kcfg, cam, tt.init_state(kcfg, dev), 1234, spp)
+        pcfg = cfg.with_(backend=plain)
+        sp = tt.render(scene, pcfg, cam, tt.init_state(pcfg, dev), 1234, spp)
+        torch.cuda.synchronize()
+        n = cfg.n_pixels
+        med, frac, mx = image_gap(sk.rgb_sum[:n].cpu().numpy(),
+                                  sp.rgb_sum[:n].cpu().numpy())
+        print(f"  {cfg.width}x{cfg.height} depth {cfg.depth} {spp} spp: "
+              f"image median {med:.2e}, {frac:.2%} pixels > 1e-2, "
+              f"max {mx:.3g}")
+        check_rays(f"{backend} vs {plain}", int(sk.rays), int(sp.rays))
+        if int(sk.rays) != int(sp.rays) \
+                or not bool((sk.n_samples[:n] == spp).all()) \
+                or not (med < 1e-4 and frac < 0.02):
+            raise AssertionError(f"{backend} differs from {plain}")
+        return mx
+
+    # [wf-pool] the pool driven by the sweep kernel against the plain pool
+    print("[wf-pool] wavefront_pallas vs wavefront:")
+    pair(tt.RenderConfig(width=256, height=144, depth=8,
+                         enable_photons=False, wf_pool=16384),
+         "wavefront_pallas", 2)
+
+    # [wf-fused] the fused kernel against the plain pool
+    print("[wf-fused] wavefront_fused vs wavefront:")
+    for w, h, depth in ((64, 32, 30), (256, 144, 30)):
+        pair(cfg5.with_(width=w, height=h, depth=depth), "wavefront_fused", 1)
+    err = pair(cfg5, "wavefront_fused", 1)
+    st0 = tt.init_state(cfg5, dev)
+    for spp in (1, 4):
+        call_ms, by_name, _ = profiled(
+            lambda: wavefront_fused.wavefront_render_fused(
+                scene, cfg5, cam5, st0, 1234, spp), 3)
+        print(f"  1080p depth 30 {spp} spp: kernel "
+              f"{named_ms(by_name, 'fused_kernel'):.3f} ms of device time "
+              f"({call_ms:.3f} ms per wrapper call)")
+        if spp == 1:
+            kernel_ms = named_ms(by_name, "fused_kernel") or call_ms
+    report["wf_fused"] = dict(
+        max_abs_err=err, ms=kernel_ms,
+        plain_ms=cuda_ms(lambda: wavefront.wavefront_render(
+            scene, cfg5, cam5, st0, 1234, 1), 1))
+    print(f"  1080p depth 30 1 spp: plain pool "
+          f"{report['wf_fused']['plain_ms']:.1f} ms")
+
+    # [wf-budget] the fused kernel's budget mode
+    cfg_b = cfg5.with_(width=256, height=144)
+    cam_b = dispersive_camera(cfg_b)
+    st0 = tt.init_state(cfg_b, dev)
+    rows = st0.n_samples.shape[0]
+    uni = torch.where(torch.arange(rows, device=dev) < cfg_b.n_pixels, 2, 0)
+    su = wavefront_fused.wavefront_render_fused(scene, cfg_b, cam_b, st0,
+                                                1234, 2)
+    sb = wavefront_fused.wavefront_render_budget_fused(
+        scene, cfg_b, cam_b, st0, 1234, uni, 2)
+    same = torch.equal(su.rgb_sum, sb.rgb_sum) and int(su.rays) == int(
+        sb.rays)
+    vals = np.random.default_rng(8).integers(0, 5, rows).astype(np.int32)
+    vals[cfg_b.n_pixels:] = 0       # the budget contract: pad rows take 0
+    vals = torch.from_numpy(vals).to(dev)
+    sk = wavefront_fused.wavefront_render_budget_fused(
+        scene, cfg_b, cam_b, st0, 1234, vals, 4)
+    sp = tt.wavefront_render_budget(scene, cfg_b, cam_b, st0, 1234, vals, 4)
+    torch.cuda.synchronize()
+    print(f"[wf-budget] 256x144 depth 30: uniform budget 2 = uniform 2 spp "
+          f"bit for bit: {same}; budgets 0-4: rays {int(sk.rays)} vs plain "
+          f"{int(sp.rays)}, sample counts equal "
+          f"{torch.equal(sk.n_samples, sp.n_samples)}")
+    if not (same and int(sk.rays) == int(sp.rays)
+            and torch.equal(sk.n_samples, sp.n_samples)):
+        raise AssertionError("fused budget mode differs")
+
+    # [wf-pallas] the 1080p wavefront_pallas path; then the same render
+    # under torch.profiler, for the share of wall time in the sweep kernel
+    cfg_p = cfg5.with_(backend="wavefront_pallas")
+    launches = drive("wf-pallas", scene, cfg_p, cam5, 1,
+                     {"wf_sweep": wavefront_sweep, "blit": blit}, gpu)
+    sweeps = launches["wf_sweep"]
+    wall, by_name, busy = profiled(lambda: tt.render(
+        scene, cfg_p, cam5, tt.init_state(cfg_p, dev), 1234, 1), 2)
+    in_sweep = named_ms(by_name, "sweep_kernel")
+    print(f"  1 spp under the profiler: {sweeps} sweeps, {wall:.1f} ms wall, "
+          f"{in_sweep:.1f} ms in the sweep kernel ({1.0 - in_sweep / wall:.3f}"
+          f" of the wall time outside it), device busy {busy:.1f} ms "
+          f"(idle share {1.0 - busy / wall:.3f})")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print("  device ms by kernel: " + "; ".join(
+        f"{k[:60]} {v:.2f}" for k, v in top))
+
+    # [config5] tpurt's bench config 5 at 4 spp through the public entry
+    # points: the fused kernel, then the blit
+    launches.update(drive("config5", scene, cfg5, cam5, 4,
+                          {"wf_fused": wavefront_fused, "blit": blit}, gpu))
+    launches.pop("blit")
+
+    def config5():
+        st = tt.render(scene, cfg5, cam5, tt.init_state(cfg5, dev), 1234, 4)
+        return tt.resolve_image(cfg5, st)
+
+    wall, by_name, busy = profiled(config5, 3)
+    print(f"  under the profiler: {wall:.2f} ms wall, fused kernel "
+          f"{named_ms(by_name, 'fused_kernel'):.2f} ms, blit "
+          f"{named_ms(by_name, 'tonemap_kernel'):.3f} ms, device busy "
+          f"{busy:.2f} ms (idle share {1.0 - busy / wall:.3f})")
+    return launches
 
 
 if __name__ == "__main__":

@@ -1,0 +1,279 @@
+"""Adaptive sampling of the port (tpurt_torch.adaptive and the fused
+kernel's budget mode) against tpurt.adaptive; and, on a CUDA device, the
+fused kernel's budget mode against its plain version.
+
+tpurt is imported inside the fixture ``tp`` so the GPU cases (marker
+``gpu``) also run where JAX is not installed:
+``python3 -m pytest tests/test_torch_adaptive.py -m gpu --noconftest``.
+
+Tolerances:
+- enumeration tables, budgets, sample counts and ray counts exact;
+- the variance proxy rtol 1e-5, atol 1e-7 (XLA and PyTorch sum the luma
+  dot product and the mean in another order);
+- a uniform budget against the uniform renderer of the same
+  implementation: bit-exact (same enumeration, schedule and float adds);
+- budget renders against tpurt: the image rule of tpurt's parity tests,
+  fewer than 2% of pixels off by more than 1e-2 and median |diff| < 1e-4;
+  continuation (two budget calls against one): rtol 1e-5, atol 1e-5, as
+  tests/test_adaptive.py;
+- render_adaptive end to end against tpurt's: at most 1% of the budgets
+  off, by one sample (the pilots' images differ by reassociation, so the
+  proxy by ulps, and a budget rounding near .5 can move).
+"""
+
+import sys
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import tpurt_torch as tt
+from tpurt_torch import adaptive
+from tpurt_torch.kernels import wavefront_fused
+
+torch.set_num_threads(1)
+
+CAM = dict(look_from=(0.0, 5.0, -12.0), look_at=(0.0, 5.0, 0.0), vfov=60.0,
+           aspect_ratio=2.0)
+
+
+@pytest.fixture(scope="module")
+def tp():
+    import jax.numpy as jnp
+
+    import tpurt
+    import tpurt.adaptive
+    import tpurt.render
+    return types.SimpleNamespace(jnp=jnp, tpurt=tpurt,
+                                 ad=sys.modules["tpurt.adaptive"],
+                                 render=sys.modules["tpurt.render"])
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on a GPU machine run python3 -m "
+                    "pytest tests/test_torch_wavefront.py "
+                    "tests/test_torch_adaptive.py -m gpu --noconftest")
+    return torch.device("cuda")
+
+
+def _setup(pkg, **kw):
+    cfg = pkg.RenderConfig(width=48, height=24, depth=4, tile_size=1152,
+                           enable_photons=False, **kw)
+    return cfg, pkg.cornell_spheres_scene(), pkg.make_camera(**CAM)
+
+
+def _budgets(cfg, values, device="cpu"):
+    """One budget per state row, pad rows 0."""
+    from tpurt_torch.render import padded_pixels
+    b = np.zeros((padded_pixels(cfg),), np.int32)
+    b[:cfg.n_pixels] = values
+    return torch.from_numpy(b).to(device)
+
+
+@pytest.mark.parametrize("seed,max_budget", [(0, 4), (1, 9), (2, 1)])
+def test_round_major_tables_match(tp, seed, max_budget):
+    b = np.random.default_rng(seed).integers(0, max_budget + 1, 1152)
+    b = b.astype(np.int32)
+    order_j, cum_j, total_j = tp.ad._round_major_tables(tp.jnp.asarray(b),
+                                                        max_budget)
+    order, cum, total = adaptive._round_major_tables(torch.from_numpy(b),
+                                                     max_budget)
+    np.testing.assert_array_equal(order.numpy(), np.asarray(order_j))
+    np.testing.assert_array_equal(cum.numpy(), np.asarray(cum_j))
+    assert int(total) == int(total_j) == int(b.sum())
+
+
+@pytest.mark.parametrize("smooth", [True, False])
+def test_variance_proxy_matches(tp, smooth):
+    cfg, _, _ = _setup(tt)
+    rs = np.random.default_rng(4)
+    P = 1152
+    sa = rs.uniform(0.0, 3.0, (P, 3)).astype(np.float32)
+    sb = rs.uniform(0.0, 3.0, (P, 3)).astype(np.float32)
+    na = rs.integers(0, 5, P).astype(np.float32)
+    nb = rs.integers(1, 5, P).astype(np.float32)
+    want = tp.ad.variance_proxy(tp.tpurt.RenderConfig(width=48, height=24),
+                                *(tp.jnp.asarray(x) for x in (sa, na, sb, nb)),
+                                smooth)
+    got = adaptive.variance_proxy(cfg, *(torch.from_numpy(x)
+                                         for x in (sa, na, sb, nb)), smooth)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-7)
+
+
+@pytest.mark.parametrize("power", [0.5, 1.0])
+def test_allocate_budgets_matches(tp, power):
+    rs = np.random.default_rng(5)
+    proxy = rs.uniform(0.0, 1.0, 1152).astype(np.float32)
+    proxy[1100:] = 0.0
+    want = np.asarray(tp.ad.allocate_budgets(tp.jnp.asarray(proxy), 4608,
+                                             64, power))
+    got = adaptive.allocate_budgets(torch.from_numpy(proxy), 4608, 64, power)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy()[1100:] == 0).all()
+
+
+def test_uniform_budget_bit_identical():
+    """budgets == spp everywhere reproduces wavefront_render exactly."""
+    cfg, scene, cam = _setup(tt, wf_pool=512)
+    st_u = tt.wavefront_render(scene, cfg, cam, tt.init_state(cfg), 42, 3)
+    st_b = tt.wavefront_render_budget(scene, cfg, cam, tt.init_state(cfg),
+                                      42, _budgets(cfg, 3), 3)
+    assert torch.equal(st_u.rgb_sum, st_b.rgb_sum)
+    assert torch.equal(st_u.n_samples, st_b.n_samples)
+    assert int(st_u.rays) == int(st_b.rays) > 0
+    assert st_u.iteration == st_b.iteration == 3
+
+
+def test_budget_matches_tpurt(tp):
+    """Non-uniform budgets: the same per-pixel sample counts and rays as
+    tpurt's budget renderer, and its image."""
+    vals = np.random.default_rng(8).integers(0, 5, 48 * 24)
+    cfg_j, scene_j, cam_j = _setup(tp.tpurt, wf_pool=1024)
+    st_j = tp.ad.wavefront_render_budget(
+        scene_j, cfg_j, cam_j, tp.render.init_state(cfg_j), 42,
+        tp.jnp.asarray(_budgets(cfg_j, vals).numpy()), max_budget=4)
+    cfg, scene, cam = _setup(tt, wf_pool=1024)
+    st = tt.wavefront_render_budget(scene, cfg, cam, tt.init_state(cfg), 42,
+                                    _budgets(cfg, vals), 4)
+    n = cfg.n_pixels
+    assert int(st.rays) == int(float(st_j.rays)) > 0
+    np.testing.assert_array_equal(st.n_samples.numpy(),
+                                  np.asarray(st_j.n_samples))
+    assert (st.n_samples.numpy()[:n] == vals).all()
+    diff = np.abs(st.rgb_sum.numpy()[:n] - np.asarray(st_j.rgb_sum)[:n])
+    assert np.median(diff) < 1e-4
+    assert (diff.max(axis=-1) > 1e-2).mean() < 0.02
+    assert st.iteration == 4
+
+
+def test_budget_continuation_draws_new_samples():
+    """Two budget calls equal one call with the summed budgets: each
+    call continues at the pixel's own count."""
+    rs = np.random.default_rng(9)
+    b1, b2 = rs.integers(0, 3, 48 * 24), rs.integers(0, 3, 48 * 24)
+    cfg, scene, cam = _setup(tt, wf_pool=512)
+    st_a = tt.wavefront_render_budget(scene, cfg, cam, tt.init_state(cfg),
+                                      3, _budgets(cfg, b1), 2)
+    st_a = tt.wavefront_render_budget(scene, cfg, cam, st_a, 3,
+                                      _budgets(cfg, b2), 2)
+    st_b = tt.wavefront_render_budget(scene, cfg, cam, tt.init_state(cfg),
+                                      3, _budgets(cfg, b1 + b2), 4)
+    assert int(st_a.rays) == int(st_b.rays) > 0
+    assert torch.equal(st_a.n_samples, st_b.n_samples)
+    n = cfg.n_pixels
+    np.testing.assert_allclose(st_a.rgb_sum.numpy()[:n],
+                               st_b.rgb_sum.numpy()[:n], rtol=1e-5, atol=1e-5)
+
+
+def test_zero_budget_is_noop():
+    cfg, scene, cam = _setup(tt, wf_pool=256)
+    st = tt.wavefront_render_budget(scene, cfg, cam, tt.init_state(cfg), 1,
+                                    _budgets(cfg, 0), 1)
+    assert float(st.n_samples.sum()) == 0.0 and int(st.rays) == 0
+    assert float(st.rgb_sum.abs().sum()) == 0.0
+
+
+def test_fused_budget_wrapper_on_cpu_runs_plain():
+    """On the CPU the fused kernel's budget mode runs the plain budget
+    renderer on the clipped budgets (pad rows 0, at most max_budget); a
+    uniform budget equals the uniform fused wrapper bit for bit."""
+    cfg, scene, cam = _setup(tt, backend="wavefront_fused", pallas_lanes=512,
+                             wf_pool=1024)
+    vals = np.random.default_rng(3).integers(0, 7, 48 * 24)
+    raw = _budgets(cfg, vals)
+    raw[cfg.n_pixels:] = 5                      # pad rows: ignored
+    before = wavefront_fused.LAUNCHES
+    st_f = wavefront_fused.wavefront_render_budget_fused(
+        scene, cfg, cam, tt.init_state(cfg), 42, raw, 4)
+    st_p = tt.wavefront_render_budget(scene, cfg, cam, tt.init_state(cfg),
+                                      42, _budgets(cfg, np.minimum(vals, 4)),
+                                      4)
+    assert torch.equal(st_f.rgb_sum, st_p.rgb_sum)
+    assert torch.equal(st_f.n_samples, st_p.n_samples)
+    assert int(st_f.rays) == int(st_p.rays) > 0
+    st_u = wavefront_fused.wavefront_render_fused(
+        scene, cfg, cam, tt.init_state(cfg), 42, 2)
+    st_b = wavefront_fused.wavefront_render_budget_fused(
+        scene, cfg, cam, tt.init_state(cfg), 42, _budgets(cfg, 2), 2)
+    assert torch.equal(st_u.rgb_sum, st_b.rgb_sum)
+    assert int(st_u.rays) == int(st_b.rays) > 0
+    assert wavefront_fused.LAUNCHES == before
+
+
+@pytest.mark.parametrize("backend", ["wavefront", "wavefront_pallas",
+                                     "wavefront_fused", "xla"])
+def test_render_adaptive_end_to_end(backend):
+    cfg, scene, cam = _setup(tt, wf_pool=1024, pallas_lanes=512,
+                             backend=backend)
+    spp, pilot = 6, 2
+    st, budgets = tt.render_adaptive(scene, cfg, cam, base_seed=17, spp=spp,
+                                     pilot_spp=pilot)
+    n = cfg.n_pixels
+    ns = st.n_samples.numpy()[:n]
+    b = budgets.numpy()[:n]
+    assert (ns == pilot + b).all()
+    assert abs(int(b.sum()) - (spp - pilot) * n) <= n   # rounding slack
+    assert bool(torch.isfinite(tt.resolve_image(cfg, st)).all())
+
+
+def test_render_adaptive_matches_tpurt(tp):
+    """render_adaptive end to end against tpurt's on the plain pool. The
+    pilots' ray counts are exact, but their images differ by float
+    reassociation, so the proxy differs by ulps and a budget that rounds
+    near .5 can move by one: at most 1% of the budgets may differ, by one
+    sample."""
+    cfg_j, scene_j, cam_j = _setup(tp.tpurt, wf_pool=1024)
+    st_j, b_j = tp.ad.render_adaptive(scene_j, cfg_j, cam_j, base_seed=17,
+                                      spp=8, pilot_spp=4)
+    cfg, scene, cam = _setup(tt, wf_pool=1024)
+    st, b = tt.render_adaptive(scene, cfg, cam, base_seed=17, spp=8,
+                               pilot_spp=4)
+    off = np.abs(b.numpy().astype(np.int64) - np.asarray(b_j))
+    print(f"{(off > 0).sum()} of {off.size} budgets differ")
+    assert off.max() <= 1 and (off > 0).mean() <= 0.01
+    n = cfg.n_pixels
+    assert (st.n_samples.numpy()[:n] == 4 + b.numpy()[:n]).all()
+    assert int(st.rays) > 0 and st.iteration == st_j.iteration
+
+
+def test_render_adaptive_pallas_not_ported():
+    cfg, scene, cam = _setup(tt, backend="pallas")
+    with pytest.raises(NotImplementedError, match="budget"):
+        tt.render_adaptive(scene, cfg, cam, spp=4, pilot_spp=2)
+
+
+# ----- the fused kernel's budget mode against its plain version (GPU) -----
+
+@pytest.mark.gpu
+def test_fused_budget_kernel_matches_plain(cuda):
+    """Non-uniform budgets at 256x144, depth 8, dispersive scene: the
+    kernel's rays and sample counts equal the plain budget pool's; a
+    uniform budget equals the uniform kernel bit for bit."""
+    cfg = tt.RenderConfig(width=256, height=144, depth=8,
+                          enable_photons=False, wf_pool=16384,
+                          backend="wavefront_fused")
+    scene = tt.dispersive_scene().to(cuda)
+    cam = tt.make_camera((0.0, 3.0, -4.0), (0.0, 1.0, 5.0), vfov=55.0,
+                         aspect_ratio=256 / 144)
+    vals = np.random.default_rng(8).integers(0, 4, cfg.n_pixels)
+    bud = _budgets(cfg, vals, cuda)
+    before = wavefront_fused.LAUNCHES
+    st_k = wavefront_fused.wavefront_render_budget_fused(
+        scene, cfg, cam, tt.init_state(cfg, cuda), 42, bud, 3)
+    assert wavefront_fused.LAUNCHES == before + 1
+    st_p = tt.wavefront_render_budget(scene, cfg, cam,
+                                      tt.init_state(cfg, cuda), 42, bud, 3)
+    torch.cuda.synchronize()
+    assert int(st_k.rays) == int(st_p.rays) > 0
+    assert torch.equal(st_k.n_samples, st_p.n_samples)
+    st_u = wavefront_fused.wavefront_render_fused(
+        scene, cfg, cam, tt.init_state(cfg, cuda), 42, 2)
+    st_b = wavefront_fused.wavefront_render_budget_fused(
+        scene, cfg, cam, tt.init_state(cfg, cuda), 42, _budgets(cfg, 2, cuda),
+        2)
+    assert torch.equal(st_u.rgb_sum, st_b.rgb_sum)
+    assert int(st_u.rays) == int(st_b.rays) > 0

@@ -109,7 +109,8 @@ def test_make_camera_equal(args):
 @pytest.mark.parametrize("kw", [
     dict(hero_wavelengths=4), dict(photon_strata=16), dict(qmc=True),
     dict(aperture=0.3), dict(light_sample="power"), dict(use_bvh=True),
-    dict(backend="wavefront"), dict(backend="pallas", pallas_regen=False),
+    dict(backend="wavefront_fused", sky_intensity=1.0),
+    dict(backend="pallas", pallas_regen=False),
     dict(count_iters=True), dict(photon_rr_scale=0.5),
 ])
 def test_flags_outside_the_slice_raise(kw):
@@ -125,12 +126,15 @@ def test_slice_and_scheduling_flags_accepted():
         tonemap_key=0.5, tonemap_saturation=1.2, backend="pallas",
         tile_size=1024, pallas_lanes=1024, pallas_block_tiles=False,
         pallas_regen_drift=1, pallas_regen_drift_cam=2,
-        pallas_cluster_size=0, pallas_tri_clip=False, wf_chunk_sort=True))
+        pallas_cluster_size=0, pallas_tri_clip=False, wf_chunk_sort=True,
+        wf_pool=4096, wf_max_sweeps=64))
 
 
 def test_import_leaves_jax_out():
     code = ("import sys, tpurt_torch, tpurt_torch.interop, "
-            "tpurt_torch.kernels.mega_regen, tpurt_torch.kernels.tonemap; "
+            "tpurt_torch.kernels.mega_regen, tpurt_torch.kernels.tonemap, "
+            "tpurt_torch.kernels.wavefront_sweep, "
+            "tpurt_torch.kernels.wavefront_fused, tpurt_torch.adaptive; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'tpurt.')) or m == 'tpurt']; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -1,0 +1,220 @@
+"""Variance-adaptive sampling over the wavefront pool (``tpurt/adaptive.py``).
+
+``wavefront_render_budget`` renders ``budgets[p]`` further samples for
+every pixel p, enumerating work round-major: one sample per still-hungry
+pixel per round, pixels in stable descending-budget order. Pixel p's k-th
+sample draws the same PCG stream as on every other backend (iteration
+n_samples[p] + k), so with a uniform budget the enumeration, the pool
+schedule and the float adds are those of ``wavefront_render``: the states
+are equal to the bit. It is also the plain version of the fused kernel's
+budget mode (``kernels/wavefront_fused.py``).
+
+``render_adaptive`` runs it end to end: two half-pilot passes, a per-pixel
+noise proxy from their disagreement, then one budget drain that spends the
+remaining samples where the image is still noisy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from tpurt_torch import wavefront
+from tpurt_torch.config import check_slice
+from tpurt_torch.ops import fdiv
+from tpurt_torch.scene import freeze_scene
+from tpurt_torch.tonemap import LUMA
+
+
+def _round_major_tables(budgets: torch.Tensor, max_budget: int):
+    """Tables of the round-major enumeration. Work item w maps to round
+    s = the first index with cum[s] > w, and to pixel order[w - cum[s-1]]:
+    c[s] = #pixels with budget > s, cum = cumsum(c), ``order`` the pixels
+    in stable descending-budget order. Returns (order, cum, total), int64
+    tensors on the budgets' device."""
+    p = budgets.shape[0]
+    counts = torch.bincount(budgets.long(), minlength=max_budget + 1)
+    le = torch.cumsum(counts, 0)                 # #pixels with budget <= s
+    c = p - le[:max_budget]                      # #pixels with budget >  s
+    cum = torch.cumsum(c, 0)
+    order = torch.argsort(-budgets.long(), stable=True)
+    return order, cum, cum[max_budget - 1]
+
+
+def _regen_budget(cfg, camera, pool, next_work, base_seed: int, base_counts,
+                  order, cum, total, pix_offset: int):
+    """Refill dead slots from the round-major budgeted work stream; pixel
+    p's round-s sample draws from iteration base_counts[p] + s. Returns
+    (pool, next_work)."""
+    dead = ~pool.active
+    w = next_work + torch.cumsum(dead, 0) - 1
+    s = torch.searchsorted(cum, w, right=True)
+    s_safe = s.clamp_max(cum.shape[0] - 1)
+    start = torch.where(s > 0, cum[(s_safe - 1).clamp_min(0)], 0)
+    r = w - start
+    have_work = dead & (w < total)
+    pix = order[r.clamp(0, order.shape[0] - 1)]
+    pool = wavefront._issue(cfg, camera, pool, pix, pix_offset + pix,
+                            base_counts[pix] + s_safe, have_work, base_seed)
+    return pool, next_work + have_work.sum()
+
+
+def clip_budgets(cfg, budgets: torch.Tensor, max_budget: int
+                 ) -> torch.Tensor:
+    """Budgets as the fused kernel takes them (``tpurt``'s
+    ``_fused_budget_jit``): int64, clipped to [0, max_budget], 0 on the pad
+    rows past the image."""
+    b = budgets.long().clamp(0, int(max_budget))
+    rows = torch.arange(b.shape[0], device=b.device)
+    return torch.where(rows < cfg.n_pixels, b, 0)
+
+
+def wavefront_render_budget_slab(scene, cfg, camera, state, base_seed,
+                                 budgets, max_budget: int, pix_offset: int,
+                                 sweep=None):
+    """``wavefront_render_budget`` over one pixel slab: ``state`` and
+    ``budgets`` hold the slab's rows, RNG and camera coordinates add
+    ``pix_offset``. ``sweep`` as in ``wavefront.wavefront_render_slab``."""
+    wavefront.reject_camera_strata(cfg)
+    check_slice(cfg)
+    wavefront._check_state(state, scene)
+    if max_budget < 1:
+        raise ValueError(f"max_budget must be >= 1, got {max_budget}")
+    if budgets.shape != state.n_samples.shape:
+        raise ValueError(f"budgets {tuple(budgets.shape)} do not match the "
+                         f"state's {tuple(state.n_samples.shape)} rows")
+    sweep = wavefront._sweep if sweep is None else sweep
+    fs = freeze_scene(scene)
+    dev = state.device
+    base_seed = int(base_seed)
+    budgets = budgets.to(dev).long().clamp(0, int(max_budget))
+    base_counts = state.n_samples.long()
+    order, cum, total = _round_major_tables(budgets, int(max_budget))
+    next_work = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def regen(pool):
+        nonlocal next_work
+        pool, next_work = _regen_budget(cfg, camera, pool, next_work,
+                                        base_seed, base_counts, order, cum,
+                                        total, pix_offset)
+        return pool
+
+    rgb, ns, rays = wavefront._drain(fs, cfg, state, regen,
+                                     lambda: next_work < total, sweep)
+    return dataclasses.replace(
+        state, rgb_sum=rgb, n_samples=ns,
+        iteration=state.iteration + int(max_budget),
+        rays=state.rays + rays if cfg.count_rays else state.rays)
+
+
+def wavefront_render_budget(scene, cfg, camera, state, base_seed, budgets,
+                            max_budget: int, sweep=None):
+    """Render ``budgets[p]`` more samples for every pixel p (budgets: one
+    integer per state row, pad rows 0, clipped to [0, max_budget]). Camera
+    paths only, like the uniform wavefront; ``iteration`` grows by
+    ``max_budget``."""
+    return wavefront_render_budget_slab(scene, cfg, camera, state, base_seed,
+                                        budgets, max_budget, 0, sweep)
+
+
+def _box3(img: torch.Tensor) -> torch.Tensor:
+    """3x3 box filter with edge replication on an (H, W) map."""
+    p = torch.nn.functional.pad(img[None, None], (1, 1, 1, 1),
+                                mode="replicate")[0, 0]
+    acc = torch.zeros_like(img)
+    for dy in (0, 1, 2):
+        for dx in (0, 1, 2):
+            acc = acc + p[dy:dy + img.shape[0], dx:dx + img.shape[1]]
+    return fdiv(acc, 9.0)
+
+
+def variance_proxy(cfg, sum_a, n_a, sum_b, n_b, smooth: bool = True):
+    """Per-pixel noise proxy from two independent half-estimates:
+    |luma(mean_a) - luma(mean_b)|, box-smoothed, plus a floor of 5% of its
+    mean so every pixel keeps a nonzero chance. A (rows,) float32 map, pad
+    rows 0."""
+    luma = torch.tensor(LUMA, dtype=torch.float32, device=sum_a.device)
+    mean_a = sum_a / n_a.clamp_min(1.0)[:, None]
+    mean_b = sum_b / n_b.clamp_min(1.0)[:, None]
+    d = ((mean_a - mean_b) @ luma).abs()
+    n = cfg.n_pixels
+    img = d[:n].reshape(cfg.height, cfg.width)
+    if smooth:
+        img = _box3(img)
+    img = img + (0.05 * img.mean() + 1e-12)
+    out = torch.zeros((sum_a.shape[0],), dtype=torch.float32,
+                      device=sum_a.device)
+    out[:n] = img.reshape(-1)
+    return out
+
+
+def allocate_budgets(proxy: torch.Tensor, total: int, max_budget: int,
+                     power: float = 0.5) -> torch.Tensor:
+    """Spend ``total`` samples across pixels in proportion to
+    ``proxy ** power``, rounded (half to even) and clipped to
+    [0, max_budget]; pad rows (proxy 0) get 0. int32."""
+    p = torch.where(proxy > 0, proxy, 0.0) ** power
+    p = p / p.sum().clamp_min(1e-30)
+    alloc = torch.round(p * float(total)).to(torch.int32)
+    return alloc.clamp(0, max_budget)
+
+
+def render_adaptive(scene, cfg, camera, base_seed=0, spp: int = 64,
+                    pilot_spp: int = 8, budget_cap: int = 16,
+                    smooth: bool = True, alloc_power: float = 0.5):
+    """Adaptive render at a mean of ``spp`` samples per pixel: two uniform
+    pilots of pilot_spp/2 each, then the remaining (spp - pilot_spp) *
+    n_pixels samples spent in proportion to proxy**alloc_power (per-pixel
+    cap budget_cap * (spp - pilot_spp)). The state lives on the scene's
+    device. Returns (state, budgets).
+
+    ``backend="wavefront_fused"`` runs both phases through the fused
+    kernel's wrappers, ``"wavefront_pallas"`` through the pool with the
+    sweep kernel, any other wavefront or ``"xla"`` backend through the
+    plain pool, as tpurt routes them. ``"pallas"`` (the regen kernel's
+    budget mode) is not ported yet."""
+    from tpurt_torch.render import init_state
+    if pilot_spp < 2 or pilot_spp % 2:
+        raise ValueError("pilot_spp must be an even count >= 2")
+    if spp < pilot_spp:
+        raise ValueError("spp must be >= pilot_spp")
+    h = pilot_spp // 2
+    remaining = (spp - pilot_spp) * cfg.n_pixels
+    max_budget = max(1, (spp - pilot_spp) * budget_cap)
+    if cfg.n_pixels * max_budget >= 2 ** 31:
+        raise ValueError("summed budget bound overflows int32: lower "
+                         "budget_cap or split into several calls")
+    if cfg.backend == "pallas":
+        raise NotImplementedError(
+            "render_adaptive with backend='pallas' needs the regen kernel's "
+            "budget mode (tpurt/kernels/mega_regen.py "
+            "_render_budget_regen_jit), not ported to tpurt_torch yet: use a "
+            "wavefront backend")
+    if cfg.backend == "wavefront_fused":
+        from tpurt_torch.kernels import wavefront_fused as wf
+        uniform_fn = wf.wavefront_render_fused
+        budget_fn = wf.wavefront_render_budget_fused
+    elif cfg.backend == "wavefront_pallas":
+        from tpurt_torch.kernels import wavefront_sweep as ws
+        uniform_fn = ws.wavefront_render_pallas
+
+        def budget_fn(*args):
+            return wavefront_render_budget(*args, sweep=ws.sweep)
+    else:
+        uniform_fn = wavefront.wavefront_render
+        budget_fn = wavefront_render_budget
+
+    state = init_state(cfg, scene.device)
+    state = uniform_fn(scene, cfg, camera, state, base_seed, h)
+    sum_a, n_a = state.rgb_sum, state.n_samples
+    state = uniform_fn(scene, cfg, camera, state, base_seed, h)
+    sum_b = state.rgb_sum - sum_a
+    n_b = state.n_samples - n_a
+
+    proxy = variance_proxy(cfg, sum_a, n_a, sum_b, n_b, smooth)
+    budgets = allocate_budgets(proxy, remaining, max_budget, alloc_power)
+    if remaining > 0:
+        state = budget_fn(scene, cfg, camera, state, base_seed, budgets,
+                          max_budget)
+    return state, budgets

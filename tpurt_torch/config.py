@@ -95,6 +95,7 @@ _SLICE_FIELDS = frozenset({
     "rr_threshold", "photon_rr_threshold",
     "count_rays", "tonemap_key", "tonemap_saturation",
     "backend", "pallas_regen", "tile_size", "pallas_lanes",
+    "wf_pool", "wf_max_sweeps",
 })
 
 # Knobs tpurt documents as scheduling-only (bit-identical results): the
@@ -106,7 +107,8 @@ _SCHEDULING_FIELDS = frozenset({
     "pallas_chunk_interleave", "wf_chunk_sort",
 })
 
-_BACKENDS = ("xla", "pallas")
+_BACKENDS = ("xla", "pallas", "wavefront", "wavefront_pallas",
+             "wavefront_fused")
 
 
 def check_slice(cfg: RenderConfig) -> None:
@@ -130,3 +132,5 @@ def check_slice(cfg: RenderConfig) -> None:
             "megakernel) is not ported to tpurt_torch yet")
     if cfg.depth < 1 or cfg.max_photon_bounces < 1:
         raise ValueError("depth and max_photon_bounces must be >= 1")
+    if cfg.backend.startswith("wavefront") and cfg.wf_pool < 1:
+        raise ValueError(f"wf_pool must be >= 1, got {cfg.wf_pool}")

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-``tpurt_torch/csrc/*.cu`` compile with ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, loaded with ``ctypes``.
-The build runs at first use, into ``build/tpurt_torch/`` at the root of
-the checkout; the file name carries a hash of the sources and flags, so an
-edited source builds anew. FMA contraction and fast math stay off: the
+``tpurt_torch/csrc/*.cu`` compile with ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` per source, all started together, and link into one shared
+library with a plain C interface, loaded with ``ctypes``. The build runs
+at first use, into ``build/tpurt_torch/`` at the root of the checkout; the
+file name carries a hash of the sources and flags, so an edited source
+builds anew. FMA contraction and fast math stay off: the
 kernels are held to exact ray counts against their plain PyTorch versions.
 """
 
@@ -21,9 +22,9 @@ import subprocess
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / \
     "tpurt_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xptxas",
+              "-v", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +43,32 @@ _SIGNATURES = {
         _F,             # radius at the start of the call
         _I, _I,         # k_photons (0 = off), max_photon_bounces
         _F, _F, _F,     # rr_threshold, photon_rr_threshold, sppm_alpha
+        _P,             # rays: one uint64 on the device, added to
+        _P,             # CIE table (81, 3) f32 on the host
+        _P,             # stream
+    ],
+    "tpurt_wf_sweep_launch": [
+        _P, _P, _P,     # pool in: f32 (13, Q), i32 (3, Q), rng i64 (Q,)
+        _P, _P, _P,     # pool out, the same layout
+        _P,             # terminated mask, bool (Q,)
+        ctypes.c_longlong,  # Q
+        _P,             # scene table f32 (device)
+        _I, _I, _I,     # n_spheres, n_materials, n_lights
+        _I, _F,         # depth, rr_threshold
+        _P,             # rays: one uint64 on the device, added to
+        _P,             # CIE table (81, 3) f32 on the host
+        _P,             # stream
+    ],
+    "tpurt_wf_fused_launch": [
+        _P,             # rgb_sum (P, 3) f32, updated in place
+        ctypes.c_longlong,  # pixels to render (the first n rows)
+        _I, _I,         # width, height
+        _P,             # scene table f32 (device)
+        _I, _I, _I,     # n_spheres, n_materials, n_lights
+        _U,             # base_seed
+        _I, _I,         # spp, iteration (uniform mode)
+        _P, _P,         # budgets, base counts i32 (n,): budget mode, or NULL
+        _I, _F,         # depth, rr_threshold
         _P,             # rays: one uint64 on the device, added to
         _P,             # CIE table (81, 3) f32 on the host
         _P,             # stream
@@ -97,17 +124,37 @@ def library() -> ctypes.CDLL:
 
 
 def build(out: pathlib.Path) -> None:
-    """Compile every csrc/*.cu into ``out``. The compiler's resource
-    report (-Xptxas -v) goes to ``out``.log."""
+    """Compile every csrc/*.cu, in parallel, and link them into ``out``.
+    The compilers' resource reports (-Xptxas -v) go to ``out``.log."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sources() if p.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr[-4000:]}")
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    jobs = []
+    for src in (p for p in sources() if p.suffix == ".cu"):
+        obj = out.with_name(f"{out.stem}.{src.stem}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        text = proc.communicate()[0]
+        logs.append(f"$ {' '.join(cmd)}\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{text[-4000:]}")
+    tmp = out.with_suffix(f".{tag}")
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *[str(obj) for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{proc.stderr[-4000:]}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("\n".join(logs))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, out)
 
 

@@ -25,13 +25,14 @@ MAX_LIGHTS = 16       # csrc/device.cuh MAX_LIGHTS
 SPH_STRIDE = 8
 MAT_STRIDE = 8
 LIGHT_STRIDE = 40
-_CIE = np.ascontiguousarray(CIE_RGB_TABLE, np.float32)
+CIE_HOST = np.ascontiguousarray(CIE_RGB_TABLE, np.float32)
 
 
-def pack_scene(fs, cfg, camera) -> np.ndarray:
-    """The kernel's float32 parameter table (layout in csrc/device.cuh):
-    camera rows, then spheres, materials and lights with every derived
-    constant computed on the host as the plain version computes it."""
+def pack_scene(fs, cfg, camera=None) -> np.ndarray:
+    """The kernels' float32 parameter table (layout in csrc/device.cuh):
+    camera rows (zeros without a camera), then spheres, materials and
+    lights with every derived constant computed on the host as the plain
+    version computes it."""
     sph = np.zeros((len(fs.spheres), SPH_STRIDE), np.float32)
     for i, sp in enumerate(fs.spheres):
         sph[i, :7] = (*sp.c, sp.r2, sp.mat, sp.mtype, sp.ior)
@@ -44,8 +45,18 @@ def pack_scene(fs, cfg, camera) -> np.ndarray:
                        lt.area_scale, *lt.normal, *lt.tangent, *lt.bitangent,
                        *lt.cone_axis, *lt.cone_t, *lt.cone_b, *lt.em_scale,
                        *lt.ph_origin, *photon_power(lt, cfg.k_photons))
-    return np.concatenate([camera.rows().ravel(), sph.ravel(), mat.ravel(),
+    cam = (np.zeros((4, 3), np.float32) if camera is None
+           else camera.rows())
+    return np.concatenate([cam.ravel(), sph.ravel(), mat.ravel(),
                            lit.ravel()]).astype(np.float32)
+
+
+def scene_table(fs, cfg, camera, device) -> torch.Tensor:
+    """``pack_scene`` on ``device``; raises past the kernels' light limit."""
+    if len(fs.lights) > MAX_LIGHTS:
+        raise NotImplementedError(f"the kernels take at most {MAX_LIGHTS} "
+                                  f"lights")
+    return torch.from_numpy(pack_scene(fs, cfg, camera)).to(device)
 
 
 def _check_planes(planes: torch.Tensor, cfg) -> None:
@@ -76,11 +87,8 @@ def regen_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
                                       spp, iteration, radius, depth)
     if planes.device.type != "cuda":
         raise ValueError(f"unsupported device {planes.device}")
-    if len(fs.lights) > MAX_LIGHTS:
-        raise NotImplementedError(f"the regen kernel takes at most "
-                                  f"{MAX_LIGHTS} lights")
+    table = scene_table(fs, cfg, camera, planes.device)
     lib = build.library()
-    table = torch.from_numpy(pack_scene(fs, cfg, camera)).to(planes.device)
     rays = torch.zeros((), dtype=torch.int64, device=planes.device)
     k = cfg.k_photons if (cfg.enable_photons and fs.lights) else 0
     stream = torch.cuda.current_stream(planes.device).cuda_stream
@@ -90,7 +98,7 @@ def regen_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
         int(base_seed) & 0xFFFFFFFF, spp, iteration, depth, radius, k,
         cfg.max_photon_bounces, cfg.rr_threshold, cfg.photon_rr_threshold,
         cfg.sppm_alpha, rays.data_ptr(),
-        _CIE.ctypes.data_as(ctypes.c_void_p), stream)
+        CIE_HOST.ctypes.data_as(ctypes.c_void_p), stream)
     build.check_launch(lib, err, "tpurt_regen_launch")
     LAUNCHES += 1
     return rays

@@ -61,9 +61,17 @@ def rand_1f(state):
     return u32_to_f32(bits) * _INV_U32, state
 
 
-def frame_seed(base_seed: int, iteration: int) -> int:
-    """Per-sample seed: the PCG hash of base + Weyl(iteration), on the host
-    (``tpurt.render._frame_seed``)."""
+def frame_seed(base_seed: int, iteration):
+    """Per-sample seed: the PCG hash of base + Weyl(iteration)
+    (``tpurt.render._frame_seed``). A host int for an int ``iteration``;
+    for an integer tensor of iterations (one per pool slot), a tensor of
+    seeds on its device."""
+    if isinstance(iteration, torch.Tensor):
+        it = _u32(iteration)
+        # Weyl * it mod 2**32 in 16-bit halves: a full product passes 2**63
+        weyl_it = (_WEYL * (it & 0xFFFF)
+                   + (((_WEYL * (it >> 16)) & 0xFFFF) << 16)) & MASK
+        return rand_u32((int(base_seed) + weyl_it) & MASK)[0]
     x = (int(base_seed) + _WEYL * int(iteration)) & MASK
     out, _ = rand_u32(torch.tensor(x, dtype=torch.int64))
     return int(out)

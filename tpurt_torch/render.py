@@ -6,6 +6,13 @@ through the regen kernel wrapper, which launches the CUDA kernel for a
 state on the card and runs its plain PyTorch version for a state on the
 CPU; ``backend="xla"`` always runs the plain version (the eager-torch
 integrator). Both give the same streams, ray counts and images.
+
+The wavefront backends trace camera paths only (no photon pass; the
+vispoints and the photon radius stay as they are): ``"wavefront"`` is the
+plain pool renderer, ``"wavefront_pallas"`` the pool driven by the sweep
+kernel, ``"wavefront_fused"`` the fused kernel (``tpurt.render.
+_wavefront_dispatch``). With photons off they trace the same segments as
+``"xla"``.
 """
 
 from __future__ import annotations
@@ -17,13 +24,14 @@ import os
 import numpy as np
 import torch
 
-from tpurt_torch import integrate
+from tpurt_torch import integrate, wavefront
 from tpurt_torch import tonemap as tm
 from tpurt_torch.camera import Camera
 from tpurt_torch.config import RenderConfig, check_slice
 from tpurt_torch.integrate import sppm_radius_step
 from tpurt_torch.kernels import mega_regen
 from tpurt_torch.kernels import tonemap as tonemap_kernel
+from tpurt_torch.kernels import wavefront_fused, wavefront_sweep
 from tpurt_torch.ops.rng import frame_seed as _frame_seed  # noqa: F401
 from tpurt_torch.scene import Scene, freeze_scene
 
@@ -111,8 +119,19 @@ def planes_to_state(state: RenderState, planes: torch.Tensor, spp: int,
         rays=state.rays + rays if cfg.count_rays else state.rays)
 
 
+def _wavefront_dispatch(cfg: RenderConfig):
+    """The renderer of a wavefront backend."""
+    if cfg.backend == "wavefront":
+        return wavefront.wavefront_render
+    if cfg.backend == "wavefront_pallas":
+        return wavefront_sweep.wavefront_render_pallas
+    return wavefront_fused.wavefront_render_fused
+
+
 def _check_call(scene: Scene, cfg: RenderConfig, state: RenderState,
                 depth: int) -> None:
+    if cfg.backend in WAVEFRONT_BACKENDS:
+        wavefront.reject_camera_strata(cfg)
     check_slice(cfg)
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
@@ -125,6 +144,11 @@ def _check_call(scene: Scene, cfg: RenderConfig, state: RenderState,
 
 
 def _advance(scene, cfg, camera, state, base_seed, spp, depth):
+    if cfg.backend in WAVEFRONT_BACKENDS:
+        # depth is part of the config for the pool tracers, as in tpurt
+        cfg = cfg if depth == cfg.depth else cfg.with_(depth=depth)
+        return _wavefront_dispatch(cfg)(scene, cfg, camera, state,
+                                        base_seed, spp)
     planes = state_to_planes(state)
     if cfg.backend == "pallas":
         rays = mega_regen.regen_call(scene, cfg, camera, planes,

@@ -208,6 +208,32 @@ def cornell_spheres_scene() -> Scene:
     return build_scene(materials, spheres, (), lights)
 
 
+def dispersive_scene() -> Scene:
+    """Dispersive crown and flint glass, brushed gold and two diffuse
+    materials, lit by a 5500 K point light and a 3200 K square light (the
+    scene of tpurt's bench configs 4 and 5)."""
+    materials = [
+        Material.diffuse((0.8, 0.8, 0.8)),
+        Material.dielectric(1.52, 0.0),    # crown-glass ball (dispersive)
+        Material.dielectric(1.72, 0.0),    # dense flint
+        Material.metal((1.0, 0.71, 0.29), 0.05),  # brushed gold
+        Material.diffuse((0.3, 0.3, 0.8)),
+    ]
+    spheres = [
+        Sphere(0, 1000.0, (0.0, -1000.0, 0.0)),
+        Sphere(1, 1.0, (-2.2, 1.0, 4.0)),
+        Sphere(2, 1.0, (0.0, 1.0, 4.5)),
+        Sphere(3, 1.0, (2.2, 1.0, 4.0)),
+        Sphere(4, 0.7, (0.0, 0.7, 7.0)),
+    ]
+    lights = [
+        Light.point([0.0, 8.0, 0.0], [1.0, 1.0, 1.0], 60.0, 5500.0),
+        Light.square_area([6.0, 4.0, 4.0], [-1.0, -0.3, 0.0], 2.0,
+                          [1.0, 1.0, 1.0], 4.0, 3200.0),
+    ]
+    return build_scene(materials, spheres, (), lights)
+
+
 # ----- frozen scene: host constants for the integrator and the kernel -----
 
 PHOTON_CONE_COS = 0.707
