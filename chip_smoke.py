@@ -4,7 +4,10 @@ through ``tpurt_torch.render`` and ``resolve_image``: Cornell spheres at
 1920x1080, depth 30, photons on, with ``backend="pallas"`` (the regen
 kernel); the dispersive scene at 1920x1080, depth 30, with
 ``backend="wavefront_pallas"`` (the sweep kernel) and with tpurt's bench
-config 5, ``backend="wavefront_fused"`` (the fused kernel).
+config 5, ``backend="wavefront_fused"`` (the fused kernel); tpurt's bench
+config 6, the 4050-triangle torus mesh at 1920x1080, depth 30, photons on,
+through the regen kernel's BVH walk (csrc/bvh.cuh), and the 64,800-triangle
+torus field and the 16,384-sphere instanced scene at 1 spp.
 
     python3 chip_smoke.py
 
@@ -82,6 +85,25 @@ def profiled(fn, reps: int = 1):
     return wall, by_name, sum(by_name.values())
 
 
+def ptxas_report(log: str) -> list:
+    """One line per kernel of the build log's -Xptxas -v report: registers,
+    stack frame and spill stores/loads."""
+    out, name, frame = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            for short in ("regen", "sweep", "fused", "probe", "tonemap"):
+                if short in name:
+                    name = short
+        elif "bytes stack frame" in line and name:
+            frame = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            regs = line.split("Used")[1].split(",")[0].strip()
+            out.append(f"{name}: {regs}; {frame}")
+            name, frame = None, ""
+    return out
+
+
 def named_ms(by_name: dict, part: str) -> float:
     return sum(v for k, v in by_name.items() if part in k)
 
@@ -131,6 +153,8 @@ def main() -> int:
             if "registers" in ln] if log.exists() else []
     print(f"[build] {time.perf_counter() - t0:.1f} s (nvcc ran: {built}) "
           f"{' | '.join(regs)}")
+    for line in ptxas_report(log.read_text() if log.exists() else ""):
+        print(f"  {line}")
 
     report = {}
 
@@ -252,6 +276,9 @@ def main() -> int:
     #    config 5, each against its plain version
     launches.update(wavefront_phases(dev, report, gpu))
 
+    # 7. meshes: the BVH walks, and bench config 6 and the scale paths
+    launches.update(mesh_phases(dev, report, gpu))
+
     src = {"regen": ("tpurt_torch/csrc/mega_regen.cu",
                      "tpurt/kernels/mega_regen.py:84"),
            "blit": ("tpurt_torch/csrc/tonemap.cu",
@@ -259,7 +286,9 @@ def main() -> int:
            "wf_sweep": ("tpurt_torch/csrc/wavefront_sweep.cu",
                         "tpurt/kernels/wavefront_pallas.py:102"),
            "wf_fused": ("tpurt_torch/csrc/wavefront_fused.cu",
-                        "tpurt/kernels/wavefront_pallas.py:572")}
+                        "tpurt/kernels/wavefront_pallas.py:572"),
+           "bvh_walk": ("tpurt_torch/csrc/bvh.cuh",
+                        "tpurt/kernels/bvh_pallas.py:466")}
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=src[k][0], replaces=src[k][1],
              launches=launches[k], **report[k]) for k in src]}))
@@ -481,6 +510,265 @@ def wavefront_phases(dev, report, gpu) -> dict:
           f"{named_ms(by_name, 'tonemap_kernel'):.3f} ms, device busy "
           f"{busy:.2f} ms (idle share {1.0 - busy / wall:.3f})")
     return launches
+
+
+TORUS_CAM = ((0.0, 3.0, -6.0), (0.0, 1.5, 0.0))
+
+
+def probe_rays(scene, n: int, seed: int, dev):
+    """n seeded rays through the scene's triangle (or sphere) bounds, from
+    origins up to twice its extent away: o, d (3, n) with unit d, t_max and
+    lam (n,), float32 on dev."""
+    rs = np.random.default_rng(seed)
+    pts = (scene.tri_a.cpu().numpy() if scene.num_triangles
+           else scene.sph_center.cpu().numpy()[1:])
+    lo, hi = pts.min(0), pts.max(0)
+    c, ext = (lo + hi) / 2, (hi - lo) / 2 + 0.5
+    o = c + rs.uniform(-2, 2, (n, 3)) * ext
+    tgt = c + rs.uniform(-1, 1, (n, 3)) * ext
+    d = (tgt - o) / np.linalg.norm(tgt - o, axis=1, keepdims=True)
+    t_max = rs.uniform(0.1, 2.0, n) * np.linalg.norm(tgt - o, axis=1)
+    lam = rs.uniform(380.0, 780.0, n)
+    f = lambda x: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(x, np.float32)).to(dev)
+    return f(o.T), f(d.T), f(t_max), f(lam)
+
+
+def nan_plane_rays(dev, n: int = 65536):
+    """Rays straight down +z whose x and y sit exactly on the integer box
+    planes of the quad grid (0 * inf in the slab test) or between them
+    (tpurt's test_wide_walk_nan_slab_votes_hit)."""
+    xs = (np.arange(n) % 7).astype(np.float32)
+    ys = ((np.arange(n) // 7) % 12).astype(np.float32) / 2.0
+    o = np.stack([xs, ys, np.full(n, -3.0, np.float32)])
+    d = np.tile(np.array([[0.0], [0.0], [1.0]], np.float32), (1, n))
+    f = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    return f(o), f(d), f(np.full(n, 5.5, np.float32)), f(
+        np.full(n, 550.0, np.float32))
+
+
+def grid_quads():
+    """A 6x6 quad grid at z = 1..4: 288 axis-aligned triangles."""
+    import tpurt_torch as tt
+    mesh = tt.MeshData(material_id=0)
+    verts, faces = [], []
+    for z in range(1, 5):
+        for i in range(6):
+            for j in range(6):
+                b = len(verts)
+                verts += [(i, j, z), (i + 1, j, z), (i + 1, j + 1, z),
+                          (i, j + 1, z)]
+                faces += [(b, b + 1, b + 3), (b + 2, b + 3, b + 1)]
+    mesh.add_triangles(np.asarray(verts, np.float32),
+                       np.asarray(faces, np.int32))
+    return tt.build_scene([tt.Material.diffuse((0.5, 0.5, 0.5))], [], [mesh],
+                          [])
+
+
+def walk_vs_plain(name, scene, cfg, rays, exact_atten=True):
+    """The walk probe against the brute-force sweeps on the same rays: t,
+    point, normal and material bit for bit; the shadow factor bit for bit,
+    or within 1e-6 relative for a sphere tree (walk-order product).
+    Returns (max |diff| of the outputs, kernel ms, plain ms)."""
+    from tpurt_torch import integrate
+    from tpurt_torch.kernels import bvh
+    from tpurt_torch.scene import freeze_scene
+    fs = freeze_scene(scene)
+    o, d, tm, lam = rays
+    got = bvh.probe(scene, cfg, o, d, tm, lam)
+
+    def plain():
+        t, loc, n, mat = integrate.intersect_scene(fs, tuple(o), tuple(d))
+        return (t, torch.stack(loc), torch.stack(n), mat.to(torch.int32),
+                integrate._shadow(fs, tuple(o), tuple(d), tm, lam))
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain()
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    equal = [torch.equal(a, b) for a, b in zip(got, want)]
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, want))
+    rel = float(((got[4] - want[4]).abs()
+                 / want[4].abs().clamp_min(1e-30)).max())
+    hit = float((want[0] < 1e29).float().mean())
+    occ = float((want[4] == 0.0).float().mean())
+    ms = cuda_ms(lambda: bvh.probe(scene, cfg, o, d, tm, lam), 5)
+    print(f"[bvh-walk] {name}: {o.shape[1]} rays ({hit:.3f} hit, {occ:.3f} "
+          f"occluded): t/loc/n/mat/atten equal {equal}, atten max rel "
+          f"{rel:.3g}; walk {ms:.3f} ms, brute force {plain_ms:.1f} ms")
+    if not all(equal[:4]) or not (equal[4] or (not exact_atten
+                                               and rel <= 1e-6)):
+        bad = torch.nonzero((got[0] != want[0]) | (got[3] != want[3]))[:4, 0]
+        raise AssertionError(
+            f"{name}: the walk differs from the brute-force sweep, e.g. rays "
+            f"{bad.tolist()}: t {got[0][bad].tolist()} vs "
+            f"{want[0][bad].tolist()}")
+    return err, ms, plain_ms
+
+
+def mesh_phases(dev, report, gpu) -> dict:
+    """[bvh-walk] the walks against the brute-force sweeps; [mesh-regen]
+    the regen kernel through the walk against render_plain; [mesh-wf] the
+    wavefront kernels against the plain pool; [mesh] tpurt's bench config
+    6 at 1080p, depth 30, 4 spp, and the two scale paths at 1 spp. Fills
+    ``report`` and returns the config-6 path's launch counts."""
+    import tpurt_torch as tt
+    from tpurt_torch import integrate
+    from tpurt_torch.kernels import bvh, mega_regen
+    from tpurt_torch.kernels import tonemap as blit
+    from tpurt_torch.render import state_to_planes
+    from tpurt_torch.scene import freeze_scene
+
+    base = tt.RenderConfig(backend="pallas")
+    torus = tt.torus_mesh_scene(45, 45).to(dev)
+    verts, faces = tt.scene._torus(45, 45)
+    mesh = tt.MeshData(material_id=2, translation=(0.0, 0.0, 6.0))
+    mesh.add_triangles(verts, faces)
+    torus_only = tt.build_scene([tt.Material.diffuse((0.5, 0.5, 0.5))] * 3,
+                                [], [mesh], []).to(dev)
+    field = tt.torus_field_scene(16, 45, 45).to(dev)
+    inst = tt.instanced_scene(16384).to(dev)
+    cfg_field = base.with_(pallas_bvh_leaf=16, pallas_bvh_chunk=1024,
+                           pallas_bvh_width=8)
+    cfg_inst = base.with_(pallas_sphere_bvh=True, pallas_bvh_leaf=16,
+                          pallas_bvh_width=8)
+
+    # [bvh-walk] 65,536 seeded rays each
+    n = 65536
+    errs = []
+    rays = probe_rays(torus_only, n, 1, dev)
+    err, ms64, plain64 = walk_vs_plain(
+        "torus 4050 tris, binary leaf 64", torus_only,
+        base.with_(pallas_bvh_leaf=64), rays)
+    errs.append(err)
+    errs.append(walk_vs_plain("torus 4050 tris, width 8 leaf 64", torus_only,
+                              base.with_(pallas_bvh_leaf=64,
+                                         pallas_bvh_width=8), rays)[0])
+    errs.append(walk_vs_plain("torus scene (spheres + 4050 tris), leaf 4",
+                              torus, base.with_(pallas_bvh_leaf=4),
+                              probe_rays(torus, n, 2, dev))[0])
+    errs.append(walk_vs_plain("torus field 64,800 tris, width 8 leaf 16",
+                              field, cfg_field,
+                              probe_rays(field, n, 3, dev))[0])
+    errs.append(walk_vs_plain("instanced 16,384 spheres, width 8 leaf 16",
+                              inst, cfg_inst, probe_rays(inst, n, 4, dev),
+                              exact_atten=False)[0])
+    grid = grid_quads().to(dev)
+    for width in (0, 8):
+        errs.append(walk_vs_plain(
+            f"NaN-plane rays, quad grid, width {width}", grid,
+            base.with_(pallas_bvh_leaf=8, pallas_bvh_width=width,
+                       pallas_static_unroll=8), nan_plane_rays(dev))[0])
+
+    # [mesh-regen] the regen kernel against render_plain, state planes
+    # bit for bit (one plain render serves both leaf sizes)
+    fs = freeze_scene(torus)
+    regen_ms = {}
+    for w, h in ((64, 32), (256, 144)):
+        cfg = tt.RenderConfig(width=w, height=h, depth=8, backend="pallas")
+        cam = tt.make_camera(*TORUS_CAM, vfov=55.0, aspect_ratio=w / h)
+        planes = state_to_planes(tt.init_state(cfg, dev))
+        pp = planes.clone()
+        t0 = time.perf_counter()
+        rp = int(integrate.render_plain(fs, cfg, cam, pp, 1234, 2, 0, 2.0, 8))
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        for leaf in (64, 4):
+            c = cfg.with_(pallas_bvh_leaf=leaf)
+            pk = planes.clone()
+            rk = int(mega_regen.regen_call(torus, c, cam, pk, 1234, 2, 0,
+                                           2.0, 8))
+            ms = cuda_ms(lambda: mega_regen.regen_call(
+                torus, c, cam, planes.clone(), 1234, 2, 0, 2.0, 8), 3)
+            regen_ms[(w, leaf)] = ms
+            unequal = [i for i in range(16) if not torch.equal(pk[i], pp[i])]
+            print(f"[mesh-regen] {w}x{h} depth 8 2 spp leaf {leaf}: rays "
+                  f"{rk} vs plain {rp}, unequal planes {unequal}; kernel "
+                  f"{ms:.3f} ms, plain {plain_s * 1e3:.1f} ms")
+            if rk != rp or unequal:
+                raise AssertionError("regen kernel differs from render_plain "
+                                     "on the mesh")
+
+    # [mesh-wf] the wavefront kernels against the plain pool
+    cfg_wf = tt.RenderConfig(width=256, height=144, depth=30,
+                             enable_photons=False, wf_pool=65536)
+    cam_wf = tt.make_camera(*TORUS_CAM, vfov=55.0, aspect_ratio=256 / 144)
+    rays_wf = {}
+    for backend in ("wavefront", "wavefront_pallas", "wavefront_fused"):
+        c = cfg_wf.with_(backend=backend)
+        st = tt.render(torus, c, cam_wf, tt.init_state(c, dev), 1234, 1)
+        rays_wf[backend] = int(st.rays)
+    print(f"[mesh-wf] 256x144 depth 30 1 spp, rays: {rays_wf}")
+    if len(set(rays_wf.values())) != 1:
+        raise AssertionError("wavefront kernels differ from the plain pool "
+                             "on the mesh")
+
+    # [mesh] bench config 6 through the public entry points, then the
+    # scale paths; each with its kernel counts zeroed just before
+    cfg6 = tt.RenderConfig(width=1920, height=1080, depth=30,
+                           backend="pallas", pallas_bvh=True,
+                           pallas_bvh_leaf=64)
+    cam6 = tt.make_camera(*TORUS_CAM, vfov=55.0, aspect_ratio=16 / 9)
+    bvh.WALKS = 0
+    drive("mesh", torus, cfg6, cam6, 4, {"regen": mega_regen, "blit": blit},
+          gpu)
+    launches = {"bvh_walk": bvh.WALKS}
+    if bvh.WALKS < 1:
+        raise AssertionError("the config-6 path never walked the BVH")
+    mesh_profile("config 6", torus, cfg6, cam6, 4)
+    planes = state_to_planes(tt.init_state(cfg6, dev))
+    for leaf in (4, 16, 64):
+        c = cfg6.with_(pallas_bvh_leaf=leaf)
+        ms = cuda_ms(lambda: mega_regen.regen_call(
+            torus, c, cam6, planes.clone(), 1234, 1, 0, 2.0, 30), 3)
+        print(f"  leaf {leaf}: regen kernel {ms:.2f} ms per 1080p sample")
+    for name, scene, cfg, cam in (
+            ("field", field, cfg_field.with_(width=1920, height=1080,
+                                             depth=30),
+             ((0.0, 14.0, -16.0), (0.0, 1.0, 10.0))),
+            ("instanced", inst, cfg_inst.with_(width=1920, height=1080,
+                                               depth=30),
+             ((0.0, 18.0, -30.0), (0.0, 1.0, 8.0)))):
+        camera = tt.make_camera(*cam, vfov=55.0, aspect_ratio=16 / 9)
+        bvh.WALKS = 0
+        drive(f"mesh-{name}", scene, cfg, camera, 1,
+              {"regen": mega_regen, "blit": blit}, gpu)
+        if bvh.WALKS < 1:
+            raise AssertionError(f"the {name} path never walked the BVH")
+        mesh_profile(name, scene, cfg, camera, 1)
+    report["bvh_walk"] = dict(max_abs_err=max(errs), ms=ms64,
+                              plain_ms=plain64)
+    return launches
+
+
+def mesh_profile(name, scene, cfg, cam, spp) -> None:
+    """The render + resolve of a mesh path under torch.profiler (wall ms,
+    the regen kernel's device ms, device busy and idle share), and the
+    path and the kernel alone timed by CUDA events."""
+    import tpurt_torch as tt
+    from tpurt_torch.kernels import mega_regen
+    from tpurt_torch.render import state_to_planes
+
+    def path():
+        st = tt.render(scene, cfg, cam, tt.init_state(cfg, scene.device),
+                       1234, spp)
+        return tt.resolve_image(cfg, st)
+
+    wall, by_name, busy = profiled(path, 1)
+    kernel = named_ms(by_name, "regen_kernel")
+    planes = state_to_planes(tt.init_state(cfg, scene.device))
+    ev_path = cuda_ms(path, 2)
+    ev_kernel = cuda_ms(lambda: mega_regen.regen_call(
+        scene, cfg, cam, planes.clone(), 1234, spp, 0, 2.0, cfg.depth), 2)
+    print(f"  {name} under the profiler: {wall:.2f} ms wall, regen kernel "
+          f"{kernel:.2f} ms, device busy {busy:.2f} ms (idle share "
+          f"{1.0 - busy / wall:.3f}); by CUDA events: render + resolve "
+          f"{ev_path:.2f} ms, regen kernel {ev_kernel:.2f} ms "
+          f"({ev_kernel / spp:.2f} ms per sample)")
 
 
 if __name__ == "__main__":

@@ -81,13 +81,22 @@ def test_build_scene_equal_with_metal_and_point_light():
         np.testing.assert_array_equal(np.asarray(via[k]), want[k], err_msg=k)
 
 
-def test_meshes_raise():
-    with pytest.raises(NotImplementedError):
-        tt.default_scene(obj_path="model.obj")
-    fields = {k: np.asarray(v) for k, v in
-              vars(tpurt.scene.tri_test_scene()).items()}
-    with pytest.raises(NotImplementedError):
-        scene_from_numpy(fields)
+def test_meshes_load(tmp_path):
+    """default_scene with an OBJ mesh, and tpurt's mesh scene through the
+    NumPy interchange: every array equal to tpurt's (exact)."""
+    obj = tmp_path / "model.obj"
+    obj.write_text("v 0 0 0\nv 1 0 0\nv 1 1 0\nv 0 1 0.5\nv 0.5 2 0\n"
+                   "f 1 2 3 4\nf -3 -2 -1\n")
+    want = _scene_arrays(tpurt.default_scene(str(obj)))
+    got = _scene_arrays(tt.default_scene(str(obj)))
+    assert want["tri_a"].shape == (3, 3)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    j_tri = tpurt.scene.tri_test_scene()
+    via = _scene_arrays(scene_from_numpy(
+        {k: np.asarray(v) for k, v in vars(j_tri).items()}))
+    for k, v in _scene_arrays(j_tri).items():
+        np.testing.assert_array_equal(via[k], v, err_msg=k)
 
 
 @pytest.mark.parametrize("args", [
@@ -109,6 +118,7 @@ def test_make_camera_equal(args):
 @pytest.mark.parametrize("kw", [
     dict(hero_wavelengths=4), dict(photon_strata=16), dict(qmc=True),
     dict(aperture=0.3), dict(light_sample="power"), dict(use_bvh=True),
+    dict(pallas_mxu_leaf=True),
     dict(backend="wavefront_fused", sky_intensity=1.0),
     dict(backend="pallas", pallas_regen=False),
     dict(count_iters=True), dict(photon_rr_scale=0.5),
@@ -134,7 +144,9 @@ def test_import_leaves_jax_out():
     code = ("import sys, tpurt_torch, tpurt_torch.interop, "
             "tpurt_torch.kernels.mega_regen, tpurt_torch.kernels.tonemap, "
             "tpurt_torch.kernels.wavefront_sweep, "
-            "tpurt_torch.kernels.wavefront_fused, tpurt_torch.adaptive; "
+            "tpurt_torch.kernels.wavefront_fused, tpurt_torch.adaptive, "
+            "tpurt_torch.accel, tpurt_torch.utils.obj, "
+            "tpurt_torch.kernels.bvh; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'tpurt.')) or m == 'tpurt']; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -96,6 +96,8 @@ _SLICE_FIELDS = frozenset({
     "count_rays", "tonemap_key", "tonemap_saturation",
     "backend", "pallas_regen", "tile_size", "pallas_lanes",
     "wf_pool", "wf_max_sweeps",
+    "pallas_bvh", "pallas_bvh_leaf", "pallas_bvh_width", "pallas_bvh_sah",
+    "pallas_sphere_bvh", "pallas_static_unroll",
 })
 
 # Knobs tpurt documents as scheduling-only (bit-identical results): the
@@ -104,7 +106,8 @@ _SCHEDULING_FIELDS = frozenset({
     "pallas_block_tiles", "pallas_regen_drift", "pallas_regen_drift_cam",
     "pallas_cluster_size", "pallas_cluster_ordered", "pallas_tri_clip",
     "pallas_bvh_rows", "pallas_bvh_chunk", "pallas_chunk_prefetch",
-    "pallas_chunk_interleave", "wf_chunk_sort",
+    "pallas_chunk_interleave", "wf_chunk_sort", "pallas_bvh_chunk_threshold",
+    "tri_chunk", "sphere_chunk",
 })
 
 _BACKENDS = ("xla", "pallas", "wavefront", "wavefront_pallas",
@@ -134,3 +137,6 @@ def check_slice(cfg: RenderConfig) -> None:
         raise ValueError("depth and max_photon_bounces must be >= 1")
     if cfg.backend.startswith("wavefront") and cfg.wf_pool < 1:
         raise ValueError(f"wf_pool must be >= 1, got {cfg.wf_pool}")
+    if not 0 <= cfg.pallas_bvh_width <= 8:
+        raise ValueError(f"pallas_bvh_width must be 0-2 (binary) or 3-8 "
+                         f"(wide), got {cfg.pallas_bvh_width}")

@@ -1,4 +1,4 @@
-// Device math of the regen kernel: vec3 helpers, the PCG stream, CIE and
+// Device math of the path kernels: vec3 helpers, the PCG stream, CIE and
 // blackbody emission, Fresnel, GGX, Oren-Nayar, sphere hits and shadows.
 //
 // Each function is the scalar twin of a plain PyTorch function of the port
@@ -25,7 +25,7 @@ constexpr int MAX_LIGHTS = 16;
 
 // scene table layout (float32), packed by tpurt_torch/kernels/mega_regen.py
 constexpr int CAM_FLOATS = 12;     // origin, horizontal, vertical, lower_left
-constexpr int SPH_STRIDE = 8;      // cx cy cz r2 mat mtype ior -
+constexpr int SPH_STRIDE = 8;      // cx cy cz r2 mat mtype ior index
 constexpr int MAT_STRIDE = 8;      // r g b rough ior mtype - -
 constexpr int LIGHT_STRIDE = 40;
 enum LightField {
@@ -38,6 +38,7 @@ enum LightField {
 __device__ __forceinline__ float kEPS() { return F(1e-5); }
 __device__ __forceinline__ float kMISS() { return F(1e30); }
 __device__ __forceinline__ float kHIT() { return F(1e30 * 0.5); }
+__device__ __forceinline__ float kINF() { return __int_as_float(0x7f800000); }
 __device__ __forceinline__ float kPI() { return F(3.14159265358979); }
 __device__ __forceinline__ float kINV_PI() { return F(0.3183098861837907); }
 __device__ __forceinline__ float kTWO_PI() { return F(6.283185307179586); }
@@ -268,70 +269,75 @@ struct Hit {
   int mat;
 };
 
-__device__ __forceinline__ Hit closest_sphere(const float* sph, int n_sph,
-                                              V3 o, V3 d) {
-  float a = vdot(d, d);
-  float inv_a = 1.0f / a;
-  float best_t = kMISS();
-  V3 best_c = v3(0.0f, 0.0f, 0.0f);
-  int best_mat = 0;
-  for (int i = 0; i < n_sph; ++i) {
-    const float* sp = sph + i * SPH_STRIDE;
-    V3 oc = v3(o.x - sp[0], o.y - sp[1], o.z - sp[2]);
-    float half_b = vdot(oc, d);
-    float c = vdot(oc, oc) - sp[3];
-    float disc = half_b * half_b - a * c;
-    float sq = sqrtf(fmaxf(disc, 0.0f));
-    float t = (-half_b - sq) * inv_a;
-    if (!(disc > 0.0f && t > 0.0f)) t = kMISS();
-    if (t < best_t) {
-      best_t = t;
-      best_c = load3(sp);
-      best_mat = (int)sp[4];
-    }
+// Near root of the ray (o, d) on one sphere row (cx cy cz r2 mat mtype ior
+// index), or MISS; a = |d|^2, inv_a = 1 / a.
+__device__ __forceinline__ float sphere_t(const float* sp, V3 o, V3 d,
+                                          float a, float inv_a) {
+  V3 oc = v3(o.x - sp[0], o.y - sp[1], o.z - sp[2]);
+  float half_b = vdot(oc, d);
+  float c = vdot(oc, oc) - sp[3];
+  float disc = half_b * half_b - a * c;
+  float sq = sqrtf(fmaxf(disc, 0.0f));
+  float t = (-half_b - sq) * inv_a;
+  return (disc > 0.0f && t > 0.0f) ? t : kMISS();
+}
+
+// The nearest sphere so far: the least (t, scene index).
+struct SphBest {
+  float t;
+  int index;
+  const float* row;
+};
+
+__device__ __forceinline__ void sphere_take(const float* sp, V3 o, V3 d,
+                                            float a, float inv_a,
+                                            SphBest& b) {
+  float t = sphere_t(sp, o, d, a, inv_a);
+  int index = (int)sp[7];
+  if (t < kMISS() && (t < b.t || (t == b.t && index < b.index))) {
+    b.t = t;
+    b.index = index;
+    b.row = sp;
   }
+}
+
+__device__ __forceinline__ Hit sphere_finish(const SphBest& b, V3 o, V3 d) {
+  V3 c = b.row ? load3(b.row) : v3(0.0f, 0.0f, 0.0f);
   Hit h;
-  h.t = best_t;
-  h.loc = vadd(o, vscale(d, best_t * F(0.9999)));
-  h.n = vnormalize(vsub(h.loc, best_c), F(1e-30));
-  h.mat = best_mat;
+  h.t = b.t;
+  h.loc = vadd(o, vscale(d, b.t * F(0.9999)));
+  h.n = vnormalize(vsub(h.loc, c), F(1e-30));
+  h.mat = b.row ? (int)b.row[4] : 0;
   return h;
 }
 
-__device__ __forceinline__ float shadow_spheres(const float* sph, int n_sph,
-                                                V3 o, V3 d, float t_max,
-                                                float lam) {
-  float a = vdot(d, d);
-  float inv_a = 1.0f / a;
-  float atten = 1.0f;
-  for (int i = 0; i < n_sph; ++i) {
-    const float* sp = sph + i * SPH_STRIDE;
-    V3 c0 = load3(sp);
-    V3 oc = v3(o.x - sp[0], o.y - sp[1], o.z - sp[2]);
-    float half_b = vdot(oc, d);
-    float c = vdot(oc, oc) - sp[3];
-    float disc = half_b * half_b - a * c;
-    float sq = sqrtf(fmaxf(disc, 0.0f));
-    float t0 = (-half_b - sq) * inv_a;
-    float t1 = (-half_b + sq) * inv_a;
-    bool overlap = disc > 0.0f && t1 > 0.0f && t0 < t_max;
-    if ((int)sp[5] != 1) {
-      atten = atten * (overlap ? 0.0f : 1.0f);
-      continue;
-    }
-    float t_entry = fmaxf(t0, 0.0f);
-    float t_exit = fminf(t1, t_max);
-    bool segment = t_entry < t_exit;
-    float lam_um = lam * F(1e-3);
-    float eta = sp[6] + F(0.004) / (lam_um * lam_um);
-    V3 n1 = vnormalize(vsub(vadd(o, vscale(d, t_entry)), c0), F(1e-30));
-    float r1 = fr_dielectric(-vdot(n1, d), eta);
-    V3 n2 = vnormalize(vsub(vadd(o, vscale(d, t_exit)), c0), F(1e-30));
-    float r2 = fr_dielectric(-vdot(n2, d), eta);
-    float f = segment ? (1.0f - r1) * (1.0f - r2) : 1.0f;
-    atten = atten * (overlap ? f : 1.0f);
-  }
-  return atten;
+// Transmission factor of one sphere row for the segment o + d*[0, t_max]:
+// 0 for an overlapping diffuse or metal sphere, (1-R1)(1-R2) at the
+// dispersed IOR of wavelength lam for a dielectric one, 1 otherwise.
+__device__ __forceinline__ float sphere_factor(const float* sp, V3 o, V3 d,
+                                               float a, float inv_a,
+                                               float t_max, float lam) {
+  V3 c0 = load3(sp);
+  V3 oc = v3(o.x - sp[0], o.y - sp[1], o.z - sp[2]);
+  float half_b = vdot(oc, d);
+  float c = vdot(oc, oc) - sp[3];
+  float disc = half_b * half_b - a * c;
+  float sq = sqrtf(fmaxf(disc, 0.0f));
+  float t0 = (-half_b - sq) * inv_a;
+  float t1 = (-half_b + sq) * inv_a;
+  bool overlap = disc > 0.0f && t1 > 0.0f && t0 < t_max;
+  if ((int)sp[5] != 1) return overlap ? 0.0f : 1.0f;
+  float t_entry = fmaxf(t0, 0.0f);
+  float t_exit = fminf(t1, t_max);
+  bool segment = t_entry < t_exit;
+  float lam_um = lam * F(1e-3);
+  float eta = sp[6] + F(0.004) / (lam_um * lam_um);
+  V3 n1 = vnormalize(vsub(vadd(o, vscale(d, t_entry)), c0), F(1e-30));
+  float r1 = fr_dielectric(-vdot(n1, d), eta);
+  V3 n2 = vnormalize(vsub(vadd(o, vscale(d, t_exit)), c0), F(1e-30));
+  float r2 = fr_dielectric(-vdot(n2, d), eta);
+  float f = segment ? (1.0f - r1) * (1.0f - r2) : 1.0f;
+  return overlap ? f : 1.0f;
 }
 
 }  // namespace tpurt

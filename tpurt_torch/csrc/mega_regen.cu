@@ -3,14 +3,15 @@
 //
 // Replaces tpurt's TPU kernel tpurt/kernels/mega_regen.py:
 // _make_regen_kernel (launched by regen_call), with the device functions it
-// inlines from tpurt/kernels/mega_pallas.py for sphere scenes:
-// _closest_sphere_static, _shadow_static, nee_direct_c (mode "all"),
-// scatter_rr_c, _diffuse_scatter_c, _scatter_dielectric_c,
-// _scatter_metal_c, _evaluate_bsdf_c and _single_lambda_em_c, whose
-// counterparts it shares with the wavefront kernels (path.cuh).
+// inlines from tpurt/kernels/mega_pallas.py for sphere and mesh scenes:
+// the sphere sweeps, nee_direct_c (mode "all"), scatter_rr_c,
+// _diffuse_scatter_c, _scatter_dielectric_c, _scatter_metal_c,
+// _evaluate_bsdf_c and _single_lambda_em_c, and the triangle and sphere
+// BVH walks of tpurt/kernels/bvh_pallas.py, whose counterparts it shares
+// with the wavefront kernels (path.cuh, bvh.cuh).
 //
 // A sample of a pixel: the camera path (up to `depth` bounces: nearest
-// sphere, vispoint at the first diffuse hit, next-event estimation over
+// hit, vispoint at the first diffuse hit, next-event estimation over
 // every light, scatter + Russian roulette), then, if the pixel has a
 // vispoint, K photon walks (light k % L, up to `max_photon_bounces`
 // bounces) that add density-estimated radiance when they land within the
@@ -48,12 +49,12 @@ __global__ void __launch_bounds__(128)
                  int n_mat, int n_light, uint32_t base_seed, int spp,
                  int it0, int depth, float radius0, int k_photons,
                  int max_photon_bounces, float rr_thresh,
-                 float photon_rr_thresh, float sppm_alpha,
+                 float photon_rr_thresh, float sppm_alpha, Geom geom,
                  unsigned long long* __restrict__ rays_out) {
   long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   unsigned long long rays = 0;
   if (idx < (long long)width * height) {
-    const Params prm = scene_params(table, n_sph, n_mat, n_light);
+    const Params prm = scene_params(table, n_sph, n_mat, n_light, geom);
     const uint32_t px = (uint32_t)(idx % width);
     const uint32_t py = (uint32_t)(idx / width);
 
@@ -84,7 +85,7 @@ __global__ void __launch_bounds__(128)
       bool vp_stored = false;
       for (int b = 0;; ++b) {
         rays += 1;
-        Hit h = closest_sphere(prm.sph, n_sph, o, d);
+        Hit h = intersect(prm, o, d);
         if (!(h.t < kHIT())) break;
         const float* m = prm.mat + h.mat * MAT_STRIDE;
         bool diffuse = (int)m[5] == 0;
@@ -160,7 +161,7 @@ __global__ void __launch_bounds__(128)
           V3 ph_tp = load3(L + L_PH_POWER);
           for (int b = 0;; ++b) {
             rays += 1;
-            Hit h = closest_sphere(prm.sph, n_sph, ph_o, ph_d);
+            Hit h = intersect(prm, ph_o, ph_d);
             if (!(h.t < kHIT())) break;
             V3 dvec = vsub(h.loc, vpos);
             float dist = sqrtf(fmaxf(vdot(dvec, dvec), 0.0f));
@@ -204,6 +205,7 @@ extern "C" int tpurt_regen_launch(float* planes, long long P, int width,
                                   int k_photons, int max_photon_bounces,
                                   float rr_thresh, float photon_rr_thresh,
                                   float sppm_alpha,
+                                  const tpurt::Geom* geom,
                                   unsigned long long* rays,
                                   const float* cie_host, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -217,7 +219,7 @@ extern "C" int tpurt_regen_launch(float* planes, long long P, int width,
   tpurt::regen_kernel<<<blocks, threads, 0, s>>>(
       planes, P, width, height, table, n_sph, n_mat, n_light, seed, spp,
       it0, depth, radius0, k_photons, max_photon_bounces, rr_thresh,
-      photon_rr_thresh, sppm_alpha, rays);
+      photon_rr_thresh, sppm_alpha, *geom, rays);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,9 @@
 // Camera- and photon-path device code shared by the regen, wavefront sweep
-// and fused wavefront kernels: the camera spawn, per-light emission at one
-// wavelength, next-event estimation over every light, the BSDF scatters
-// with Russian roulette, and the photon-gather BSDF.
+// and fused wavefront kernels: the scene's nearest hit and shadow factor
+// (spheres and triangles, flat or through the BVH walks of bvh.cuh), the
+// camera spawn, per-light emission at one wavelength, next-event
+// estimation over every light, the BSDF scatters with Russian roulette,
+// and the photon-gather BSDF.
 //
 // Ported from tpurt's component-form kernel code in
 // tpurt/kernels/mega_pallas.py (nee_direct_c, scatter_rr_c,
@@ -11,7 +13,7 @@
 // the same PCG streams and takes the same branches as its plain version.
 #pragma once
 
-#include "device.cuh"
+#include "bvh.cuh"
 
 namespace tpurt {
 
@@ -173,16 +175,19 @@ __device__ __forceinline__ V3 evaluate_bsdf(V3 wo, V3 wi, V3 n, V3 color,
 }
 
 // The scene as read from the float32 parameter table (layout in
-// device.cuh, packed by tpurt_torch/kernels/mega_regen.py:pack_scene).
+// device.cuh, packed by tpurt_torch/kernels/mega_regen.py:pack_scene) and
+// the geometry tables (kernels/bvh.py).
 struct Params {
   const float* sph;
   const float* mat;
   const float* light;
   int n_sph, n_mat, n_light;
+  Geom geom;
 };
 
 __device__ __forceinline__ Params scene_params(const float* table, int n_sph,
-                                               int n_mat, int n_light) {
+                                               int n_mat, int n_light,
+                                               const Geom& geom) {
   Params p;
   p.sph = table + CAM_FLOATS;
   p.mat = p.sph + n_sph * SPH_STRIDE;
@@ -190,7 +195,13 @@ __device__ __forceinline__ Params scene_params(const float* table, int n_sph,
   p.n_sph = n_sph;
   p.n_mat = n_mat;
   p.n_light = n_light;
+  p.geom = geom;
   return p;
+}
+
+// The scene's nearest hit (mega_pallas._make_scene_fns' intersect).
+__device__ __forceinline__ Hit intersect(const Params& P, V3 o, V3 d) {
+  return scene_hit(P.sph, P.n_sph, P.geom, o, d);
 }
 
 // Camera spawn of one (pixel, sample): 2 jitter draws, the pinhole ray
@@ -270,7 +281,8 @@ __device__ __forceinline__ V3 nee_direct(const Params& P, const Hit& h,
     }
     if (!live) continue;
     V3 so = vadd(h.loc, vscale(h.n, kEPS()));
-    float atten = shadow_spheres(P.sph, P.n_sph, so, ldir, dist - kEPS(), lam);
+    float atten = scene_shadow(P.sph, P.n_sph, P.geom, so, ldir,
+                               dist - kEPS(), lam);
     float w = geom * atten / (dist * dist);
     direct = vadd(direct, vscale(load3(em + 3 * li), w));
   }

@@ -6,8 +6,8 @@
 // _make_fused_kernel, in both of its launches: _fused_wavefront_jit (every
 // pixel takes `spp` samples from iteration it0) and _fused_budget_jit
 // (budget mode: pixel p takes budgets[p] samples from its own base count
-// base_counts[p]), for sphere scenes with default flags. Its plain PyTorch
-// versions are the pool renderers tpurt_torch/wavefront.py:
+// base_counts[p]), for sphere and mesh scenes with default flags. Its
+// plain PyTorch versions are the pool renderers tpurt_torch/wavefront.py:
 // wavefront_render and tpurt_torch/adaptive.py:wavefront_render_budget,
 // which draw the same per-(pixel, sample) PCG streams, so ray counts are
 // equal; the image differs only in the order each pixel's samples are
@@ -15,7 +15,7 @@
 //
 // A sample: the frame seed (base_seed, sample iteration), the camera
 // spawn (2 jitter draws, 1 wavelength draw), then up to `depth` bounces
-// (nearest sphere, NEE over every light, scatter + Russian roulette), as
+// (nearest hit, NEE over every light, scatter + Russian roulette), as
 // in the sweep kernel. Camera paths only: no vispoints, no photon pass.
 //
 // The TPU kernel keeps (R, 128) lane tiles busy with a tile-wide while
@@ -36,11 +36,12 @@ __global__ void __launch_bounds__(128)
                  int n_mat, int n_light, uint32_t base_seed, int spp,
                  int it0, const int* __restrict__ budgets,
                  const int* __restrict__ base_counts, int depth,
-                 float rr_thresh, unsigned long long* __restrict__ rays_out) {
+                 float rr_thresh, Geom geom,
+                 unsigned long long* __restrict__ rays_out) {
   long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   unsigned long long rays = 0;
   if (idx < n_pix) {
-    const Params prm = scene_params(table, n_sph, n_mat, n_light);
+    const Params prm = scene_params(table, n_sph, n_mat, n_light, geom);
     const uint32_t px = (uint32_t)(idx % width);
     const uint32_t py = (uint32_t)(idx / width);
     const int n = budgets ? budgets[idx] : spp;
@@ -59,7 +60,7 @@ __global__ void __launch_bounds__(128)
       V3 rad = v3(0.0f, 0.0f, 0.0f);
       for (int b = 0;; ++b) {
         rays += 1;
-        Hit h = closest_sphere(prm.sph, n_sph, o, d);
+        Hit h = intersect(prm, o, d);
         if (!(h.t < kHIT())) break;
         bool cont = shade_camera_hit(prm, h, vneg(d), lam, em, rr_thresh,
                                      rng, o, d, tp, rad, rays);
@@ -80,7 +81,8 @@ extern "C" int tpurt_wf_fused_launch(
     float* rgb, long long n_pix, int width, int height, const float* table,
     int n_sph, int n_mat, int n_light, unsigned int seed, int spp, int it0,
     const int* budgets, const int* base_counts, int depth, float rr_thresh,
-    unsigned long long* rays, const float* cie_host, void* stream) {
+    const tpurt::Geom* geom, unsigned long long* rays, const float* cie_host,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemcpyToSymbolAsync(
       tpurt::c_cie, cie_host, sizeof(float) * tpurt::N_CIE * 3, 0,
@@ -90,6 +92,6 @@ extern "C" int tpurt_wf_fused_launch(
   const unsigned int blocks = (unsigned int)((n_pix + threads - 1) / threads);
   tpurt::fused_kernel<<<blocks, threads, 0, s>>>(
       rgb, n_pix, width, height, table, n_sph, n_mat, n_light, seed, spp,
-      it0, budgets, base_counts, depth, rr_thresh, rays);
+      it0, budgets, base_counts, depth, rr_thresh, *geom, rays);
   return (int)cudaGetLastError();
 }

@@ -2,11 +2,11 @@
 // slot takes that slot's path one bounce further.
 //
 // Replaces tpurt's TPU kernel tpurt/kernels/wavefront_pallas.py:
-// _make_sweep_kernel (launched by sweep_pallas) for sphere scenes with
-// default flags. Its plain PyTorch version is tpurt_torch/wavefront.py:
+// _make_sweep_kernel (launched by sweep_pallas) for sphere and mesh scenes
+// with default flags. Its plain PyTorch version is tpurt_torch/wavefront.py:
 // _sweep, which it matches bit for bit on every output plane.
 //
-// A bounce of an active slot: nearest sphere; on a miss the path ends
+// A bounce of an active slot: nearest hit; on a miss the path ends
 // (black sky); on a hit, next-event estimation over every light (added at
 // a diffuse hit), scatter + Russian roulette, and the depth gate
 // bounce + 1 < depth. A slot whose path ends is marked terminated and keeps
@@ -22,7 +22,7 @@
 // int64 (Q,) holding a uint32. Input and output are separate buffers.
 //
 // What bounds it: per slot it reads and writes ~80 bytes against one
-// bounce of sphere tests, shadow segments and BSDF math, so compute and
+// bounce of intersection tests, shadow segments and BSDF math, so compute and
 // divergence (neighbouring slots hold unrelated paths of different
 // materials) rather than bytes; the pool's regeneration keeps every slot
 // busy, which is the point of the wavefront form. This first version does
@@ -44,7 +44,7 @@ __global__ void __launch_bounds__(128)
                  long long* __restrict__ rng_out,
                  unsigned char* __restrict__ term, long long Q,
                  const float* __restrict__ table, int n_sph, int n_mat,
-                 int n_light, int depth, float rr_thresh,
+                 int n_light, int depth, float rr_thresh, Geom geom,
                  unsigned long long* __restrict__ rays_out) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   unsigned long long rays = 0;
@@ -61,10 +61,10 @@ __global__ void __launch_bounds__(128)
     long long rng_word = rng_in[i];
     bool cont = false;
     if (active) {
-      const Params prm = scene_params(table, n_sph, n_mat, n_light);
+      const Params prm = scene_params(table, n_sph, n_mat, n_light, geom);
       uint32_t rng = (uint32_t)rng_word;
       rays += 1;
-      Hit h = closest_sphere(prm.sph, n_sph, o, d);
+      Hit h = intersect(prm, o, d);
       if (h.t < kHIT()) {
         float em[3 * MAX_LIGHTS];
         light_emission(prm, lam, em);
@@ -105,8 +105,8 @@ extern "C" int tpurt_wf_sweep_launch(
     const float* pf, const int* pi, const long long* rng, float* pf_out,
     int* pi_out, long long* rng_out, unsigned char* term, long long Q,
     const float* table, int n_sph, int n_mat, int n_light, int depth,
-    float rr_thresh, unsigned long long* rays, const float* cie_host,
-    void* stream) {
+    float rr_thresh, const tpurt::Geom* geom, unsigned long long* rays,
+    const float* cie_host, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemcpyToSymbolAsync(
       tpurt::c_cie, cie_host, sizeof(float) * tpurt::N_CIE * 3, 0,
@@ -116,6 +116,6 @@ extern "C" int tpurt_wf_sweep_launch(
   const unsigned int blocks = (unsigned int)((Q + threads - 1) / threads);
   tpurt::sweep_kernel<<<blocks, threads, 0, s>>>(
       pf, pi, rng, pf_out, pi_out, rng_out, term, Q, table, n_sph, n_mat,
-      n_light, depth, rr_thresh, rays);
+      n_light, depth, rr_thresh, *geom, rays);
   return (int)cudaGetLastError();
 }

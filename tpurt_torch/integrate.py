@@ -3,7 +3,7 @@ next-event estimation plus the per-pixel SPPM photon pass.
 
 This is the plain PyTorch version of the regen kernel
 (``csrc/mega_regen.cu``) and the port's ``backend="xla"``. It ports
-``tpurt/integrate.py`` for sphere scenes with default flags, in the
+``tpurt/integrate.py`` for sphere and mesh scenes with default flags, in the
 component form and op order of tpurt's kernel device code
 (``tpurt/kernels/mega_pallas.py``: ``nee_direct_c``, ``scatter_rr_c``,
 ``_evaluate_bsdf_c``, ``_single_lambda_em_c``), so that it, tpurt and the
@@ -24,7 +24,8 @@ from tpurt_torch.camera import spawn_camera_rays
 from tpurt_torch.ops import fdiv, fsqrt
 from tpurt_torch.ops import soa as s
 from tpurt_torch.ops.bsdf import INV_PI, TWO_PI, fr_dielectric
-from tpurt_torch.ops.intersect import HIT, closest_sphere, shadow_spheres
+from tpurt_torch.ops.intersect import (HIT, closest_sphere, closest_triangle,
+                                      occluded_triangle, shadow_spheres)
 from tpurt_torch.ops.rng import frame_seed, photon_stream, rand_1f, seed_pixels
 from tpurt_torch.ops.spectra import (DISPERSION_B, blackbody,
                                      sample_wavelength)
@@ -46,12 +47,27 @@ def material_lookup(mats, mat_id):
 
 
 def intersect_scene(fs, o, d):
-    """Nearest sphere hit: (t, loc, normal, mat)."""
-    return closest_sphere(fs.spheres, o, d)
+    """Nearest hit, (t, loc, normal, mat): spheres, then the triangles by
+    a brute-force sweep; a triangle wins only on a strict t_tri < t_sph
+    (``mega_pallas._combine_nearest``). The plain version of the kernels'
+    BVH walks (csrc/bvh.cuh)."""
+    hit = closest_sphere(fs.spheres, o, d, fs.sph_rows)
+    if fs.triangles is None:
+        return hit
+    tri = closest_triangle(fs.triangles, o, d)
+    take = tri[0] < hit[0]
+    return (torch.where(take, tri[0], hit[0]), s.vwhere(take, tri[1], hit[1]),
+            s.vwhere(take, tri[2], hit[2]), torch.where(take, tri[3], hit[3]))
 
 
 def _shadow(fs, o, d, t_max, lam):
-    return shadow_spheres(fs.spheres, o, d, t_max, lam)
+    """Shadow factor of o + d*[0, t_max]: the spheres' transmission, 0
+    where a triangle occludes."""
+    atten = shadow_spheres(fs.spheres, o, d, t_max, lam, fs.sph_rows)
+    if fs.triangles is None:
+        return atten
+    return torch.where(occluded_triangle(fs.triangles, o, d, t_max), 0.0,
+                       atten)
 
 
 def light_emission_rgb(fs, lam):

@@ -25,14 +25,12 @@ _STATE_DTYPES = {
 
 def scene_from_numpy(fields: dict) -> Scene:
     """Scene from the fields of a tpurt.Scene (as NumPy arrays or
-    anything np.asarray takes). A scene with triangles raises."""
-    if np.asarray(fields.get("tri_a", np.zeros((0, 3)))).shape[0] > 0:
-        raise NotImplementedError("meshes are not ported to tpurt_torch yet")
+    anything np.asarray takes), triangles and BVH included."""
     arrays = {}
     for f in dataclasses.fields(Scene):
         a = np.asarray(fields[f.name])
-        arrays[f.name] = a.astype(np.int32 if a.dtype.kind in "iu"
-                                  else np.float32)
+        arrays[f.name] = a.astype(np.int64 if a.ndim == 0 else np.int32
+                                  if a.dtype.kind in "iu" else np.float32)
     return scene_from_arrays(arrays)
 
 

@@ -43,6 +43,7 @@ _SIGNATURES = {
         _F,             # radius at the start of the call
         _I, _I,         # k_photons (0 = off), max_photon_bounces
         _F, _F, _F,     # rr_threshold, photon_rr_threshold, sppm_alpha
+        _P,             # geometry tables: a bvh.GeomArgs on the host
         _P,             # rays: one uint64 on the device, added to
         _P,             # CIE table (81, 3) f32 on the host
         _P,             # stream
@@ -55,6 +56,7 @@ _SIGNATURES = {
         _P,             # scene table f32 (device)
         _I, _I, _I,     # n_spheres, n_materials, n_lights
         _I, _F,         # depth, rr_threshold
+        _P,             # geometry tables: a bvh.GeomArgs on the host
         _P,             # rays: one uint64 on the device, added to
         _P,             # CIE table (81, 3) f32 on the host
         _P,             # stream
@@ -69,9 +71,18 @@ _SIGNATURES = {
         _I, _I,         # spp, iteration (uniform mode)
         _P, _P,         # budgets, base counts i32 (n,): budget mode, or NULL
         _I, _F,         # depth, rr_threshold
+        _P,             # geometry tables: a bvh.GeomArgs on the host
         _P,             # rays: one uint64 on the device, added to
         _P,             # CIE table (81, 3) f32 on the host
         _P,             # stream
+    ],
+    "tpurt_bvh_probe_launch": [
+        _P, _P, _P, _P,     # o, d (3, N), t_max, lam (N,) f32
+        ctypes.c_longlong,  # N
+        _P, _I,             # flat sphere rows (S, 8) f32, S
+        _P,                 # geometry tables: a bvh.GeomArgs on the host
+        _P, _P, _P, _P, _P,  # out: t, loc (3, N), n (3, N), mat i32, atten
+        _P,                 # stream
     ],
     "tpurt_tonemap_launch": [
         _P, _P, _P,     # rgb_sum (P, 3), n_samples (P,), out (n, 3)

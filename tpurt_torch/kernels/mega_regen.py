@@ -14,28 +14,27 @@ import numpy as np
 import torch
 
 from tpurt_torch import integrate
-from tpurt_torch.kernels import build
+from tpurt_torch.kernels import build, bvh
 from tpurt_torch.ops.spectra import CIE_RGB_TABLE
-from tpurt_torch.scene import freeze_scene, photon_power
+from tpurt_torch.scene import freeze_scene, photon_power, sphere_rows
 
 LAUNCHES = 0
 
 N_CHANNELS = 16
 MAX_LIGHTS = 16       # csrc/device.cuh MAX_LIGHTS
-SPH_STRIDE = 8
+CAM_FLOATS = 12
 MAT_STRIDE = 8
 LIGHT_STRIDE = 40
 CIE_HOST = np.ascontiguousarray(CIE_RGB_TABLE, np.float32)
 
 
-def pack_scene(fs, cfg, camera=None) -> np.ndarray:
+def pack_scene(fs, cfg, camera=None, sph_rows=None) -> np.ndarray:
     """The kernels' float32 parameter table (layout in csrc/device.cuh):
-    camera rows (zeros without a camera), then spheres, materials and
-    lights with every derived constant computed on the host as the plain
-    version computes it."""
-    sph = np.zeros((len(fs.spheres), SPH_STRIDE), np.float32)
-    for i, sp in enumerate(fs.spheres):
-        sph[i, :7] = (*sp.c, sp.r2, sp.mat, sp.mtype, sp.ior)
+    camera rows (zeros without a camera), then the spheres of the flat
+    sweep (``sph_rows``, all of them by default), materials and lights
+    with every derived constant computed on the host as the plain version
+    computes it."""
+    sph = sphere_rows(fs.spheres) if sph_rows is None else sph_rows
     mat = np.zeros((len(fs.materials), MAT_STRIDE), np.float32)
     for i, m in enumerate(fs.materials):
         mat[i, :6] = (*m.color, m.rough, m.ior, m.mtype)
@@ -51,12 +50,25 @@ def pack_scene(fs, cfg, camera=None) -> np.ndarray:
                            lit.ravel()]).astype(np.float32)
 
 
-def scene_table(fs, cfg, camera, device) -> torch.Tensor:
-    """``pack_scene`` on ``device``; raises past the kernels' light limit."""
+def scene_table(fs, cfg, camera, device):
+    """The kernels' inputs on ``device``: the parameter table
+    (``pack_scene`` with the spheres of the flat sweep) and the geometry
+    tables (``bvh.geometry``). Everything but the camera rows is built
+    once per frozen scene and knob set. Raises past the kernels' light
+    limit. Returns (table, geometry)."""
     if len(fs.lights) > MAX_LIGHTS:
         raise NotImplementedError(f"the kernels take at most {MAX_LIGHTS} "
                                   f"lights")
-    return torch.from_numpy(pack_scene(fs, cfg, camera)).to(device)
+    geo = bvh.geometry(fs, cfg)
+    key = ("table", cfg.k_photons, bvh.knobs(cfg))
+    body = fs.cache.get(key)
+    if body is None:
+        body = fs.cache[key] = torch.from_numpy(pack_scene(
+            fs, cfg, None, geo.flat_rows)[CAM_FLOATS:]).to(device)
+    cam = (np.zeros((4, 3), np.float32) if camera is None
+           else camera.rows())
+    cam = torch.from_numpy(cam.ravel()).to(device)
+    return torch.cat([cam, body]), geo
 
 
 def _check_planes(planes: torch.Tensor, cfg) -> None:
@@ -87,18 +99,19 @@ def regen_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
                                       spp, iteration, radius, depth)
     if planes.device.type != "cuda":
         raise ValueError(f"unsupported device {planes.device}")
-    table = scene_table(fs, cfg, camera, planes.device)
+    table, geo = scene_table(fs, cfg, camera, planes.device)
     lib = build.library()
     rays = torch.zeros((), dtype=torch.int64, device=planes.device)
     k = cfg.k_photons if (cfg.enable_photons and fs.lights) else 0
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     err = lib.tpurt_regen_launch(
         planes.data_ptr(), planes.shape[1], cfg.width, cfg.height,
-        table.data_ptr(), len(fs.spheres), len(fs.materials), len(fs.lights),
-        int(base_seed) & 0xFFFFFFFF, spp, iteration, depth, radius, k,
-        cfg.max_photon_bounces, cfg.rr_threshold, cfg.photon_rr_threshold,
-        cfg.sppm_alpha, rays.data_ptr(),
-        CIE_HOST.ctypes.data_as(ctypes.c_void_p), stream)
+        table.data_ptr(), len(geo.flat_rows), len(fs.materials),
+        len(fs.lights), int(base_seed) & 0xFFFFFFFF, spp, iteration, depth,
+        radius, k, cfg.max_photon_bounces, cfg.rr_threshold,
+        cfg.photon_rr_threshold, cfg.sppm_alpha, ctypes.byref(geo.args()),
+        rays.data_ptr(), CIE_HOST.ctypes.data_as(ctypes.c_void_p), stream)
     build.check_launch(lib, err, "tpurt_regen_launch")
     LAUNCHES += 1
+    bvh.count_walk(geo)
     return rays

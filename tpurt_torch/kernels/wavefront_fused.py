@@ -20,7 +20,7 @@ import torch
 
 from tpurt_torch import adaptive, wavefront
 from tpurt_torch.config import check_slice
-from tpurt_torch.kernels import build
+from tpurt_torch.kernels import build, bvh
 from tpurt_torch.kernels.mega_regen import CIE_HOST, scene_table
 from tpurt_torch.scene import freeze_scene
 
@@ -42,19 +42,21 @@ def _launch(scene, cfg, camera, state, base_seed, spp: int, budgets=None,
                          f"{cfg.n_pixels}, got {tuple(rgb.shape)} {rgb.dtype}")
     rgb = rgb.contiguous().clone()
     fs = freeze_scene(scene)
-    table = scene_table(fs, cfg, camera, dev)
+    table, geo = scene_table(fs, cfg, camera, dev)
     lib = build.library()
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.tpurt_wf_fused_launch(
         rgb.data_ptr(), cfg.n_pixels, cfg.width, cfg.height, table.data_ptr(),
-        len(fs.spheres), len(fs.materials), len(fs.lights),
+        len(geo.flat_rows), len(fs.materials), len(fs.lights),
         int(base_seed) & 0xFFFFFFFF, spp, state.iteration, ptr(budgets),
-        ptr(base_counts), cfg.depth, cfg.rr_threshold, rays.data_ptr(),
+        ptr(base_counts), cfg.depth, cfg.rr_threshold,
+        ctypes.byref(geo.args()), rays.data_ptr(),
         CIE_HOST.ctypes.data_as(ctypes.c_void_p), stream)
     build.check_launch(lib, err, "tpurt_wf_fused_launch")
     LAUNCHES += 1
+    bvh.count_walk(geo)
     return rgb, rays
 
 

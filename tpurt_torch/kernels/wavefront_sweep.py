@@ -17,7 +17,7 @@ import ctypes
 import torch
 
 from tpurt_torch import wavefront
-from tpurt_torch.kernels import build
+from tpurt_torch.kernels import build, bvh
 from tpurt_torch.kernels.mega_regen import CIE_HOST, scene_table
 
 LAUNCHES = 0
@@ -50,7 +50,7 @@ def sweep(fs, cfg, pool: wavefront.WavefrontPool):
         raise ValueError(f"unsupported device {dev}")
     pf, pi, rng = (t.contiguous() for t in (pool.pf, pool.pi, pool.rng))
     q = rng.shape[0]
-    table = scene_table(fs, cfg, None, dev)
+    table, geo = scene_table(fs, cfg, None, dev)
     lib = build.library()
     out = wavefront.WavefrontPool(pf=torch.empty_like(pf),
                                   pi=torch.empty_like(pi),
@@ -61,11 +61,13 @@ def sweep(fs, cfg, pool: wavefront.WavefrontPool):
     err = lib.tpurt_wf_sweep_launch(
         pf.data_ptr(), pi.data_ptr(), rng.data_ptr(), out.pf.data_ptr(),
         out.pi.data_ptr(), out.rng.data_ptr(), term.data_ptr(), q,
-        table.data_ptr(), len(fs.spheres), len(fs.materials), len(fs.lights),
-        cfg.depth, cfg.rr_threshold, rays.data_ptr(),
+        table.data_ptr(), len(geo.flat_rows), len(fs.materials),
+        len(fs.lights), cfg.depth, cfg.rr_threshold,
+        ctypes.byref(geo.args()), rays.data_ptr(),
         CIE_HOST.ctypes.data_as(ctypes.c_void_p), stream)
     build.check_launch(lib, err, "tpurt_wf_sweep_launch")
     LAUNCHES += 1
+    bvh.count_walk(geo)
     return out, term, rays
 
 

@@ -1,12 +1,24 @@
-"""Sphere closest hit and sphere shadow factor, component form.
+"""Sphere and triangle hits and shadow factors, component form: the
+plain PyTorch versions of the kernels' intersection code.
 
-Ported from ``tpurt.kernels.mega_pallas._closest_sphere_static`` and
-``_shadow_static``: the spheres are host constants (``scene.FSphere``),
-the rays are planes. Same op order as tpurt and as the CUDA kernel
-(``csrc/device.cuh``): one reciprocal of |d|^2 per ray, the
-``disc > 0 & t > 0`` root test, the hit point pulled back to
-``o + d * (t * 0.9999)``, and Fresnel transmission through dielectric
-occluders only.
+Spheres are ported from ``tpurt.kernels.mega_pallas._closest_sphere_static``
+and ``_shadow_static``: host constants (``scene.FSphere``) against ray
+planes, with one reciprocal of |d|^2 per ray, the ``disc > 0 & t > 0``
+root test, the hit point pulled back to ``o + d * (t * 0.9999)``, and
+Fresnel transmission through dielectric occluders only. Past
+``SPHERE_LOOP_MAX`` spheres the same arithmetic runs as a chunked sweep of
+rays x spheres; its shadow product is then taken in torch.prod's order,
+not index order (last-bit differences in the attenuation).
+
+Triangles are ``tpurt.ops.soa.triangle_hit_c`` (Moller-Trumbore with the
+1.17549435e-38 epsilon on |det| and on t, cross products in its operand
+order) as a brute-force sweep in chunks of rays x triangles. The closest
+hit is the least (t, scene index): equally near triangles (a shared edge of
+a watertight mesh) go to the lower row of the Scene's triangle arrays,
+whatever order a BVH walk visits them in. Its point is
+``o + n * 1e-5 + d * t`` with the unflipped geometric normal
+(``mega_pallas._tri_state_finish``); occlusion is any-hit, and triangles
+occlude fully.
 """
 
 from __future__ import annotations
@@ -20,11 +32,26 @@ from tpurt_torch.ops.spectra import DISPERSION_B
 
 MISS = 1e30
 HIT = MISS * 0.5   # any t below this is a real hit
+TRI_EPS = 1.17549435e-38   # 2^-126, the reference's MT epsilon
+SPHERE_LOOP_MAX = 64       # more spheres than this: the chunked sweep
+CHUNK_ELEMS = 1 << 22      # rays x primitives per chunk of a sweep
 
 
-def closest_sphere(spheres, o, d):
+def _chunk(n_rays: int, n_prims: int) -> int:
+    return max(1, min(n_prims, CHUNK_ELEMS // max(n_rays, 1)))
+
+
+def _cols(x, lo, hi):
+    """Columns lo:hi of a (P, 3) tensor as a vec3 of (1, C) rows."""
+    return tuple(x[lo:hi, k][None] for k in range(3))
+
+
+def closest_sphere(spheres, o, d, table=None):
     """Nearest sphere along (o, d). Returns (t, loc, normal, mat); t is
-    MISS where nothing is hit."""
+    MISS where nothing is hit. ``table`` is the spheres' (S, 8) rows
+    (``scene.sphere_rows``), needed past SPHERE_LOOP_MAX spheres."""
+    if len(spheres) > SPHERE_LOOP_MAX:
+        return _closest_sphere_chunked(table, o, d)
     a = s.vdot(d, d)
     inv_a = 1.0 / a
     best_t = torch.full_like(o[0], MISS)
@@ -48,10 +75,48 @@ def closest_sphere(spheres, o, d):
     return best_t, loc, nrm, best_mat
 
 
-def shadow_spheres(spheres, o, d, t_max, lam):
+def _closest_sphere_chunked(table, o, d):
+    """closest_sphere over (N, C) chunks: per-sphere arithmetic as in the
+    loop, the first least t of a chunk (argmin), strict < across chunks,
+    so the same winner as the loop."""
+    a = s.vdot(d, d)
+    inv_a = (1.0 / a)[:, None]
+    oc1 = tuple(x[:, None] for x in o)
+    d1 = tuple(x[:, None] for x in d)
+    best_t = torch.full_like(o[0], MISS)
+    best_i = torch.zeros_like(o[0], dtype=torch.int64)
+    n, S = o[0].shape[0], table.shape[0]
+    step = _chunk(n, S)
+    for lo in range(0, S, step):
+        hi = min(lo + step, S)
+        c = _cols(table, lo, hi)
+        oc = s.vsub(oc1, c)
+        half_b = s.vdot(oc, d1)
+        cc = s.vdot(oc, oc) - table[lo:hi, 3][None]
+        disc = half_b * half_b - a[:, None] * cc
+        sq = fsqrt(disc.clamp_min(0.0))
+        t = (-half_b - sq) * inv_a
+        t = torch.where((disc > 0.0) & (t > 0.0), t, MISS)
+        arg = torch.argmin(t, dim=1)
+        tmin = t.gather(1, arg[:, None])[:, 0]
+        better = tmin < best_t
+        best_t = torch.where(better, tmin, best_t)
+        best_i = torch.where(better, arg + lo, best_i)
+    hit = best_t < MISS
+    row = table[best_i]
+    best_c = tuple(torch.where(hit, row[:, k], 0.0) for k in range(3))
+    best_mat = torch.where(hit, row[:, 4].to(torch.int64), 0)
+    loc = s.vadd(o, s.vscale(d, best_t * 0.9999))
+    nrm = s.vnormalize(s.vsub(loc, best_c), eps=1e-30)
+    return best_t, loc, nrm, best_mat
+
+
+def shadow_spheres(spheres, o, d, t_max, lam, table=None):
     """Transmission of the segment o + d*[0, t_max]: diffuse and metal
     spheres block it, dielectric ones pass (1-R1)(1-R2) at the
-    dispersed IOR of wavelength ``lam``."""
+    dispersed IOR of wavelength ``lam``. ``table`` as closest_sphere."""
+    if len(spheres) > SPHERE_LOOP_MAX:
+        return _shadow_spheres_chunked(table, o, d, t_max, lam)
     a = s.vdot(d, d)
     inv_a = 1.0 / a
     atten = torch.ones_like(o[0])
@@ -81,3 +146,100 @@ def shadow_spheres(spheres, o, d, t_max, lam):
         f = torch.where(segment, (1.0 - r1) * (1.0 - r2), 1.0)
         atten = atten * torch.where(overlap, f, 1.0)
     return atten
+
+
+def _shadow_spheres_chunked(table, o, d, t_max, lam):
+    """shadow_spheres over (N, C) chunks; the factors of a chunk are
+    multiplied in torch.prod's order."""
+    a = s.vdot(d, d)
+    inv_a = (1.0 / a)[:, None]
+    o1 = tuple(x[:, None] for x in o)
+    d1 = tuple(x[:, None] for x in d)
+    tm = t_max[:, None]
+    lam_um = lam * 1e-3
+    cauchy = fdiv(DISPERSION_B, lam_um * lam_um)[:, None]
+    atten = torch.ones_like(o[0])
+    n, S = o[0].shape[0], table.shape[0]
+    step = _chunk(n, S)
+    for lo in range(0, S, step):
+        hi = min(lo + step, S)
+        c = _cols(table, lo, hi)
+        oc = s.vsub(o1, c)
+        half_b = s.vdot(oc, d1)
+        cc = s.vdot(oc, oc) - table[lo:hi, 3][None]
+        disc = half_b * half_b - a[:, None] * cc
+        sq = fsqrt(disc.clamp_min(0.0))
+        t0 = (-half_b - sq) * inv_a
+        t1 = (-half_b + sq) * inv_a
+        overlap = (disc > 0.0) & (t1 > 0.0) & (t0 < tm)
+        t_entry = t0.clamp_min(0.0)
+        t_exit = torch.minimum(t1, tm)
+        segment = t_entry < t_exit
+        eta = table[lo:hi, 6][None] + cauchy
+        n1 = s.vnormalize(s.vsub(s.vadd(o1, s.vscale(d1, t_entry)), c),
+                          eps=1e-30)
+        r1 = fr_dielectric(-s.vdot(n1, d1), eta)
+        n2 = s.vnormalize(s.vsub(s.vadd(o1, s.vscale(d1, t_exit)), c),
+                          eps=1e-30)
+        r2 = fr_dielectric(-s.vdot(n2, d1), eta)
+        f = torch.where(segment, (1.0 - r1) * (1.0 - r2), 1.0)
+        f = torch.where(table[lo:hi, 5][None] == 1.0, f, 0.0)
+        atten = atten * torch.where(overlap, f, 1.0).prod(dim=1)
+    return atten
+
+
+def _tri_hits(tri, lo: int, hi: int, o1, d1):
+    """(t, valid), each (N, C), of rays (vec3s of (N, 1) columns) against
+    triangles lo:hi: ``soa.triangle_hit_c`` term for term."""
+    a, e1, e2 = (_cols(x, lo, hi) for x in (tri.a, tri.e1, tri.e2))
+    h = s.vcross(d1, e2)
+    det = s.vdot(e1, h)
+    small = det.abs() < TRI_EPS
+    inv_det = fdiv(1.0, torch.where(small, 1.0, det))
+    sv = s.vsub(o1, a)
+    u = inv_det * s.vdot(sv, h)
+    q = s.vcross(sv, e1)
+    v = inv_det * s.vdot(d1, q)
+    t = inv_det * s.vdot(e2, q)
+    valid = (~small & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+             & (u + v <= 1.0) & (t > TRI_EPS))
+    return t, valid
+
+
+def closest_triangle(tri, o, d):
+    """Nearest triangle of ``tri`` (a ``scene.FTriangles``) along (o, d):
+    the least (t, scene index). Returns (t, loc, normal, mat, index); t is
+    MISS, normal 0 and mat 0 where nothing is hit."""
+    o1 = tuple(x[:, None] for x in o)
+    d1 = tuple(x[:, None] for x in d)
+    best_t = torch.full_like(o[0], MISS)
+    best_i = torch.zeros_like(o[0], dtype=torch.int64)
+    n, T = o[0].shape[0], tri.count
+    step = _chunk(n, T)
+    for lo in range(0, T, step):
+        t, valid = _tri_hits(tri, lo, min(lo + step, T), o1, d1)
+        t = torch.where(valid, t, MISS)
+        arg = torch.argmin(t, dim=1)      # the first least t of the chunk
+        tmin = t.gather(1, arg[:, None])[:, 0]
+        better = tmin < best_t
+        best_t = torch.where(better, tmin, best_t)
+        best_i = torch.where(better, arg + lo, best_i)
+    hit = best_t < MISS
+    nrm = tuple(torch.where(hit, tri.n[best_i, k], 0.0) for k in range(3))
+    mat = torch.where(hit, tri.mat[best_i].to(torch.int64), 0)
+    loc = s.vadd(s.vadd(o, s.vscale(nrm, 1e-5)), s.vscale(d, best_t))
+    return best_t, loc, nrm, mat, best_i
+
+
+def occluded_triangle(tri, o, d, t_max):
+    """Whether any triangle of ``tri`` is hit at t < t_max."""
+    o1 = tuple(x[:, None] for x in o)
+    d1 = tuple(x[:, None] for x in d)
+    tm = t_max[:, None]
+    occ = torch.zeros_like(o[0], dtype=torch.bool)
+    n, T = o[0].shape[0], tri.count
+    step = _chunk(n, T)
+    for lo in range(0, T, step):
+        t, valid = _tri_hits(tri, lo, min(lo + step, T), o1, d1)
+        occ = occ | (valid & (t < tm)).any(dim=1)
+    return occ

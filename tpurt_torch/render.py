@@ -138,9 +138,10 @@ def _check_call(scene: Scene, cfg: RenderConfig, state: RenderState,
     if state.rgb_sum.shape[0] != padded_pixels(cfg):
         raise ValueError(f"state has {state.rgb_sum.shape[0]} pixels, cfg "
                          f"pads to {padded_pixels(cfg)}: use init_state(cfg)")
-    if scene.device != state.device:
-        raise ValueError(f"scene on {scene.device}, state on {state.device}: "
-                         f"move one with .to(device)")
+    devices = {t.device for t in scene.tensors().values()}
+    if devices != {state.device}:
+        raise ValueError(f"scene on {sorted(map(str, devices))}, state on "
+                         f"{state.device}: move them with .to(device)")
 
 
 def _advance(scene, cfg, camera, state, base_seed, spp, depth):

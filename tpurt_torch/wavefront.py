@@ -3,7 +3,7 @@ persistent pool of Q ray slots, refilled by regeneration.
 
 Each sweep: dead slots claim the next pending (pixel, sample) work items
 and become fresh camera rays (``_regen``/``_issue``); every active slot
-takes one bounce (``_sweep``: nearest sphere, NEE over every light,
+takes one bounce (``_sweep``: nearest hit, NEE over every light,
 scatter + Russian roulette, the depth gate); slots whose paths ended add
 their radiance into the image (the splat, ``index_add_``). The loop ends
 when no work is pending and the pool has drained, or after
