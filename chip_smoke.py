@@ -2,19 +2,36 @@
 holds each against its plain PyTorch version, then drives the main paths
 through ``tpurt_torch.render`` and ``resolve_image``: Cornell spheres at
 1920x1080, depth 30, photons on, with ``backend="pallas"`` (the regen
-kernel); the dispersive scene at 1920x1080, depth 30, with
+kernel) and with ``pallas_regen=False`` (the tile-synchronized kernel);
+``render_adaptive`` on Cornell at 1080p (the regen kernel's budget mode);
+the dispersive scene at 1920x1080, depth 30, with
 ``backend="wavefront_pallas"`` (the sweep kernel) and with tpurt's bench
 config 5, ``backend="wavefront_fused"`` (the fused kernel); tpurt's bench
-config 6, the 4050-triangle torus mesh at 1920x1080, depth 30, photons on,
-through the regen kernel's BVH walk (csrc/bvh.cuh), and the 64,800-triangle
-torus field and the 16,384-sphere instanced scene at 1 spp.
+config 6 as tpurt ships it (the 4050-triangle torus mesh, its photon,
+bounce and camera strata and 4 hero wavelengths) at 1920x1080, depth 30,
+through the regen kernel's BVH walk (csrc/bvh.cuh), beside the same scene
+with the reference sampler; bench config 4 (hero wavelengths with the
+dispersive collapse); and the 64,800-triangle torus field and the
+16,384-sphere instanced scene at 1 spp.
+
+The phases: [blit], [regen] (the regen kernel against its plain version),
+[sampler] (the regen kernel with the sampler flags of bench configs 3, 4
+and 6, every state plane bit for bit), [budget] (the budget mode against
+``render_plain_budget``, then ``render_adaptive``), [tile-sync] (the
+tile-synchronized kernel against ``render_plain`` and against the regen
+kernel, then its 1080p path), [wf-sweep], [wf-pool], [wf-fused],
+[wf-budget], [wf-pallas], [config5], [bvh-walk], [mesh-regen], [mesh-wf],
+[mesh] (config 6 with the reference sampler), [config6] (config 6 as
+shipped), [config4], [mesh-field], [mesh-instanced].
 
     python3 chip_smoke.py
 
 Each phase prints one line; any failure raises and exits non-zero. The
-second-to-last line is the GPU's name and power limit, the last a JSON
-object with the device. Needs a CUDA device, nvcc and a checkout of the
-repository around this file; imports nothing of JAX.
+line before the last two holds the kernels' JSON (launches on their main
+paths, error against the plain version, times and bounds); then the GPU's
+name and power limit; the last line is a JSON object with the device.
+Needs a CUDA device, nvcc and a checkout of the repository around this
+file; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -31,6 +48,67 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "cornell_64x32_s1234_8spp.npz"
 CAM = dict(look_from=(0.0, 5.0, -12.0), look_at=(0.0, 5.0, 0.0), vfov=60.0)
+
+# tpurt's bench configs as it ships them (bench.py): the sampler flags
+CONFIG6 = dict(pallas_bvh=True, pallas_bvh_leaf=64, photon_strata=16,
+               photon_strata_dir=4096, photon_strata_shared_k=True,
+               photon_strata_bounce=True, camera_strata_bounce=True,
+               photon_strata_window=1, pallas_regen_drift=1,
+               hero_wavelengths=4)
+CONFIG4 = dict(dispersion_in_camera_path=True, hero_wavelengths=4)
+CONFIG3 = dict(pallas_static_unroll=512, pallas_cluster_size=32,
+               pallas_cluster_ordered=True, photon_strata=16,
+               photon_strata_dir=256, photon_strata_shared_k=True,
+               photon_strata_bounce=True, camera_strata_bounce=True,
+               photon_strata_window=16, pallas_regen_drift=1,
+               hero_wavelengths=8)
+TORUS_CAM = ((0.0, 3.0, -6.0), (0.0, 1.5, 0.0))
+DISP_CAM = ((0.0, 3.0, -4.0), (0.0, 1.0, 5.0))
+INST_CAM = ((0.0, 10.0, -14.0), (0.0, 1.0, 8.0))
+
+# The least time the card could take for a kernel's work: the
+# larger of the bytes the function must move over 3.35 TB/s and its float32
+# operations over 67 TFLOP/s (H100 SXM data sheet, float32 outside the
+# tensor cores). A path kernel's work depends on the data: it is counted
+# as segments x OPS_PER_SEGMENT, a floor read off csrc/device.cuh and
+# path.cuh: the nearest-hit test of one sphere is 17 operations before its
+# root (oc 3, half_b 5, c 6, disc 3) and ~6 after, a Cornell segment tests
+# 8 spheres (~180), and the shading behind it (4 draws and the scatter with
+# roulette, or a shadow test of 8 spheres with its Fresnel terms, or the
+# density estimate with the gather BSDF) is over 120 more. A mesh segment
+# costs more than this floor, so its bound is looser.
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+OPS_PER_SEGMENT = 300
+OPS_PER_BLIT_PIXEL = 30   # 3 divides, luma, Reinhard, saturation lerp
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """bound_ms and bound_by of a call moving nbytes and doing ops."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def path_bound(pixels: int, segments: int, extra_bytes: int = 0) -> dict:
+    """A path kernel's bound: the (16, P) float32 planes read and written
+    once (plus extra_bytes), and OPS_PER_SEGMENT per traced segment."""
+    return bound(16 * 4 * 2 * pixels + extra_bytes,
+                 segments * OPS_PER_SEGMENT)
+
+
+def counters() -> dict:
+    """Each kernel's launch count: (module, attribute)."""
+    from tpurt_torch.kernels import bvh, mega_regen, mega_step
+    from tpurt_torch.kernels import tonemap as blit
+    from tpurt_torch.kernels import wavefront_fused, wavefront_sweep
+    return {"regen": (mega_regen, "LAUNCHES"),
+            "regen_budget": (mega_regen, "BUDGET_LAUNCHES"),
+            "tile_sync": (mega_step, "LAUNCHES"),
+            "blit": (blit, "LAUNCHES"),
+            "wf_sweep": (wavefront_sweep, "LAUNCHES"),
+            "wf_fused": (wavefront_fused, "LAUNCHES"),
+            "bvh_walk": (bvh, "WALKS")}
 
 
 def gpu_line() -> str:
@@ -92,7 +170,8 @@ def ptxas_report(log: str) -> list:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            for short in ("regen", "sweep", "fused", "probe", "tonemap"):
+            for short in ("regen", "step", "sweep", "fused", "probe",
+                          "tonemap"):
                 if short in name:
                     name = short
         elif "bytes stack frame" in line and name:
@@ -181,7 +260,9 @@ def main() -> int:
                            ).abs().max()),
         ms=cuda_ms(lambda: blit.tonemap_pixels(rgb, cnt, n, 0.8, 1.0), 50),
         plain_ms=cuda_ms(
-            lambda: tm.tonemap(tm.resolve(rgb, cnt), 0.8, 1.0), 50))
+            lambda: tm.tonemap(tm.resolve(rgb, cnt), 0.8, 1.0), 50),
+        # rgb_sum and n_samples in, the image out
+        **bound(n * (12 + 4 + 12), n * OPS_PER_BLIT_PIXEL))
     print(f"[blit] 1080p: kernel {report['blit']['ms']:.4f} ms, plain "
           f"{report['blit']['plain_ms']:.4f} ms, max ulp {worst}")
     m = 256 * 144
@@ -192,12 +273,12 @@ def main() -> int:
           f"{plain_small:.4f} ms")
 
     # 4. regen kernel against its plain version on the card
-    scene = tt.cornell_spheres_scene().to(dev)
+    scene = tt.cornell_spheres_scene()
     fs = freeze_scene(scene)
 
     def both(cfg, seed, spp):
         cam = tt.make_camera(**CAM, aspect_ratio=cfg.width / cfg.height)
-        planes = state_to_planes(tt.init_state(cfg, dev))
+        planes = state_to_planes(tt.init_state(cfg))
         pk, pp = planes.clone(), planes.clone()
         rk = int(mega_regen.regen_call(scene, cfg, cam, pk, seed, spp, 0,
                                        cfg.photon_radius_init, cfg.depth))
@@ -263,24 +344,38 @@ def main() -> int:
         ms=cuda_ms(lambda: mega_regen.regen_call(
             scene, cfg, cam, planes.clone(), 1234, 1, 0, 2.0, 30), 3),
         plain_ms=cuda_ms(lambda: integrate.render_plain(
-            fs, cfg, cam, planes.clone(), 1234, 1, 0, 2.0, 30), 1))
+            fs, cfg, cam, planes.clone(), 1234, 1, 0, 2.0, 30), 1),
+        **path_bound(cfg.n_pixels, rk))
     print(f"  1 spp: kernel {report['regen']['ms']:.2f} ms, plain "
-          f"{report['regen']['plain_ms']:.2f} ms")
+          f"{report['regen']['plain_ms']:.2f} ms, bound "
+          f"{report['regen']['bound_ms']:.4f} ms "
+          f"({report['regen']['bound_by']})")
 
     # 5. the main path, through the public entry points
     launches = {}
-    launches.update(drive("main", scene, cfg, cam, 4, {
-        "regen": mega_regen, "blit": blit}, gpu))
+    launches.update(drive("main", scene, cfg, cam, 4, ["regen", "blit"],
+                          gpu))
 
-    # 6. the wavefront kernels on the dispersive scene of tpurt's bench
+    # 6. the regen kernel with tpurt's sampler flags; its budget mode; the
+    #    tile-synchronized kernel
+    sampler_phases()
+    launches.update(budget_phases(report, gpu))
+    launches.update(tile_sync_phases(report, gpu))
+
+    # 7. the wavefront kernels on the dispersive scene of tpurt's bench
     #    config 5, each against its plain version
     launches.update(wavefront_phases(dev, report, gpu))
 
-    # 7. meshes: the BVH walks, and bench config 6 and the scale paths
+    # 8. meshes: the BVH walks, bench config 6 (reference sampler and as
+    #    shipped), config 4 and the scale paths
     launches.update(mesh_phases(dev, report, gpu))
 
     src = {"regen": ("tpurt_torch/csrc/mega_regen.cu",
                      "tpurt/kernels/mega_regen.py:84"),
+           "regen_budget": ("tpurt_torch/csrc/mega_regen.cu",
+                            "tpurt/kernels/mega_regen.py:1024"),
+           "tile_sync": ("tpurt_torch/csrc/mega_step.cu",
+                         "tpurt/kernels/mega_pallas.py:1666"),
            "blit": ("tpurt_torch/csrc/tonemap.cu",
                     "tpurt/kernels/tonemap_pallas.py:31"),
            "wf_sweep": ("tpurt_torch/csrc/wavefront_sweep.cu",
@@ -291,7 +386,8 @@ def main() -> int:
                         "tpurt/kernels/bvh_pallas.py:466")}
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=src[k][0], replaces=src[k][1],
-             launches=launches[k], **report[k]) for k in src]}))
+             launches=launches[k], library_ms=None, **report[k])
+        for k in src]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -299,22 +395,31 @@ def main() -> int:
     return 0
 
 
-def drive(name, scene, cfg, cam, spp, modules, gpu) -> dict:
+def zero_counts(names) -> None:
+    for k in names:
+        mod, attr = counters()[k]
+        setattr(mod, attr, 0)
+
+
+def read_counts(names) -> dict:
+    return {k: getattr(*counters()[k]) for k in names}
+
+
+def drive(name, scene, cfg, cam, spp, kernels, gpu) -> dict:
     """One main path through the public entry points: render ``spp``
-    samples from a fresh state, then resolve_image, with every kernel count
-    of ``modules`` set to 0 just before and read just after. Checks the
-    image and that each kernel launched; returns the counts."""
+    samples from a fresh state, then resolve_image, with the launch count
+    of every kernel named in ``kernels`` set to 0 just before and read just
+    after. Checks the image and that each kernel launched; returns the
+    counts."""
     import tpurt_torch as tt
-    for mod in modules.values():
-        mod.LAUNCHES = 0
+    zero_counts(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state = tt.render(scene, cfg, cam, tt.init_state(cfg, scene.device),
-                      1234, spp)
+    state = tt.render(scene, cfg, cam, tt.init_state(cfg), 1234, spp)
     img = tt.resolve_image(cfg, state)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {k: mod.LAUNCHES for k, mod in modules.items()}
+    launches = read_counts(kernels)
     rays = int(state.rays)
     # single-wavelength samples tonemap to out-of-gamut values (negative,
     # or past 1) at low spp, so "not black" is judged on what a display
@@ -341,6 +446,258 @@ def drive(name, scene, cfg, cam, spp, modules, gpu) -> dict:
     return launches
 
 
+def unequal_planes(a, b) -> list:
+    """The indices of the state planes that differ anywhere."""
+    return [i for i in range(a.shape[0]) if not torch.equal(a[i], b[i])]
+
+
+def regen_vs_plain(label, scene, cfg, cam, seed, spp, it0):
+    """The regen kernel against render_plain from a fresh state at
+    iteration it0 (radius after it0 steps): rays and all 16 planes bit for
+    bit. Returns (segments, kernel s, plain s)."""
+    import tpurt_torch as tt
+    from tpurt_torch import integrate
+    from tpurt_torch.kernels import mega_regen
+    from tpurt_torch.render import radius_after, state_to_planes
+    from tpurt_torch.scene import freeze_scene
+    planes = state_to_planes(tt.init_state(cfg))
+    pk, pp = planes.clone(), planes.clone()
+    r0 = radius_after(cfg, 0, cfg.photon_radius_init, it0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rk = int(mega_regen.regen_call(scene, cfg, cam, pk, seed, spp, it0, r0,
+                                   cfg.depth))
+    t1 = time.perf_counter()
+    rp = int(integrate.render_plain(freeze_scene(scene), cfg, cam, pp, seed,
+                                    spp, it0, r0, cfg.depth))
+    t2 = time.perf_counter()
+    bad = unequal_planes(pk, pp)
+    print(f"[sampler] {label} {cfg.width}x{cfg.height} depth {cfg.depth} "
+          f"{spp} spp from iteration {it0}: rays {rk} vs plain {rp}, "
+          f"unequal planes {bad}; kernel call {1e3 * (t1 - t0):.1f} ms, "
+          f"plain {1e3 * (t2 - t1):.1f} ms")
+    if rk != rp or bad:
+        raise AssertionError(f"{label}: the regen kernel differs from "
+                             f"render_plain")
+    return rk, t1 - t0, t2 - t1
+
+
+def sampler_phases() -> None:
+    """[sampler] the regen kernel with the sampler flags of tpurt's bench
+    configs 6 (photon strata 16/4096, shared k, bounce and camera strata,
+    hero 4, on the torus mesh), 4 (hero 4 with the dispersive collapse) and
+    3 (hero 8, strata 16/256, window 16, from iteration 14 so one call
+    crosses a window) against render_plain; then config 6 at 1080p."""
+    import tpurt_torch as tt
+    scenes = {"config 6": (tt.torus_mesh_scene(45, 45), CONFIG6, TORUS_CAM,
+                           0, 2),
+              "config 4": (tt.dispersive_scene(), CONFIG4, DISP_CAM, 0, 2),
+              "config 3": (tt.instanced_scene(256), CONFIG3, INST_CAM, 14, 4)}
+    for w, h in ((64, 32), (256, 144)):
+        for label, (scene, flags, cam, it0, spp) in scenes.items():
+            cfg = tt.RenderConfig(width=w, height=h, depth=8,
+                                  backend="pallas", **flags)
+            camera = tt.make_camera(*cam, vfov=55.0, aspect_ratio=w / h)
+            regen_vs_plain(label, scene, cfg, camera, 1234, spp, it0)
+    scene, flags, cam, _, _ = scenes["config 6"]
+    cfg = tt.RenderConfig(width=1920, height=1080, depth=30,
+                          backend="pallas", **flags)
+    regen_vs_plain("config 6", scene, cfg,
+                   tt.make_camera(*cam, vfov=55.0, aspect_ratio=16 / 9),
+                   1234, 1, 0)
+
+
+def budget_map(rows: int, n: int, hi: int, seed: int, dev) -> torch.Tensor:
+    """Seeded budgets in [0, hi] on the image rows, 0 on the pad rows."""
+    vals = np.random.default_rng(seed).integers(0, hi + 1, rows)
+    vals[n:] = 0
+    return torch.from_numpy(vals).to(dev)
+
+
+def budget_phases(report, gpu) -> dict:
+    """[budget] the regen kernel's budget mode against
+    render_plain_budget, a uniform budget against the uniform render and
+    two chained calls against one, at 256x144 on Cornell; the same shapes
+    at 1080p; then render_adaptive(backend="pallas") at 1080p, 8 spp
+    (pilot 2). Fills report["regen_budget"]; returns the adaptive path's
+    launch counts."""
+    import tpurt_torch as tt
+    from tpurt_torch import integrate
+    from tpurt_torch.kernels import mega_regen
+    from tpurt_torch.render import state_to_planes
+    from tpurt_torch.scene import freeze_scene
+
+    scene = tt.cornell_spheres_scene()
+    fs = freeze_scene(scene)
+    dev = scene.device
+    cfg = tt.RenderConfig(width=256, height=144, depth=30, backend="pallas")
+    cam = tt.make_camera(**CAM, aspect_ratio=256 / 144)
+    st0 = tt.init_state(cfg)
+    rows = st0.n_samples.shape[0]
+    # from a state with vispoints and counts of 2
+    st1 = tt.render(scene, cfg, cam, st0, 1234, 2)
+    b1 = budget_map(rows, cfg.n_pixels, 4, 5, dev)
+    b2 = budget_map(rows, cfg.n_pixels, 4, 6, dev)
+
+    def kernel_and_plain(c, st, budgets):
+        planes = state_to_planes(st)
+        pk, pp = planes.clone(), planes.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rk = int(mega_regen.regen_budget_call(scene, c, cam_of(c), pk, 1234,
+                                              budgets, st.n_samples))
+        t1 = time.perf_counter()
+        rp = int(integrate.render_plain_budget(fs, c, cam_of(c), pp, 1234,
+                                               budgets, st.n_samples))
+        t2 = time.perf_counter()
+        return rk, rp, pk, pp, t1 - t0, t2 - t1
+
+    def cam_of(c):
+        return tt.make_camera(**CAM, aspect_ratio=c.width / c.height)
+
+    rk, rp, pk, pp, _, _ = kernel_and_plain(cfg, st1, b1)
+    bad = unequal_planes(pk, pp)
+    sb = mega_regen.render_budget_regen(scene, cfg, cam, st1, 1234, b1, 4)
+    counts_ok = torch.equal(sb.n_samples, st1.n_samples + b1.float())
+    print(f"[budget] 256x144 depth 30, budgets 0-4 after 2 spp: rays {rk} "
+          f"vs plain {rp}, unequal planes {bad}, n_samples = 2 + budget: "
+          f"{counts_ok}")
+    if rk != rp or bad or not counts_ok:
+        raise AssertionError("budget mode differs from render_plain_budget")
+    uni = torch.where(torch.arange(rows, device=dev) < cfg.n_pixels, 2, 0)
+    su = mega_regen.render_budget_regen(scene, cfg, cam, st0, 1234, uni, 2)
+    sr = tt.render(scene, cfg, cam, st0, 1234, 2)
+    same_u = (torch.equal(state_to_planes(su), state_to_planes(sr))
+              and int(su.rays) == int(sr.rays)
+              and su.photon_radius == sr.photon_radius)
+    sa = mega_regen.render_budget_regen(scene, cfg, cam, st1, 1234, b1, 4)
+    sa = mega_regen.render_budget_regen(scene, cfg, cam, sa, 1234, b2, 4)
+    sc = mega_regen.render_budget_regen(scene, cfg, cam, st1, 1234, b1 + b2,
+                                        8)
+    same_c = (torch.equal(state_to_planes(sa), state_to_planes(sc))
+              and int(sa.rays) == int(sc.rays)
+              and torch.equal(sa.n_samples, sc.n_samples))
+    print(f"  uniform budget 2 = uniform 2 spp bit for bit: {same_u}; two "
+          f"chained calls = one combined: {same_c}")
+    if not (same_u and same_c):
+        raise AssertionError("budget mode: uniform or chained calls differ")
+
+    # the main path's shapes: 1080p planes and budgets, budgets 0-2
+    cfg_f = tt.RenderConfig(width=1920, height=1080, depth=30,
+                            backend="pallas")
+    stf = tt.init_state(cfg_f)
+    bf = budget_map(stf.n_samples.shape[0], cfg_f.n_pixels, 2, 7, dev)
+    rk, rp, pk, pp, _, plain_s = kernel_and_plain(cfg_f, stf, bf)
+    bad = unequal_planes(pk, pp)
+    err = float((pk - pp).abs().max())
+    planes_f = state_to_planes(stf)
+    ms = cuda_ms(lambda: mega_regen.regen_budget_call(
+        scene, cfg_f, cam_of(cfg_f), planes_f.clone(), 1234, bf,
+        stf.n_samples), 3)
+    print(f"[budget] 1080p depth 30, budgets 0-2: rays {rk} vs plain {rp}, "
+          f"unequal planes {bad}; kernel {ms:.2f} ms, plain "
+          f"{plain_s * 1e3:.1f} ms")
+    if rk != rp or bad:
+        raise AssertionError("1080p budget mode differs")
+    report["regen_budget"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3,
+        # the aux planes (budget, count, radius) in beside the state
+        **path_bound(cfg_f.n_pixels, rk, 3 * 4 * cfg_f.n_pixels))
+
+    # [adaptive] the main path: pilots through the regen kernel, the rest
+    # through its budget mode
+    names = ["regen", "regen_budget", "blit"]
+    zero_counts(names)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, budgets = tt.render_adaptive(scene, cfg_f, cam_of(cfg_f),
+                                     base_seed=1234, spp=8, pilot_spp=2)
+    img = tt.resolve_image(cfg_f, st)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts(names)
+    n = cfg_f.n_pixels
+    ok = bool((st.n_samples[:n] == 2 + budgets[:n].float()).all())
+    print(f"[adaptive] render_adaptive pallas 1080p depth 30, spp 8 pilot 2: "
+          f"{secs:.3f} s, rays {int(st.rays)}, "
+          f"{int(st.rays) / secs / 1e6:.1f} Mrays/s, budgets mean "
+          f"{float(budgets[:n].float().mean()):.3f} max "
+          f"{int(budgets[:n].max())}, n_samples = 2 + budget: {ok}, "
+          f"launches {launches} | {gpu}")
+    if not ok or not bool(torch.isfinite(img).all()) \
+            or min(launches.values()) < 1:
+        raise AssertionError("render_adaptive (pallas) failed")
+    return {"regen_budget": launches["regen_budget"]}
+
+
+def tile_sync_phases(report, gpu) -> dict:
+    """[tile-sync] step_call against render_plain(spp=1), every plane bit
+    for bit, at 64x32, 256x144 and 1080p on Cornell; 4 samples through
+    pallas_regen=False against 4 through the regen kernel (Cornell, and
+    config 6's flags on the torus); then Cornell at 1080p, depth 30, 4 spp
+    through tt.render with pallas_regen=False. Fills report["tile_sync"];
+    returns that path's launch counts."""
+    import tpurt_torch as tt
+    from tpurt_torch import integrate
+    from tpurt_torch.kernels import mega_step
+    from tpurt_torch.render import state_to_planes
+    from tpurt_torch.scene import freeze_scene
+
+    scene = tt.cornell_spheres_scene()
+    fs = freeze_scene(scene)
+    for w, h in ((64, 32), (256, 144), (1920, 1080)):
+        cfg = tt.RenderConfig(width=w, height=h, depth=30, backend="pallas",
+                              pallas_regen=False)
+        cam = tt.make_camera(**CAM, aspect_ratio=w / h)
+        planes = state_to_planes(tt.init_state(cfg))
+        pk, pp = planes.clone(), planes.clone()
+        rk = int(mega_step.step_call(scene, cfg, cam, pk, 1234, 3, 1.5, 30))
+        rp = int(integrate.render_plain(fs, cfg, cam, pp, 1234, 1, 3, 1.5,
+                                        30))
+        bad = unequal_planes(pk, pp)
+        print(f"[tile-sync] {w}x{h} depth 30, sample 3: rays {rk} vs plain "
+              f"{rp}, unequal planes {bad}")
+        if rk != rp or bad:
+            raise AssertionError("the tile-sync kernel differs from "
+                                 "render_plain")
+    report["tile_sync"] = dict(
+        max_abs_err=float((pk - pp).abs().max()),
+        ms=cuda_ms(lambda: mega_step.step_call(
+            scene, cfg, cam, planes.clone(), 1234, 3, 1.5, 30), 3),
+        plain_ms=cuda_ms(lambda: integrate.render_plain(
+            fs, cfg, cam, planes.clone(), 1234, 1, 3, 1.5, 30), 1),
+        **path_bound(cfg.n_pixels, rk))
+    print(f"  1080p: kernel {report['tile_sync']['ms']:.2f} ms per sample, "
+          f"plain {report['tile_sync']['plain_ms']:.1f} ms")
+
+    torus = tt.torus_mesh_scene(45, 45)
+    for label, sc, flags, cam_at, (w, h) in (
+            ("Cornell", scene, {}, (CAM["look_from"], CAM["look_at"]),
+             (256, 144)),
+            ("config 6 flags, torus", torus, CONFIG6, TORUS_CAM, (64, 32))):
+        cfg = tt.RenderConfig(width=w, height=h, depth=30, backend="pallas",
+                              **flags)
+        cam = tt.make_camera(*cam_at, vfov=60.0, aspect_ratio=w / h)
+        st_r = tt.render(sc, cfg, cam, tt.init_state(cfg), 1234, 4)
+        c_t = cfg.with_(pallas_regen=False)
+        st_t = tt.render(sc, c_t, cam, tt.init_state(c_t), 1234, 4)
+        bad = unequal_planes(state_to_planes(st_t), state_to_planes(st_r))
+        same = (int(st_t.rays) == int(st_r.rays) and not bad
+                and st_t.photon_radius == st_r.photon_radius)
+        print(f"[tile-sync] {label} {w}x{h} 4 spp, pallas_regen=False vs "
+              f"True: rays {int(st_t.rays)} vs {int(st_r.rays)}, unequal "
+              f"planes {bad}")
+        if not same:
+            raise AssertionError("tile-sync and regen renders differ")
+
+    cfg = tt.RenderConfig(width=1920, height=1080, depth=30,
+                          backend="pallas", pallas_regen=False)
+    cam = tt.make_camera(**CAM, aspect_ratio=16 / 9)
+    launches = drive("tile-sync", scene, cfg, cam, 4, ["tile_sync", "blit"],
+                     gpu)
+    return {"tile_sync": launches["tile_sync"]}
+
+
 def dispersive_camera(cfg):
     """tpurt's bench config 5 camera (bench.py:117-122)."""
     import tpurt_torch as tt
@@ -354,11 +711,10 @@ def wavefront_phases(dev, report, gpu) -> dict:
     Fills ``report`` and returns the main paths' launch counts."""
     import tpurt_torch as tt
     from tpurt_torch import wavefront
-    from tpurt_torch.kernels import tonemap as blit
     from tpurt_torch.kernels import wavefront_fused, wavefront_sweep
     from tpurt_torch.scene import freeze_scene
 
-    scene = tt.dispersive_scene().to(dev)
+    scene = tt.dispersive_scene()
     fs = freeze_scene(scene)
     # tpurt's bench config 5 (bench.py:117-122)
     cfg5 = tt.RenderConfig(width=1920, height=1080, depth=30,
@@ -396,7 +752,11 @@ def wavefront_phases(dev, report, gpu) -> dict:
         lambda: wavefront_sweep.sweep(fs, cfg5, pool), 20)
     report["wf_sweep"] = dict(
         max_abs_err=err, ms=named_ms(by_name, "sweep_kernel") or call_ms,
-        plain_ms=cuda_ms(lambda: wavefront._sweep(fs, cfg5, pool), 3))
+        plain_ms=cuda_ms(lambda: wavefront._sweep(fs, cfg5, pool), 3),
+        # the pool (13 f32, 3 i32, one i64 PCG state a slot) in and out,
+        # the terminated mask out
+        **bound(cfg5.wf_pool * ((13 * 4 + 3 * 4 + 8) * 2 + 1),
+                int(got[2]) * OPS_PER_SEGMENT))
     print(f"  one sweep: kernel {report['wf_sweep']['ms']:.4f} ms of device "
           f"time ({call_ms:.4f} ms per wrapper call), plain "
           f"{report['wf_sweep']['plain_ms']:.3f} ms")
@@ -405,9 +765,9 @@ def wavefront_phases(dev, report, gpu) -> dict:
         """The kernel backend and the plain pool from fresh states."""
         cam = dispersive_camera(cfg)
         kcfg = cfg.with_(backend=backend)
-        sk = tt.render(scene, kcfg, cam, tt.init_state(kcfg, dev), 1234, spp)
+        sk = tt.render(scene, kcfg, cam, tt.init_state(kcfg), 1234, spp)
         pcfg = cfg.with_(backend=plain)
-        sp = tt.render(scene, pcfg, cam, tt.init_state(pcfg, dev), 1234, spp)
+        sp = tt.render(scene, pcfg, cam, tt.init_state(pcfg), 1234, spp)
         torch.cuda.synchronize()
         n = cfg.n_pixels
         med, frac, mx = image_gap(sk.rgb_sum[:n].cpu().numpy(),
@@ -420,7 +780,7 @@ def wavefront_phases(dev, report, gpu) -> dict:
                 or not bool((sk.n_samples[:n] == spp).all()) \
                 or not (med < 1e-4 and frac < 0.02):
             raise AssertionError(f"{backend} differs from {plain}")
-        return mx
+        return mx, int(sk.rays)
 
     # [wf-pool] the pool driven by the sweep kernel against the plain pool
     print("[wf-pool] wavefront_pallas vs wavefront:")
@@ -432,8 +792,8 @@ def wavefront_phases(dev, report, gpu) -> dict:
     print("[wf-fused] wavefront_fused vs wavefront:")
     for w, h, depth in ((64, 32, 30), (256, 144, 30)):
         pair(cfg5.with_(width=w, height=h, depth=depth), "wavefront_fused", 1)
-    err = pair(cfg5, "wavefront_fused", 1)
-    st0 = tt.init_state(cfg5, dev)
+    err, fused_rays = pair(cfg5, "wavefront_fused", 1)
+    st0 = tt.init_state(cfg5)
     for spp in (1, 4):
         call_ms, by_name, _ = profiled(
             lambda: wavefront_fused.wavefront_render_fused(
@@ -446,14 +806,16 @@ def wavefront_phases(dev, report, gpu) -> dict:
     report["wf_fused"] = dict(
         max_abs_err=err, ms=kernel_ms,
         plain_ms=cuda_ms(lambda: wavefront.wavefront_render(
-            scene, cfg5, cam5, st0, 1234, 1), 1))
+            scene, cfg5, cam5, st0, 1234, 1), 1),
+        # rgb_sum (P, 3) read and written
+        **bound(cfg5.n_pixels * 12 * 2, fused_rays * OPS_PER_SEGMENT))
     print(f"  1080p depth 30 1 spp: plain pool "
           f"{report['wf_fused']['plain_ms']:.1f} ms")
 
     # [wf-budget] the fused kernel's budget mode
     cfg_b = cfg5.with_(width=256, height=144)
     cam_b = dispersive_camera(cfg_b)
-    st0 = tt.init_state(cfg_b, dev)
+    st0 = tt.init_state(cfg_b)
     rows = st0.n_samples.shape[0]
     uni = torch.where(torch.arange(rows, device=dev) < cfg_b.n_pixels, 2, 0)
     su = wavefront_fused.wavefront_render_fused(scene, cfg_b, cam_b, st0,
@@ -481,10 +843,10 @@ def wavefront_phases(dev, report, gpu) -> dict:
     # under torch.profiler, for the share of wall time in the sweep kernel
     cfg_p = cfg5.with_(backend="wavefront_pallas")
     launches = drive("wf-pallas", scene, cfg_p, cam5, 1,
-                     {"wf_sweep": wavefront_sweep, "blit": blit}, gpu)
+                     ["wf_sweep", "blit"], gpu)
     sweeps = launches["wf_sweep"]
     wall, by_name, busy = profiled(lambda: tt.render(
-        scene, cfg_p, cam5, tt.init_state(cfg_p, dev), 1234, 1), 2)
+        scene, cfg_p, cam5, tt.init_state(cfg_p), 1234, 1), 2)
     in_sweep = named_ms(by_name, "sweep_kernel")
     print(f"  1 spp under the profiler: {sweeps} sweeps, {wall:.1f} ms wall, "
           f"{in_sweep:.1f} ms in the sweep kernel ({1.0 - in_sweep / wall:.3f}"
@@ -497,11 +859,11 @@ def wavefront_phases(dev, report, gpu) -> dict:
     # [config5] tpurt's bench config 5 at 4 spp through the public entry
     # points: the fused kernel, then the blit
     launches.update(drive("config5", scene, cfg5, cam5, 4,
-                          {"wf_fused": wavefront_fused, "blit": blit}, gpu))
+                          ["wf_fused", "blit"], gpu))
     launches.pop("blit")
 
     def config5():
-        st = tt.render(scene, cfg5, cam5, tt.init_state(cfg5, dev), 1234, 4)
+        st = tt.render(scene, cfg5, cam5, tt.init_state(cfg5), 1234, 4)
         return tt.resolve_image(cfg5, st)
 
     wall, by_name, busy = profiled(config5, 3)
@@ -510,9 +872,6 @@ def wavefront_phases(dev, report, gpu) -> dict:
           f"{named_ms(by_name, 'tonemap_kernel'):.3f} ms, device busy "
           f"{busy:.2f} ms (idle share {1.0 - busy / wall:.3f})")
     return launches
-
-
-TORUS_CAM = ((0.0, 3.0, -6.0), (0.0, 1.5, 0.0))
 
 
 def probe_rays(scene, n: int, seed: int, dev):
@@ -618,20 +977,19 @@ def mesh_phases(dev, report, gpu) -> dict:
     ``report`` and returns the config-6 path's launch counts."""
     import tpurt_torch as tt
     from tpurt_torch import integrate
-    from tpurt_torch.kernels import bvh, mega_regen
-    from tpurt_torch.kernels import tonemap as blit
+    from tpurt_torch.kernels import mega_regen
     from tpurt_torch.render import state_to_planes
     from tpurt_torch.scene import freeze_scene
 
     base = tt.RenderConfig(backend="pallas")
-    torus = tt.torus_mesh_scene(45, 45).to(dev)
+    torus = tt.torus_mesh_scene(45, 45)
     verts, faces = tt.scene._torus(45, 45)
     mesh = tt.MeshData(material_id=2, translation=(0.0, 0.0, 6.0))
     mesh.add_triangles(verts, faces)
     torus_only = tt.build_scene([tt.Material.diffuse((0.5, 0.5, 0.5))] * 3,
-                                [], [mesh], []).to(dev)
-    field = tt.torus_field_scene(16, 45, 45).to(dev)
-    inst = tt.instanced_scene(16384).to(dev)
+                                [], [mesh], [])
+    field = tt.torus_field_scene(16, 45, 45)
+    inst = tt.instanced_scene(16384)
     cfg_field = base.with_(pallas_bvh_leaf=16, pallas_bvh_chunk=1024,
                            pallas_bvh_width=8)
     cfg_inst = base.with_(pallas_sphere_bvh=True, pallas_bvh_leaf=16,
@@ -657,7 +1015,7 @@ def mesh_phases(dev, report, gpu) -> dict:
     errs.append(walk_vs_plain("instanced 16,384 spheres, width 8 leaf 16",
                               inst, cfg_inst, probe_rays(inst, n, 4, dev),
                               exact_atten=False)[0])
-    grid = grid_quads().to(dev)
+    grid = grid_quads()
     for width in (0, 8):
         errs.append(walk_vs_plain(
             f"NaN-plane rays, quad grid, width {width}", grid,
@@ -671,7 +1029,7 @@ def mesh_phases(dev, report, gpu) -> dict:
     for w, h in ((64, 32), (256, 144)):
         cfg = tt.RenderConfig(width=w, height=h, depth=8, backend="pallas")
         cam = tt.make_camera(*TORUS_CAM, vfov=55.0, aspect_ratio=w / h)
-        planes = state_to_planes(tt.init_state(cfg, dev))
+        planes = state_to_planes(tt.init_state(cfg))
         pp = planes.clone()
         t0 = time.perf_counter()
         rp = int(integrate.render_plain(fs, cfg, cam, pp, 1234, 2, 0, 2.0, 8))
@@ -700,27 +1058,35 @@ def mesh_phases(dev, report, gpu) -> dict:
     rays_wf = {}
     for backend in ("wavefront", "wavefront_pallas", "wavefront_fused"):
         c = cfg_wf.with_(backend=backend)
-        st = tt.render(torus, c, cam_wf, tt.init_state(c, dev), 1234, 1)
+        st = tt.render(torus, c, cam_wf, tt.init_state(c), 1234, 1)
         rays_wf[backend] = int(st.rays)
     print(f"[mesh-wf] 256x144 depth 30 1 spp, rays: {rays_wf}")
     if len(set(rays_wf.values())) != 1:
         raise AssertionError("wavefront kernels differ from the plain pool "
                              "on the mesh")
 
-    # [mesh] bench config 6 through the public entry points, then the
+    # [mesh] bench config 6 with the reference sampler through the public
+    # entry points, then [config6] as tpurt ships it, [config4] and the
     # scale paths; each with its kernel counts zeroed just before
     cfg6 = tt.RenderConfig(width=1920, height=1080, depth=30,
                            backend="pallas", pallas_bvh=True,
                            pallas_bvh_leaf=64)
     cam6 = tt.make_camera(*TORUS_CAM, vfov=55.0, aspect_ratio=16 / 9)
-    bvh.WALKS = 0
-    drive("mesh", torus, cfg6, cam6, 4, {"regen": mega_regen, "blit": blit},
-          gpu)
-    launches = {"bvh_walk": bvh.WALKS}
-    if bvh.WALKS < 1:
-        raise AssertionError("the config-6 path never walked the BVH")
-    mesh_profile("config 6", torus, cfg6, cam6, 4)
-    planes = state_to_planes(tt.init_state(cfg6, dev))
+    drive("mesh", torus, cfg6, cam6, 4, ["regen", "blit", "bvh_walk"], gpu)
+    mesh_profile("config 6, reference sampler", torus, cfg6, cam6, 4)
+    cfg6s = tt.RenderConfig(width=1920, height=1080, depth=30,
+                            backend="pallas", **CONFIG6)
+    launches = drive("config6", torus, cfg6s, cam6, 4,
+                     ["regen", "blit", "bvh_walk"], gpu)
+    launches = {"bvh_walk": launches["bvh_walk"]}
+    mesh_profile("config 6 as shipped", torus, cfg6s, cam6, 4)
+    disp = tt.dispersive_scene()
+    cfg4 = tt.RenderConfig(width=1920, height=1080, depth=30,
+                           backend="pallas", **CONFIG4)
+    cam4 = tt.make_camera(*DISP_CAM, vfov=55.0, aspect_ratio=16 / 9)
+    drive("config4", disp, cfg4, cam4, 4, ["regen", "blit"], gpu)
+    mesh_profile("config 4", disp, cfg4, cam4, 4)
+    planes = state_to_planes(tt.init_state(cfg6))
     for leaf in (4, 16, 64):
         c = cfg6.with_(pallas_bvh_leaf=leaf)
         ms = cuda_ms(lambda: mega_regen.regen_call(
@@ -734,14 +1100,14 @@ def mesh_phases(dev, report, gpu) -> dict:
                                                depth=30),
              ((0.0, 18.0, -30.0), (0.0, 1.0, 8.0)))):
         camera = tt.make_camera(*cam, vfov=55.0, aspect_ratio=16 / 9)
-        bvh.WALKS = 0
         drive(f"mesh-{name}", scene, cfg, camera, 1,
-              {"regen": mega_regen, "blit": blit}, gpu)
-        if bvh.WALKS < 1:
-            raise AssertionError(f"the {name} path never walked the BVH")
+              ["regen", "blit", "bvh_walk"], gpu)
         mesh_profile(name, scene, cfg, camera, 1)
+    # per probe ray: o, d, t_max and lam in; t, point, normal, material and
+    # shadow factor out; a nearest-hit walk and a shadow walk
     report["bvh_walk"] = dict(max_abs_err=max(errs), ms=ms64,
-                              plain_ms=plain64)
+                              plain_ms=plain64,
+                              **bound(n * (32 + 36), 2 * n * OPS_PER_SEGMENT))
     return launches
 
 
@@ -754,13 +1120,12 @@ def mesh_profile(name, scene, cfg, cam, spp) -> None:
     from tpurt_torch.render import state_to_planes
 
     def path():
-        st = tt.render(scene, cfg, cam, tt.init_state(cfg, scene.device),
-                       1234, spp)
+        st = tt.render(scene, cfg, cam, tt.init_state(cfg), 1234, spp)
         return tt.resolve_image(cfg, st)
 
     wall, by_name, busy = profiled(path, 1)
     kernel = named_ms(by_name, "regen_kernel")
-    planes = state_to_planes(tt.init_state(cfg, scene.device))
+    planes = state_to_planes(tt.init_state(cfg))
     ev_path = cuda_ms(path, 2)
     ev_kernel = cuda_ms(lambda: mega_regen.regen_call(
         scene, cfg, cam, planes.clone(), 1234, spp, 0, 2.0, cfg.depth), 2)

@@ -32,6 +32,15 @@ import tpurt_torch as tt
 from tpurt_torch import adaptive
 from tpurt_torch.kernels import wavefront_fused
 
+# the port builds on the CUDA card by default: these tests ask for the CPU
+CPU = "cpu"
+
+
+def _dev(pkg):
+    """device=CPU for the port's scene builders; tpurt's take none."""
+    return {"device": CPU} if pkg is tt else {}
+
+
 torch.set_num_threads(1)
 
 CAM = dict(look_from=(0.0, 5.0, -12.0), look_at=(0.0, 5.0, 0.0), vfov=60.0,
@@ -62,7 +71,7 @@ def cuda():
 def _setup(pkg, **kw):
     cfg = pkg.RenderConfig(width=48, height=24, depth=4, tile_size=1152,
                            enable_photons=False, **kw)
-    return cfg, pkg.cornell_spheres_scene(), pkg.make_camera(**CAM)
+    return cfg, pkg.cornell_spheres_scene(**_dev(pkg)), pkg.make_camera(**CAM)
 
 
 def _budgets(cfg, values, device="cpu"):
@@ -119,8 +128,8 @@ def test_allocate_budgets_matches(tp, power):
 def test_uniform_budget_bit_identical():
     """budgets == spp everywhere reproduces wavefront_render exactly."""
     cfg, scene, cam = _setup(tt, wf_pool=512)
-    st_u = tt.wavefront_render(scene, cfg, cam, tt.init_state(cfg), 42, 3)
-    st_b = tt.wavefront_render_budget(scene, cfg, cam, tt.init_state(cfg),
+    st_u = tt.wavefront_render(scene, cfg, cam, tt.init_state(cfg, device=CPU), 42, 3)
+    st_b = tt.wavefront_render_budget(scene, cfg, cam, tt.init_state(cfg, device=CPU),
                                       42, _budgets(cfg, 3), 3)
     assert torch.equal(st_u.rgb_sum, st_b.rgb_sum)
     assert torch.equal(st_u.n_samples, st_b.n_samples)
@@ -137,7 +146,7 @@ def test_budget_matches_tpurt(tp):
         scene_j, cfg_j, cam_j, tp.render.init_state(cfg_j), 42,
         tp.jnp.asarray(_budgets(cfg_j, vals).numpy()), max_budget=4)
     cfg, scene, cam = _setup(tt, wf_pool=1024)
-    st = tt.wavefront_render_budget(scene, cfg, cam, tt.init_state(cfg), 42,
+    st = tt.wavefront_render_budget(scene, cfg, cam, tt.init_state(cfg, device=CPU), 42,
                                     _budgets(cfg, vals), 4)
     n = cfg.n_pixels
     assert int(st.rays) == int(float(st_j.rays)) > 0
@@ -156,11 +165,11 @@ def test_budget_continuation_draws_new_samples():
     rs = np.random.default_rng(9)
     b1, b2 = rs.integers(0, 3, 48 * 24), rs.integers(0, 3, 48 * 24)
     cfg, scene, cam = _setup(tt, wf_pool=512)
-    st_a = tt.wavefront_render_budget(scene, cfg, cam, tt.init_state(cfg),
+    st_a = tt.wavefront_render_budget(scene, cfg, cam, tt.init_state(cfg, device=CPU),
                                       3, _budgets(cfg, b1), 2)
     st_a = tt.wavefront_render_budget(scene, cfg, cam, st_a, 3,
                                       _budgets(cfg, b2), 2)
-    st_b = tt.wavefront_render_budget(scene, cfg, cam, tt.init_state(cfg),
+    st_b = tt.wavefront_render_budget(scene, cfg, cam, tt.init_state(cfg, device=CPU),
                                       3, _budgets(cfg, b1 + b2), 4)
     assert int(st_a.rays) == int(st_b.rays) > 0
     assert torch.equal(st_a.n_samples, st_b.n_samples)
@@ -171,7 +180,7 @@ def test_budget_continuation_draws_new_samples():
 
 def test_zero_budget_is_noop():
     cfg, scene, cam = _setup(tt, wf_pool=256)
-    st = tt.wavefront_render_budget(scene, cfg, cam, tt.init_state(cfg), 1,
+    st = tt.wavefront_render_budget(scene, cfg, cam, tt.init_state(cfg, device=CPU), 1,
                                     _budgets(cfg, 0), 1)
     assert float(st.n_samples.sum()) == 0.0 and int(st.rays) == 0
     assert float(st.rgb_sum.abs().sum()) == 0.0
@@ -188,17 +197,17 @@ def test_fused_budget_wrapper_on_cpu_runs_plain():
     raw[cfg.n_pixels:] = 5                      # pad rows: ignored
     before = wavefront_fused.LAUNCHES
     st_f = wavefront_fused.wavefront_render_budget_fused(
-        scene, cfg, cam, tt.init_state(cfg), 42, raw, 4)
-    st_p = tt.wavefront_render_budget(scene, cfg, cam, tt.init_state(cfg),
+        scene, cfg, cam, tt.init_state(cfg, device=CPU), 42, raw, 4)
+    st_p = tt.wavefront_render_budget(scene, cfg, cam, tt.init_state(cfg, device=CPU),
                                       42, _budgets(cfg, np.minimum(vals, 4)),
                                       4)
     assert torch.equal(st_f.rgb_sum, st_p.rgb_sum)
     assert torch.equal(st_f.n_samples, st_p.n_samples)
     assert int(st_f.rays) == int(st_p.rays) > 0
     st_u = wavefront_fused.wavefront_render_fused(
-        scene, cfg, cam, tt.init_state(cfg), 42, 2)
+        scene, cfg, cam, tt.init_state(cfg, device=CPU), 42, 2)
     st_b = wavefront_fused.wavefront_render_budget_fused(
-        scene, cfg, cam, tt.init_state(cfg), 42, _budgets(cfg, 2), 2)
+        scene, cfg, cam, tt.init_state(cfg, device=CPU), 42, _budgets(cfg, 2), 2)
     assert torch.equal(st_u.rgb_sum, st_b.rgb_sum)
     assert int(st_u.rays) == int(st_b.rays) > 0
     assert wavefront_fused.LAUNCHES == before
@@ -241,9 +250,17 @@ def test_render_adaptive_matches_tpurt(tp):
 
 
 def test_render_adaptive_pallas_not_ported():
+    """The regen kernel's budget mode is ported now: backend="pallas"
+    spends the budgets through it (tests/test_torch_budget_regen.py holds
+    it to tpurt), and pallas_regen=False raises tpurt's ValueError."""
     cfg, scene, cam = _setup(tt, backend="pallas")
-    with pytest.raises(NotImplementedError, match="budget"):
-        tt.render_adaptive(scene, cfg, cam, spp=4, pilot_spp=2)
+    st, b = tt.render_adaptive(scene, cfg, cam, spp=4, pilot_spp=2)
+    n = cfg.n_pixels
+    assert (st.n_samples.numpy()[:n] == 2 + b.numpy()[:n]).all()
+    assert int(st.rays) > 0 and st.iteration == 2 + 2 * 16
+    with pytest.raises(ValueError, match="pallas_regen"):
+        tt.render_adaptive(scene, cfg.with_(pallas_regen=False), cam, spp=4,
+                           pilot_spp=2)
 
 
 # ----- the fused kernel's budget mode against its plain version (GPU) -----
@@ -256,7 +273,7 @@ def test_fused_budget_kernel_matches_plain(cuda):
     cfg = tt.RenderConfig(width=256, height=144, depth=8,
                           enable_photons=False, wf_pool=16384,
                           backend="wavefront_fused")
-    scene = tt.dispersive_scene().to(cuda)
+    scene = tt.dispersive_scene(device=cuda)
     cam = tt.make_camera((0.0, 3.0, -4.0), (0.0, 1.0, 5.0), vfov=55.0,
                          aspect_ratio=256 / 144)
     vals = np.random.default_rng(8).integers(0, 4, cfg.n_pixels)

@@ -24,6 +24,15 @@ from tpurt_torch.kernels import mega_regen
 from tpurt_torch.render import state_to_planes
 from tpurt_torch.scene import freeze_scene
 
+# the port builds on the CUDA card by default: these tests ask for the CPU
+CPU = "cpu"
+
+
+def _dev(pkg):
+    """device=CPU for the port's scene builders; tpurt's take none."""
+    return {"device": CPU} if pkg is tt else {}
+
+
 # small tensors: one intra-op thread per test worker avoids oversubscribing
 # the cores that pytest-xdist's workers share
 torch.set_num_threads(1)
@@ -70,7 +79,7 @@ def _mixed_scene(pkg):
     lights = [pkg.Light.square_area((0.0, 6.0, 0.0), (0.0, -1.0, 0.0), 1.0,
                                     (1.0, 1.0, 1.0), 8.0, 5500.0),
               pkg.Light.point((3.0, 4.0, -2.0), (1.0, 0.8, 0.6), 30.0)]
-    return pkg.build_scene(mats, sph, [], lights)
+    return pkg.build_scene(mats, sph, [], lights, **_dev(pkg))
 
 
 def _uniform(rs, lo, hi, n=N):
@@ -246,7 +255,7 @@ def test_golden_render(backend):
     mega_regen.LAUNCHES = 0
     cfg = _golden_cfg(backend=backend)
     cam = tt.make_camera(**CAM, aspect_ratio=2.0)
-    st = tt.render(tt.cornell_spheres_scene(), cfg, cam, tt.init_state(cfg),
+    st = tt.render(tt.cornell_spheres_scene(device=CPU), cfg, cam, tt.init_state(cfg, device=CPU),
                    1234, 8)
     g = np.load(GOLDEN)
     _check_rays(int(st.rays), int(g["rays"]))
@@ -266,7 +275,7 @@ def test_dryrun_ray_count(backend):
     cfg = tt.RenderConfig(width=64, height=32, depth=3, tile_size=256,
                           backend=backend)
     cam = tt.make_camera(**CAM, aspect_ratio=2.0)
-    st = tt.render(tt.cornell_spheres_scene(), cfg, cam, tt.init_state(cfg),
+    st = tt.render(tt.cornell_spheres_scene(device=CPU), cfg, cam, tt.init_state(cfg, device=CPU),
                    7, 1)
     _check_rays(int(st.rays), 32698)
 
@@ -280,7 +289,7 @@ def test_mixed_scene_backends_agree():
     for backend in ("xla", "pallas"):
         cfg = tt.RenderConfig(width=32, height=16, depth=5, k_photons=3,
                               max_photon_bounces=3, backend=backend)
-        st = tt.render(_mixed_scene(tt), cfg, cam, tt.init_state(cfg), 11,
+        st = tt.render(_mixed_scene(tt), cfg, cam, tt.init_state(cfg, device=CPU), 11,
                        2)
         out.append(st)
     assert int(out[0].rays) == int(out[1].rays) > 0
@@ -291,12 +300,12 @@ def test_mixed_scene_backends_agree():
 
 def test_flags_outside_the_slice_raise():
     cam = tt.make_camera(**CAM, aspect_ratio=2.0)
-    for kw in (dict(hero_wavelengths=4), dict(photon_strata=8),
-               dict(pallas_regen=False)):
+    for kw in (dict(qmc=True), dict(light_sample="power"),
+               dict(photon_rr_scale=0.5), dict(use_bvh=True)):
         cfg = tt.RenderConfig(width=16, height=8, backend="pallas", **kw)
         with pytest.raises(NotImplementedError):
-            tt.render(tt.cornell_spheres_scene(), cfg, cam,
-                      tt.init_state(cfg), 1, 1)
+            tt.render(tt.cornell_spheres_scene(device=CPU), cfg, cam,
+                      tt.init_state(cfg, device=CPU), 1, 1)
 
 
 @pytest.mark.slow
@@ -310,9 +319,9 @@ def test_matches_tpurt_regen_kernel_interpret(tp):
     st_j = render_regen(tp.tpurt.cornell_spheres_scene(), cfg_j, cam_j,
                         tp.tpurt.init_state(cfg_j), 1234, 2)
     cfg = tt.RenderConfig(**kw)
-    st = tt.render(tt.cornell_spheres_scene(), cfg,
+    st = tt.render(tt.cornell_spheres_scene(device=CPU), cfg,
                    tt.make_camera(**CAM, aspect_ratio=2.0),
-                   tt.init_state(cfg), 1234, 2)
+                   tt.init_state(cfg, device=CPU), 1234, 2)
     _check_rays(int(st.rays), int(float(st_j.rays)))
     diff = np.abs(st.rgb_sum.numpy() - np.asarray(st_j.rgb_sum))
     assert np.median(diff) < 1e-4
@@ -321,7 +330,7 @@ def test_matches_tpurt_regen_kernel_interpret(tp):
 # ----- the CUDA kernel against its plain version (GPU only) -----
 
 def _kernel_and_plain(dev, cfg, seed, spp):
-    scene = tt.cornell_spheres_scene().to(dev)
+    scene = tt.cornell_spheres_scene(device=dev)
     cam = tt.make_camera(**CAM, aspect_ratio=cfg.width / cfg.height)
     planes = state_to_planes(tt.init_state(cfg, dev))
     pk, pp = planes.clone(), planes.clone()
@@ -362,7 +371,7 @@ def test_render_on_cuda_launches_the_kernel(cuda):
     cfg = tt.RenderConfig(width=64, height=32, depth=4, backend="pallas")
     cam = tt.make_camera(**CAM, aspect_ratio=2.0)
     before = mega_regen.LAUNCHES
-    st = tt.render(tt.cornell_spheres_scene().to(cuda), cfg, cam,
+    st = tt.render(tt.cornell_spheres_scene(device=cuda), cfg, cam,
                    tt.init_state(cfg, cuda), 3, 2)
     assert mega_regen.LAUNCHES == before + 1
     assert st.rgb_sum.is_cuda and int(st.rays) > 0

@@ -32,6 +32,15 @@ from tpurt_torch.utils import obj
 from test_torch_mesh_render import (FIELD_CAM, TORUS_CAM, _image_rule,
                                     _render_both)
 
+# the port builds on the CUDA card by default: these tests ask for the CPU
+CPU = "cpu"
+
+
+def _dev(pkg):
+    """device=CPU for the port's scene builders; tpurt's take none."""
+    return {"device": CPU} if pkg is tt else {}
+
+
 torch.set_num_threads(1)
 
 
@@ -166,7 +175,8 @@ def test_load_obj_with_mtl_equals_tpurt(tp, tmp_path):
                                   rotation_deg=30.0, scale=2.0)
         mesh.load_obj(path, materials=mats)
         lights = [pkg.Light.point((0.0, 5.0, 0.0), (1.0, 1.0, 1.0), 10.0)]
-        return pkg.build_scene(mats, [], [mesh], lights, max_leaf_prims=3)
+        return pkg.build_scene(mats, [], [mesh], lights, max_leaf_prims=3,
+                               **_dev(pkg))
 
     _assert_fields_equal(scene(tt), scene(tp.tpurt))
 
@@ -178,9 +188,9 @@ def test_load_obj_with_mtl_equals_tpurt(tp, tmp_path):
     ("torus_field_scene", (2, 8, 4)), ("instanced_scene", (48,))])
 def test_mesh_scenes_equal(tp, name, args):
     want = getattr(tp.tpurt.scene, name)(*args)
-    _assert_fields_equal(getattr(tt, name)(*args), want)
+    _assert_fields_equal(getattr(tt, name)(*args, device=CPU), want)
     via = scene_from_numpy({f.name: np.asarray(getattr(want, f.name))
-                            for f in dataclasses.fields(want)})
+                            for f in dataclasses.fields(want)}, device=CPU)
     _assert_fields_equal(via, want)
     assert via.to("cpu").num_triangles == want.num_triangles
 
@@ -209,7 +219,7 @@ def test_triangle_sweeps_match_tpurt(tp, seed):
     """closest_triangle / occluded_triangle against tpurt's
     closest_triangle_hit / shadow_attenuation, run op by op (no jit, so no
     FMA contraction): t, mat and occlusion exact, normals rtol 1e-6."""
-    scene = tt.torus_mesh_scene(8, 4)
+    scene = tt.torus_mesh_scene(8, 4, device=CPU)
     o, d, tm, lam = _rays(scene, 2048, seed)
     fs = freeze_scene(scene)
     to = lambda x: tuple(torch.from_numpy(x))  # noqa: E731
@@ -238,7 +248,7 @@ def test_triangle_sweeps_match_tpurt(tp, seed):
 def test_scene_shadow_matches_tpurt(tp):
     """integrate._shadow (spheres with Fresnel, then triangles) against
     tpurt's shadow_attenuation: rtol 1e-6."""
-    scene = tt.torus_mesh_scene(8, 4)
+    scene = tt.torus_mesh_scene(8, 4, device=CPU)
     o, d, tm, lam = _rays(scene, 2048, 3)
     got = integrate._shadow(freeze_scene(scene), tuple(torch.from_numpy(o)),
                             tuple(torch.from_numpy(d)), torch.from_numpy(tm),
@@ -255,7 +265,7 @@ def test_scene_shadow_matches_tpurt(tp):
 def test_chunked_sphere_sweeps_match_the_loop():
     """Past SPHERE_LOOP_MAX spheres the sweeps run chunked: the same
     nearest sphere bit for bit, the shadow product within rtol 1e-6."""
-    scene = tt.instanced_scene(120)
+    scene = tt.instanced_scene(120, device=CPU)
     fs = freeze_scene(scene)
     o, d, tm, lam = (torch.from_numpy(x) for x in _rays(scene, 1024, 4))
     o, d = tuple(o), tuple(d)
@@ -289,7 +299,7 @@ def test_tri_tables_invariants(leaf, width, sah):
     """Every triangle in exactly one leaf, its record equal to the scene's
     arrays at its scene index; every child box inside its parent's and
     every leaf box around its triangles."""
-    scene = tt.torus_mesh_scene(16, 8)
+    scene = tt.torus_mesh_scene(16, 8, device=CPU)
     a, e1, e2, n, mat = (getattr(scene, f"tri_{k}").numpy()
                          for k in ("a", "e1", "e2", "n", "mat"))
     rec, nodes = bvh.build_tri_bvh_tables(a, e1, e2, n, mat, leaf, sah,
@@ -362,7 +372,7 @@ def _grid_quads():
     mesh.add_triangles(np.asarray(verts, np.float32),
                        np.asarray(faces, np.int32))
     return tt.build_scene([tt.Material.diffuse((0.5, 0.5, 0.5))], [], [mesh],
-                          [])
+                          [], device=CPU)
 
 
 def _nan_plane_rays(n=256):
@@ -382,7 +392,7 @@ def test_walk_reaches_every_winner(width, rays):
     nearest triangle lies in a leaf the walk reaches under the final cap,
     and so does an occluder whenever one exists under t_max."""
     scene = _grid_quads() if rays == "nan_planes" \
-        else tt.torus_mesh_scene(16, 8)
+        else tt.torus_mesh_scene(16, 8, device=CPU)
     fs = freeze_scene(scene)
     if rays == "random":
         o, d, tm, _ = _rays(scene, 400, 7)
@@ -415,7 +425,7 @@ def test_walk_reaches_every_winner(width, rays):
 
 
 def test_sphere_split_and_tables_equal_tpurt(tp):
-    fs = freeze_scene(tt.instanced_scene(200))
+    fs = freeze_scene(tt.instanced_scene(200, device=CPU))
     from tpurt.kernels import mega_pallas
     j_fs = mega_pallas.freeze_scene(tp.tpurt.scene.instanced_scene(200))
     always, tree = bvh.split_huge_spheres(fs.spheres)
@@ -459,7 +469,7 @@ def test_stack_proofs_raise():
 
 
 def test_walk_modes_follow_tpurt_predicates():
-    fs = freeze_scene(tt.torus_mesh_scene(8, 4))        # 64 triangles
+    fs = freeze_scene(tt.torus_mesh_scene(8, 4, device=CPU))        # 64 triangles
     cfg = tt.RenderConfig(backend="pallas")
     assert bvh.use_tri_walk(fs, cfg)
     assert not bvh.use_tri_walk(fs, cfg.with_(pallas_static_unroll=64))
@@ -478,7 +488,7 @@ def test_walk_modes_follow_tpurt_predicates():
 
 
 def test_probe_on_cpu_is_the_plain_version():
-    scene = tt.torus_mesh_scene(8, 4)
+    scene = tt.torus_mesh_scene(8, 4, device=CPU)
     o, d, tm, lam = (torch.from_numpy(x) for x in _rays(scene, 512, 5))
     before = bvh.LAUNCHES
     t, loc, n, mat, atten = bvh.probe(scene, tt.RenderConfig(), o, d, tm,
@@ -542,7 +552,7 @@ def _walk_vs_plain(scene, cfg, o, d, tm, lam, exact_atten=True):
 @pytest.mark.gpu
 @pytest.mark.parametrize("leaf,width", [(64, 0), (64, 8), (4, 0)])
 def test_walk_matches_brute_force_on_cuda(cuda, leaf, width):
-    scene = tt.torus_mesh_scene(45, 45).to(cuda)
+    scene = tt.torus_mesh_scene(45, 45, device=cuda)
     cfg = tt.RenderConfig(backend="pallas", pallas_bvh_leaf=leaf,
                           pallas_bvh_width=width)
     rays = [torch.from_numpy(x).to(cuda) for x in _rays(scene, 65536, 11)]
@@ -552,7 +562,7 @@ def test_walk_matches_brute_force_on_cuda(cuda, leaf, width):
 
 @pytest.mark.gpu
 def test_sphere_walk_matches_brute_force_on_cuda(cuda):
-    scene = tt.instanced_scene(4096).to(cuda)
+    scene = tt.instanced_scene(4096, device=cuda)
     cfg = tt.RenderConfig(backend="pallas", pallas_sphere_bvh=True,
                           pallas_bvh_leaf=16, pallas_bvh_width=8)
     rays = [torch.from_numpy(x).to(cuda) for x in _rays(scene, 65536, 12)]

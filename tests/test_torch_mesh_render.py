@@ -22,6 +22,10 @@ from tpurt_torch.kernels import mega_regen
 from tpurt_torch.render import state_to_planes
 from tpurt_torch.scene import freeze_scene
 
+# the port builds on the CUDA card by default: these tests ask for the CPU
+CPU = "cpu"
+
+
 torch.set_num_threads(1)
 
 TORUS_CAM = ((0.0, 3.0, -6.0), (0.0, 1.5, 0.0))
@@ -54,9 +58,9 @@ def _render_both(tp, scene, kw, port_kw, cam, seed, spp):
                                                        aspect_ratio=aspect),
                            tp.tpurt.init_state(cfg_j), seed, spp)
     cfg = tt.RenderConfig(**kw, **port_kw)
-    st = tt.render(getattr(tt, scene[0])(*scene[1]), cfg,
+    st = tt.render(getattr(tt, scene[0])(*scene[1], device=CPU), cfg,
                    tt.make_camera(*cam, vfov=55.0, aspect_ratio=aspect),
-                   tt.init_state(cfg), seed, spp)
+                   tt.init_state(cfg, device=CPU), seed, spp)
     return (int(float(st_j.rays)), st, cfg,
             np.asarray(tp.tpurt.resolve_image(cfg_j, st_j)),
             tt.resolve_image(cfg, st).numpy())
@@ -88,14 +92,14 @@ def test_mesh_backends_agree_on_cpu():
     """backend="xla" and "pallas" run the same plain code on the CPU: the
     same state bit for bit on a mesh scene, whatever the walk knobs."""
     cam = tt.make_camera(*TORUS_CAM, vfov=55.0, aspect_ratio=2.0)
-    scene = tt.torus_mesh_scene(8, 4)
+    scene = tt.torus_mesh_scene(8, 4, device=CPU)
     out = []
     for kw in (dict(backend="xla"),
                dict(backend="pallas", pallas_bvh_width=8,
                     pallas_static_unroll=8, pallas_bvh_sah=True)):
         cfg = tt.RenderConfig(width=24, height=12, depth=4, k_photons=2,
                               max_photon_bounces=3, **kw)
-        out.append(tt.render(scene, cfg, cam, tt.init_state(cfg), 5, 2))
+        out.append(tt.render(scene, cfg, cam, tt.init_state(cfg, device=CPU), 5, 2))
     assert int(out[0].rays) == int(out[1].rays) > 0
     n = 24 * 12     # the two backends pad the state to other sizes
     assert torch.equal(out[0].rgb_sum[:n], out[1].rgb_sum[:n])
@@ -115,8 +119,8 @@ def test_wavefront_backends_on_mesh_match_tpurt(tp):
     cam = tt.make_camera(*TORUS_CAM, vfov=55.0, aspect_ratio=2.0)
     for backend in ("wavefront_pallas", "wavefront_fused"):
         cfg = tt.RenderConfig(backend=backend, wf_pool=512, **kw)
-        sk = tt.render(tt.torus_mesh_scene(8, 4), cfg, cam,
-                       tt.init_state(cfg), 42, 3)
+        sk = tt.render(tt.torus_mesh_scene(8, 4, device=CPU), cfg, cam,
+                       tt.init_state(cfg, device=CPU), 42, 3)
         assert int(sk.rays) == rays_j, backend
         assert torch.equal(sk.n_samples[:cfg.n_pixels], st.n_samples[
             :cfg.n_pixels])
@@ -137,9 +141,9 @@ def test_matches_tpurt_regen_kernel_bvh_interpret(tp):
                                              aspect_ratio=2.0),
                         tp.tpurt.init_state(cfg_j), 1234, 1)
     cfg = tt.RenderConfig(**kw)
-    st = tt.render(tt.torus_mesh_scene(8, 4), cfg,
+    st = tt.render(tt.torus_mesh_scene(8, 4, device=CPU), cfg,
                    tt.make_camera(*TORUS_CAM, vfov=55.0, aspect_ratio=2.0),
-                   tt.init_state(cfg), 1234, 1)
+                   tt.init_state(cfg, device=CPU), 1234, 1)
     assert int(st.rays) == int(float(st_j.rays)) > 0
 
 
@@ -148,7 +152,7 @@ def test_matches_tpurt_regen_kernel_bvh_interpret(tp):
 def test_mesh_regen_kernel_matches_plain(cuda, leaf, width):
     """The regen kernel through the triangle walk against render_plain on
     the card: the same segments and every state plane bit for bit."""
-    scene = tt.torus_mesh_scene(45, 45).to(cuda)
+    scene = tt.torus_mesh_scene(45, 45, device=cuda)
     cfg = tt.RenderConfig(width=64, height=32, depth=8, backend="pallas",
                           pallas_bvh_leaf=leaf, pallas_bvh_width=width)
     cam = tt.make_camera(*TORUS_CAM, vfov=55.0, aspect_ratio=2.0)

@@ -22,6 +22,10 @@ from tpurt_torch.ops import soa as ts
 from tpurt_torch.ops import spectra as tspec
 from tpurt_torch.scene import cornell_spheres_scene, freeze_scene
 
+# the port builds on the CUDA card by default: these tests ask for the CPU
+CPU = "cpu"
+
+
 # small tensors: one intra-op thread per test worker avoids oversubscribing
 # the cores that pytest-xdist's workers share
 torch.set_num_threads(1)
@@ -165,7 +169,7 @@ def _rays(seed):
 def test_closest_sphere_matches_static_sweep(seed):
     (o_t, d_t), (o_j, d_j) = _rays(seed)
     t_t, loc_t, n_t, m_t = tint.closest_sphere(
-        freeze_scene(cornell_spheres_scene()).spheres, o_t, d_t)
+        freeze_scene(cornell_spheres_scene(device=CPU)).spheres, o_t, d_t)
     t_j, loc_j, n_j, m_j = mega_pallas._closest_sphere_static(
         mega_pallas.freeze_scene(j_cornell()).spheres, o_j, d_j)
     np.testing.assert_array_equal(m_t.numpy(), np.asarray(m_j))
@@ -182,7 +186,7 @@ def test_shadow_matches_static_sweep(seed):
     rs = np.random.default_rng(seed + 100)
     tmax = rs.uniform(0.1, 20.0, N).astype(np.float32)
     lam = rs.uniform(380.0, 780.0, N).astype(np.float32)
-    got = tint.shadow_spheres(freeze_scene(cornell_spheres_scene()).spheres,
+    got = tint.shadow_spheres(freeze_scene(cornell_spheres_scene(device=CPU)).spheres,
                               o_t, d_t, torch.from_numpy(tmax),
                               torch.from_numpy(lam))
     want = mega_pallas._shadow_static(

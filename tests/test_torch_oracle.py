@@ -17,6 +17,10 @@ import tpurt_torch as tt
 from tpurt_torch.ops.rng import frame_seed
 from wgsl_oracle import render_oracle, scene_from_tpurt
 
+# the port builds on the CUDA card by default: these tests ask for the CPU
+CPU = "cpu"
+
+
 pytestmark = pytest.mark.slow
 
 
@@ -27,7 +31,7 @@ def _compare(scene, cam, W, H, D, N, base_seed, mean_tol=0.02):
     omean, ovar = render_oracle(scene_from_tpurt(scene), cam, W, H, D, seeds,
                                 track_var=True)
     cfg = tt.RenderConfig(width=W, height=H, depth=D, tile_size=W * H)
-    st = tt.render(scene, cfg, cam, tt.init_state(cfg), base_seed, N)
+    st = tt.render(scene, cfg, cam, tt.init_state(cfg, device=CPU), base_seed, N)
     timg = st.rgb_sum[:W * H].numpy().reshape(H, W, 3) / N
     z = np.abs(timg - omean) / np.maximum(2.0 * np.sqrt(ovar), 1e-3)
     assert (z > 5.0).mean() == 0.0, (
@@ -53,7 +57,7 @@ def test_mesh_scene_matches_reference():
     spheres = [tt.Sphere(0, 1000.0, (0.0, -1000.0, 0.0))]
     lights = [tt.Light.point((0.0, 4.0, -3.0), (1.0, 1.0, 0.9), 30.0,
                              5500.0)]
-    scene = tt.build_scene(materials, spheres, [mesh], lights)
+    scene = tt.build_scene(materials, spheres, [mesh], lights, device=CPU)
     cam = tt.make_camera((0.0, 1.5, -5.0), (0.0, 1.0, 0.0), vfov=70.0,
                          aspect_ratio=16 / 9)
     omean, _ = _compare(scene, cam, 16, 9, 6, 250, base_seed=555)

@@ -18,6 +18,10 @@ from tpurt_torch import tonemap as tm
 from tpurt_torch.interop import state_to_numpy
 from tpurt_torch.kernels import tonemap as blit
 
+# the port builds on the CUDA card by default: these tests ask for the CPU
+CPU = "cpu"
+
+
 # small tensors: one intra-op thread per test worker avoids oversubscribing
 # the cores that pytest-xdist's workers share
 torch.set_num_threads(1)
@@ -52,7 +56,7 @@ def _small(backend="pallas", **kw):
     cfg = tt.RenderConfig(width=32, height=16, depth=4, k_photons=2,
                           max_photon_bounces=3, backend=backend, **kw)
     cam = tt.make_camera(**CAM, aspect_ratio=2.0)
-    return cfg, tt.cornell_spheres_scene(), cam
+    return cfg, tt.cornell_spheres_scene(device=CPU), cam
 
 
 def _assert_states_equal(a, b):
@@ -68,8 +72,8 @@ def _assert_states_equal(a, b):
 def test_continuation_4_plus_4_equals_8(backend):
     """Exact (tolerance 0): sample seeds come from the iteration count."""
     cfg, scene, cam = _small(backend)
-    st8 = tt.render(scene, cfg, cam, tt.init_state(cfg), 1234, 8)
-    st = tt.render(scene, cfg, cam, tt.init_state(cfg), 1234, 4)
+    st8 = tt.render(scene, cfg, cam, tt.init_state(cfg, device=CPU), 1234, 8)
+    st = tt.render(scene, cfg, cam, tt.init_state(cfg, device=CPU), 1234, 4)
     for _ in range(4):
         st = tt.render_step(scene, cfg, cam, st, 1234)
     _assert_states_equal(st, st8)
@@ -78,39 +82,39 @@ def test_continuation_4_plus_4_equals_8(backend):
 
 def test_preview_depth_and_uncounted_rays():
     cfg, scene, cam = _small()
-    st = tt.render_step(scene, cfg, cam, tt.init_state(cfg), 3, depth=1)
-    full = tt.render_step(scene, cfg, cam, tt.init_state(cfg), 3)
+    st = tt.render_step(scene, cfg, cam, tt.init_state(cfg, device=CPU), 3, depth=1)
+    full = tt.render_step(scene, cfg, cam, tt.init_state(cfg, device=CPU), 3)
     assert st.iteration == 1 and 0 < int(st.rays) < int(full.rays)
     assert bool(torch.isfinite(tt.resolve_image(cfg, st)).all())
     off = cfg.with_(count_rays=False)
-    assert int(tt.render(scene, off, cam, tt.init_state(off), 3, 1).rays) == 0
+    assert int(tt.render(scene, off, cam, tt.init_state(off, device=CPU), 3, 1).rays) == 0
     with pytest.raises(ValueError):
-        tt.render_step(scene, cfg, cam, tt.init_state(cfg), 3, depth=0)
+        tt.render_step(scene, cfg, cam, tt.init_state(cfg, device=CPU), 3, depth=0)
 
 
 def test_checkpoint_from_tpurt(tp, tmp_path):
     """tpurt.save_checkpoint -> tpurt_torch.load_checkpoint, then resume:
     equal to rendering straight through (exact)."""
     cfg, scene, cam = _small()
-    st4 = tt.render(scene, cfg, cam, tt.init_state(cfg), 99, 4)
+    st4 = tt.render(scene, cfg, cam, tt.init_state(cfg, device=CPU), 99, 4)
     j_state = tp.render.RenderState(**{
         k: tp.jnp.asarray(v) for k, v in state_to_numpy(st4).items()})
     path = str(tmp_path / "from_tpurt")
     tp.render.save_checkpoint(path, tp.tpurt.RenderConfig(
         **dataclasses.asdict(cfg)), j_state)
-    cfg2, st = tt.load_checkpoint(path)
+    cfg2, st = tt.load_checkpoint(path, device=CPU)
     assert cfg2 == cfg
     # tpurt's own float32 ray count holds this small count exactly
     _assert_states_equal(st, st4)
     resumed = tt.render(scene, cfg2, cam, st, 99, 4)
     _assert_states_equal(resumed, tt.render(scene, cfg, cam,
-                                            tt.init_state(cfg), 99, 8))
+                                            tt.init_state(cfg, device=CPU), 99, 8))
 
 
 def test_checkpoint_to_tpurt(tp, tmp_path):
     """tpurt_torch.save_checkpoint -> tpurt.load_checkpoint (exact)."""
     cfg, scene, cam = _small()
-    st = tt.render(scene, cfg, cam, tt.init_state(cfg), 5, 3)
+    st = tt.render(scene, cfg, cam, tt.init_state(cfg, device=CPU), 5, 3)
     path = str(tmp_path / "to_tpurt.npz")
     tt.save_checkpoint(path, cfg, st)
     cfg_j, st_j = tp.render.load_checkpoint(path)
@@ -132,7 +136,7 @@ def test_resolve_image_matches_tpurt_blit(tp, key, sat):
     P = 512
     rgb = rs.normal(0.0, 3.0, (P, 3)).astype(np.float32)
     cnt = rs.integers(0, 9, P).astype(np.float32)
-    st = tt.init_state(cfg)
+    st = tt.init_state(cfg, device=CPU)
     st = dataclasses.replace(st, rgb_sum=torch.from_numpy(rgb),
                              n_samples=torch.from_numpy(cnt))
     got = tt.resolve_image(cfg, st, key=key, saturation=sat).numpy()
@@ -151,7 +155,7 @@ def test_resolve_image_matches_tpurt_blit(tp, key, sat):
 
 def test_resolve_radiance():
     cfg, scene, cam = _small()
-    st = tt.render(scene, cfg, cam, tt.init_state(cfg), 8, 2)
+    st = tt.render(scene, cfg, cam, tt.init_state(cfg, device=CPU), 8, 2)
     rad = tt.resolve_radiance(cfg, st)
     n = cfg.n_pixels
     want = (st.rgb_sum[:n] / 2.0).reshape(cfg.height, cfg.width, 3)
@@ -162,7 +166,7 @@ def test_resolve_radiance():
 def test_state_size_mismatch_raises():
     cfg, scene, cam = _small()
     with pytest.raises(ValueError):
-        tt.render(scene, cfg, cam, tt.init_state(cfg.with_(height=64)), 1, 1)
+        tt.render(scene, cfg, cam, tt.init_state(cfg.with_(height=64), device=CPU), 1, 1)
 
 
 @pytest.mark.gpu
@@ -179,3 +183,26 @@ def test_blit_kernel_bit_exact(cuda, key, sat):
     assert blit.LAUNCHES == before + 1
     want = tm.tonemap(tm.resolve(rgb[:n], cnt[:n]), key, sat)
     assert torch.equal(got, want)
+
+
+def test_default_device_needs_cuda(monkeypatch):
+    """The entry points build on the card unless asked for the CPU: with
+    no CUDA device they raise, never fall back."""
+    from tpurt_torch.interop import state_from_numpy
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tt.RenderConfig(width=16, height=8)
+    for make in (lambda: tt.init_state(cfg), tt.cornell_spheres_scene,
+                 lambda: tt.torus_mesh_scene(4, 3),
+                 lambda: state_from_numpy(state_to_numpy(
+                     tt.init_state(cfg, device=CPU)))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert tt.init_state(cfg, device=CPU).device.type == "cpu"
+    assert tt.cornell_spheres_scene(device=CPU).device.type == "cpu"
+
+
+@pytest.mark.gpu
+def test_default_device_is_the_card(cuda):
+    cfg = tt.RenderConfig(width=16, height=8)
+    assert tt.init_state(cfg).device == torch.device("cuda:0")
+    assert tt.cornell_spheres_scene().device == torch.device("cuda:0")

@@ -18,6 +18,15 @@ from tpurt_torch.config import check_slice
 from tpurt_torch.interop import camera_from_numpy, scene_from_numpy
 from tpurt_torch.render import padded_pixels
 
+# the port builds on the CUDA card by default: these tests ask for the CPU
+CPU = "cpu"
+
+
+def _dev(pkg):
+    """device=CPU for the port's scene builders; tpurt's take none."""
+    return {"device": CPU} if pkg is tt else {}
+
+
 
 def test_render_config_fields_and_defaults():
     want = [(f.name, f.default) for f in dataclasses.fields(tpurt.RenderConfig)]
@@ -52,7 +61,7 @@ def _scene_arrays(scene):
 @pytest.mark.parametrize("name", ["cornell_spheres_scene", "default_scene"])
 def test_stock_scenes_equal(name):
     want = _scene_arrays(getattr(tpurt, name)())
-    got = _scene_arrays(getattr(tt, name)())
+    got = _scene_arrays(getattr(tt, name)(device=CPU))
     for k in want:
         assert got[k].dtype == want[k].dtype, k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
@@ -69,14 +78,15 @@ def test_build_scene_equal_with_metal_and_point_light():
         lights = [pkg.Light.point((0.0, 6.0, 0.0), (1.0, 0.9, 0.8), 40.0),
                   pkg.Light.square_area((2.0, 5.0, 1.0), (0.3, 1.0, 0.1),
                                         0.8, (1.0, 1.0, 1.0), 5.0, 4000.0)]
-        return pkg.build_scene(mats, sph, [], lights)
+        return pkg.build_scene(mats, sph, [], lights, **_dev(pkg))
     want = _scene_arrays(build(tpurt))
     got = _scene_arrays(build(tt))
     for k in want:
         np.testing.assert_array_equal(np.asarray(got[k]), want[k], err_msg=k)
     # and through the NumPy interchange
     via = _scene_arrays(scene_from_numpy(
-        {k: np.asarray(v) for k, v in vars(build(tpurt)).items()}))
+        {k: np.asarray(v) for k, v in vars(build(tpurt)).items()},
+        device=CPU))
     for k in want:
         np.testing.assert_array_equal(np.asarray(via[k]), want[k], err_msg=k)
 
@@ -88,13 +98,13 @@ def test_meshes_load(tmp_path):
     obj.write_text("v 0 0 0\nv 1 0 0\nv 1 1 0\nv 0 1 0.5\nv 0.5 2 0\n"
                    "f 1 2 3 4\nf -3 -2 -1\n")
     want = _scene_arrays(tpurt.default_scene(str(obj)))
-    got = _scene_arrays(tt.default_scene(str(obj)))
+    got = _scene_arrays(tt.default_scene(str(obj), device=CPU))
     assert want["tri_a"].shape == (3, 3)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     j_tri = tpurt.scene.tri_test_scene()
     via = _scene_arrays(scene_from_numpy(
-        {k: np.asarray(v) for k, v in vars(j_tri).items()}))
+        {k: np.asarray(v) for k, v in vars(j_tri).items()}, device=CPU))
     for k, v in _scene_arrays(j_tri).items():
         np.testing.assert_array_equal(via[k], v, err_msg=k)
 
@@ -116,11 +126,11 @@ def test_make_camera_equal(args):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(hero_wavelengths=4), dict(photon_strata=16), dict(qmc=True),
+    dict(motion_blur=True), dict(photon_aim=0.5), dict(qmc=True),
     dict(aperture=0.3), dict(light_sample="power"), dict(use_bvh=True),
     dict(pallas_mxu_leaf=True),
     dict(backend="wavefront_fused", sky_intensity=1.0),
-    dict(backend="pallas", pallas_regen=False),
+    dict(backend="pallas", radiance_clamp=4.0),
     dict(count_iters=True), dict(photon_rr_scale=0.5),
 ])
 def test_flags_outside_the_slice_raise(kw):
@@ -137,13 +147,19 @@ def test_slice_and_scheduling_flags_accepted():
         tile_size=1024, pallas_lanes=1024, pallas_block_tiles=False,
         pallas_regen_drift=1, pallas_regen_drift_cam=2,
         pallas_cluster_size=0, pallas_tri_clip=False, wf_chunk_sort=True,
-        wf_pool=4096, wf_max_sweeps=64))
+        wf_pool=4096, wf_max_sweeps=64, pallas_regen=False,
+        pallas_phase_split_votes=True, hero_wavelengths=4,
+        dispersion_in_camera_path=True, photon_strata=16,
+        photon_strata_dir=4096, photon_strata_shared_k=True,
+        photon_strata_bounce=True, photon_strata_window=16,
+        camera_strata_bounce=True))
 
 
 def test_import_leaves_jax_out():
     code = ("import sys, tpurt_torch, tpurt_torch.interop, "
             "tpurt_torch.kernels.mega_regen, tpurt_torch.kernels.tonemap, "
             "tpurt_torch.kernels.wavefront_sweep, "
+            "tpurt_torch.kernels.mega_step, tpurt_torch.device, "
             "tpurt_torch.kernels.wavefront_fused, tpurt_torch.adaptive, "
             "tpurt_torch.accel, tpurt_torch.utils.obj, "
             "tpurt_torch.kernels.bvh; "

@@ -41,6 +41,15 @@ from tpurt_torch.kernels import wavefront_fused, wavefront_sweep
 from tpurt_torch.ops.rng import frame_seed
 from tpurt_torch.scene import freeze_scene
 
+# the port builds on the CUDA card by default: these tests ask for the CPU
+CPU = "cpu"
+
+
+def _dev(pkg):
+    """device=CPU for the port's scene builders; tpurt's take none."""
+    return {"device": CPU} if pkg is tt else {}
+
+
 # small tensors: one intra-op thread per test worker avoids oversubscribing
 # the cores that pytest-xdist's workers share
 torch.set_num_threads(1)
@@ -83,7 +92,7 @@ def _setup(pkg, scene="cornell", **kw):
     kw = {"width": 48, "height": 24, "depth": 4, "tile_size": 1152,
           "enable_photons": False, **kw}
     name, cam = SCENES[scene]
-    return (pkg.RenderConfig(**kw), getattr(pkg, name)(),
+    return (pkg.RenderConfig(**kw), getattr(pkg, name)(**_dev(pkg)),
             pkg.make_camera(**cam, aspect_ratio=kw["width"] / kw["height"]))
 
 
@@ -98,8 +107,8 @@ def _image_rule(a, b):
 def test_dispersive_scene_equal_through_interop(tp):
     want = tp.tpurt.dispersive_scene()
     got = scene_from_numpy({f.name: np.asarray(getattr(want, f.name))
-                            for f in dataclasses.fields(want)})
-    mine = tt.dispersive_scene()
+                            for f in dataclasses.fields(want)}, device=CPU)
+    mine = tt.dispersive_scene(device=CPU)
     for f in dataclasses.fields(tt.Scene):
         a, b = getattr(mine, f.name), getattr(got, f.name)
         assert a.dtype == b.dtype and torch.equal(a, b), f.name
@@ -124,7 +133,7 @@ def test_wavefront_matches_tpurt(tp, scene):
     st_j = tp.wf.wavefront_render(scene_j, cfg_j, cam_j,
                                   tp.render.init_state(cfg_j), 42, 3)
     cfg, sc, cam = _setup(tt, scene, wf_pool=2048)
-    st = tt.wavefront_render(sc, cfg, cam, tt.init_state(cfg), 42, 3)
+    st = tt.wavefront_render(sc, cfg, cam, tt.init_state(cfg, device=CPU), 42, 3)
     assert int(st.rays) == int(float(st_j.rays)) > 0
     n = cfg.n_pixels
     np.testing.assert_array_equal(st.n_samples.numpy(),
@@ -141,7 +150,7 @@ def test_ray_count_14210(backend):
     trace 14210 too)."""
     cfg, scene, cam = _setup(tt, wf_pool=2048, pallas_lanes=512,
                              backend=backend)
-    st = tt.render(scene, cfg, cam, tt.init_state(cfg), 42, 3)
+    st = tt.render(scene, cfg, cam, tt.init_state(cfg, device=CPU), 42, 3)
     assert int(st.rays) == 14210
     assert bool((st.n_samples[:cfg.n_pixels] == 3.0).all())
 
@@ -151,7 +160,7 @@ def test_pool_size_invariance():
     out = []
     for q in (256, 4096):
         cfg, scene, cam = _setup(tt, wf_pool=q)
-        out.append(tt.wavefront_render(scene, cfg, cam, tt.init_state(cfg),
+        out.append(tt.wavefront_render(scene, cfg, cam, tt.init_state(cfg, device=CPU),
                                        9, 2))
     assert int(out[0].rays) == int(out[1].rays) > 0
     n = cfg.n_pixels
@@ -163,9 +172,9 @@ def test_pool_size_invariance():
 def test_continuation_2_plus_2_equals_4():
     """The second call's samples continue at the carried iteration."""
     cfg, scene, cam = _setup(tt, wf_pool=2048)
-    st_a = tt.wavefront_render(scene, cfg, cam, tt.init_state(cfg), 42, 2)
+    st_a = tt.wavefront_render(scene, cfg, cam, tt.init_state(cfg, device=CPU), 42, 2)
     st_a = tt.wavefront_render(scene, cfg, cam, st_a, 42, 2)
-    st_b = tt.wavefront_render(scene, cfg, cam, tt.init_state(cfg), 42, 4)
+    st_b = tt.wavefront_render(scene, cfg, cam, tt.init_state(cfg, device=CPU), 42, 4)
     assert st_a.iteration == st_b.iteration == 4
     assert int(st_a.rays) == int(st_b.rays) > 0
     n = cfg.n_pixels
@@ -176,10 +185,10 @@ def test_continuation_2_plus_2_equals_4():
 
 def test_every_pixel_gets_spp_samples():
     cfg, scene, cam = _setup(tt, wf_pool=512)   # pool << pixel count
-    st = tt.wavefront_render(scene, cfg, cam, tt.init_state(cfg), 7, 2)
+    st = tt.wavefront_render(scene, cfg, cam, tt.init_state(cfg, device=CPU), 7, 2)
     assert bool((st.n_samples[:cfg.n_pixels] == 2.0).all())
     assert bool((st.vis_pos == 0.0).all())      # no photon pass
-    assert st.photon_radius == tt.init_state(cfg).photon_radius
+    assert st.photon_radius == tt.init_state(cfg, device=CPU).photon_radius
 
 
 def test_slabs_draw_the_whole_image_samples():
@@ -188,11 +197,11 @@ def test_slabs_draw_the_whole_image_samples():
     whole-image render's segments; each slab's image equals the whole
     image's rows up to the order of the splat (rtol 1e-5, atol 1e-5)."""
     cfg, scene, cam = _setup(tt, wf_pool=512)
-    whole = tt.wavefront_render(scene, cfg, cam, tt.init_state(cfg), 42, 2)
+    whole = tt.wavefront_render(scene, cfg, cam, tt.init_state(cfg, device=CPU), 42, 2)
     n, half = cfg.n_pixels, cfg.n_pixels // 2
     rays = 0
     for off, n_valid in ((0, half), (half, n - half), (n, 0)):
-        st = tt.init_state(cfg)
+        st = tt.init_state(cfg, device=CPU)
         st = dataclasses.replace(st, rgb_sum=st.rgb_sum[:half].clone(),
                                  n_samples=st.n_samples[:half].clone())
         st = wavefront.wavefront_render_slab(scene, cfg, cam, st, 42, 2, off,
@@ -208,7 +217,7 @@ def test_slabs_draw_the_whole_image_samples():
 
 def test_max_sweeps_bounds_the_loop():
     cfg, scene, cam = _setup(tt, wf_pool=512, wf_max_sweeps=3)
-    st = tt.wavefront_render(scene, cfg, cam, tt.init_state(cfg), 7, 2)
+    st = tt.wavefront_render(scene, cfg, cam, tt.init_state(cfg, device=CPU), 7, 2)
     assert 0 < int(st.rays) <= 3 * 512 * 2
     assert float(st.n_samples.sum()) < 2 * cfg.n_pixels
 
@@ -226,12 +235,12 @@ def test_render_dispatch(backend):
               "wavefront_fused": wavefront_fused.wavefront_render_fused
               }[backend]
     before = (wavefront_sweep.LAUNCHES, wavefront_fused.LAUNCHES)
-    st_d = tt.render(scene, cfg, cam, tt.init_state(cfg), 42, 2)
-    st_w = direct(scene, cfg, cam, tt.init_state(cfg), 42, 2)
+    st_d = tt.render(scene, cfg, cam, tt.init_state(cfg, device=CPU), 42, 2)
+    st_w = direct(scene, cfg, cam, tt.init_state(cfg, device=CPU), 42, 2)
     assert torch.equal(st_d.rgb_sum, st_w.rgb_sum)
     assert int(st_d.rays) == int(st_w.rays) > 0
-    step = tt.render_step(scene, cfg, cam, tt.init_state(cfg), 7)
-    preview = tt.render_step(scene, cfg, cam, tt.init_state(cfg), 7,
+    step = tt.render_step(scene, cfg, cam, tt.init_state(cfg, device=CPU), 7)
+    preview = tt.render_step(scene, cfg, cam, tt.init_state(cfg, device=CPU), 7,
                              depth=1)
     assert step.iteration == preview.iteration == 1
     assert 0 < int(preview.rays) < int(step.rays)
@@ -243,7 +252,7 @@ def test_camera_strata_rejected():
     cfg, scene, cam = _setup(tt, backend="wavefront",
                              camera_strata_bounce=True)
     with pytest.raises(ValueError, match="camera_strata_bounce"):
-        tt.render(scene, cfg, cam, tt.init_state(cfg), 1, 1)
+        tt.render(scene, cfg, cam, tt.init_state(cfg, device=CPU), 1, 1)
 
 
 def _spheres_scene(pkg):
@@ -266,7 +275,7 @@ def _spheres_scene(pkg):
                               5500.0),
               pkg.Light.square_area([4.0, 4.0, 2.0], [-1.0, -0.3, 0.0], 1.5,
                                     [1.0, 1.0, 1.0], 4.0, 3200.0)]
-    return pkg.build_scene(mats, sph, [], lights)
+    return pkg.build_scene(mats, sph, [], lights, **_dev(pkg))
 
 
 POOL_BOX = {"cornell": ((-4.0, 0.5, -4.0), (4.0, 9.5, 4.0)),
@@ -276,7 +285,7 @@ POOL_BOX = {"cornell": ((-4.0, 0.5, -4.0), (4.0, 9.5, 4.0)),
 
 def _scene(pkg, scene):
     return (_spheres_scene(pkg) if scene == "spheres"
-            else getattr(pkg, SCENES[scene][0])())
+            else getattr(pkg, SCENES[scene][0])(**_dev(pkg)))
 
 
 def _seeded_pool(scene: str, q: int, seed: int):
@@ -386,7 +395,7 @@ def test_matches_tpurt_sweep_kernel_interpret(tp):
         interpret=True)
     cfg, sc, cam = _setup(tt, "dispersive", wf_pool=1024, pallas_lanes=512,
                           backend="wavefront_pallas")
-    st = tt.render(sc, cfg, cam, tt.init_state(cfg), 42, 2)
+    st = tt.render(sc, cfg, cam, tt.init_state(cfg, device=CPU), 42, 2)
     assert int(st.rays) == int(float(st_j.rays)) > 0
     n = cfg.n_pixels
     _image_rule(st.rgb_sum.numpy()[:n], np.asarray(st_j.rgb_sum)[:n])
@@ -402,7 +411,7 @@ def test_matches_tpurt_fused_kernel_interpret(tp):
         interpret=True)
     cfg, sc, cam = _setup(tt, "dispersive", pallas_lanes=512,
                           backend="wavefront_fused")
-    st = tt.render(sc, cfg, cam, tt.init_state(cfg), 42, 2)
+    st = tt.render(sc, cfg, cam, tt.init_state(cfg, device=CPU), 42, 2)
     assert int(st.rays) == int(float(st_j.rays)) > 0
     n = cfg.n_pixels
     np.testing.assert_array_equal(st.n_samples.numpy()[:n],

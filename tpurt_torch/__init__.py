@@ -2,15 +2,19 @@
 
 A progressive spectral path tracer with an SPPM photon pass. It imports
 torch and NumPy, never JAX or tpurt; ``tpurt`` stays the reference the
-port is held against. The ported slice: sphere and mesh scenes (OBJ/MTL
-loading, tpurt's mesh presets, triangle and sphere BVH walks) with point
-and square area lights, diffuse/dielectric/metal materials, default flags
-and the BVH knobs,
-``backend="pallas"`` (the regen kernel, CUDA on the card),
+port is held against. Its entry points build on the CUDA card unless the
+caller passes ``device="cpu"``. The ported slice: sphere and mesh scenes
+(OBJ/MTL loading, tpurt's mesh presets, triangle and sphere BVH walks)
+with point and square area lights, diffuse/dielectric/metal materials,
+the BVH knobs and tpurt's sampler (hero wavelengths with the dispersive
+collapse, photon emission and bounce strata, camera bounce strata);
+``backend="pallas"`` (the regen kernel, CUDA on the card; with
+``pallas_regen=False`` the tile-synchronized kernel),
 ``backend="xla"`` (the eager-torch integrator), the three wavefront
 backends (``"wavefront"``, ``"wavefront_pallas"`` with the sweep kernel,
-``"wavefront_fused"`` with the fused kernel) and wavefront adaptive
-sampling (``render_adaptive``).
+``"wavefront_fused"`` with the fused kernel; these take no hero
+wavelengths yet) and adaptive sampling (``render_adaptive``; on
+``"pallas"`` through the regen kernel's budget mode).
 """
 
 from tpurt_torch.adaptive import render_adaptive, wavefront_render_budget

@@ -1,4 +1,5 @@
-"""Variance-adaptive sampling over the wavefront pool (``tpurt/adaptive.py``).
+"""Variance-adaptive sampling (``tpurt/adaptive.py``): the wavefront pool's
+budget renderer, and ``render_adaptive`` over every backend.
 
 ``wavefront_render_budget`` renders ``budgets[p]`` further samples for
 every pixel p, enumerating work round-major: one sample per still-hungry
@@ -9,9 +10,11 @@ schedule and the float adds are those of ``wavefront_render``: the states
 are equal to the bit. It is also the plain version of the fused kernel's
 budget mode (``kernels/wavefront_fused.py``).
 
-``render_adaptive`` runs it end to end: two half-pilot passes, a per-pixel
-noise proxy from their disagreement, then one budget drain that spends the
-remaining samples where the image is still noisy.
+``render_adaptive`` runs adaptive sampling end to end: two half-pilot
+passes, a per-pixel noise proxy from their disagreement, then one budget
+pass that spends the remaining samples where the image is still noisy;
+on ``backend="pallas"`` that pass is the regen kernel's budget mode
+(``kernels/mega_regen.py``), photons included.
 """
 
 from __future__ import annotations
@@ -76,7 +79,7 @@ def wavefront_render_budget_slab(scene, cfg, camera, state, base_seed,
     """``wavefront_render_budget`` over one pixel slab: ``state`` and
     ``budgets`` hold the slab's rows, RNG and camera coordinates add
     ``pix_offset``. ``sweep`` as in ``wavefront.wavefront_render_slab``."""
-    wavefront.reject_camera_strata(cfg)
+    wavefront.check_sampler(cfg)
     check_slice(cfg)
     wavefront._check_state(state, scene)
     if max_budget < 1:
@@ -169,11 +172,13 @@ def render_adaptive(scene, cfg, camera, base_seed=0, spp: int = 64,
     cap budget_cap * (spp - pilot_spp)). The state lives on the scene's
     device. Returns (state, budgets).
 
-    ``backend="wavefront_fused"`` runs both phases through the fused
-    kernel's wrappers, ``"wavefront_pallas"`` through the pool with the
-    sweep kernel, any other wavefront or ``"xla"`` backend through the
-    plain pool, as tpurt routes them. ``"pallas"`` (the regen kernel's
-    budget mode) is not ported yet."""
+    ``backend="pallas"`` runs the pilots through ``render`` (the regen
+    kernel) and the rest through the regen kernel's budget mode
+    (``kernels.mega_regen.render_budget_regen``): the full estimator,
+    photons included. ``"wavefront_fused"`` runs both phases through the
+    fused kernel's wrappers, ``"wavefront_pallas"`` through the pool with
+    the sweep kernel, any other wavefront or ``"xla"`` backend through the
+    plain pool (camera paths only), as tpurt routes them."""
     from tpurt_torch.render import init_state
     if pilot_spp < 2 or pilot_spp % 2:
         raise ValueError("pilot_spp must be an even count >= 2")
@@ -186,12 +191,13 @@ def render_adaptive(scene, cfg, camera, base_seed=0, spp: int = 64,
         raise ValueError("summed budget bound overflows int32: lower "
                          "budget_cap or split into several calls")
     if cfg.backend == "pallas":
-        raise NotImplementedError(
-            "render_adaptive with backend='pallas' needs the regen kernel's "
-            "budget mode (tpurt/kernels/mega_regen.py "
-            "_render_budget_regen_jit), not ported to tpurt_torch yet: use a "
-            "wavefront backend")
-    if cfg.backend == "wavefront_fused":
+        if not cfg.pallas_regen:
+            raise ValueError("adaptive sampling on backend='pallas' needs "
+                             "the regenerative kernel (pallas_regen=True)")
+        from tpurt_torch.kernels import mega_regen
+        from tpurt_torch.render import render
+        uniform_fn, budget_fn = render, mega_regen.render_budget_regen
+    elif cfg.backend == "wavefront_fused":
         from tpurt_torch.kernels import wavefront_fused as wf
         uniform_fn = wf.wavefront_render_fused
         budget_fn = wf.wavefront_render_budget_fused

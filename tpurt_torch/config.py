@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import dataclasses
 
+from tpurt_torch.ops import rng as rngmod
+
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
@@ -98,6 +100,12 @@ _SLICE_FIELDS = frozenset({
     "wf_pool", "wf_max_sweeps",
     "pallas_bvh", "pallas_bvh_leaf", "pallas_bvh_width", "pallas_bvh_sah",
     "pallas_sphere_bvh", "pallas_static_unroll",
+    # tpurt's sampler: on the regen and tile-sync kernels and backend="xla";
+    # the wavefront tracers reject hero wavelengths and camera-path
+    # dispersion (wavefront.check_sampler) and trace no photons
+    "hero_wavelengths", "dispersion_in_camera_path",
+    "photon_strata", "photon_strata_dir", "photon_strata_shared_k",
+    "photon_strata_bounce", "photon_strata_window", "camera_strata_bounce",
 })
 
 # Knobs tpurt documents as scheduling-only (bit-identical results): the
@@ -107,7 +115,7 @@ _SCHEDULING_FIELDS = frozenset({
     "pallas_cluster_size", "pallas_cluster_ordered", "pallas_tri_clip",
     "pallas_bvh_rows", "pallas_bvh_chunk", "pallas_chunk_prefetch",
     "pallas_chunk_interleave", "wf_chunk_sort", "pallas_bvh_chunk_threshold",
-    "tri_chunk", "sphere_chunk",
+    "tri_chunk", "sphere_chunk", "pallas_phase_split_votes",
 })
 
 _BACKENDS = ("xla", "pallas", "wavefront", "wavefront_pallas",
@@ -129,10 +137,14 @@ def check_slice(cfg: RenderConfig) -> None:
         raise NotImplementedError(
             f"RenderConfig.backend={cfg.backend!r} is not ported to "
             f"tpurt_torch yet (ported: {_BACKENDS})")
-    if cfg.backend == "pallas" and not cfg.pallas_regen:
-        raise NotImplementedError(
-            "RenderConfig.pallas_regen=False (the tile-synchronized "
-            "megakernel) is not ported to tpurt_torch yet")
+    if cfg.hero_wavelengths < 1:
+        raise ValueError(f"hero_wavelengths must be >= 1, got "
+                         f"{cfg.hero_wavelengths}")
+    if cfg.photon_strata:
+        n_pos, n_dir = rngmod.strata_counts(cfg)
+        rngmod._check_strata(n_pos, "photon_strata")
+        rngmod._check_strata(n_dir, "photon_strata_dir", wide=True)
+        rngmod.strata_epoch(cfg, 0)     # the window is a power of two
     if cfg.depth < 1 or cfg.max_photon_bounces < 1:
         raise ValueError("depth and max_photon_bounces must be >= 1")
     if cfg.backend.startswith("wavefront") and cfg.wf_pool < 1:

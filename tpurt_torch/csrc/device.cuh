@@ -1,5 +1,6 @@
-// Device math of the path kernels: vec3 helpers, the PCG stream, CIE and
-// blackbody emission, Fresnel, GGX, Oren-Nayar, sphere hits and shadows.
+// Device math of the path kernels: vec3 helpers, the PCG stream, tpurt's
+// strata cells and hero-wavelength tables, CIE and blackbody emission,
+// Fresnel, GGX, Oren-Nayar, sphere hits and shadows.
 //
 // Each function is the scalar twin of a plain PyTorch function of the port
 // (tpurt_torch/ops/*.py, tpurt_torch/integrate.py), itself a port of
@@ -23,7 +24,8 @@ namespace tpurt {
 constexpr int N_CIE = 81;
 constexpr int MAX_LIGHTS = 16;
 
-// scene table layout (float32), packed by tpurt_torch/kernels/mega_regen.py
+// scene table layout (float32), packed by tpurt_torch/kernels/mega_regen.py:
+// camera, spheres, materials, lights, then each light's hero table
 constexpr int CAM_FLOATS = 12;     // origin, horizontal, vertical, lower_left
 constexpr int SPH_STRIDE = 8;      // cx cy cz r2 mat mtype ior index
 constexpr int MAT_STRIDE = 8;      // r g b rough ior mtype - -
@@ -106,6 +108,117 @@ __device__ __forceinline__ uint32_t photon_stream(uint32_t seed, uint32_t x,
 __device__ __forceinline__ uint32_t frame_seed(uint32_t base, uint32_t it) {
   uint32_t x = base + 2654435761u * it;
   return rand_u32(x);
+}
+
+// ----- tpurt's sampler flags (tpurt/ops/rng.py, tpurt/ops/spectra.py) -----
+
+// Host-computed switches of a launch, filled by
+// tpurt_torch/kernels/mega_regen.py:sampler_args.
+struct Sampler {
+  int n_pos;          // emission position cells per axis (0: strata off)
+  int n_dir;          // direction cells per axis, emission and bounce
+  int shared_k;       // one emission cell for all K photons of a sample
+  int window;         // samples per strata epoch (a power of two)
+  int photon_bounce;  // photon bounce cells (photon_strata_bounce)
+  int camera_bounce;  // camera bounce cells (camera_strata_bounce)
+  int disp_cam;       // Cauchy IOR on camera paths
+  int hero;           // hero wavelengths C (1: one wavelength a sample)
+  int hero_nseg;      // segments of each light's hero table
+  float hero_delta;   // f32(400 / C): the table's period in nm
+  int collapse;       // track the collapse to the hero wavelength
+};
+
+// Whether a launch needs the sampler instance of a path kernel.
+inline bool sampler_on(const Sampler& S) {
+  return S.n_pos > 0 || S.hero > 1 || S.disp_cam;
+}
+
+constexpr uint32_t STRATA_OFFSET = 0xA511E9B3u;
+constexpr uint32_t STRATA_K_STEP = 0x632BE5ABu;
+constexpr uint32_t BOUNCE_OFFSET = 0x7F4A7C15u;
+constexpr uint32_t BOUNCE_STEP = 0x94D049BBu;
+constexpr uint32_t CAMERA_STRATA_K = 0x5BD1u;
+
+// (s + u) / n for cell s of n (inv = 1/n, exact: n is a power of two),
+// kept below 1: s + u rounds up to n when u is within an ulp of 1
+__device__ __forceinline__ float cell_remap(float u, uint32_t s, float inv) {
+  return fminf(((float)s + u) * inv, __int_as_float(0x3f7fffff));
+}
+
+// Photon k's emission uniforms moved into the (sample, k) cell of
+// `seed`, shared by every pixel (rng.apply_emission_strata): cone polar
+// uc and hemisphere angle uh1 share dir_a, cone azimuth up1 and
+// hemisphere radius uh2 dir_b, the quad position (ue1, ue2) (pos_u,
+// pos_v). Direction counts past 256 take their fields from a second word.
+__device__ __forceinline__ void emission_cells(uint32_t seed, uint32_t k,
+                                               int n_pos, int n_dir,
+                                               float& uc, float& up1,
+                                               float& ue1, float& ue2,
+                                               float& uh1, float& uh2) {
+  uint32_t s = seed + (STRATA_OFFSET + k * STRATA_K_STEP);
+  const uint32_t h = rand_u32(s);
+  const uint32_t mp = (uint32_t)n_pos - 1u, md = (uint32_t)n_dir - 1u;
+  uint32_t da, db;
+  if (n_dir <= 256) {
+    da = (h >> 16) & md;
+    db = (h >> 24) & md;
+  } else {
+    const uint32_t h2 = rand_u32(s);
+    da = h2 & md;
+    db = (h2 >> 16) & md;
+  }
+  const float inv_p = 1.0f / (float)n_pos, inv_d = 1.0f / (float)n_dir;
+  uc = cell_remap(uc, da, inv_d);
+  up1 = cell_remap(up1, db, inv_d);
+  ue1 = cell_remap(ue1, h & mp, inv_p);
+  ue2 = cell_remap(ue2, (h >> 8) & mp, inv_p);
+  uh1 = cell_remap(uh1, da, inv_d);
+  uh2 = cell_remap(uh2, db, inv_d);
+}
+
+// The hash key of the (sample, k, bounce) cell (rng.apply_bounce_strata);
+// camera paths use k = CAMERA_STRATA_K.
+__device__ __forceinline__ uint32_t bounce_key(uint32_t seed, uint32_t k,
+                                               uint32_t bounce) {
+  return seed + BOUNCE_OFFSET + k * STRATA_K_STEP + bounce * BOUNCE_STEP;
+}
+
+// A bounce's scatter uniforms (the u2 pair and the reflect/refract
+// choice) moved into the cell of `key`.
+__device__ __forceinline__ void bounce_cells(uint32_t key, int n_dir,
+                                             float& ua, float& ub,
+                                             float& uch) {
+  uint32_t s = key;
+  const uint32_t h = rand_u32(s);
+  const uint32_t md = (uint32_t)n_dir - 1u;
+  uint32_t a, b, c;
+  if (n_dir <= 256) {
+    a = h & md;
+    b = (h >> 8) & md;
+    c = (h >> 16) & md;
+  } else {
+    const uint32_t h2 = rand_u32(s);
+    a = h & md;
+    b = (h >> 16) & md;
+    c = h2 & md;
+  }
+  const float inv = 1.0f / (float)n_dir;
+  ua = cell_remap(ua, a, inv);
+  ub = cell_remap(ub, b, inv);
+  uch = cell_remap(uch, c, inv);
+}
+
+// Periodic lerp into one light's hero table, (n_seg + 1) rows of rgb over
+// one period `delta` (spectra.hero_emission_lookup).
+__device__ __forceinline__ V3 hero_lookup(const float* tab, int n_seg,
+                                          float delta, float lam) {
+  float t = (lam - F(380.0)) / delta;
+  float u = (t - floorf(t)) * (float)n_seg;
+  int i = min(max(__float2int_rz(u), 0), n_seg - 1);
+  float f = u - (float)i;
+  float g = 1.0f - f;
+  const float* a = tab + 3 * i;
+  return v3(a[0] * g + a[3] * f, a[1] * g + a[4] * f, a[2] * g + a[5] * f);
 }
 
 // ----- spectra (tpurt/ops/spectra.py) -----

@@ -1,13 +1,18 @@
 """The eager-torch lockstep integrator: spectral path tracing with
 next-event estimation plus the per-pixel SPPM photon pass.
 
-This is the plain PyTorch version of the regen kernel
-(``csrc/mega_regen.cu``) and the port's ``backend="xla"``. It ports
-``tpurt/integrate.py`` for sphere and mesh scenes with default flags, in the
-component form and op order of tpurt's kernel device code
-(``tpurt/kernels/mega_pallas.py``: ``nee_direct_c``, ``scatter_rr_c``,
-``_evaluate_bsdf_c``, ``_single_lambda_em_c``), so that it, tpurt and the
-CUDA kernel draw the same PCG streams and take the same branches.
+This is the plain PyTorch version of the path kernels
+(``csrc/mega_regen.cu``: the regen kernel in both modes, and the
+tile-synchronized kernel ``csrc/mega_step.cu``) and the port's
+``backend="xla"``. It ports ``tpurt/integrate.py`` for sphere and mesh
+scenes with tpurt's sampler flags (hero wavelengths with the collapse bit,
+dispersion on camera paths, photon emission and bounce strata, camera
+bounce strata), in the component form and op order of tpurt's kernel
+device code (``tpurt/kernels/mega_pallas.py``: ``nee_direct_c``,
+``scatter_rr_c``, ``_evaluate_bsdf_c``, ``_single_lambda_em_c``), so that
+it, tpurt and the CUDA kernels draw the same PCG streams and take the same
+branches. The hero emission comes from the host table
+(``ops.spectra.hero_emission_table``) that the kernels read too.
 
 All pixels advance in lockstep: per sample, the camera path of every
 pixel, then photon walk k = 0..K-1 of every pixel, then the accumulation.
@@ -26,9 +31,11 @@ from tpurt_torch.ops import soa as s
 from tpurt_torch.ops.bsdf import INV_PI, TWO_PI, fr_dielectric
 from tpurt_torch.ops.intersect import (HIT, closest_sphere, closest_triangle,
                                       occluded_triangle, shadow_spheres)
+from tpurt_torch.ops import rng as rngmod
 from tpurt_torch.ops.rng import frame_seed, photon_stream, rand_1f, seed_pixels
 from tpurt_torch.ops.spectra import (DISPERSION_B, blackbody,
-                                     sample_wavelength)
+                                     hero_emission_lookup,
+                                     hero_emission_table, sample_wavelength)
 from tpurt_torch.scene import EPS, PHOTON_CONE_COS, photon_power
 
 
@@ -83,6 +90,38 @@ def light_emission_rgb(fs, lam):
         else:
             out.append(tuple(lt.em_scale[c] * cie[c] for c in range(3)))
     return out
+
+
+def hero_count(cfg) -> int:
+    """C, the wavelengths that share a camera path (1: the reference)."""
+    return max(1, int(cfg.hero_wavelengths))
+
+
+def tracks_collapse(fs, cfg) -> bool:
+    """Whether a camera path can collapse to its hero wavelength: hero on,
+    dispersion on camera paths, and a dielectric in the scene (tpurt's
+    kernels' rule; without a dielectric the bit never sets)."""
+    return (hero_count(cfg) > 1 and cfg.dispersion_in_camera_path
+            and any(m.mtype == 1 for m in fs.materials))
+
+
+def hero_tables(fs, c: int) -> list:
+    """Each light's hero emission table for C wavelengths (host float32
+    NumPy), built once per frozen scene and C."""
+    key = ("hero", c)
+    if key not in fs.cache:
+        fs.cache[key] = [hero_emission_table(lt.color, lt.intensity, lt.temp,
+                                             c) for lt in fs.lights]
+    return fs.cache[key]
+
+
+def hero_emission_rgb(fs, cfg, lam):
+    """Per-light C-averaged emission at the hero wavelength, a list of L
+    vec3s: the lookup into each light's hero table."""
+    c = hero_count(cfg)
+    return [hero_emission_lookup(torch.from_numpy(tab).to(lam.device), c,
+                                 lam).unbind(-1)
+            for tab in hero_tables(fs, c)]
 
 
 def sample_direct_lighting(fs, loc, n, lam, rng, em):
@@ -263,15 +302,23 @@ def evaluate_bsdf(wo, wi, n, color, rough, eta, is_diff, is_metal):
 
 def scatter_and_rr(cfg, wo, n, loc, color, rough, eta, is_diffuse, is_metal,
                    tp, rng, camera_path: bool, any_dielectric: bool = True,
-                   any_metal: bool = True):
+                   any_metal: bool = True, bounce_strata=None):
     """The scatter + Russian roulette step (``scatter_rr_c``): 4 draws
     (u2a, u2b, u_choice, u_rr). ``eta`` is the dielectric IOR: the base
-    IOR on camera paths, the dispersed one on photon walks. Returns
-    (wi, new_tp, new_o, scat_ok, rr_live, rng)."""
+    IOR on camera paths (dispersed under dispersion_in_camera_path), the
+    dispersed one on photon walks. ``bounce_strata`` (strata seed, k,
+    bounce) moves (u2a, u2b, u_choice) into that bounce cell
+    (``rng.apply_bounce_strata``). Returns (wi, new_tp, new_o, scat_ok,
+    rr_live, rng)."""
     u2a, rng = rand_1f(rng)
     u2b, rng = rand_1f(rng)
     u_choice, rng = rand_1f(rng)
     u_rr, rng = rand_1f(rng)
+    if bounce_strata is not None:
+        b_seed, b_k, b_bounce = bounce_strata
+        u2a, u2b, u_choice = rngmod.apply_bounce_strata(
+            b_seed, b_k, b_bounce, rngmod.strata_counts(cfg)[1], u2a, u2b,
+            u_choice)
 
     wi, tpm = _diffuse_scatter(wo, n, color, rough, u2a, u2b)
     off = torch.full_like(u2a, EPS)
@@ -306,10 +353,14 @@ def _material_kinds(fs):
 
 
 def trace_camera_paths(fs, cfg, mats, o, d, lam, rng, depth: int, vis,
-                       valid, em):
+                       valid, em, em_hero=None, strata_seed=None):
     """One camera path per lane, up to ``depth`` bounces. The first
     diffuse hit of the path overwrites the lane's vispoint (``vis``, 13
-    planes: pos 3, norm 3, wo 3, tp 3, mat 1). Returns (rad, vis, rays)."""
+    planes: pos 3, norm 3, wo 3, tp 3, mat 1). ``em`` is the per-light
+    emission NEE adds (hero-averaged when C > 1); with ``em_hero`` (the
+    single-wavelength emission) a lane collapses to it on its first
+    dielectric hit. ``strata_seed`` keys the camera bounce cells under
+    camera_strata_bounce. Returns (rad, vis, rays)."""
     zero = torch.zeros_like(o[0])
     one = torch.ones_like(o[0])
     tp = (one, one, one)
@@ -317,10 +368,15 @@ def trace_camera_paths(fs, cfg, mats, o, d, lam, rng, depth: int, vis,
     vis = list(vis)
     active = valid.clone()
     vp_stored = torch.zeros_like(valid)
+    coll = torch.zeros_like(valid)
     rays = torch.zeros((), dtype=torch.int64, device=valid.device)
     n_lights = len(fs.lights)
     any_diel, any_metal = _material_kinds(fs)
-    for _ in range(depth):
+    cam_strata = bool(cfg.photon_strata and cfg.camera_strata_bounce)
+    if cfg.dispersion_in_camera_path:
+        lam_um = lam * 1e-3
+        cauchy_add = fdiv(DISPERSION_B, lam_um * lam_um)
+    for b in range(depth):
         if not bool(active.any()):
             break
         rays = rays + active.sum()
@@ -336,16 +392,23 @@ def trace_camera_paths(fs, cfg, mats, o, d, lam, rng, depth: int, vis,
         vis[12] = torch.where(store, mat.to(torch.float32), vis[12])
         vp_stored = vp_stored | store
 
-        direct, rng = sample_direct_lighting(fs, loc, n, lam, rng, em)
+        em_b = em if em_hero is None else [
+            s.vwhere(coll, h, a) for h, a in zip(em_hero, em)]
+        direct, rng = sample_direct_lighting(fs, loc, n, lam, rng, em_b)
         lane_d = active & found & is_diffuse
         nee = s.vmul(s.vmul(tp, color), direct)
         rad = s.vwhere(lane_d, s.vadd(rad, nee), rad)
         rays = rays + lane_d.sum() * n_lights
 
+        eta = ior + cauchy_add if cfg.dispersion_in_camera_path else ior
         wi, new_tp, new_o, scat_ok, rr_live, rng = scatter_and_rr(
-            cfg, wo, n, loc, color, rough, ior, is_diffuse, is_metal, tp,
+            cfg, wo, n, loc, color, rough, eta, is_diffuse, is_metal, tp,
             rng, camera_path=True, any_dielectric=any_diel,
-            any_metal=any_metal)
+            any_metal=any_metal, bounce_strata=(
+                (strata_seed, rngmod.CAMERA_STRATA_K, b) if cam_strata
+                else None))
+        if em_hero is not None:
+            coll = coll | (active & found & ~(is_diffuse | is_metal))
         cont = active & found & scat_ok & rr_live
         o = s.vwhere(cont, new_o, o)
         d = s.vwhere(cont, wi, d)
@@ -382,13 +445,17 @@ def _photon_emission(lt, cfg, u):
     return ko, kd, kt
 
 
-def trace_photons(fs, cfg, mats, lam, seed: int, px, py, vis, radius,
-                  valid, rad):
+def trace_photons(fs, cfg, mats, lam, seed, px, py, vis, radius, valid, rad,
+                  strata_seed=None):
     """The SPPM photon pass: K photons per lane, emitted round-robin over
     the lights, each from its own stream ``photon_stream(seed, px, py, k)``,
     adding density-estimated radiance into ``rad`` wherever they land
-    within ``radius`` (a float32 scalar) of the lane's vispoint. Lanes with
-    no vispoint (|pos| <= 0.001) emit nothing. Returns (rad, rays)."""
+    within ``radius`` (a float32 scalar, or one radius per lane) of the
+    lane's vispoint. Lanes with no vispoint (|pos| <= 0.001) emit nothing.
+    Under photon_strata the emission uniforms (and, with
+    photon_strata_bounce, each bounce's scatter uniforms) move into the
+    cells of ``strata_seed`` (default ``seed``). ``seed`` is an int or one
+    seed per lane. Returns (rad, rays)."""
     rays = torch.zeros((), dtype=torch.int64, device=valid.device)
     L = len(fs.lights)
     K = cfg.k_photons if (cfg.enable_photons and L > 0) else 0
@@ -401,20 +468,33 @@ def trace_photons(fs, cfg, mats, lam, seed: int, px, py, vis, radius,
     lam_um = lam * 1e-3
     cauchy_add = fdiv(DISPERSION_B, lam_um * lam_um)
     v_eta = v_ior + cauchy_add
-    r32 = np.float32(radius)
-    r = float(r32)
-    inv_pi_r2 = float(np.float32(1.0) / np.maximum(
-        np.float32(np.pi) * r32 * r32, np.float32(1e-10)))
+    if isinstance(radius, torch.Tensor):   # one radius per lane
+        r = radius
+        inv_pi_r2 = fdiv(1.0, (float(np.float32(np.pi)) * r * r)
+                         .clamp_min(1e-10))
+    else:
+        r32 = np.float32(radius)
+        r = float(r32)
+        inv_pi_r2 = float(np.float32(1.0) / np.maximum(
+            np.float32(np.pi) * r32 * r32, np.float32(1e-10)))
     any_diel, any_metal = _material_kinds(fs)
+    strata_seed = seed if strata_seed is None else strata_seed
     for k in range(K):
         rng = photon_stream(seed, px, py, k)
         u = []
         for _ in range(7):
             x, rng = rand_1f(rng)
             u.append(x)
+        if cfg.photon_strata:
+            u[0], u[1], u[3], u[4], u[5], u[6] = \
+                rngmod.apply_emission_strata(
+                    strata_seed, rngmod.strata_k(cfg, k),
+                    *rngmod.strata_counts(cfg), u[0], u[1], u[3], u[4],
+                    u[5], u[6])
         o, d, tp = _photon_emission(fs.lights[k % L], cfg, u)
         active = vp_ok.clone()
-        for _ in range(cfg.max_photon_bounces):
+        ph_strata = bool(cfg.photon_strata and cfg.photon_strata_bounce)
+        for b in range(cfg.max_photon_bounces):
             if not bool(active.any()):
                 break
             rays = rays + active.sum()
@@ -435,7 +515,9 @@ def trace_photons(fs, cfg, mats, lam, seed: int, px, py, vis, radius,
             wi, new_tp, new_o, scat_ok, rr_live, rng = scatter_and_rr(
                 cfg, s.vneg(d), n, loc, color, rough, ior + cauchy_add,
                 is_diffuse, is_metal, tp, rng, camera_path=False,
-                any_dielectric=any_diel, any_metal=any_metal)
+                any_dielectric=any_diel, any_metal=any_metal,
+                bounce_strata=((strata_seed, rngmod.strata_k(cfg, k), b)
+                               if ph_strata else None))
             cont = active & found & scat_ok & rr_live
             o = s.vwhere(cont, new_o, o)
             d = s.vwhere(cont, wi, d)
@@ -444,11 +526,14 @@ def trace_photons(fs, cfg, mats, lam, seed: int, px, py, vis, radius,
     return rad, rays
 
 
-def render_tile(fs, cfg, mats, camera, px, py, valid, seed: int, radius,
-                depth: int, vis):
+def render_tile(fs, cfg, mats, camera, px, py, valid, seed, radius,
+                depth: int, vis, strata_seed=None):
     """One progressive sample for the pixels (px, py): camera spawn
     (2 jitter draws, 1 wavelength draw), camera path, photon pass.
-    Returns (color vec3, vis, rays)."""
+    ``seed`` and ``strata_seed`` (default ``seed``) are ints or one per
+    pixel, ``radius`` a float or one per pixel. Returns (color vec3, vis,
+    rays)."""
+    strata_seed = seed if strata_seed is None else strata_seed
     rng = seed_pixels(seed, px, py)
     uj1, rng = rand_1f(rng)
     uj2, rng = rand_1f(rng)
@@ -457,11 +542,14 @@ def render_tile(fs, cfg, mats, camera, px, py, valid, seed: int, radius,
     o, d, rng = spawn_camera_rays(cfg, camera, u, v, rng)
     ulam, rng = rand_1f(rng)
     lam = sample_wavelength(ulam)
-    em = light_emission_rgb(fs, lam)
+    em, em_hero = light_emission_rgb(fs, lam), None
+    if hero_count(cfg) > 1:
+        em, em_hero = hero_emission_rgb(fs, cfg, lam), (
+            em if tracks_collapse(fs, cfg) else None)
     rad, vis, rays = trace_camera_paths(fs, cfg, mats, o, d, lam, rng, depth,
-                                        vis, valid, em)
+                                        vis, valid, em, em_hero, strata_seed)
     rad, prays = trace_photons(fs, cfg, mats, lam, seed, px, py, vis, radius,
-                               valid, rad)
+                               valid, rad, strata_seed)
     return rad, vis, rays + prays
 
 
@@ -473,6 +561,22 @@ def sppm_radius_step(cfg, k, radius):
         (kf + np.float32(cfg.sppm_alpha)) / (kf + np.float32(1.0))))
 
 
+def sample_strata_seed(cfg, base_seed: int, iteration, seed):
+    """The seed the strata cells of sample ``iteration`` hash: the frame
+    seed of its window epoch under photon_strata_window > 1, else the
+    sample's own ``seed`` (``tpurt/render.py``). ``iteration`` and ``seed``
+    are ints or tensors."""
+    if cfg.photon_strata and cfg.photon_strata_window > 1:
+        return frame_seed(base_seed, rngmod.strata_epoch(cfg, iteration))
+    return seed
+
+
+def _pixels(cfg, P: int, dev):
+    idx = torch.arange(P, device=dev)
+    return (idx % cfg.width, torch.clamp_max(idx // cfg.width, cfg.height - 1),
+            idx < cfg.n_pixels)
+
+
 def render_plain(fs, cfg, camera, planes, base_seed: int, spp: int,
                  iteration: int, radius: float, depth: int) -> torch.Tensor:
     """``spp`` samples into the (16, P) float32 state planes, in place:
@@ -481,24 +585,69 @@ def render_plain(fs, cfg, camera, planes, base_seed: int, spp: int,
     draws from ``frame_seed(base_seed, iteration + s)`` and gathers photons
     within the radius after s schedule steps. Returns the traced segments
     as an int64 scalar tensor on the planes' device."""
-    P = planes.shape[1]
     dev = planes.device
-    idx = torch.arange(P, device=dev)
-    px = idx % cfg.width
-    py = torch.clamp_max(idx // cfg.width, cfg.height - 1)
-    valid = idx < cfg.n_pixels
+    px, py, valid = _pixels(cfg, planes.shape[1], dev)
     mats = material_table(fs, dev)
     vis = list(planes[3:16].unbind(0))
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     r = np.float32(radius)
     for smp in range(spp):
         seed = frame_seed(base_seed, iteration + smp)
-        rad, vis, srays = render_tile(fs, cfg, mats, camera, px, py, valid,
-                                      seed, r, depth, vis)
+        rad, vis, srays = render_tile(
+            fs, cfg, mats, camera, px, py, valid, seed, r, depth, vis,
+            sample_strata_seed(cfg, base_seed, iteration + smp, seed))
         for c in range(3):
             planes[c] += rad[c]
         rays = rays + srays
         r = sppm_radius_step(cfg, np.float32(iteration) + np.float32(smp + 1),
-                              r)
+                             r)
+    planes[3:16] = torch.stack(vis)
+    return rays
+
+
+def radius_table(cfg, n: int) -> np.ndarray:
+    """(n + 1,) float32: the SPPM radius after c = 0..n samples from
+    photon_radius_init (tpurt's ``budget_radius_plane``: the schedule's
+    float sequence, so a pixel's radius depends on its own count only)."""
+    out = np.empty((n + 1,), np.float32)
+    out[0] = np.float32(cfg.photon_radius_init)
+    for c in range(1, n + 1):
+        out[c] = sppm_radius_step(cfg, c, out[c - 1])
+    return out
+
+
+def render_plain_budget(fs, cfg, camera, planes, base_seed: int, budgets,
+                        counts) -> torch.Tensor:
+    """The regen kernel's budget mode, in place on the (16, P) planes:
+    pixel p renders ``budgets[p]`` samples (an integer tensor, 0 on pad
+    rows) continuing its own sequence: its sample s draws from
+    ``frame_seed(base_seed, counts[p] + s)`` (counts = the state's
+    n_samples) with its own strata epoch, and gathers photons within its
+    own SPPM radius, which starts at the schedule's value after counts[p]
+    samples and steps after each of its samples. Returns the traced
+    segments as an int64 scalar tensor."""
+    dev = planes.device
+    px, py, valid = _pixels(cfg, planes.shape[1], dev)
+    mats = material_table(fs, dev)
+    vis = list(planes[3:16].unbind(0))
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    budgets = budgets.to(dev).long()
+    cnt = counts.to(dev).long()
+    cnt_f = counts.to(dev).to(torch.float32)
+    r = torch.from_numpy(radius_table(cfg, int(cnt.max()) if cnt.numel()
+                                      else 0)).to(dev)[cnt]
+    for smp in range(int(budgets.max()) if budgets.numel() else 0):
+        live = valid & (smp < budgets)
+        it = cnt + smp
+        seed = frame_seed(base_seed, it)
+        rad, vis, srays = render_tile(
+            fs, cfg, mats, camera, px, py, live, seed, r, cfg.depth, vis,
+            sample_strata_seed(cfg, base_seed, it, seed))
+        for c in range(3):
+            planes[c] = torch.where(live, planes[c] + rad[c], planes[c])
+        rays = rays + srays
+        k = cnt_f + float(np.float32(smp + 1))
+        r = torch.where(live, r * fsqrt(fdiv(k + cfg.sppm_alpha, k + 1.0)),
+                        r)
     planes[3:16] = torch.stack(vis)
     return rays

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from tpurt_torch.camera import Camera
+from tpurt_torch.device import resolve_device
 from tpurt_torch.render import RenderState
 from tpurt_torch.scene import Scene, scene_from_arrays
 
@@ -23,15 +24,16 @@ _STATE_DTYPES = {
 }
 
 
-def scene_from_numpy(fields: dict) -> Scene:
-    """Scene from the fields of a tpurt.Scene (as NumPy arrays or
-    anything np.asarray takes), triangles and BVH included."""
+def scene_from_numpy(fields: dict, device=None) -> Scene:
+    """Scene on ``device`` (the CUDA card by default) from the fields of a
+    tpurt.Scene (as NumPy arrays or anything np.asarray takes), triangles
+    and BVH included."""
     arrays = {}
     for f in dataclasses.fields(Scene):
         a = np.asarray(fields[f.name])
         arrays[f.name] = a.astype(np.int64 if a.ndim == 0 else np.int32
                                   if a.dtype.kind in "iu" else np.float32)
-    return scene_from_arrays(arrays)
+    return scene_from_arrays(arrays, device)
 
 
 def camera_from_numpy(origin, horizontal, vertical, lower_left) -> Camera:
@@ -42,8 +44,10 @@ def camera_from_numpy(origin, horizontal, vertical, lower_left) -> Camera:
                   vertical=t(vertical), lower_left=t(lower_left))
 
 
-def state_from_numpy(fields: dict, device="cpu") -> RenderState:
-    """RenderState from the 10 fields of a tpurt RenderState."""
+def state_from_numpy(fields: dict, device=None) -> RenderState:
+    """RenderState on ``device`` (the CUDA card by default) from the 10
+    fields of a tpurt RenderState."""
+    device = resolve_device(device)
     kw = {name: torch.from_numpy(np.array(fields[name], dtype=dt)).to(device)
           for name, dt in _STATE_DTYPES.items()}
     return RenderState(

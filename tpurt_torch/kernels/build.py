@@ -43,6 +43,24 @@ _SIGNATURES = {
         _F,             # radius at the start of the call
         _I, _I,         # k_photons (0 = off), max_photon_bounces
         _F, _F, _F,     # rr_threshold, photon_rr_threshold, sppm_alpha
+        _P,             # sampler switches: a mega_regen.SamplerArgs
+        _P,             # aux (3, P) f32 budget, count, radius; NULL: uniform
+        _P,             # geometry tables: a bvh.GeomArgs on the host
+        _P,             # rays: one uint64 on the device, added to
+        _P,             # CIE table (81, 3) f32 on the host
+        _P,             # stream
+    ],
+    "tpurt_step_launch": [
+        _P,             # planes (16, P) f32, updated in place
+        ctypes.c_longlong,  # P
+        _I, _I,         # width, height
+        _P,             # scene table f32 (device)
+        _I, _I, _I,     # n_spheres, n_materials, n_lights
+        _U, _U,         # frame seed, strata seed of the sample
+        _I, _F,         # depth, radius
+        _I, _I,         # k_photons (0 = off), max_photon_bounces
+        _F, _F,         # rr_threshold, photon_rr_threshold
+        _P,             # sampler switches: a mega_regen.SamplerArgs
         _P,             # geometry tables: a bvh.GeomArgs on the host
         _P,             # rays: one uint64 on the device, added to
         _P,             # CIE table (81, 3) f32 on the host

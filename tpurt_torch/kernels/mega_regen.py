@@ -1,24 +1,37 @@
-"""Wrapper of the regen kernel (``csrc/mega_regen.cu``): the regenerative
-SPPM megakernel that advances every pixel by ``spp`` samples in one launch.
+"""Wrappers of the regen kernel (``csrc/mega_regen.cu``): the regenerative
+SPPM megakernel that advances every pixel by its samples in one launch.
 
-On a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
-the kernel's plain PyTorch version, ``integrate.render_plain``, which has
-the same contract. ``LAUNCHES`` counts kernel launches only.
+``regen_call`` is its uniform mode (every pixel ``spp`` samples),
+``regen_budget_call`` its budget mode (pixel p ``budgets[p]`` samples from
+its own count and radius) and ``render_budget_regen`` the state-level entry
+of the budget mode (``tpurt.kernels.mega_regen.render_budget_regen``). On a
+CUDA tensor each launches the kernel or raises; on a CPU tensor each runs
+the kernel's plain PyTorch version, ``integrate.render_plain`` or
+``integrate.render_plain_budget``, which have the same contracts.
+``LAUNCHES`` and ``BUDGET_LAUNCHES`` count kernel launches only.
+
+The module also builds what every path kernel reads: the parameter table
+(camera, spheres, materials, lights, each light's hero table) and the
+sampler switches (``sampler_args``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
 
 from tpurt_torch import integrate
 from tpurt_torch.kernels import build, bvh
-from tpurt_torch.ops.spectra import CIE_RGB_TABLE
+from tpurt_torch.ops import rng as rngmod
+from tpurt_torch.ops.spectra import (CIE_RGB_TABLE, VISIBLE_RANGE,
+                                     hero_segments)
 from tpurt_torch.scene import freeze_scene, photon_power, sphere_rows
 
 LAUNCHES = 0
+BUDGET_LAUNCHES = 0
 
 N_CHANNELS = 16
 MAX_LIGHTS = 16       # csrc/device.cuh MAX_LIGHTS
@@ -28,12 +41,40 @@ LIGHT_STRIDE = 40
 CIE_HOST = np.ascontiguousarray(CIE_RGB_TABLE, np.float32)
 
 
+class SamplerArgs(ctypes.Structure):
+    """csrc/device.cuh ``struct Sampler``, passed to the path launchers by
+    address."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "n_pos", "n_dir", "shared_k", "window", "photon_bounce",
+        "camera_bounce", "disp_cam", "hero", "hero_nseg")] + [
+        ("hero_delta", ctypes.c_float), ("collapse", ctypes.c_int)]
+
+
+def sampler_args(fs, cfg) -> SamplerArgs:
+    """The sampler switches of cfg as the kernels read them: the strata
+    counts (n_pos 0 with photon_strata off), epoch window, bounce-cell and
+    dispersion switches, the hero count and its table geometry."""
+    on = bool(cfg.photon_strata)
+    n_pos, n_dir = rngmod.strata_counts(cfg) if on else (0, 0)
+    c = integrate.hero_count(cfg)
+    return SamplerArgs(
+        n_pos=n_pos, n_dir=n_dir, shared_k=int(cfg.photon_strata_shared_k),
+        window=max(1, int(cfg.photon_strata_window)) if on else 1,
+        photon_bounce=int(on and cfg.photon_strata_bounce),
+        camera_bounce=int(on and cfg.camera_strata_bounce),
+        disp_cam=int(cfg.dispersion_in_camera_path), hero=c,
+        hero_nseg=hero_segments(c),
+        hero_delta=float(np.float32(VISIBLE_RANGE / c)),
+        collapse=int(integrate.tracks_collapse(fs, cfg)))
+
+
 def pack_scene(fs, cfg, camera=None, sph_rows=None) -> np.ndarray:
     """The kernels' float32 parameter table (layout in csrc/device.cuh):
     camera rows (zeros without a camera), then the spheres of the flat
     sweep (``sph_rows``, all of them by default), materials and lights
     with every derived constant computed on the host as the plain version
-    computes it."""
+    computes it, then, with hero_wavelengths C > 1, each light's hero
+    table (``integrate.hero_tables``)."""
     sph = sphere_rows(fs.spheres) if sph_rows is None else sph_rows
     mat = np.zeros((len(fs.materials), MAT_STRIDE), np.float32)
     for i, m in enumerate(fs.materials):
@@ -46,21 +87,24 @@ def pack_scene(fs, cfg, camera=None, sph_rows=None) -> np.ndarray:
                        *lt.ph_origin, *photon_power(lt, cfg.k_photons))
     cam = (np.zeros((4, 3), np.float32) if camera is None
            else camera.rows())
+    c = integrate.hero_count(cfg)
+    hero = [t.ravel() for t in integrate.hero_tables(fs, c)] if c > 1 else []
     return np.concatenate([cam.ravel(), sph.ravel(), mat.ravel(),
-                           lit.ravel()]).astype(np.float32)
+                           lit.ravel(), *hero]).astype(np.float32)
 
 
 def scene_table(fs, cfg, camera, device):
     """The kernels' inputs on ``device``: the parameter table
     (``pack_scene`` with the spheres of the flat sweep) and the geometry
     tables (``bvh.geometry``). Everything but the camera rows is built
-    once per frozen scene and knob set. Raises past the kernels' light
-    limit. Returns (table, geometry)."""
+    once per frozen scene, knob set and hero count. Raises past the
+    kernels' light limit. Returns (table, geometry)."""
     if len(fs.lights) > MAX_LIGHTS:
         raise NotImplementedError(f"the kernels take at most {MAX_LIGHTS} "
                                   f"lights")
     geo = bvh.geometry(fs, cfg)
-    key = ("table", cfg.k_photons, bvh.knobs(cfg))
+    key = ("table", cfg.k_photons, integrate.hero_count(cfg),
+           bvh.knobs(cfg))
     body = fs.cache.get(key)
     if body is None:
         body = fs.cache[key] = torch.from_numpy(pack_scene(
@@ -82,6 +126,42 @@ def _check_planes(planes: torch.Tensor, cfg) -> None:
                          f"{cfg.n_pixels}")
 
 
+def photon_count(fs, cfg) -> int:
+    """K as the kernels take it: 0 with photons off or no light."""
+    return cfg.k_photons if (cfg.enable_photons and fs.lights) else 0
+
+
+def checked_scene(scene, planes: torch.Tensor, cfg):
+    """The frozen scene of a path kernel's call, after checking the planes
+    and that scene and planes share a CPU or CUDA device."""
+    _check_planes(planes, cfg)
+    if scene.device != planes.device:
+        raise ValueError(f"scene on {scene.device}, state on {planes.device}")
+    if planes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {planes.device}")
+    return freeze_scene(scene)
+
+
+def _launch(fs, cfg, camera, planes, base_seed: int, spp: int,
+            iteration: int, radius: float, depth: int, aux=None):
+    table, geo = scene_table(fs, cfg, camera, planes.device)
+    lib = build.library()
+    rays = torch.zeros((), dtype=torch.int64, device=planes.device)
+    stream = torch.cuda.current_stream(planes.device).cuda_stream
+    err = lib.tpurt_regen_launch(
+        planes.data_ptr(), planes.shape[1], cfg.width, cfg.height,
+        table.data_ptr(), len(geo.flat_rows), len(fs.materials),
+        len(fs.lights), int(base_seed) & 0xFFFFFFFF, spp, iteration, depth,
+        radius, photon_count(fs, cfg), cfg.max_photon_bounces,
+        cfg.rr_threshold, cfg.photon_rr_threshold, cfg.sppm_alpha,
+        ctypes.byref(sampler_args(fs, cfg)),
+        None if aux is None else aux.data_ptr(), ctypes.byref(geo.args()),
+        rays.data_ptr(), CIE_HOST.ctypes.data_as(ctypes.c_void_p), stream)
+    build.check_launch(lib, err, "tpurt_regen_launch")
+    bvh.count_walk(geo)
+    return rays
+
+
 def regen_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
                spp: int, iteration: int, radius: float,
                depth: int) -> torch.Tensor:
@@ -90,28 +170,72 @@ def regen_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
     Sample s draws from frame seed (base_seed, iteration + s) and gathers
     photons within ``radius`` after s radius steps."""
     global LAUNCHES
-    _check_planes(planes, cfg)
-    if scene.device != planes.device:
-        raise ValueError(f"scene on {scene.device}, state on {planes.device}")
-    fs = freeze_scene(scene)
+    fs = checked_scene(scene, planes, cfg)
     if planes.device.type == "cpu":
         return integrate.render_plain(fs, cfg, camera, planes, base_seed,
                                       spp, iteration, radius, depth)
-    if planes.device.type != "cuda":
-        raise ValueError(f"unsupported device {planes.device}")
-    table, geo = scene_table(fs, cfg, camera, planes.device)
-    lib = build.library()
-    rays = torch.zeros((), dtype=torch.int64, device=planes.device)
-    k = cfg.k_photons if (cfg.enable_photons and fs.lights) else 0
-    stream = torch.cuda.current_stream(planes.device).cuda_stream
-    err = lib.tpurt_regen_launch(
-        planes.data_ptr(), planes.shape[1], cfg.width, cfg.height,
-        table.data_ptr(), len(geo.flat_rows), len(fs.materials),
-        len(fs.lights), int(base_seed) & 0xFFFFFFFF, spp, iteration, depth,
-        radius, k, cfg.max_photon_bounces, cfg.rr_threshold,
-        cfg.photon_rr_threshold, cfg.sppm_alpha, ctypes.byref(geo.args()),
-        rays.data_ptr(), CIE_HOST.ctypes.data_as(ctypes.c_void_p), stream)
-    build.check_launch(lib, err, "tpurt_regen_launch")
+    rays = _launch(fs, cfg, camera, planes, base_seed, spp, iteration,
+                   radius, depth)
     LAUNCHES += 1
-    bvh.count_walk(geo)
     return rays
+
+
+def regen_budget_call(scene, cfg, camera, planes: torch.Tensor,
+                      base_seed: int, budgets: torch.Tensor,
+                      counts: torch.Tensor) -> torch.Tensor:
+    """The budget mode on the (16, P) planes, in place: pixel p renders
+    ``budgets[p]`` samples (integers, 0 on pad rows) continuing from its
+    count ``counts[p]`` (the state's n_samples), with its own frame seeds,
+    strata epochs and SPPM radius (``integrate.render_plain_budget``).
+    Returns the traced segments as an int64 scalar."""
+    global BUDGET_LAUNCHES
+    fs = checked_scene(scene, planes, cfg)
+    P = planes.shape[1]
+    if budgets.shape != (P,) or counts.shape != (P,):
+        raise ValueError(f"budgets {tuple(budgets.shape)} and counts "
+                         f"{tuple(counts.shape)} must be ({P},)")
+    if planes.device.type == "cpu":
+        return integrate.render_plain_budget(fs, cfg, camera, planes,
+                                             base_seed, budgets, counts)
+    cnt = counts.to(planes.device).long()
+    radii = torch.from_numpy(integrate.radius_table(
+        cfg, int(cnt.max()) if P else 0)).to(planes.device)[cnt]
+    aux = torch.stack([budgets.to(planes.device).to(torch.float32),
+                       counts.to(planes.device).to(torch.float32),
+                       radii]).contiguous()
+    rays = _launch(fs, cfg, camera, planes, base_seed, 0, 0, 0.0, cfg.depth,
+                   aux)
+    BUDGET_LAUNCHES += 1
+    return rays
+
+
+def render_budget_regen(scene, cfg, camera, state, base_seed, budgets,
+                        max_budget: int):
+    """Render ``budgets[p]`` more samples for every pixel p through the
+    regen kernel's budget mode (adaptive sampling with photons): budgets
+    are clipped to [0, max_budget] and 0 on the pad rows; n_samples grows
+    by them, ``iteration`` by max_budget, and the scalar radius follows the
+    uniform schedule over max_budget samples (per-pixel radii come from
+    n_samples, so chained calls stay exact). A uniform budget equals
+    ``render`` bit for bit, two chained calls one combined call."""
+    from tpurt_torch import adaptive
+    from tpurt_torch.render import _check_call, radius_after, state_to_planes
+    _check_call(scene, cfg, state, cfg.depth)
+    if budgets.shape != state.n_samples.shape:
+        raise ValueError(f"budgets {tuple(budgets.shape)} do not match the "
+                         f"state's {tuple(state.n_samples.shape)} rows")
+    max_budget = int(max_budget)
+    budgets = adaptive.clip_budgets(cfg, budgets.to(state.device),
+                                    max_budget)
+    planes = state_to_planes(state)
+    rays = regen_budget_call(scene, cfg, camera, planes, int(base_seed),
+                             budgets, state.n_samples)
+    t3 = lambda a: planes[a:a + 3].T.contiguous()  # noqa: E731
+    return dataclasses.replace(
+        state, rgb_sum=t3(0), n_samples=state.n_samples + budgets.float(),
+        vis_pos=t3(3), vis_norm=t3(6), vis_wo=t3(9), vis_tp=t3(12),
+        vis_mat=planes[15].to(torch.int32),
+        iteration=state.iteration + max_budget,
+        photon_radius=radius_after(cfg, state.iteration, state.photon_radius,
+                                   max_budget),
+        rays=state.rays + rays if cfg.count_rays else state.rays)

@@ -1,0 +1,60 @@
+"""Wrapper of the tile-synchronized kernel (``csrc/mega_step.cu``),
+``backend="pallas", pallas_regen=False``: one launch advances every pixel
+by exactly one sample, with the frame seed, strata seed and SPPM radius the
+host gives it (``tpurt.kernels.mega_pallas.megakernel_step``). The host
+loop that steps the radius and the sample index between launches is
+``render._advance``.
+
+On a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
+the kernel's plain PyTorch version, ``integrate.render_plain`` with one
+sample, which has the same contract. ``LAUNCHES`` counts kernel launches
+only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tpurt_torch import integrate
+from tpurt_torch.kernels import build, bvh
+from tpurt_torch.kernels.mega_regen import (CIE_HOST, checked_scene,
+                                            photon_count, sampler_args,
+                                            scene_table)
+from tpurt_torch.ops.rng import frame_seed
+
+LAUNCHES = 0
+
+
+def step_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
+              iteration: int, radius: float, depth: int) -> torch.Tensor:
+    """Advance the (16, P) state planes by one sample in place: the sample
+    draws from frame seed (base_seed, iteration), its strata cells from
+    that sample's strata seed, and gathers photons within ``radius``.
+    Returns the traced segments as an int64 scalar on the planes'
+    device."""
+    global LAUNCHES
+    fs = checked_scene(scene, planes, cfg)
+    if planes.device.type == "cpu":
+        return integrate.render_plain(fs, cfg, camera, planes, base_seed, 1,
+                                      iteration, radius, depth)
+    seed = frame_seed(base_seed, iteration)
+    strata_seed = integrate.sample_strata_seed(cfg, base_seed, iteration,
+                                               seed)
+    table, geo = scene_table(fs, cfg, camera, planes.device)
+    lib = build.library()
+    rays = torch.zeros((), dtype=torch.int64, device=planes.device)
+    stream = torch.cuda.current_stream(planes.device).cuda_stream
+    err = lib.tpurt_step_launch(
+        planes.data_ptr(), planes.shape[1], cfg.width, cfg.height,
+        table.data_ptr(), len(geo.flat_rows), len(fs.materials),
+        len(fs.lights), seed, strata_seed, depth, radius,
+        photon_count(fs, cfg), cfg.max_photon_bounces, cfg.rr_threshold,
+        cfg.photon_rr_threshold, ctypes.byref(sampler_args(fs, cfg)),
+        ctypes.byref(geo.args()), rays.data_ptr(),
+        CIE_HOST.ctypes.data_as(ctypes.c_void_p), stream)
+    build.check_launch(lib, err, "tpurt_step_launch")
+    LAUNCHES += 1
+    bvh.count_walk(geo)
+    return rays

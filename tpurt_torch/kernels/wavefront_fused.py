@@ -61,7 +61,7 @@ def _launch(scene, cfg, camera, state, base_seed, spp: int, budgets=None,
 
 
 def _check(scene, cfg, state) -> None:
-    wavefront.reject_camera_strata(cfg)
+    wavefront.check_sampler(cfg)
     check_slice(cfg)
     wavefront._check_state(state, scene)
 

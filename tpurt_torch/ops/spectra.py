@@ -129,3 +129,59 @@ def cauchy_ior(base_ior, lambda_nm):
 def sample_wavelength(u):
     """Uniform wavelength in [380, 780] nm from a U[0,1] draw."""
     return VISIBLE_MIN + u * VISIBLE_RANGE
+
+
+# ----- hero wavelengths (tpurt.ops.spectra.hero_emission_table) -----
+
+def _cie_rgb_np(lam_nm):
+    """Float64 NumPy mirror of cie_to_rgb (host table precomputation)."""
+    t = (np.asarray(lam_nm, np.float64) - VISIBLE_MIN) / CIE_STEP
+    i = np.clip(t.astype(np.int32), 0, N_CIE - 1)
+    j = np.clip(i + 1, 0, N_CIE - 1)
+    f = np.clip(t - i, 0.0, 1.0)[..., None]
+    return CIE_RGB_TABLE[i] * (1.0 - f) + CIE_RGB_TABLE[j] * f
+
+
+def _blackbody_np(lam_nm, temp_k):
+    """Float64 NumPy mirror of blackbody."""
+    h, c, k = 6.62607015e-34, 2.99792458e8, 1.380649e-23
+    l = np.asarray(lam_nm, np.float64) * 1e-9
+    c1, c2 = 2.0 * h * c * c, h * c / k
+    return c1 / (l ** 5 * (np.exp(c2 / (l * temp_k)) - 1.0)) * 1e-14
+
+
+def hero_segments(c: int) -> int:
+    """Segments of a C-wavelength hero table: 2.5 nm nodes over one period
+    range/C."""
+    return max(1, int(round(2.0 * (VISIBLE_RANGE / c) / CIE_STEP)))
+
+
+def hero_emission_table(color, intensity, temp, c: int) -> np.ndarray:
+    """The C-averaged spectral emission of one light over one period
+    range/C of its hero rotation set, computed in float64 on the host and
+    rounded to float32: (hero_segments(c) + 1, 3). The plain version and
+    the kernels both read this table, so they stay bit-equal."""
+    delta = VISIBLE_RANGE / c
+    n_seg = hero_segments(c)
+    lam0 = VISIBLE_MIN + np.arange(n_seg + 1) * (delta / n_seg)
+    tab = np.zeros((n_seg + 1, 3), np.float64)
+    base = np.asarray(color, np.float64) * intensity * VISIBLE_RANGE / c
+    for j in range(c):
+        # no wrap: the last node carries em(780), the first em(380)
+        lj = lam0 + j * delta
+        spd = _blackbody_np(lj, temp) if temp > 0.0 else np.ones_like(lj)
+        tab += base[None, :] * spd[:, None] * _cie_rgb_np(lj)
+    return tab.astype(np.float32)
+
+
+def hero_emission_lookup(tab, c: int, lam):
+    """Periodic lerp into a hero table (a float32 tensor on lam's device):
+    lam (...) -> (..., 3), in the op order of tpurt's kernel lookup
+    (``ops/soa.hero_em_lookup_c``)."""
+    n_seg = tab.shape[0] - 1
+    t = fdiv(lam - VISIBLE_MIN, float(np.float32(VISIBLE_RANGE / c)))
+    u = (t - torch.floor(t)) * float(n_seg)
+    i = u.to(torch.int32).clamp(0, n_seg - 1)
+    f = (u - i.to(torch.float32))[..., None]
+    i = i.long()
+    return tab[i] * (1.0 - f) + tab[i + 1] * f

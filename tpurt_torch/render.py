@@ -4,8 +4,11 @@ sample/seed/radius schedule, render entry points, resolve and checkpoints.
 ``backend="pallas"`` (with the default ``pallas_regen=True``) renders
 through the regen kernel wrapper, which launches the CUDA kernel for a
 state on the card and runs its plain PyTorch version for a state on the
-CPU; ``backend="xla"`` always runs the plain version (the eager-torch
-integrator). Both give the same streams, ray counts and images.
+CPU; with ``pallas_regen=False`` it calls the tile-synchronized kernel's
+wrapper once per sample, stepping the seed, strata epoch and radius on the
+host (``tpurt.kernels.mega_pallas._render_pallas_jit``);
+``backend="xla"`` always runs the plain version (the eager-torch
+integrator). All three give the same streams, ray counts and states.
 
 The wavefront backends trace camera paths only (no photon pass; the
 vispoints and the photon radius stay as they are): ``"wavefront"`` is the
@@ -28,8 +31,9 @@ from tpurt_torch import integrate, wavefront
 from tpurt_torch import tonemap as tm
 from tpurt_torch.camera import Camera
 from tpurt_torch.config import RenderConfig, check_slice
+from tpurt_torch.device import resolve_device
 from tpurt_torch.integrate import sppm_radius_step
-from tpurt_torch.kernels import mega_regen
+from tpurt_torch.kernels import mega_regen, mega_step
 from tpurt_torch.kernels import tonemap as tonemap_kernel
 from tpurt_torch.kernels import wavefront_fused, wavefront_sweep
 from tpurt_torch.ops.rng import frame_seed as _frame_seed  # noqa: F401
@@ -75,8 +79,10 @@ def padded_pixels(cfg: RenderConfig) -> int:
     return ((n + t - 1) // t) * t
 
 
-def init_state(cfg: RenderConfig, device="cpu") -> RenderState:
-    """Fresh accumulation state on ``device``."""
+def init_state(cfg: RenderConfig, device=None) -> RenderState:
+    """Fresh accumulation state on ``device``, the CUDA card unless the
+    caller asks for another (``device="cpu"``)."""
+    device = resolve_device(device)
     P = padded_pixels(cfg)
     z3 = lambda: torch.zeros((P, 3), dtype=torch.float32,  # noqa: E731
                              device=device)
@@ -131,7 +137,7 @@ def _wavefront_dispatch(cfg: RenderConfig):
 def _check_call(scene: Scene, cfg: RenderConfig, state: RenderState,
                 depth: int) -> None:
     if cfg.backend in WAVEFRONT_BACKENDS:
-        wavefront.reject_camera_strata(cfg)
+        wavefront.check_sampler(cfg)
     check_slice(cfg)
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
@@ -151,10 +157,19 @@ def _advance(scene, cfg, camera, state, base_seed, spp, depth):
         return _wavefront_dispatch(cfg)(scene, cfg, camera, state,
                                         base_seed, spp)
     planes = state_to_planes(state)
-    if cfg.backend == "pallas":
+    if cfg.backend == "pallas" and cfg.pallas_regen:
         rays = mega_regen.regen_call(scene, cfg, camera, planes,
                                      int(base_seed), spp, state.iteration,
                                      state.photon_radius, depth)
+    elif cfg.backend == "pallas":
+        # the tile-synchronized kernel: one launch per sample
+        rays = torch.zeros((), dtype=torch.int64, device=planes.device)
+        r = state.photon_radius
+        for i in range(spp):
+            rays = rays + mega_step.step_call(
+                scene, cfg, camera, planes, int(base_seed),
+                state.iteration + i, r, depth)
+            r = radius_after(cfg, state.iteration + i, r, 1)
     else:
         rays = integrate.render_plain(freeze_scene(scene), cfg, camera,
                                       planes, int(base_seed), spp,
@@ -209,8 +224,9 @@ def save_checkpoint(path: str, cfg: RenderConfig, state: RenderState) -> None:
         **state_to_numpy(state))
 
 
-def load_checkpoint(path: str, device="cpu"):
-    """(cfg, state) from a checkpoint of either package."""
+def load_checkpoint(path: str, device=None):
+    """(cfg, state) from a checkpoint of either package; the state on
+    ``device``, the CUDA card by default."""
     from tpurt_torch.interop import state_from_numpy
     if not os.path.exists(path) and os.path.exists(path + ".npz"):
         path = path + ".npz"

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from tpurt_torch import accel
+from tpurt_torch.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,11 +217,13 @@ class Scene:
         return Scene(**{k: v.to(device) for k, v in self.tensors().items()})
 
 
-def scene_from_arrays(arrays: dict) -> Scene:
-    """Scene from NumPy arrays keyed by field name (float32/int32, and an
-    int64 scalar ``bvh_max_leaf``)."""
+def scene_from_arrays(arrays: dict, device=None) -> Scene:
+    """Scene on ``device`` (the CUDA card by default) from NumPy arrays
+    keyed by field name (float32/int32, and an int64 scalar
+    ``bvh_max_leaf``)."""
+    dev = resolve_device(device)
     return Scene(**{f.name: torch.from_numpy(np.ascontiguousarray(
-        arrays[f.name])) for f in dataclasses.fields(Scene)})
+        arrays[f.name])).to(dev) for f in dataclasses.fields(Scene)})
 
 
 def _merge_meshes(meshes):
@@ -236,11 +239,13 @@ def _merge_meshes(meshes):
 
 def build_scene(materials: Sequence[Material], spheres: Sequence[Sphere] = (),
                 meshes: Sequence[MeshData] = (), lights: Sequence[Light] = (),
-                max_leaf_prims: int = 2) -> Scene:
+                max_leaf_prims: int = 2, device=None) -> Scene:
     """Pack description objects into a Scene (``tpurt.scene.build_scene``):
     the triangles of every mesh merged, a median-split BVH with leaves of
     at most ``max_leaf_prims`` triangles, the triangle arrays permuted into
-    its leaf order."""
+    its leaf order. The tensors go to ``device``, the CUDA card unless the
+    caller asks for another (``device="cpu"``); so do the presets'."""
+    dev = resolve_device(device)
     materials = list(materials) or [Material.diffuse((0.8, 0.8, 0.8))]
     mat_type = np.array([m.mtype for m in materials], np.int32)
     mat_ior = np.array([m.ior for m in materials], np.float32)
@@ -286,10 +291,10 @@ def build_scene(materials: Sequence[Material], spheres: Sequence[Sphere] = (),
         light_type=np.array([q.ltype for q in lights], np.int32),
         light_normal=np.array([q.normal for q in lights],
                               np.float32).reshape(L, 3),
-    ))
+    ), dev)
 
 
-def default_scene(obj_path: str | None = None) -> Scene:
+def default_scene(obj_path: str | None = None, device=None) -> Scene:
     """The reference's default scene: ground, green and glass spheres, an
     optional red OBJ mesh at (0, 3, 5) scale 0.5, one 5500 K square area
     light."""
@@ -311,10 +316,11 @@ def default_scene(obj_path: str | None = None) -> Scene:
         meshes.append(mesh)
     lights = [Light.square_area([10.0, 3.0, 0.0], [-1.0, 0.0, 0.0], 3.0,
                                 [1.0, 1.0, 1.0], 1.0, 5500.0)]
-    return build_scene(materials, spheres, meshes, lights, max_leaf_prims=2)
+    return build_scene(materials, spheres, meshes, lights, max_leaf_prims=2,
+                       device=device)
 
 
-def cornell_spheres_scene() -> Scene:
+def cornell_spheres_scene(device=None) -> Scene:
     """Cornell box of giant-sphere walls with glass, frosted and white
     balls and one square area light (the headline benchmark scene)."""
     materials = [
@@ -338,10 +344,10 @@ def cornell_spheres_scene() -> Scene:
     ]
     lights = [Light.square_area([0.0, 2 * box - 0.01, 0.0], [0.0, -1.0, 0.0],
                                 1.5, [1.0, 1.0, 1.0], 6.0, 5500.0)]
-    return build_scene(materials, spheres, (), lights)
+    return build_scene(materials, spheres, (), lights, device=device)
 
 
-def dispersive_scene() -> Scene:
+def dispersive_scene(device=None) -> Scene:
     """Dispersive crown and flint glass, brushed gold and two diffuse
     materials, lit by a 5500 K point light and a 3200 K square light (the
     scene of tpurt's bench configs 4 and 5)."""
@@ -364,10 +370,11 @@ def dispersive_scene() -> Scene:
         Light.square_area([6.0, 4.0, 4.0], [-1.0, -0.3, 0.0], 2.0,
                           [1.0, 1.0, 1.0], 4.0, 3200.0),
     ]
-    return build_scene(materials, spheres, (), lights)
+    return build_scene(materials, spheres, (), lights, device=device)
 
 
-def instanced_scene(n_instances: int = 256, seed: int = 7) -> Scene:
+def instanced_scene(n_instances: int = 256, seed: int = 7,
+                    device=None) -> Scene:
     """``n_instances`` spheres of random size and material on a ground
     sphere, under one 6500 K square light (tpurt's bench configs 3 and 8)."""
     rng = np.random.default_rng(seed)
@@ -390,7 +397,7 @@ def instanced_scene(n_instances: int = 256, seed: int = 7) -> Scene:
         spheres.append(Sphere(mat, r, (x, r, z)))
     lights = [Light.square_area([0.0, 30.0, 8.0], [0.0, -1.0, 0.0], 8.0,
                                 [1.0, 1.0, 1.0], 40.0, 6500.0)]
-    return build_scene(materials, spheres, [], lights)
+    return build_scene(materials, spheres, [], lights, device=device)
 
 
 def _torus(nu: int, nv: int):
@@ -417,7 +424,7 @@ def _torus(nu: int, nv: int):
     return verts, np.asarray(faces, np.int32)
 
 
-def torus_mesh_scene(nu: int = 16, nv: int = 8) -> Scene:
+def torus_mesh_scene(nu: int = 16, nv: int = 8, device=None) -> Scene:
     """A 2*nu*nv-triangle torus mesh and two glass spheres on a ground
     sphere under one 5000 K square light (tpurt's bench config 6 at
     (45, 45): 4050 triangles)."""
@@ -434,11 +441,11 @@ def torus_mesh_scene(nu: int = 16, nv: int = 8) -> Scene:
                Sphere(1, 0.9, (2.6, 0.9, 4.2))]
     lights = [Light.square_area([3, 8, 2], [-0.4, -1.0, 0.3], 2.5,
                                 [1.0, 1.0, 1.0], 6.0, 5000.0)]
-    return build_scene(materials, spheres, [mesh], lights)
+    return build_scene(materials, spheres, [mesh], lights, device=device)
 
 
 def torus_field_scene(n_tori: int = 16, nu: int = 45, nv: int = 45,
-                      seed: int = 5) -> Scene:
+                      seed: int = 5, device=None) -> Scene:
     """``n_tori`` tori of 2*nu*nv triangles each, spread over the ground
     plane (64,800 triangles by default; tpurt's bench configs 7 and 9)."""
     rng = np.random.default_rng(seed)
@@ -465,10 +472,10 @@ def torus_field_scene(n_tori: int = 16, nu: int = 45, nv: int = 45,
                Sphere(1, 0.9, (0.0, 0.9, 2.0))]
     lights = [Light.square_area([0, 22, 10], [0.0, -1.0, 0.0], 6.0,
                                 [1.0, 1.0, 1.0], 25.0, 5500.0)]
-    return build_scene(materials, spheres, meshes, lights)
+    return build_scene(materials, spheres, meshes, lights, device=device)
 
 
-def tri_test_scene() -> Scene:
+def tri_test_scene(device=None) -> Scene:
     """A two-triangle quad over a ground sphere, one point light."""
     materials = [
         Material.diffuse((0.8, 0.8, 0.8)),
@@ -481,7 +488,7 @@ def tri_test_scene() -> Scene:
     mesh.add_triangles(quad_pos, np.array([[0, 1, 2], [0, 2, 3]], np.int32))
     spheres = [Sphere(0, 1000.0, (0.0, -1000.5, 0.0))]
     lights = [Light.point([0.0, 5.0, 0.0], [1.0, 1.0, 1.0], 10.0, 5500.0)]
-    return build_scene(materials, spheres, [mesh], lights)
+    return build_scene(materials, spheres, [mesh], lights, device=device)
 
 
 # ----- frozen scene: host constants for the integrator and the kernel -----

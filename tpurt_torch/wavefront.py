@@ -79,6 +79,21 @@ def reject_camera_strata(cfg) -> None:
             "tracers: disable it for wavefront backends")
 
 
+def check_sampler(cfg) -> None:
+    """The sampler flags the wavefront tracers take: camera strata raise
+    as in tpurt; hero wavelengths and camera-path dispersion are not
+    ported to them yet. Photon strata need no check: these tracers trace
+    no photons, in tpurt as here."""
+    reject_camera_strata(cfg)
+    if cfg.hero_wavelengths > 1 or cfg.dispersion_in_camera_path:
+        raise NotImplementedError(
+            f"hero_wavelengths={cfg.hero_wavelengths} and "
+            f"dispersion_in_camera_path={cfg.dispersion_in_camera_path} are "
+            f"not ported to the wavefront tracers of tpurt_torch yet "
+            f"(backend={cfg.backend!r}); backend='pallas' and 'xla' take "
+            f"them")
+
+
 def _issue(cfg, camera, pool: WavefrontPool, pix, gpix, seed_iter,
            have_work, base_seed: int) -> WavefrontPool:
     """Turn the claimed work items into fresh camera rays in the dead slots
@@ -208,7 +223,7 @@ def wavefront_render_slab(scene, cfg, camera, state, base_seed, spp: int,
     ``pix_offset + row``. ``sweep`` is the sweep function, ``_sweep`` by
     default; the sweep kernel's wrapper takes its place for
     ``backend="wavefront_pallas"``."""
-    reject_camera_strata(cfg)
+    check_sampler(cfg)
     check_slice(cfg)
     _check_state(state, scene)
     sweep = _sweep if sweep is None else sweep
