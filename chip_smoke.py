@@ -11,8 +11,10 @@ config 6 as tpurt ships it (the 4050-triangle torus mesh, its photon,
 bounce and camera strata and 4 hero wavelengths) at 1920x1080, depth 30,
 through the regen kernel's BVH walk (csrc/bvh.cuh), beside the same scene
 with the reference sampler; bench config 4 (hero wavelengths with the
-dispersive collapse); and the 64,800-triangle torus field and the
-16,384-sphere instanced scene at 1 spp.
+dispersive collapse); the 64,800-triangle torus field and the
+16,384-sphere instanced scene at 1 spp; and config 6's scene with
+``pallas_mxu_leaf`` (tpurt's G-matrix leaf test in the regen kernel's
+walk), with both samplers.
 
 The phases: [blit], [regen] (the regen kernel against its plain version),
 [sampler] (the regen kernel with the sampler flags of bench configs 3, 4
@@ -22,7 +24,10 @@ tile-synchronized kernel against ``render_plain`` and against the regen
 kernel, then its 1080p path), [wf-sweep], [wf-pool], [wf-fused],
 [wf-budget], [wf-pallas], [config5], [bvh-walk], [mesh-regen], [mesh-wf],
 [mesh] (config 6 with the reference sampler), [config6] (config 6 as
-shipped), [config4], [mesh-field], [mesh-instanced].
+shipped), [config4], [mesh-field], [mesh-instanced], [mxu-leaf] (the
+probe's G leaf against the plain G sweep), [mesh-mxu] (the regen kernel
+with the G leaf against ``render_plain``, both modes), [config6-mxu]
+(config 6 with the flag, both samplers, timed against the exact leaf).
 
     python3 chip_smoke.py
 
@@ -38,6 +43,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -108,7 +114,8 @@ def counters() -> dict:
             "blit": (blit, "LAUNCHES"),
             "wf_sweep": (wavefront_sweep, "LAUNCHES"),
             "wf_fused": (wavefront_fused, "LAUNCHES"),
-            "bvh_walk": (bvh, "WALKS")}
+            "bvh_walk": (bvh, "WALKS"),
+            "mxu_leaf": (mega_regen, "MXU_LAUNCHES")}
 
 
 def gpu_line() -> str:
@@ -170,10 +177,15 @@ def ptxas_report(log: str) -> list:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
+            # template flags of the instance (SAMPLER, GLEAF), as <0,1>
+            flags = re.search(r"I((?:Lb[01]E)+)E", name)
             for short in ("regen", "step", "sweep", "fused", "probe",
                           "tonemap"):
                 if short in name:
                     name = short
+            if flags:
+                name += "<" + ",".join(re.findall(r"Lb([01])E",
+                                                  flags.group(1))) + ">"
         elif "bytes stack frame" in line and name:
             frame = line.strip()
         elif "Used" in line and "registers" in line and name:
@@ -370,6 +382,10 @@ def main() -> int:
     #    shipped), config 4 and the scale paths
     launches.update(mesh_phases(dev, report, gpu))
 
+    # 9. tpurt's G-matrix leaf test (pallas_mxu_leaf): the probe, the regen
+    #    kernel in both modes, config 6 with the flag
+    launches.update(mxu_phases(dev, report, gpu))
+
     src = {"regen": ("tpurt_torch/csrc/mega_regen.cu",
                      "tpurt/kernels/mega_regen.py:84"),
            "regen_budget": ("tpurt_torch/csrc/mega_regen.cu",
@@ -383,7 +399,9 @@ def main() -> int:
            "wf_fused": ("tpurt_torch/csrc/wavefront_fused.cu",
                         "tpurt/kernels/wavefront_pallas.py:572"),
            "bvh_walk": ("tpurt_torch/csrc/bvh.cuh",
-                        "tpurt/kernels/bvh_pallas.py:466")}
+                        "tpurt/kernels/bvh_pallas.py:466"),
+           "mxu_leaf": ("tpurt_torch/csrc/bvh.cuh",
+                        "tpurt/kernels/bvh_pallas.py:368")}
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=src[k][0], replaces=src[k][1],
              launches=launches[k], library_ms=None, **report[k])
@@ -1134,6 +1152,178 @@ def mesh_profile(name, scene, cfg, cam, spp) -> None:
           f"{1.0 - busy / wall:.3f}); by CUDA events: render + resolve "
           f"{ev_path:.2f} ms, regen kernel {ev_kernel:.2f} ms "
           f"({ev_kernel / spp:.2f} ms per sample)")
+
+
+def mxu_phases(dev, report, gpu) -> dict:
+    """[mxu-leaf] the probe's G leaf against the plain G sweep on
+    [bvh-walk]'s 65,536-ray sets, with the hit/miss agreement against the
+    exact walk; [mesh-mxu] the regen kernel with pallas_mxu_leaf against
+    render_plain with the G sweep, uniform and budget mode; [config6-mxu]
+    config 6's scene at 1080p with the flag through tt.render (reference
+    sampler, then as shipped) and the regen kernel's time per sample, G
+    leaf against exact leaf in turns. Fills report["mxu_leaf"]; returns
+    the shipped path's G-leaf launch count."""
+    import tpurt_torch as tt
+    from tpurt_torch import integrate
+    from tpurt_torch.kernels import mega_regen
+    from tpurt_torch.render import state_to_planes
+    from tpurt_torch.scene import freeze_scene
+
+    base = tt.RenderConfig(backend="pallas", pallas_mxu_leaf=True)
+    verts, faces = tt.scene._torus(45, 45)
+    mesh = tt.MeshData(material_id=2, translation=(0.0, 0.0, 6.0))
+    mesh.add_triangles(verts, faces)
+    torus_only = tt.build_scene([tt.Material.diffuse((0.5, 0.5, 0.5))] * 3,
+                                [], [mesh], [])
+    n = 65536
+    rays = probe_rays(torus_only, n, 1, dev)
+    grid = grid_quads()
+    errs, first = [], None
+    for name, scene, cfg, rs in (
+            ("torus 4050 tris, binary leaf 64", torus_only,
+             base.with_(pallas_bvh_leaf=64), rays),
+            ("torus 4050 tris, width 8 leaf 64", torus_only,
+             base.with_(pallas_bvh_leaf=64, pallas_bvh_width=8), rays),
+            ("NaN-plane rays, quad grid, width 0", grid,
+             base.with_(pallas_bvh_leaf=8, pallas_static_unroll=8),
+             nan_plane_rays(dev)),
+            ("NaN-plane rays, quad grid, width 8", grid,
+             base.with_(pallas_bvh_leaf=8, pallas_static_unroll=8,
+                        pallas_bvh_width=8), nan_plane_rays(dev))):
+        res = g_leaf_vs_plain(name, scene, cfg, rs)
+        errs.append(res[0])
+        first = first or res
+    _, ms, plain_ms, pairs = first
+    # per probe ray: o, d, t_max and lam in; t, point, normal, material and
+    # shadow factor out; ~50 operations per pair tested (19 products and
+    # their sums, o x d shared per ray, the sign fold, a divide, 6 compares)
+    report["mxu_leaf"] = dict(max_abs_err=max(errs), ms=ms,
+                              plain_ms=plain_ms,
+                              **bound(n * (32 + 36), pairs * 50))
+    print(f"  pairs tested on the torus, binary leaf 64: {pairs} "
+          f"({pairs / n:.1f} a ray); bound {report['mxu_leaf']['bound_ms']:.4f}"
+          f" ms ({report['mxu_leaf']['bound_by']})")
+
+    # [mesh-mxu] the regen kernel with the G leaf against render_plain
+    torus = tt.torus_mesh_scene(45, 45)
+    fs = freeze_scene(torus)
+    for w, h in ((64, 32), (256, 144)):
+        cfg = tt.RenderConfig(width=w, height=h, depth=8, backend="pallas",
+                              pallas_bvh_leaf=64, pallas_mxu_leaf=True)
+        cam = tt.make_camera(*TORUS_CAM, vfov=55.0, aspect_ratio=w / h)
+        tri = mega_regen.regen_tri_mode(fs, cfg)
+        if tri.kind != "gleaf":
+            raise AssertionError("the G leaf does not engage on config 6")
+        st = tt.init_state(cfg)
+        planes = state_to_planes(st)
+        pk, pp = planes.clone(), planes.clone()
+        before = mega_regen.MXU_LAUNCHES
+        rk = int(mega_regen.regen_call(torus, cfg, cam, pk, 1234, 2, 0, 2.0,
+                                       8))
+        rp = int(integrate.render_plain(fs, cfg, cam, pp, 1234, 2, 0, 2.0, 8,
+                                        tri))
+        bad = unequal_planes(pk, pp)
+        st1 = tt.render(torus, cfg, cam, st, 1234, 1)
+        b = budget_map(st1.n_samples.shape[0], cfg.n_pixels, 3, 9, dev)
+        planes = state_to_planes(st1)
+        bk, bp = planes.clone(), planes.clone()
+        rbk = int(mega_regen.regen_budget_call(torus, cfg, cam, bk, 1234, b,
+                                               st1.n_samples))
+        rbp = int(integrate.render_plain_budget(fs, cfg, cam, bp, 1234, b,
+                                                st1.n_samples, tri))
+        bad_b = unequal_planes(bk, bp)
+        runs = mega_regen.MXU_LAUNCHES - before
+        print(f"[mesh-mxu] {w}x{h} depth 8, uniform 2 spp: rays {rk} vs plain "
+              f"{rp}, unequal planes {bad}; budgets 0-3 after 1 spp: rays "
+              f"{rbk} vs plain {rbp}, unequal planes {bad_b}; G-leaf "
+              f"launches {runs}")
+        if rk != rp or bad or rbk != rbp or bad_b or runs != 3:
+            raise AssertionError("the regen kernel's G leaf differs from "
+                                 "render_plain")
+
+    # [config6-mxu] config 6's scene at 1080p with the flag, through the
+    # public entry points; then the regen kernel per sample, exact leaf
+    # against G leaf in turns (exact, G, G, exact)
+    cam6 = tt.make_camera(*TORUS_CAM, vfov=55.0, aspect_ratio=16 / 9)
+    names = ["regen", "blit", "bvh_walk", "mxu_leaf"]
+    launches = {}
+    for label, flags in (("reference sampler", dict(pallas_bvh_leaf=64)),
+                         ("as shipped", CONFIG6)):
+        cfg = tt.RenderConfig(width=1920, height=1080, depth=30,
+                              backend="pallas", **flags)
+        g_cfg = cfg.with_(pallas_mxu_leaf=True)
+        launches = drive(f"config6-mxu {label}", torus, g_cfg, cam6, 4,
+                         names, gpu)
+        st_g = tt.render(torus, g_cfg, cam6, tt.init_state(g_cfg), 1234, 4)
+        st_e = tt.render(torus, cfg, cam6, tt.init_state(cfg), 1234, 4)
+        rg, rx = int(st_g.rays), int(st_e.rays)
+        med, frac, mx = image_gap(
+            tt.resolve_image(g_cfg, st_g).cpu().numpy(),
+            tt.resolve_image(cfg, st_e).cpu().numpy())
+        planes = state_to_planes(tt.init_state(cfg))
+        times = []
+        for c in (cfg, g_cfg, g_cfg, cfg):
+            times.append(cuda_ms(lambda: mega_regen.regen_call(
+                torus, c, cam6, planes.clone(), 1234, 4, 0, 2.0, 30), 2) / 4)
+        wall, by_name, busy = profiled(lambda: tt.resolve_image(
+            g_cfg, tt.render(torus, g_cfg, cam6, tt.init_state(g_cfg), 1234,
+                             4)), 1)
+        print(f"  {label}: G leaf rays {rg} vs exact {rx} (rel "
+              f"{(rg - rx) / rx:.2e}); image G vs exact: median {med:.2e},"
+              f" {frac:.2%} pixels > 1e-2, max {mx:.3g}; regen kernel per "
+              f"1080p sample exact/G/G/exact "
+              f"{'/'.join(f'{t:.3f}' for t in times)} ms; G path under the "
+              f"profiler {wall:.2f} ms wall, regen kernel "
+              f"{named_ms(by_name, 'regen_kernel'):.2f} ms, idle share "
+              f"{1.0 - busy / wall:.3f} | {gpu}")
+        if abs(rg - rx) > 1e-2 * rx:
+            raise AssertionError("the G leaf moves the ray count by > 1%")
+    return {"mxu_leaf": launches["mxu_leaf"]}
+
+
+def g_leaf_vs_plain(name, scene, cfg, rays):
+    """The probe's G leaf against the plain G sweep on the same rays: t,
+    point, normal, material and shadow factor bit for bit; the hit/miss
+    agreement with the exact walk. Returns (max |diff|, probe ms, plain
+    ms, pairs tested)."""
+    from tpurt_torch import integrate
+    from tpurt_torch.kernels import bvh
+    from tpurt_torch.scene import freeze_scene
+    fs = freeze_scene(scene)
+    o, d, tm, lam = rays
+    got = bvh.probe(scene, cfg, o, d, tm, lam, gleaf=True)
+    exact = bvh.probe(scene, cfg, o, d, tm, lam)
+    tri = integrate.TriMode("gleaf", bvh.gmat(fs, cfg))
+
+    def plain():
+        t, loc, n, mat = integrate.intersect_scene(fs, tuple(o), tuple(d),
+                                                   tri)
+        return (t, torch.stack(loc), torch.stack(n), mat.to(torch.int32),
+                integrate._shadow(fs, tuple(o), tuple(d), tm, lam))
+
+    want = plain()
+    equal = [torch.equal(a, b) for a, b in zip(got, want)]
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, want))
+    plain_ms = cuda_ms(plain, 1)
+    hit_g, hit_e = got[0] < 1e29, exact[0] < 1e29
+    agree = float((hit_g == hit_e).float().mean())
+    pairs = torch.zeros((1,), dtype=torch.int64, device=o.device)
+    bvh.probe(scene, cfg, o, d, tm, lam, gleaf=True, pairs=pairs)
+    ms = cuda_ms(lambda: bvh.probe(scene, cfg, o, d, tm, lam, gleaf=True), 5)
+    ms_exact = cuda_ms(lambda: bvh.probe(scene, cfg, o, d, tm, lam), 5)
+    print(f"[mxu-leaf] {name}: {o.shape[1]} rays ({float(hit_g.float().mean()):.3f}"
+          f" hit): t/loc/n/mat/atten equal {equal}; hit/miss agreement "
+          f"with the exact walk {agree:.5f} ({int((hit_g != hit_e).sum())} "
+          f"rays differ); G walk {ms:.3f} ms, exact walk {ms_exact:.3f} ms, "
+          f"plain G sweep {plain_ms:.1f} ms")
+    if not all(equal):
+        bad = torch.nonzero((got[0] != want[0]) | (got[3] != want[3]))[:4, 0]
+        raise AssertionError(
+            f"{name}: the G leaf differs from the plain G sweep, e.g. rays "
+            f"{bad.tolist()}: t {got[0][bad].tolist()} vs "
+            f"{want[0][bad].tolist()}")
+    return err, ms, plain_ms, int(pairs)
 
 
 if __name__ == "__main__":

@@ -127,8 +127,8 @@ def test_make_camera_equal(args):
 
 @pytest.mark.parametrize("kw", [
     dict(motion_blur=True), dict(photon_aim=0.5), dict(qmc=True),
-    dict(aperture=0.3), dict(light_sample="power"), dict(use_bvh=True),
-    dict(pallas_mxu_leaf=True),
+    dict(aperture=0.3), dict(light_sample="power"),
+    dict(backend="pallas", sky_intensity=1.0), dict(count_walk_stats=True),
     dict(backend="wavefront_fused", sky_intensity=1.0),
     dict(backend="pallas", radiance_clamp=4.0),
     dict(count_iters=True), dict(photon_rr_scale=0.5),

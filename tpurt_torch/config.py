@@ -106,10 +106,17 @@ _SLICE_FIELDS = frozenset({
     "hero_wavelengths", "dispersion_in_camera_path",
     "photon_strata", "photon_strata_dir", "photon_strata_shared_k",
     "photon_strata_bounce", "photon_strata_window", "camera_strata_bounce",
+    # triangle tests: tpurt's G-matrix leaf (the regen kernel, where
+    # kernels/bvh.py mxu_leaf_engages holds) and the XLA per-ray walk
+    # (backend="xla" and the plain "wavefront" pool)
+    "pallas_mxu_leaf", "use_bvh",
 })
 
 # Knobs tpurt documents as scheduling-only (bit-identical results): the
-# port accepts them and ignores them.
+# port accepts them and ignores them. pallas_bvh_chunk and
+# pallas_bvh_chunk_threshold schedule nothing here (one walk serves every
+# size), but they decide whether pallas_mxu_leaf engages: tpurt runs the G
+# leaf on its single-table walk only (kernels/bvh.py mxu_leaf_engages).
 _SCHEDULING_FIELDS = frozenset({
     "pallas_block_tiles", "pallas_regen_drift", "pallas_regen_drift_cam",
     "pallas_cluster_size", "pallas_cluster_ordered", "pallas_tri_clip",

@@ -40,6 +40,20 @@
 // memory) and the stack in local memory. This first version keeps nodes
 // and records in global memory (through L1/L2) and the stack in local
 // memory, with no shared-memory stack, no treelets, no ray sorting.
+//
+// The G leaf (cfg.pallas_mxu_leaf; replaces tpurt/kernels/bvh_pallas.py
+// _make_mxu_leaf_fn with build_tri_gmat): tpurt's closest-hit leaf test in
+// the form linear in f = [d | o x d | o | 1], four dot products per
+// triangle against a row of its G matrix and a divide/compare epilogue
+// (TriClosestG). It is not bit-identical to Moller-Trumbore at grazing
+// rays. The TPU ran it as four (leaf, 16) x (16, 128) MXU products per
+// 128-lane row because the walk left the MXU idle; here each thread forms
+// its own sums on the CUDA cores in float32 without FMA, term by term in
+// the order of the plain version (ops/intersect.py _g_hits), so it equals
+// that sweep bit for bit. Its row is 80 bytes read per pair against the
+// exact test's 36, for about the same arithmetic. A tensor-core form needs
+// a warp-cooperative leaf and split-float products (TF32 keeps ~3 digits)
+// and is left for later. Shadow rays keep the exact test, as in tpurt.
 #pragma once
 
 #include "device.cuh"
@@ -58,15 +72,26 @@ enum NodeField { N_BMIN = 0, N_BMAX = 3, N_FIRST = 6, N_COUNT = 7,
 enum TriField { T_A = 0, T_E1 = 3, T_E2 = 6, T_N = 9, T_MAT = 12,
                 T_INDEX = 13 };
 
+// G row (kernels/bvh.py build_gmat): the non-zero coefficients of tpurt's
+// four blocks over f = [d | o x d | o | 1] (det of d; u_num of d and of
+// o x d; v_num of d and of o x d; t_num of o and of 1), the scene index,
+// then the unit normal and material; 96 bytes, 16-byte aligned
+enum GField { G_DET = 0, G_UD = 3, G_UX = 6, G_VD = 9, G_VX = 12, G_TO = 15,
+              G_TC = 18, G_INDEX = 19, G_N = 20, G_MAT = 23 };
+constexpr int G_STRIDE = 24;
+
 // The geometry tables of a launch (kernels/bvh.py GeomArgs). Triangles:
-// n_tri records, walked through tri_nodes when tri_walk, else swept flat.
-// Spheres: the flat sphere rows of the scene table, plus n_sph_tree rows
-// walked through sph_nodes.
+// n_tri records, walked through tri_nodes when tri_walk, else swept flat;
+// gmat, their G rows row for row, where the G leaf runs (set by the regen
+// kernel's wrapper only, read only by scene_hit<true>). Spheres: the flat
+// sphere rows of the scene table, plus n_sph_tree rows walked through
+// sph_nodes.
 struct Geom {
   const float* tri;
   const float* tri_nodes;
   const float* sph;
   const float* sph_nodes;
+  const float* gmat;
   int n_tri;
   int tri_walk;
   int n_sph_tree;
@@ -210,6 +235,59 @@ struct TriClosest {
   }
 };
 
+// tpurt's G-matrix leaf test against one G row (ops/intersect.py _g_hits):
+// each sum term by term over ascending features, x = o x d, then the
+// epilogue; returns whether it is a hit, with its distance in t and the
+// triangle's scene index in idx.
+__device__ __forceinline__ bool g_hit(const float* row, V3 o, V3 d, V3 x,
+                                      float& t, int& idx) {
+  const float4* p = reinterpret_cast<const float4*>(row);
+  const float4 c0 = p[0], c1 = p[1], c2 = p[2], c3 = p[3], c4 = p[4];
+  float det = c0.x * d.x + c0.y * d.y + c0.z * d.z;
+  float un = c0.w * d.x + c1.x * d.y + c1.y * d.z + c1.z * x.x + c1.w * x.y +
+             c2.x * x.z;
+  float vn = c2.y * d.x + c2.z * d.y + c2.w * d.z + c3.x * x.x + c3.y * x.y +
+             c3.z * x.z;
+  float tn = c3.w * o.x + c4.x * o.y + c4.y * o.z + c4.z;
+  const float eps = F(1.17549435e-38);
+  float sg = det >= 0.0f ? 1.0f : -1.0f;
+  float ad = det * sg, us = un * sg, vs = vn * sg;
+  t = tn / (ad >= eps ? det : 1.0f);
+  idx = (int)c4.w;
+  return ad >= eps && us >= 0.0f && vs >= 0.0f && us <= ad &&
+         us + vs <= ad && t > eps;
+}
+
+// The nearest triangle so far by the G leaf: the least (t, scene index);
+// `pairs` counts the triangles tested (the probe reads it).
+struct TriClosestG {
+  static constexpr float kGrow = 0.0f;
+  const float* g;
+  V3 o, d, x;
+  float clip;
+  float t;
+  int index;
+  unsigned pairs;
+  const float* row;
+
+  __device__ __forceinline__ float cap() const { return fminf(t, clip); }
+  __device__ __forceinline__ bool visit(int first, int count) {
+    pairs += (unsigned)count;
+    for (int i = first; i < first + count; ++i) {
+      const float* r = g + i * G_STRIDE;
+      float ti;
+      int idx;
+      if (!g_hit(r, o, d, x, ti, idx)) continue;
+      if (ti < t || (ti == t && idx < index)) {
+        t = ti;
+        index = idx;
+        row = r;
+      }
+    }
+    return false;
+  }
+};
+
 struct TriAny {
   static constexpr float kGrow = 0.0f;
   const float* tri;
@@ -240,6 +318,27 @@ __device__ __forceinline__ TriClosest closest_triangle(const Geom& g, V3 o,
   q.t = kMISS();
   q.index = 0x7fffffff;
   q.rec = nullptr;
+  if (g.tri_walk) {
+    bvh_walk(g.tri_nodes, make_ray(o, d), q);
+  } else {
+    q.visit(0, g.n_tri);
+  }
+  return q;
+}
+
+__device__ __forceinline__ TriClosestG closest_triangle_g(const Geom& g,
+                                                          V3 o, V3 d,
+                                                          float clip) {
+  TriClosestG q;
+  q.g = g.gmat;
+  q.o = o;
+  q.d = d;
+  q.x = vcross(o, d);
+  q.clip = clip;
+  q.t = kMISS();
+  q.index = 0x7fffffff;
+  q.pairs = 0;
+  q.row = nullptr;
   if (g.tri_walk) {
     bvh_walk(g.tri_nodes, make_ray(o, d), q);
   } else {
@@ -345,19 +444,36 @@ __device__ __forceinline__ float shadow_spheres(const float* flat, int n_flat,
 
 // ----- the scene: mega_pallas._make_scene_fns -----
 
+// The triangle at t takes the nearest hit: its point o + n*1e-5 + d*t
+// (_tri_state_finish), its unit normal and material read from nm, which
+// points at [nx ny nz mat] in a record (T_N) or a G row (G_N).
+static_assert(T_MAT == T_N + 3 && G_MAT == G_N + 3, "normal, then material");
+__device__ __forceinline__ void take_triangle(Hit& h, V3 o, V3 d, float t,
+                                              const float* nm) {
+  h.t = t;
+  h.n = load3(nm);
+  h.loc = vadd(vadd(o, vscale(h.n, F(1e-5))), vscale(d, t));
+  h.mat = (int)nm[3];
+}
+
 // Nearest hit: spheres first, then the triangles clipped at the sphere
-// hit; a triangle wins only on a strict t_tri < t_sph (_combine_nearest),
-// its point o + n*1e-5 + d*t (_tri_state_finish).
+// hit; a triangle wins only on a strict t_tri < t_sph (_combine_nearest).
+// GLEAF: the closest-hit leaf is the G leaf (g.gmat), which adds its pairs
+// tested to *pairs when pairs is not null; the kernels that never run it
+// keep GLEAF false.
+template <bool GLEAF = false>
 __device__ __forceinline__ Hit scene_hit(const float* flat, int n_flat,
-                                         const Geom& g, V3 o, V3 d) {
+                                         const Geom& g, V3 o, V3 d,
+                                         unsigned* pairs = nullptr) {
   Hit h = closest_sphere(flat, n_flat, g, o, d);
   if (g.n_tri) {
-    TriClosest tc = closest_triangle(g, o, d, h.t);
-    if (tc.t < h.t) {
-      h.t = tc.t;
-      h.n = load3(tc.rec + T_N);
-      h.loc = vadd(vadd(o, vscale(h.n, F(1e-5))), vscale(d, tc.t));
-      h.mat = (int)tc.rec[T_MAT];
+    if constexpr (GLEAF) {
+      TriClosestG tc = closest_triangle_g(g, o, d, h.t);
+      if (pairs) *pairs += tc.pairs;
+      if (tc.t < h.t) take_triangle(h, o, d, tc.t, tc.row + G_N);
+    } else {
+      TriClosest tc = closest_triangle(g, o, d, h.t);
+      if (tc.t < h.t) take_triangle(h, o, d, tc.t, tc.rec + T_N);
     }
   }
   return h;

@@ -6,7 +6,9 @@
 // path kernels' results depend on the same two functions.
 //
 // Rays: o, d (3, N) float32 planes, t_max and lam (N,). Outputs: t (N,),
-// loc and n (3, N), mat (N,) int32, atten (N,).
+// loc and n (3, N), mat (N,) int32, atten (N,). With geom.gmat set the
+// nearest hit takes the G leaf (GLEAF; its plain version sweeps the G
+// rows), and `pairs`, when not null, has the pairs it tested added to it.
 
 #include <cuda_runtime.h>
 
@@ -14,6 +16,7 @@
 
 namespace tpurt {
 
+template <bool GLEAF>
 __global__ void __launch_bounds__(128)
     probe_kernel(const float* __restrict__ o, const float* __restrict__ d,
                  const float* __restrict__ t_max,
@@ -21,12 +24,16 @@ __global__ void __launch_bounds__(128)
                  const float* __restrict__ sph, int n_sph, Geom geom,
                  float* __restrict__ t_out, float* __restrict__ loc_out,
                  float* __restrict__ n_out, int* __restrict__ mat_out,
-                 float* __restrict__ atten_out) {
+                 float* __restrict__ atten_out,
+                 unsigned long long* __restrict__ pairs) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const V3 ro = v3(o[i], o[n + i], o[2 * n + i]);
   const V3 rd = v3(d[i], d[n + i], d[2 * n + i]);
-  Hit h = scene_hit(sph, n_sph, geom, ro, rd);
+  unsigned tested = 0;
+  Hit h = scene_hit<GLEAF>(sph, n_sph, geom, ro, rd,
+                           pairs ? &tested : nullptr);
+  if (GLEAF && pairs) atomicAdd(pairs, (unsigned long long)tested);
   t_out[i] = h.t;
   loc_out[i] = h.loc.x;
   loc_out[n + i] = h.loc.y;
@@ -43,11 +50,14 @@ __global__ void __launch_bounds__(128)
 extern "C" int tpurt_bvh_probe_launch(
     const float* o, const float* d, const float* t_max, const float* lam,
     long long n, const float* sph, int n_sph, const tpurt::Geom* geom,
-    float* t, float* loc, float* nrm, int* mat, float* atten, void* stream) {
+    float* t, float* loc, float* nrm, int* mat, float* atten,
+    unsigned long long* pairs, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int threads = 128;
   const unsigned int blocks = (unsigned int)((n + threads - 1) / threads);
-  tpurt::probe_kernel<<<blocks, threads, 0, s>>>(
-      o, d, t_max, lam, n, sph, n_sph, *geom, t, loc, nrm, mat, atten);
+  auto kernel =
+      geom->gmat ? tpurt::probe_kernel<true> : tpurt::probe_kernel<false>;
+  kernel<<<blocks, threads, 0, s>>>(o, d, t_max, lam, n, sph, n_sph, *geom, t,
+                                    loc, nrm, mat, atten, pairs);
   return (int)cudaGetLastError();
 }

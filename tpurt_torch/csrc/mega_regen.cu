@@ -51,8 +51,10 @@ namespace tpurt {
 // reference instance is held to 64 registers (8 blocks of 128 threads an
 // SM), the sampler instance to 80 (6 blocks): left free, the first takes
 // 72 and runs ~5% slower, the second 115 and runs bench config 4 ~18%
-// slower (H100 80GB HBM3, 700 W; PERF.md).
-template <bool SAMPLER>
+// slower (H100 80GB HBM3, 700 W; PERF.md). GLEAF: the instances with
+// tpurt's G-matrix leaf test (pallas_mxu_leaf, geom.gmat set), under the
+// same bounds; the GLEAF false instances compile as they did without it.
+template <bool SAMPLER, bool GLEAF>
 __global__ void __launch_bounds__(128, SAMPLER ? 6 : 8)
     regen_kernel(float* __restrict__ planes, long long P, int width,
                  int height, const float* __restrict__ table, int n_sph,
@@ -89,8 +91,8 @@ __global__ void __launch_bounds__(128, SAMPLER ? 6 : 8)
           SAMPLER && S.window > 1
               ? frame_seed(base_seed, it & ~(uint32_t)(S.window - 1))
               : seed;
-      sample_pixel<SAMPLER>(prm, S, c, px, py, seed, strata_seed, radius, st,
-                            rays);
+      sample_pixel<SAMPLER, GLEAF>(prm, S, c, px, py, seed, strata_seed,
+                                   radius, st, rays);
       // the per-pixel SPPM radius step
       float itf = base_f + (float)(smp + 1);
       radius = radius * sqrtf((itf + sppm_alpha) / (itf + 1.0f));
@@ -123,8 +125,11 @@ extern "C" int tpurt_regen_launch(float* planes, long long P, int width,
   const int threads = 128;
   const long long n = (long long)width * height;
   const unsigned int blocks = (unsigned int)((n + threads - 1) / threads);
-  auto kernel = tpurt::sampler_on(*sampler) ? tpurt::regen_kernel<true>
-                                            : tpurt::regen_kernel<false>;
+  const bool on = tpurt::sampler_on(*sampler);
+  auto kernel = geom->gmat ? (on ? tpurt::regen_kernel<true, true>
+                                 : tpurt::regen_kernel<false, true>)
+                           : (on ? tpurt::regen_kernel<true, false>
+                                 : tpurt::regen_kernel<false, false>);
   kernel<<<blocks, threads, 0, s>>>(
       planes, P, width, height, table, n_sph, n_mat, n_light, seed, spp,
       it0, depth, radius0, k_photons, max_photon_bounces, rr_thresh,

@@ -203,9 +203,11 @@ __device__ __forceinline__ Params scene_params(const float* table, int n_sph,
   return p;
 }
 
-// The scene's nearest hit (mega_pallas._make_scene_fns' intersect).
+// The scene's nearest hit (mega_pallas._make_scene_fns' intersect); GLEAF
+// takes the G leaf for the triangles (bvh.cuh scene_hit).
+template <bool GLEAF = false>
 __device__ __forceinline__ Hit intersect(const Params& P, V3 o, V3 d) {
-  return scene_hit(P.sph, P.n_sph, P.geom, o, d);
+  return scene_hit<GLEAF>(P.sph, P.n_sph, P.geom, o, d);
 }
 
 // Camera spawn of one (pixel, sample): 2 jitter draws, the pinhole ray
@@ -470,8 +472,9 @@ struct SampleConsts {
 // tpurt_torch/integrate.py:render_tile. SAMPLER false compiles the
 // reference sampler alone (S is then not read): the kernels instantiate
 // both and pick one per launch, so a launch without the flags pays nothing
-// for them.
-template <bool SAMPLER>
+// for them. GLEAF: every nearest hit takes the G leaf (pallas_mxu_leaf;
+// the regen kernel alone instantiates it).
+template <bool SAMPLER, bool GLEAF = false>
 __device__ __forceinline__ void sample_pixel(const Params& prm,
                                              const Sampler& S,
                                              const SampleConsts& c,
@@ -505,7 +508,7 @@ __device__ __forceinline__ void sample_pixel(const Params& prm,
   bool coll = false;
   for (int b = 0;; ++b) {
     rays += 1;
-    Hit h = intersect(prm, o, d);
+    Hit h = intersect<GLEAF>(prm, o, d);
     if (!(h.t < kHIT())) break;
     const int mtype = (int)prm.mat[h.mat * MAT_STRIDE + 5];
     V3 wo = vneg(d);
@@ -546,7 +549,7 @@ __device__ __forceinline__ void sample_pixel(const Params& prm,
       const uint32_t cell_k = SAMPLER && S.shared_k ? 0u : (uint32_t)k;
       for (int b = 0;; ++b) {
         rays += 1;
-        Hit h = intersect(prm, ph_o, ph_d);
+        Hit h = intersect<GLEAF>(prm, ph_o, ph_d);
         if (!(h.t < kHIT())) break;
         V3 dvec = vsub(h.loc, st.vpos);
         float dist = sqrtf(fmaxf(vdot(dvec, dvec), 0.0f));

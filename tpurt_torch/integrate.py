@@ -18,9 +18,17 @@ All pixels advance in lockstep: per sample, the camera path of every
 pixel, then photon walk k = 0..K-1 of every pixel, then the accumulation.
 Dead lanes keep computing under masks (``torch.where``), like tpurt's
 tiles; a bounce loop stops early once every lane is dead.
+
+The nearest-hit query takes its triangle test from a ``TriMode``: the
+exact sweep (the kernels' walks), the sweep of tpurt's G-matrix leaf test
+(the regen kernel under ``pallas_mxu_leaf``) or tpurt's per-ray BVH walk
+(``use_bvh`` on backend="xla"); shadow segments always take the exact
+any-hit sweep, as in tpurt.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -29,7 +37,8 @@ from tpurt_torch.camera import spawn_camera_rays
 from tpurt_torch.ops import fdiv, fsqrt
 from tpurt_torch.ops import soa as s
 from tpurt_torch.ops.bsdf import INV_PI, TWO_PI, fr_dielectric
-from tpurt_torch.ops.intersect import (HIT, closest_sphere, closest_triangle,
+from tpurt_torch.ops.intersect import (HIT, bvh_hit, closest_sphere,
+                                      closest_triangle, closest_triangle_g,
                                       occluded_triangle, shadow_spheres)
 from tpurt_torch.ops import rng as rngmod
 from tpurt_torch.ops.rng import frame_seed, photon_stream, rand_1f, seed_pixels
@@ -53,15 +62,45 @@ def material_lookup(mats, mat_id):
             mtype == 0.0, mtype == 2.0)
 
 
-def intersect_scene(fs, o, d):
+@dataclasses.dataclass(frozen=True)
+class TriMode:
+    """The triangle test of the nearest-hit query: ``"exact"``, the
+    brute-force Moller-Trumbore sweep; ``"gleaf"``, the brute-force sweep
+    of tpurt's G-matrix leaf test over the G rows ``gmat``
+    (``kernels.bvh.gmat``); ``"bvh"``, tpurt's XLA per-ray walk of the
+    Scene's BVH."""
+    kind: str = "exact"
+    gmat: torch.Tensor | None = None
+
+
+EXACT = TriMode()
+BVH = TriMode("bvh")
+
+
+def xla_tri_mode(cfg) -> TriMode:
+    """The triangle test of tpurt's XLA paths (backend "xla" and the plain
+    "wavefront" pool; ``tpurt.integrate.intersect_scene``): the per-ray
+    walk under ``use_bvh``, else the exact sweep. The kernels and their
+    plain versions never take the walk."""
+    if cfg.use_bvh and cfg.backend in ("xla", "wavefront"):
+        return BVH
+    return EXACT
+
+
+def intersect_scene(fs, o, d, tri: TriMode = EXACT):
     """Nearest hit, (t, loc, normal, mat): spheres, then the triangles by
-    a brute-force sweep; a triangle wins only on a strict t_tri < t_sph
-    (``mega_pallas._combine_nearest``). The plain version of the kernels'
-    BVH walks (csrc/bvh.cuh)."""
+    ``tri``'s test; a triangle wins only on a strict t_tri < t_sph
+    (``mega_pallas._combine_nearest``). With the exact or the G sweep, the
+    plain version of the kernels' BVH walks (csrc/bvh.cuh)."""
     hit = closest_sphere(fs.spheres, o, d, fs.sph_rows)
     if fs.triangles is None:
         return hit
-    tri = closest_triangle(fs.triangles, o, d)
+    if tri.kind == "gleaf":
+        tri = closest_triangle_g(tri.gmat, fs.triangles, o, d)
+    elif tri.kind == "bvh":
+        tri = bvh_hit(fs.triangles, o, d)
+    else:
+        tri = closest_triangle(fs.triangles, o, d)
     take = tri[0] < hit[0]
     return (torch.where(take, tri[0], hit[0]), s.vwhere(take, tri[1], hit[1]),
             s.vwhere(take, tri[2], hit[2]), torch.where(take, tri[3], hit[3]))
@@ -353,14 +392,16 @@ def _material_kinds(fs):
 
 
 def trace_camera_paths(fs, cfg, mats, o, d, lam, rng, depth: int, vis,
-                       valid, em, em_hero=None, strata_seed=None):
+                       valid, em, em_hero=None, strata_seed=None,
+                       tri: TriMode = EXACT):
     """One camera path per lane, up to ``depth`` bounces. The first
     diffuse hit of the path overwrites the lane's vispoint (``vis``, 13
     planes: pos 3, norm 3, wo 3, tp 3, mat 1). ``em`` is the per-light
     emission NEE adds (hero-averaged when C > 1); with ``em_hero`` (the
     single-wavelength emission) a lane collapses to it on its first
     dielectric hit. ``strata_seed`` keys the camera bounce cells under
-    camera_strata_bounce. Returns (rad, vis, rays)."""
+    camera_strata_bounce; ``tri`` is the nearest hit's triangle test.
+    Returns (rad, vis, rays)."""
     zero = torch.zeros_like(o[0])
     one = torch.ones_like(o[0])
     tp = (one, one, one)
@@ -380,7 +421,7 @@ def trace_camera_paths(fs, cfg, mats, o, d, lam, rng, depth: int, vis,
         if not bool(active.any()):
             break
         rays = rays + active.sum()
-        t, loc, n, mat = intersect_scene(fs, o, d)
+        t, loc, n, mat = intersect_scene(fs, o, d, tri)
         found = t < HIT
         color, rough, ior, is_diffuse, is_metal = material_lookup(mats, mat)
         wo = s.vneg(d)
@@ -446,7 +487,7 @@ def _photon_emission(lt, cfg, u):
 
 
 def trace_photons(fs, cfg, mats, lam, seed, px, py, vis, radius, valid, rad,
-                  strata_seed=None):
+                  strata_seed=None, tri: TriMode = EXACT):
     """The SPPM photon pass: K photons per lane, emitted round-robin over
     the lights, each from its own stream ``photon_stream(seed, px, py, k)``,
     adding density-estimated radiance into ``rad`` wherever they land
@@ -455,7 +496,8 @@ def trace_photons(fs, cfg, mats, lam, seed, px, py, vis, radius, valid, rad,
     Under photon_strata the emission uniforms (and, with
     photon_strata_bounce, each bounce's scatter uniforms) move into the
     cells of ``strata_seed`` (default ``seed``). ``seed`` is an int or one
-    seed per lane. Returns (rad, rays)."""
+    seed per lane; ``tri`` is the nearest hit's triangle test. Returns
+    (rad, rays)."""
     rays = torch.zeros((), dtype=torch.int64, device=valid.device)
     L = len(fs.lights)
     K = cfg.k_photons if (cfg.enable_photons and L > 0) else 0
@@ -498,7 +540,7 @@ def trace_photons(fs, cfg, mats, lam, seed, px, py, vis, radius, valid, rad,
             if not bool(active.any()):
                 break
             rays = rays + active.sum()
-            t, loc, n, mat = intersect_scene(fs, o, d)
+            t, loc, n, mat = intersect_scene(fs, o, d, tri)
             found = t < HIT
 
             dvec = s.vsub(loc, vpos)
@@ -527,12 +569,12 @@ def trace_photons(fs, cfg, mats, lam, seed, px, py, vis, radius, valid, rad,
 
 
 def render_tile(fs, cfg, mats, camera, px, py, valid, seed, radius,
-                depth: int, vis, strata_seed=None):
+                depth: int, vis, strata_seed=None, tri: TriMode = EXACT):
     """One progressive sample for the pixels (px, py): camera spawn
     (2 jitter draws, 1 wavelength draw), camera path, photon pass.
     ``seed`` and ``strata_seed`` (default ``seed``) are ints or one per
-    pixel, ``radius`` a float or one per pixel. Returns (color vec3, vis,
-    rays)."""
+    pixel, ``radius`` a float or one per pixel; ``tri`` is the nearest
+    hit's triangle test. Returns (color vec3, vis, rays)."""
     strata_seed = seed if strata_seed is None else strata_seed
     rng = seed_pixels(seed, px, py)
     uj1, rng = rand_1f(rng)
@@ -547,9 +589,10 @@ def render_tile(fs, cfg, mats, camera, px, py, valid, seed, radius,
         em, em_hero = hero_emission_rgb(fs, cfg, lam), (
             em if tracks_collapse(fs, cfg) else None)
     rad, vis, rays = trace_camera_paths(fs, cfg, mats, o, d, lam, rng, depth,
-                                        vis, valid, em, em_hero, strata_seed)
+                                        vis, valid, em, em_hero, strata_seed,
+                                        tri)
     rad, prays = trace_photons(fs, cfg, mats, lam, seed, px, py, vis, radius,
-                               valid, rad, strata_seed)
+                               valid, rad, strata_seed, tri)
     return rad, vis, rays + prays
 
 
@@ -578,13 +621,15 @@ def _pixels(cfg, P: int, dev):
 
 
 def render_plain(fs, cfg, camera, planes, base_seed: int, spp: int,
-                 iteration: int, radius: float, depth: int) -> torch.Tensor:
+                 iteration: int, radius: float, depth: int,
+                 tri: TriMode = EXACT) -> torch.Tensor:
     """``spp`` samples into the (16, P) float32 state planes, in place:
     rgb_sum 0-2, vis_pos 3-5, vis_norm 6-8, vis_wo 9-11, vis_tp 12-14,
     vis_mat 15. The same contract as the regen kernel's launch: sample s
     draws from ``frame_seed(base_seed, iteration + s)`` and gathers photons
-    within the radius after s schedule steps. Returns the traced segments
-    as an int64 scalar tensor on the planes' device."""
+    within the radius after s schedule steps; ``tri`` is the nearest
+    hit's triangle test. Returns the traced segments as an int64 scalar
+    tensor on the planes' device."""
     dev = planes.device
     px, py, valid = _pixels(cfg, planes.shape[1], dev)
     mats = material_table(fs, dev)
@@ -595,7 +640,7 @@ def render_plain(fs, cfg, camera, planes, base_seed: int, spp: int,
         seed = frame_seed(base_seed, iteration + smp)
         rad, vis, srays = render_tile(
             fs, cfg, mats, camera, px, py, valid, seed, r, depth, vis,
-            sample_strata_seed(cfg, base_seed, iteration + smp, seed))
+            sample_strata_seed(cfg, base_seed, iteration + smp, seed), tri)
         for c in range(3):
             planes[c] += rad[c]
         rays = rays + srays
@@ -617,15 +662,16 @@ def radius_table(cfg, n: int) -> np.ndarray:
 
 
 def render_plain_budget(fs, cfg, camera, planes, base_seed: int, budgets,
-                        counts) -> torch.Tensor:
+                        counts, tri: TriMode = EXACT) -> torch.Tensor:
     """The regen kernel's budget mode, in place on the (16, P) planes:
     pixel p renders ``budgets[p]`` samples (an integer tensor, 0 on pad
     rows) continuing its own sequence: its sample s draws from
     ``frame_seed(base_seed, counts[p] + s)`` (counts = the state's
     n_samples) with its own strata epoch, and gathers photons within its
     own SPPM radius, which starts at the schedule's value after counts[p]
-    samples and steps after each of its samples. Returns the traced
-    segments as an int64 scalar tensor."""
+    samples and steps after each of its samples; ``tri`` is the nearest
+    hit's triangle test. Returns the traced segments as an int64 scalar
+    tensor."""
     dev = planes.device
     px, py, valid = _pixels(cfg, planes.shape[1], dev)
     mats = material_table(fs, dev)
@@ -642,7 +688,7 @@ def render_plain_budget(fs, cfg, camera, planes, base_seed: int, budgets,
         seed = frame_seed(base_seed, it)
         rad, vis, srays = render_tile(
             fs, cfg, mats, camera, px, py, live, seed, r, cfg.depth, vis,
-            sample_strata_seed(cfg, base_seed, it, seed))
+            sample_strata_seed(cfg, base_seed, it, seed), tri)
         for c in range(3):
             planes[c] = torch.where(live, planes[c] + rad[c], planes[c])
         rays = rays + srays

@@ -100,6 +100,7 @@ _SIGNATURES = {
         _P, _I,             # flat sphere rows (S, 8) f32, S
         _P,                 # geometry tables: a bvh.GeomArgs on the host
         _P, _P, _P, _P, _P,  # out: t, loc (3, N), n (3, N), mat i32, atten
+        _P,                 # G-leaf pairs tested: one uint64 added to, or NULL
         _P,                 # stream
     ],
     "tpurt_tonemap_launch": [

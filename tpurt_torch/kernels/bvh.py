@@ -20,6 +20,12 @@ when ``cfg.pallas_sphere_bvh`` and more than 16 are left after the
 scene-spanning ones, which stay in the flat sweep. ``geometry`` builds the
 tables once per frozen scene (so once per Scene) and knob set, and caches
 them on it.
+
+``cfg.pallas_mxu_leaf`` swaps the closest-hit leaf test of the regen
+kernel's triangle walk for tpurt's G-matrix form
+(``bvh_pallas.build_tri_gmat`` and ``_make_mxu_leaf_fn``), where
+``mxu_leaf_engages`` says tpurt runs it: ``gmat`` holds its rows, built
+from the walk's own leaf-ordered records and cached beside them.
 """
 
 from __future__ import annotations
@@ -36,8 +42,14 @@ from tpurt_torch.kernels import build
 from tpurt_torch.scene import FrozenScene, Scene, freeze_scene, sphere_rows
 
 STACK_DEPTH = 64          # csrc/bvh.cuh STACK_DEPTH
+MAX_BVH_TRIS = 8192       # tpurt's single-table walk (bvh_pallas.py)
 TRI_STRIDE = 16           # a e1 e2 n mat index - -
 NODE_STRIDE = 16          # bmin bmax first count children[8]
+# csrc/bvh.cuh G row: the 19 non-zero coefficients of tpurt's four
+# 16-float blocks over f = [d | o x d | o | 1], then the scene index and the
+# payload: det(d) 0:3, u(d) 3:6, u(oxd) 6:9, v(d) 9:12, v(oxd) 12:15,
+# t(o) 15:18, t(1) 18, index 19, n 20:23, mat 23
+G_STRIDE = 24
 MAX_ALWAYS_SPHERES = 8
 MIN_TREE_SPHERES = 16     # tpurt walks spheres only past this many
 # node boxes grow by this share of their largest coordinate and extent,
@@ -60,6 +72,7 @@ class GeomArgs(ctypes.Structure):
     """csrc/bvh.cuh ``struct Geom``, passed to every launcher by address."""
     _fields_ = [("tri", ctypes.c_void_p), ("tri_nodes", ctypes.c_void_p),
                 ("sph", ctypes.c_void_p), ("sph_nodes", ctypes.c_void_p),
+                ("gmat", ctypes.c_void_p),   # G rows; NULL: the exact leaf
                 ("n_tri", ctypes.c_int), ("tri_walk", ctypes.c_int),
                 ("n_sph_tree", ctypes.c_int)]
 
@@ -220,6 +233,23 @@ def use_tri_walk(fs: FrozenScene, cfg) -> bool:
             and fs.triangles.count > cfg.pallas_static_unroll)
 
 
+def mxu_leaf_engages(fs: FrozenScene, cfg) -> bool:
+    """Whether the path runs tpurt's G-matrix leaf test: the regen kernel
+    (``backend="pallas"``, ``pallas_regen``, either mode) with
+    ``mega_pallas._use_mxu_leaf``, i.e. ``pallas_mxu_leaf`` on tpurt's
+    single-table triangle walk (``pallas_bvh``, static_unroll < T <=
+    MAX_BVH_TRIS, the chunk predicate false). Everywhere else tpurt
+    accepts the flag and keeps the exact leaf, and so does the port."""
+    n = 0 if fs.triangles is None else fs.triangles.count
+    thresh = cfg.pallas_bvh_chunk_threshold or MAX_BVH_TRIS
+    chunked = cfg.pallas_bvh_chunk > 0 and n > max(thresh,
+                                                   cfg.pallas_static_unroll)
+    return bool(cfg.pallas_mxu_leaf and cfg.backend == "pallas"
+                and cfg.pallas_regen and cfg.pallas_bvh
+                and cfg.pallas_static_unroll < n <= MAX_BVH_TRIS
+                and not chunked)
+
+
 def use_sph_walk(fs: FrozenScene, cfg) -> bool:
     """``mega_pallas._use_sph_bvh`` without its table budget."""
     return cfg.pallas_sphere_bvh and n_tree_spheres(
@@ -243,11 +273,13 @@ class Geometry:
     def walks(self) -> bool:
         return self.tri_nodes is not None or self.sph_nodes is not None
 
-    def args(self) -> GeomArgs:
+    def args(self, gmat: torch.Tensor | None = None) -> GeomArgs:
+        """The launch's GeomArgs; ``gmat`` (the G rows of ``tri``) selects
+        the G-matrix leaf test of the closest-hit walk."""
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         return GeomArgs(
             ptr(self.tri), ptr(self.tri_nodes), ptr(self.sph),
-            ptr(self.sph_nodes),
+            ptr(self.sph_nodes), ptr(gmat),
             0 if self.tri is None else self.tri.shape[0],
             int(self.tri_nodes is not None),
             0 if self.sph is None else self.sph.shape[0])
@@ -267,6 +299,41 @@ def geometry(fs: FrozenScene, cfg) -> Geometry:
     if geo is None:
         geo = fs.cache[key] = _build_geometry(fs, cfg)
     return geo
+
+
+def build_gmat(rec: np.ndarray) -> np.ndarray:
+    """(T, G_STRIDE) G rows of the triangle records ``rec`` (``tri_records``
+    layout, in the walk's leaf order): the non-zero coefficients of
+    ``bvh_pallas.build_tri_gmat``'s blocks, computed as it computes them
+    (N = e1 x e2 unnormalised; det = d.(-N), u*det = d.(a x e2) +
+    (o x d).e2, v*det = d.(e1 x a) + (o x d).(-e1), t*det = o.N - a.N),
+    then the scene index, the unit normal and the material."""
+    a, e1, e2 = rec[:, 0:3], rec[:, 3:6], rec[:, 6:9]
+    N = np.cross(e1, e2)
+    g = np.zeros((rec.shape[0], G_STRIDE), np.float32)
+    g[:, 0:3] = -N
+    g[:, 3:6] = np.cross(a, e2)
+    g[:, 6:9] = e2
+    g[:, 9:12] = np.cross(e1, a)
+    g[:, 12:15] = -e1
+    g[:, 15:18] = N
+    g[:, 18] = -np.einsum("ij,ij->i", a, N)
+    g[:, 19] = rec[:, 13]
+    g[:, 20:23] = rec[:, 9:12]
+    g[:, 23] = rec[:, 12]
+    return g
+
+
+def gmat(fs: FrozenScene, cfg) -> torch.Tensor:
+    """The G rows of ``geometry(fs, cfg)``'s triangle records, row for row,
+    on the scene's device: built on the first call, then cached on the
+    frozen scene under their own key (the walk's tables stay as they are)."""
+    key = ("gmat", knobs(cfg))
+    g = fs.cache.get(key)
+    if g is None:
+        rec = geometry(fs, cfg).tri.cpu().numpy()
+        g = fs.cache[key] = torch.from_numpy(build_gmat(rec)).to(fs.device)
+    return g
 
 
 def _build_geometry(fs: FrozenScene, cfg) -> Geometry:
@@ -302,10 +369,14 @@ def _build_geometry(fs: FrozenScene, cfg) -> Geometry:
 
 # ----- the walk probe -----
 
-def probe(scene: Scene, cfg, o, d, t_max, lam):
+def probe(scene: Scene, cfg, o, d, t_max, lam, gleaf: bool = False,
+          pairs: torch.Tensor | None = None):
     """The nearest hit and shadow factor of a batch of rays by the
     kernels' walks: o, d (3, N) float32, t_max, lam (N,), all on the
     scene's device. Returns (t, loc (3, N), n (3, N), mat int32, atten).
+    ``gleaf`` takes tpurt's G-matrix leaf test for the nearest hit (over
+    ``gmat``); ``pairs``, an int64 (1,) tensor on the card, then has the
+    ray-triangle pairs the G leaf tested added to it.
     On a CUDA scene it launches csrc/bvh_probe.cu or raises; on a CPU
     scene it runs the plain version (``integrate.intersect_scene``,
     ``integrate._shadow``)."""
@@ -320,14 +391,20 @@ def probe(scene: Scene, cfg, o, d, t_max, lam):
                          f"{tuple(o.shape)} {tuple(d.shape)} "
                          f"{tuple(t_max.shape)} {tuple(lam.shape)}")
     fs = freeze_scene(scene)
+    gm = gmat(fs, cfg) if gleaf and fs.triangles is not None else None
     if dev.type == "cpu":
+        tri = integrate.EXACT if gm is None else integrate.TriMode("gleaf",
+                                                                   gm)
         t, loc, nrm, mat = integrate.intersect_scene(fs, tuple(o),
-                                                     tuple(d))
+                                                     tuple(d), tri)
         atten = integrate._shadow(fs, tuple(o), tuple(d), t_max, lam)
         return (t, torch.stack(loc), torch.stack(nrm), mat.to(torch.int32),
                 atten)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if pairs is not None and (pairs.dtype != torch.int64
+                              or pairs.device != dev or pairs.numel() != 1):
+        raise ValueError("pairs must be one int64 on the scene's device")
     geo = geometry(fs, cfg)
     n = o.shape[1]
     flat = torch.from_numpy(geo.flat_rows).to(dev)
@@ -336,12 +413,13 @@ def probe(scene: Scene, cfg, o, d, t_max, lam):
     nrm = torch.empty((3, n), dtype=torch.float32, device=dev)
     mat = torch.empty((n,), dtype=torch.int32, device=dev)
     atten = torch.empty((n,), dtype=torch.float32, device=dev)
-    args = geo.args()
+    args = geo.args(gm)
     lib = build.library()
     err = lib.tpurt_bvh_probe_launch(
         o.data_ptr(), d.data_ptr(), t_max.data_ptr(), lam.data_ptr(), n,
         flat.data_ptr(), flat.shape[0], ctypes.byref(args), t.data_ptr(),
         loc.data_ptr(), nrm.data_ptr(), mat.data_ptr(), atten.data_ptr(),
+        None if pairs is None else pairs.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(lib, err, "tpurt_bvh_probe_launch")
     LAUNCHES += 1

@@ -8,7 +8,10 @@ of the budget mode (``tpurt.kernels.mega_regen.render_budget_regen``). On a
 CUDA tensor each launches the kernel or raises; on a CPU tensor each runs
 the kernel's plain PyTorch version, ``integrate.render_plain`` or
 ``integrate.render_plain_budget``, which have the same contracts.
-``LAUNCHES`` and ``BUDGET_LAUNCHES`` count kernel launches only.
+``LAUNCHES`` and ``BUDGET_LAUNCHES`` count kernel launches only;
+``MXU_LAUNCHES`` counts the launches of either mode that ran tpurt's
+G-matrix leaf test (``pallas_mxu_leaf`` where ``bvh.mxu_leaf_engages``),
+whose plain version is ``ops.intersect.closest_triangle_g``.
 
 The module also builds what every path kernel reads: the parameter table
 (camera, spheres, materials, lights, each light's hero table) and the
@@ -32,6 +35,7 @@ from tpurt_torch.scene import freeze_scene, photon_power, sphere_rows
 
 LAUNCHES = 0
 BUDGET_LAUNCHES = 0
+MXU_LAUNCHES = 0
 
 N_CHANNELS = 16
 MAX_LIGHTS = 16       # csrc/device.cuh MAX_LIGHTS
@@ -142,8 +146,22 @@ def checked_scene(scene, planes: torch.Tensor, cfg):
     return freeze_scene(scene)
 
 
+def regen_tri_mode(fs, cfg) -> integrate.TriMode:
+    """The regen kernel's closest-hit triangle test: tpurt's G-matrix leaf
+    over ``bvh.gmat`` where ``bvh.mxu_leaf_engages``, else the exact one.
+    Raises on the G leaf without a leaf cap, as tpurt asserts."""
+    if not bvh.mxu_leaf_engages(fs, cfg):
+        return integrate.EXACT
+    if cfg.pallas_bvh_leaf <= 0:
+        raise ValueError("pallas_mxu_leaf needs pallas_bvh_leaf > 0: tpurt's "
+                         "G-matrix leaf test has no dynamic-count form")
+    return integrate.TriMode("gleaf", bvh.gmat(fs, cfg))
+
+
 def _launch(fs, cfg, camera, planes, base_seed: int, spp: int,
-            iteration: int, radius: float, depth: int, aux=None):
+            iteration: int, radius: float, depth: int, aux=None,
+            gmat=None):
+    global MXU_LAUNCHES
     table, geo = scene_table(fs, cfg, camera, planes.device)
     lib = build.library()
     rays = torch.zeros((), dtype=torch.int64, device=planes.device)
@@ -155,10 +173,13 @@ def _launch(fs, cfg, camera, planes, base_seed: int, spp: int,
         radius, photon_count(fs, cfg), cfg.max_photon_bounces,
         cfg.rr_threshold, cfg.photon_rr_threshold, cfg.sppm_alpha,
         ctypes.byref(sampler_args(fs, cfg)),
-        None if aux is None else aux.data_ptr(), ctypes.byref(geo.args()),
-        rays.data_ptr(), CIE_HOST.ctypes.data_as(ctypes.c_void_p), stream)
+        None if aux is None else aux.data_ptr(),
+        ctypes.byref(geo.args(gmat)), rays.data_ptr(),
+        CIE_HOST.ctypes.data_as(ctypes.c_void_p), stream)
     build.check_launch(lib, err, "tpurt_regen_launch")
     bvh.count_walk(geo)
+    if gmat is not None:
+        MXU_LAUNCHES += 1
     return rays
 
 
@@ -171,11 +192,12 @@ def regen_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
     photons within ``radius`` after s radius steps."""
     global LAUNCHES
     fs = checked_scene(scene, planes, cfg)
+    tri = regen_tri_mode(fs, cfg)
     if planes.device.type == "cpu":
         return integrate.render_plain(fs, cfg, camera, planes, base_seed,
-                                      spp, iteration, radius, depth)
+                                      spp, iteration, radius, depth, tri)
     rays = _launch(fs, cfg, camera, planes, base_seed, spp, iteration,
-                   radius, depth)
+                   radius, depth, gmat=tri.gmat)
     LAUNCHES += 1
     return rays
 
@@ -194,9 +216,10 @@ def regen_budget_call(scene, cfg, camera, planes: torch.Tensor,
     if budgets.shape != (P,) or counts.shape != (P,):
         raise ValueError(f"budgets {tuple(budgets.shape)} and counts "
                          f"{tuple(counts.shape)} must be ({P},)")
+    tri = regen_tri_mode(fs, cfg)
     if planes.device.type == "cpu":
         return integrate.render_plain_budget(fs, cfg, camera, planes,
-                                             base_seed, budgets, counts)
+                                             base_seed, budgets, counts, tri)
     cnt = counts.to(planes.device).long()
     radii = torch.from_numpy(integrate.radius_table(
         cfg, int(cnt.max()) if P else 0)).to(planes.device)[cnt]
@@ -204,7 +227,7 @@ def regen_budget_call(scene, cfg, camera, planes: torch.Tensor,
                        counts.to(planes.device).to(torch.float32),
                        radii]).contiguous()
     rays = _launch(fs, cfg, camera, planes, base_seed, 0, 0, 0.0, cfg.depth,
-                   aux)
+                   aux, tri.gmat)
     BUDGET_LAUNCHES += 1
     return rays
 

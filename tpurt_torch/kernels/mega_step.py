@@ -43,6 +43,8 @@ def step_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
     strata_seed = integrate.sample_strata_seed(cfg, base_seed, iteration,
                                                seed)
     table, geo = scene_table(fs, cfg, camera, planes.device)
+    args = geo.args()
+    assert args.gmat is None    # tpurt never runs its G leaf here
     lib = build.library()
     rays = torch.zeros((), dtype=torch.int64, device=planes.device)
     stream = torch.cuda.current_stream(planes.device).cuda_stream
@@ -52,7 +54,7 @@ def step_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
         len(fs.lights), seed, strata_seed, depth, radius,
         photon_count(fs, cfg), cfg.max_photon_bounces, cfg.rr_threshold,
         cfg.photon_rr_threshold, ctypes.byref(sampler_args(fs, cfg)),
-        ctypes.byref(geo.args()), rays.data_ptr(),
+        ctypes.byref(args), rays.data_ptr(),
         CIE_HOST.ctypes.data_as(ctypes.c_void_p), stream)
     build.check_launch(lib, err, "tpurt_step_launch")
     LAUNCHES += 1

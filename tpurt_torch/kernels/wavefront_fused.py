@@ -43,6 +43,8 @@ def _launch(scene, cfg, camera, state, base_seed, spp: int, budgets=None,
     rgb = rgb.contiguous().clone()
     fs = freeze_scene(scene)
     table, geo = scene_table(fs, cfg, camera, dev)
+    args = geo.args()
+    assert args.gmat is None    # tpurt never runs its G leaf here
     lib = build.library()
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -52,7 +54,7 @@ def _launch(scene, cfg, camera, state, base_seed, spp: int, budgets=None,
         len(geo.flat_rows), len(fs.materials), len(fs.lights),
         int(base_seed) & 0xFFFFFFFF, spp, state.iteration, ptr(budgets),
         ptr(base_counts), cfg.depth, cfg.rr_threshold,
-        ctypes.byref(geo.args()), rays.data_ptr(),
+        ctypes.byref(args), rays.data_ptr(),
         CIE_HOST.ctypes.data_as(ctypes.c_void_p), stream)
     build.check_launch(lib, err, "tpurt_wf_fused_launch")
     LAUNCHES += 1

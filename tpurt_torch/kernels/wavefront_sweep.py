@@ -51,6 +51,8 @@ def sweep(fs, cfg, pool: wavefront.WavefrontPool):
     pf, pi, rng = (t.contiguous() for t in (pool.pf, pool.pi, pool.rng))
     q = rng.shape[0]
     table, geo = scene_table(fs, cfg, None, dev)
+    args = geo.args()
+    assert args.gmat is None    # tpurt never runs its G leaf here
     lib = build.library()
     out = wavefront.WavefrontPool(pf=torch.empty_like(pf),
                                   pi=torch.empty_like(pi),
@@ -63,7 +65,7 @@ def sweep(fs, cfg, pool: wavefront.WavefrontPool):
         out.pi.data_ptr(), out.rng.data_ptr(), term.data_ptr(), q,
         table.data_ptr(), len(geo.flat_rows), len(fs.materials),
         len(fs.lights), cfg.depth, cfg.rr_threshold,
-        ctypes.byref(geo.args()), rays.data_ptr(),
+        ctypes.byref(args), rays.data_ptr(),
         CIE_HOST.ctypes.data_as(ctypes.c_void_p), stream)
     build.check_launch(lib, err, "tpurt_wf_sweep_launch")
     LAUNCHES += 1

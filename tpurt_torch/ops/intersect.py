@@ -19,6 +19,13 @@ whatever order a BVH walk visits them in. Its point is
 ``o + n * 1e-5 + d * t`` with the unflipped geometric normal
 (``mega_pallas._tri_state_finish``); occlusion is any-hit, and triangles
 occlude fully.
+
+Two more closest-hit queries replace that sweep where tpurt replaces it:
+``closest_triangle_g``, the brute-force sweep of tpurt's G-matrix leaf
+test (``cfg.pallas_mxu_leaf``, ``bvh_pallas._make_mxu_leaf_fn``: linear in
+f = [d | o x d | o | 1], not bit-identical to Moller-Trumbore at grazing
+rays), and ``bvh_hit``, tpurt's per-ray walk of the Scene's own BVH
+(``cfg.use_bvh``, ``tpurt.ops.intersect.bvh_hit``).
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ from tpurt_torch.ops.spectra import DISPERSION_B
 MISS = 1e30
 HIT = MISS * 0.5   # any t below this is a real hit
 TRI_EPS = 1.17549435e-38   # 2^-126, the reference's MT epsilon
+BIG = 3.402823e38          # the slab test's open end (tpurt's BIG)
+STACK_DEPTH = 64           # tpurt.ops.intersect.STACK_DEPTH
 SPHERE_LOOP_MAX = 64       # more spheres than this: the chunked sweep
 CHUNK_ELEMS = 1 << 22      # rays x primitives per chunk of a sweep
 
@@ -190,8 +199,13 @@ def _shadow_spheres_chunked(table, o, d, t_max, lam):
 
 def _tri_hits(tri, lo: int, hi: int, o1, d1):
     """(t, valid), each (N, C), of rays (vec3s of (N, 1) columns) against
-    triangles lo:hi: ``soa.triangle_hit_c`` term for term."""
-    a, e1, e2 = (_cols(x, lo, hi) for x in (tri.a, tri.e1, tri.e2))
+    triangles lo:hi."""
+    return _mt(*(_cols(x, lo, hi) for x in (tri.a, tri.e1, tri.e2)), o1, d1)
+
+
+def _mt(a, e1, e2, o1, d1):
+    """(t, valid) of Moller-Trumbore on broadcasting vec3s:
+    ``soa.triangle_hit_c`` term for term."""
     h = s.vcross(d1, e2)
     det = s.vdot(e1, h)
     small = det.abs() < TRI_EPS
@@ -224,11 +238,7 @@ def closest_triangle(tri, o, d):
         better = tmin < best_t
         best_t = torch.where(better, tmin, best_t)
         best_i = torch.where(better, arg + lo, best_i)
-    hit = best_t < MISS
-    nrm = tuple(torch.where(hit, tri.n[best_i, k], 0.0) for k in range(3))
-    mat = torch.where(hit, tri.mat[best_i].to(torch.int64), 0)
-    loc = s.vadd(s.vadd(o, s.vscale(nrm, 1e-5)), s.vscale(d, best_t))
-    return best_t, loc, nrm, mat, best_i
+    return _tri_finish(tri, o, d, best_t, best_i)
 
 
 def occluded_triangle(tri, o, d, t_max):
@@ -243,3 +253,134 @@ def occluded_triangle(tri, o, d, t_max):
         t, valid = _tri_hits(tri, lo, min(lo + step, T), o1, d1)
         occ = occ | (valid & (t < tm)).any(dim=1)
     return occ
+
+
+# ----- pallas_mxu_leaf: tpurt's G-matrix leaf test -----
+
+G_INDEX = 19   # kernels/bvh.py G_STRIDE layout: the scene index column
+
+
+def _g_hits(g, o1, d1, x1):
+    """(t, valid), each (N, C), of rays against G rows ``g`` (C, 24)
+    (``kernels.bvh.build_gmat``): the four sums of tpurt's leaf test over
+    f = [d | o x d | o | 1], each term by term in ascending feature order
+    with zero coefficients skipped (a matmul's summation order is not
+    fixed, and csrc/bvh.cuh sums in this one), then its epilogue
+    (``_make_mxu_leaf_fn``): the sign of det folded into u and v, t = t_num
+    / det, a hit when |det| >= eps, 0 <= u, 0 <= v, u <= |det|,
+    u + v <= |det| and t > eps. o1, d1, x1 = o x d: vec3s of (N, 1)."""
+    c = lambda k: g[:, k][None]  # noqa: E731
+    det = c(0) * d1[0] + c(1) * d1[1] + c(2) * d1[2]
+    un = (c(3) * d1[0] + c(4) * d1[1] + c(5) * d1[2] + c(6) * x1[0]
+          + c(7) * x1[1] + c(8) * x1[2])
+    vn = (c(9) * d1[0] + c(10) * d1[1] + c(11) * d1[2] + c(12) * x1[0]
+          + c(13) * x1[1] + c(14) * x1[2])
+    tn = c(15) * o1[0] + c(16) * o1[1] + c(17) * o1[2] + c(18)
+    sgn = torch.where(det >= 0.0, 1.0, -1.0)
+    ad, us, vs = det * sgn, un * sgn, vn * sgn
+    t = tn / torch.where(ad >= TRI_EPS, det, 1.0)
+    valid = ((ad >= TRI_EPS) & (us >= 0.0) & (vs >= 0.0) & (us <= ad)
+             & (us + vs <= ad) & (t > TRI_EPS))
+    return t, valid
+
+
+def closest_triangle_g(g, tri, o, d):
+    """Nearest triangle along (o, d) by tpurt's G-matrix leaf test, swept
+    brute force over the G rows ``g`` of ``tri``'s triangles (any row
+    order): the least (t, scene index), as ``closest_triangle``. Returns
+    (t, loc, normal, mat, index) as it does."""
+    o1 = tuple(x[:, None] for x in o)
+    d1 = tuple(x[:, None] for x in d)
+    x1 = tuple(x[:, None] for x in s.vcross(o, d))
+    idx = g[:, G_INDEX].to(torch.int64)
+    best_t = torch.full_like(o[0], MISS)
+    best_i = torch.zeros_like(o[0], dtype=torch.int64)
+    n, T = o[0].shape[0], g.shape[0]
+    step = _chunk(n, T)
+    for lo in range(0, T, step):
+        hi = min(lo + step, T)
+        t, valid = _g_hits(g[lo:hi], o1, d1, x1)
+        t = torch.where(valid, t, MISS)
+        tmin = t.amin(dim=1)
+        imin = torch.where(t == tmin[:, None], idx[lo:hi][None],
+                           T).amin(dim=1)
+        better = (tmin < MISS) & ((tmin < best_t)
+                                  | ((tmin == best_t) & (imin < best_i)))
+        best_t = torch.where(better, tmin, best_t)
+        best_i = torch.where(better, imin, best_i)
+    return _tri_finish(tri, o, d, best_t, best_i)
+
+
+def _tri_finish(tri, o, d, best_t, best_i):
+    """(t, loc, normal, mat, index) of the winners best_i at best_t."""
+    hit = best_t < MISS
+    nrm = tuple(torch.where(hit, tri.n[best_i, k], 0.0) for k in range(3))
+    mat = torch.where(hit, tri.mat[best_i].to(torch.int64), 0)
+    loc = s.vadd(s.vadd(o, s.vscale(nrm, 1e-5)), s.vscale(d, best_t))
+    return best_t, loc, nrm, mat, best_i
+
+
+# ----- use_bvh: tpurt's per-ray walk (XLA path) -----
+
+def _aabb_entry(o, d, inv, par, bmin, bmax):
+    """``tpurt.ops.intersect.ray_aabb_entry`` per ray against one box each
+    (bmin, bmax (N, 3)): (box reached, entry distance). ``inv`` and ``par``
+    are the ray's guarded reciprocal and parallel-axis mask."""
+    lo, hi, ok = [], [], torch.ones_like(par[0])
+    for k in range(3):
+        t0 = (bmin[:, k] - o[k]) * inv[k]
+        t1 = (bmax[:, k] - o[k]) * inv[k]
+        lo.append(torch.where(par[k], 0.0, torch.minimum(t0, t1)))
+        hi.append(torch.where(par[k], BIG, torch.maximum(t0, t1)))
+        ok = ok & (~par[k] | ((o[k] >= bmin[:, k]) & (o[k] <= bmax[:, k])))
+    tmin = torch.maximum(torch.maximum(lo[0], lo[1]), lo[2]).clamp_min(0.0)
+    tmax = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
+    return (tmax >= tmin) & ok, tmin
+
+
+def bvh_hit(tri, o, d):
+    """Nearest triangle along (o, d) by ``tpurt.ops.intersect.bvh_hit``:
+    a per-ray stack walk (64 deep) of the Scene's own BVH (``tri.bvh``,
+    whose leaves index tri's rows), vectorised over the rays. A node is
+    entered when its slab test passes with entry t_entry < the best t so
+    far; an inner node pushes right, then left; a leaf sweeps
+    ``tri.max_leaf`` slots masked by its count, and a triangle wins on a
+    strict t < best, so the first visited keeps a tie. Returns (t, loc,
+    normal, mat, index) as ``closest_triangle``."""
+    bmin, bmax, left, right, first, count = tri.bvh
+    n, T = o[0].shape[0], tri.count
+    dev = o[0].device
+    par = tuple(x.abs() < 1e-20 for x in d)
+    inv = tuple(fdiv(1.0, torch.where(p, 1.0, x)) for p, x in zip(par, d))
+    rows = torch.arange(n, device=dev)
+    stack = torch.zeros((n, STACK_DEPTH), dtype=torch.int64, device=dev)
+    sp = torch.ones((n,), dtype=torch.int64, device=dev)
+    best_t = torch.full_like(o[0], MISS)
+    best_i = torch.zeros((n,), dtype=torch.int64, device=dev)
+    while True:
+        live = sp > 0
+        if not bool(live.any()):
+            break
+        sp = sp - live.long()
+        node = stack[rows, sp.clamp_min(0)]
+        reach, t_entry = _aabb_entry(o, d, inv, par, bmin[node], bmax[node])
+        go = live & reach & (t_entry < best_t)
+        cnt = count[node].long()
+        leaf = go & (cnt > 0)
+        if bool(leaf.any()):
+            f0 = first[node].long()
+            for i in range(tri.max_leaf):
+                ti = (f0 + i).clamp_max(T - 1)
+                t, valid = _mt(*(tuple(x[ti, k] for k in range(3))
+                                 for x in (tri.a, tri.e1, tri.e2)), o, d)
+                t = torch.where(valid & leaf & (i < cnt), t, MISS)
+                better = t < best_t
+                best_t = torch.where(better, t, best_t)
+                best_i = torch.where(better, ti, best_i)
+        inner = go & (cnt == 0)
+        if bool(inner.any()):
+            r, at = rows[inner], sp[inner]
+            stack[r, at] = right[node[inner]].long()
+            stack[r, at + 1] = left[node[inner]].long()
+            sp = sp + 2 * inner.long()
+    return _tri_finish(tri, o, d, best_t, best_i)

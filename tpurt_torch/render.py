@@ -8,7 +8,10 @@ CPU; with ``pallas_regen=False`` it calls the tile-synchronized kernel's
 wrapper once per sample, stepping the seed, strata epoch and radius on the
 host (``tpurt.kernels.mega_pallas._render_pallas_jit``);
 ``backend="xla"`` always runs the plain version (the eager-torch
-integrator). All three give the same streams, ray counts and states.
+integrator), through tpurt's per-ray BVH walk under ``use_bvh``. All three
+give the same streams, ray counts and states, except that
+``pallas_mxu_leaf`` changes the regen kernel's triangle test (tpurt's
+G-matrix leaf, where ``kernels.bvh.mxu_leaf_engages`` holds).
 
 The wavefront backends trace camera paths only (no photon pass; the
 vispoints and the photon radius stay as they are): ``"wavefront"`` is the
@@ -174,7 +177,7 @@ def _advance(scene, cfg, camera, state, base_seed, spp, depth):
         rays = integrate.render_plain(freeze_scene(scene), cfg, camera,
                                       planes, int(base_seed), spp,
                                       state.iteration, state.photon_radius,
-                                      depth)
+                                      depth, integrate.xla_tri_mode(cfg))
     radius = radius_after(cfg, state.iteration, state.photon_radius, spp)
     return planes_to_state(state, planes, spp, radius, rays, cfg)
 

@@ -550,6 +550,10 @@ class FTriangles:
     e2: torch.Tensor     # (T, 3) f32
     n: torch.Tensor      # (T, 3) f32
     mat: torch.Tensor    # (T,)   i32
+    # the Scene's own BVH over these rows (the use_bvh walk): bvh_min,
+    # bvh_max, bvh_left, bvh_right, bvh_first, bvh_count, and its leaf cap
+    bvh: tuple = ()
+    max_leaf: int = 0
 
     @property
     def count(self) -> int:
@@ -652,7 +656,11 @@ def _freeze(scene: Scene) -> FrozenScene:
     tris = None
     if scene.num_triangles:
         tris = FTriangles(a=scene.tri_a, e1=scene.tri_e1, e2=scene.tri_e2,
-                          n=scene.tri_n, mat=scene.tri_mat)
+                          n=scene.tri_n, mat=scene.tri_mat,
+                          bvh=(scene.bvh_min, scene.bvh_max, scene.bvh_left,
+                               scene.bvh_right, scene.bvh_first,
+                               scene.bvh_count),
+                          max_leaf=int(scene.bvh_max_leaf))
     return FrozenScene(
         spheres=spheres, materials=materials, lights=tuple(lights),
         sph_rows=torch.from_numpy(sphere_rows(spheres)).to(scene.device),

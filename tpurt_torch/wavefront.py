@@ -33,7 +33,7 @@ from tpurt_torch.config import check_slice
 from tpurt_torch.integrate import (_material_kinds, intersect_scene,
                                    light_emission_rgb, material_lookup,
                                    material_table, sample_direct_lighting,
-                                   scatter_and_rr)
+                                   scatter_and_rr, xla_tri_mode)
 from tpurt_torch.ops import fdiv
 from tpurt_torch.ops import soa as s
 from tpurt_torch.ops.intersect import HIT
@@ -144,10 +144,11 @@ def _regen(cfg, camera, pool: WavefrontPool, next_sample, next_pix, spp: int,
 
 def _sweep(fs, cfg, pool: WavefrontPool):
     """One extend+shade sweep over the whole pool: the plain version of the
-    sweep kernel. Returns (pool, terminated (Q,) bool, traced segments as an
-    int64 scalar). Terminated slots keep their pix and rad for the splat;
-    inactive slots keep their PCG state and count a bounce, as in the
-    kernel."""
+    sweep kernel (and, for backend="wavefront" under use_bvh, tpurt's XLA
+    pool with its per-ray walk). Returns (pool, terminated (Q,) bool,
+    traced segments as an int64 scalar). Terminated slots keep their pix
+    and rad for the splat; inactive slots keep their PCG state and count a
+    bounce, as in the kernel."""
     mats = material_table(fs, pool.pf.device)
     pf = pool.pf
     o, d, tp, rad = (tuple(pf[b + c] for c in range(3))
@@ -157,7 +158,7 @@ def _sweep(fs, cfg, pool: WavefrontPool):
     bounce = pool.pi[BOUNCE]
     rays = active.sum()
 
-    t, loc, n, mat = intersect_scene(fs, o, d)
+    t, loc, n, mat = intersect_scene(fs, o, d, xla_tri_mode(cfg))
     found = t < HIT
     color, rough, ior, is_diffuse, is_metal = material_lookup(mats, mat)
     wo = s.vneg(d)
