@@ -26,7 +26,8 @@ kernel, then its 1080p path), [wf-sweep], [wf-pool], [wf-fused],
 [mesh] (config 6 with the reference sampler), [config6] (config 6 as
 shipped), [config4], [mesh-field], [mesh-instanced], [mxu-leaf] (the
 probe's G leaf against the plain G sweep), [mesh-mxu] (the regen kernel
-with the G leaf against ``render_plain``, both modes), [config6-mxu]
+with the G leaf against ``render_plain``, both samplers, both modes, and
+one 1080p sample of each sampler), [config6-mxu]
 (config 6 with the flag, both samplers, timed against the exact leaf).
 
     python3 chip_smoke.py
@@ -41,6 +42,7 @@ file; imports nothing of JAX.
 
 from __future__ import annotations
 
+import itertools
 import json
 import pathlib
 import re
@@ -197,6 +199,12 @@ def ptxas_report(log: str) -> list:
 
 def named_ms(by_name: dict, part: str) -> float:
     return sum(v for k, v in by_name.items() if part in k)
+
+
+def idle_share(wall: float, busy: float) -> str:
+    """The device's idle share of a profiled wall time; "not measured"
+    where the profiler saw no device time."""
+    return f"{1.0 - busy / wall:.3f}" if busy > 0 else "not measured"
 
 
 def image_gap(a: np.ndarray, b: np.ndarray):
@@ -469,8 +477,9 @@ def unequal_planes(a, b) -> list:
     return [i for i in range(a.shape[0]) if not torch.equal(a[i], b[i])]
 
 
-def regen_vs_plain(label, scene, cfg, cam, seed, spp, it0):
-    """The regen kernel against render_plain from a fresh state at
+def regen_vs_plain(label, scene, cfg, cam, seed, spp, it0, phase="sampler"):
+    """The regen kernel against render_plain (with the kernel's triangle
+    test, the G sweep where the G leaf engages) from a fresh state at
     iteration it0 (radius after it0 steps): rays and all 16 planes bit for
     bit. Returns (segments, kernel s, plain s)."""
     import tpurt_torch as tt
@@ -478,6 +487,8 @@ def regen_vs_plain(label, scene, cfg, cam, seed, spp, it0):
     from tpurt_torch.kernels import mega_regen
     from tpurt_torch.render import radius_after, state_to_planes
     from tpurt_torch.scene import freeze_scene
+    fs = freeze_scene(scene)
+    tri = mega_regen.regen_tri_mode(fs, cfg)
     planes = state_to_planes(tt.init_state(cfg))
     pk, pp = planes.clone(), planes.clone()
     r0 = radius_after(cfg, 0, cfg.photon_radius_init, it0)
@@ -486,12 +497,13 @@ def regen_vs_plain(label, scene, cfg, cam, seed, spp, it0):
     rk = int(mega_regen.regen_call(scene, cfg, cam, pk, seed, spp, it0, r0,
                                    cfg.depth))
     t1 = time.perf_counter()
-    rp = int(integrate.render_plain(freeze_scene(scene), cfg, cam, pp, seed,
-                                    spp, it0, r0, cfg.depth))
+    rp = int(integrate.render_plain(fs, cfg, cam, pp, seed, spp, it0, r0,
+                                    cfg.depth, tri))
     t2 = time.perf_counter()
     bad = unequal_planes(pk, pp)
-    print(f"[sampler] {label} {cfg.width}x{cfg.height} depth {cfg.depth} "
-          f"{spp} spp from iteration {it0}: rays {rk} vs plain {rp}, "
+    print(f"[{phase}] {label} ({tri.kind} leaf) {cfg.width}x{cfg.height} "
+          f"depth {cfg.depth} {spp} spp from iteration {it0}: rays {rk} vs "
+          f"plain {rp}, "
           f"unequal planes {bad}; kernel call {1e3 * (t1 - t0):.1f} ms, "
           f"plain {1e3 * (t2 - t1):.1f} ms")
     if rk != rp or bad:
@@ -869,7 +881,7 @@ def wavefront_phases(dev, report, gpu) -> dict:
     print(f"  1 spp under the profiler: {sweeps} sweeps, {wall:.1f} ms wall, "
           f"{in_sweep:.1f} ms in the sweep kernel ({1.0 - in_sweep / wall:.3f}"
           f" of the wall time outside it), device busy {busy:.1f} ms "
-          f"(idle share {1.0 - busy / wall:.3f})")
+          f"(idle share {idle_share(wall, busy)})")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print("  device ms by kernel: " + "; ".join(
         f"{k[:60]} {v:.2f}" for k, v in top))
@@ -888,7 +900,7 @@ def wavefront_phases(dev, report, gpu) -> dict:
     print(f"  under the profiler: {wall:.2f} ms wall, fused kernel "
           f"{named_ms(by_name, 'fused_kernel'):.2f} ms, blit "
           f"{named_ms(by_name, 'tonemap_kernel'):.3f} ms, device busy "
-          f"{busy:.2f} ms (idle share {1.0 - busy / wall:.3f})")
+          f"{busy:.2f} ms (idle share {idle_share(wall, busy)})")
     return launches
 
 
@@ -1142,27 +1154,37 @@ def mesh_profile(name, scene, cfg, cam, spp) -> None:
         return tt.resolve_image(cfg, st)
 
     wall, by_name, busy = profiled(path, 1)
-    kernel = named_ms(by_name, "regen_kernel")
     planes = state_to_planes(tt.init_state(cfg))
     ev_path = cuda_ms(path, 2)
     ev_kernel = cuda_ms(lambda: mega_regen.regen_call(
         scene, cfg, cam, planes.clone(), 1234, spp, 0, 2.0, cfg.depth), 2)
-    print(f"  {name} under the profiler: {wall:.2f} ms wall, regen kernel "
-          f"{kernel:.2f} ms, device busy {busy:.2f} ms (idle share "
-          f"{1.0 - busy / wall:.3f}); by CUDA events: render + resolve "
-          f"{ev_path:.2f} ms, regen kernel {ev_kernel:.2f} ms "
+    print(f"  {name} under the profiler: {wall:.2f} ms wall, "
+          f"{kernel_share(wall, by_name, busy)}; by CUDA events: render + "
+          f"resolve {ev_path:.2f} ms, regen kernel {ev_kernel:.2f} ms "
           f"({ev_kernel / spp:.2f} ms per sample)")
+
+
+def kernel_share(wall: float, by_name: dict, busy: float) -> str:
+    """The regen kernel's profiled device ms, device busy ms and idle
+    share; "not measured" where the profiler saw no regen kernel."""
+    kernel = named_ms(by_name, "regen_kernel")
+    if kernel <= 0:
+        return "regen kernel not in the profile: device time not measured"
+    return (f"regen kernel {kernel:.2f} ms, device busy {busy:.2f} ms (idle "
+            f"share {idle_share(wall, busy)})")
 
 
 def mxu_phases(dev, report, gpu) -> dict:
     """[mxu-leaf] the probe's G leaf against the plain G sweep on
     [bvh-walk]'s 65,536-ray sets, with the hit/miss agreement against the
     exact walk; [mesh-mxu] the regen kernel with pallas_mxu_leaf against
-    render_plain with the G sweep, uniform and budget mode; [config6-mxu]
-    config 6's scene at 1080p with the flag through tt.render (reference
-    sampler, then as shipped) and the regen kernel's time per sample, G
-    leaf against exact leaf in turns. Fills report["mxu_leaf"]; returns
-    the shipped path's G-leaf launch count."""
+    render_plain with the G sweep, with the reference sampler and with
+    config 6's, uniform and budget mode at 64x32 and 256x144;
+    [config6-mxu] config 6's scene at 1080p with the flag through
+    tt.render (reference sampler, then as shipped) and the regen kernel's
+    time per sample, G leaf against exact leaf in turns; then [mesh-mxu]
+    at 1080p, one depth-30 sample of each sampler. Fills
+    report["mxu_leaf"]; returns the shipped path's G-leaf launch count."""
     import tpurt_torch as tt
     from tpurt_torch import integrate
     from tpurt_torch.kernels import mega_regen
@@ -1201,15 +1223,21 @@ def mxu_phases(dev, report, gpu) -> dict:
                               plain_ms=plain_ms,
                               **bound(n * (32 + 36), pairs * 50))
     print(f"  pairs tested on the torus, binary leaf 64: {pairs} "
-          f"({pairs / n:.1f} a ray); bound {report['mxu_leaf']['bound_ms']:.4f}"
-          f" ms ({report['mxu_leaf']['bound_by']})")
+          f"({pairs / n:.1f} a ray); bound "
+          f"{report['mxu_leaf']['bound_ms']:.4f} ms "
+          f"({report['mxu_leaf']['bound_by']})")
 
-    # [mesh-mxu] the regen kernel with the G leaf against render_plain
+    # [mesh-mxu] the regen kernel's two G instances (the reference sampler
+    # and config 6's) against render_plain with the G sweep, uniform and
+    # budget mode; then each at the main path's 1080p shape
     torus = tt.torus_mesh_scene(45, 45)
     fs = freeze_scene(torus)
-    for w, h in ((64, 32), (256, 144)):
+    samplers = (("reference sampler", dict(pallas_bvh_leaf=64)),
+                ("as shipped", CONFIG6))
+    for (label, flags), (w, h) in itertools.product(
+            samplers, ((64, 32), (256, 144))):
         cfg = tt.RenderConfig(width=w, height=h, depth=8, backend="pallas",
-                              pallas_bvh_leaf=64, pallas_mxu_leaf=True)
+                              pallas_mxu_leaf=True, **flags)
         cam = tt.make_camera(*TORUS_CAM, vfov=55.0, aspect_ratio=w / h)
         tri = mega_regen.regen_tri_mode(fs, cfg)
         if tri.kind != "gleaf":
@@ -1233,10 +1261,10 @@ def mxu_phases(dev, report, gpu) -> dict:
                                                 st1.n_samples, tri))
         bad_b = unequal_planes(bk, bp)
         runs = mega_regen.MXU_LAUNCHES - before
-        print(f"[mesh-mxu] {w}x{h} depth 8, uniform 2 spp: rays {rk} vs plain "
-              f"{rp}, unequal planes {bad}; budgets 0-3 after 1 spp: rays "
-              f"{rbk} vs plain {rbp}, unequal planes {bad_b}; G-leaf "
-              f"launches {runs}")
+        print(f"[mesh-mxu] {label} {w}x{h} depth 8, uniform 2 spp: rays "
+              f"{rk} vs plain {rp}, unequal planes {bad}; budgets 0-3 after "
+              f"1 spp: rays {rbk} vs plain {rbp}, unequal planes {bad_b}; "
+              f"G-leaf launches {runs}")
         if rk != rp or bad or rbk != rbp or bad_b or runs != 3:
             raise AssertionError("the regen kernel's G leaf differs from "
                                  "render_plain")
@@ -1247,8 +1275,7 @@ def mxu_phases(dev, report, gpu) -> dict:
     cam6 = tt.make_camera(*TORUS_CAM, vfov=55.0, aspect_ratio=16 / 9)
     names = ["regen", "blit", "bvh_walk", "mxu_leaf"]
     launches = {}
-    for label, flags in (("reference sampler", dict(pallas_bvh_leaf=64)),
-                         ("as shipped", CONFIG6)):
+    for label, flags in samplers:
         cfg = tt.RenderConfig(width=1920, height=1080, depth=30,
                               backend="pallas", **flags)
         g_cfg = cfg.with_(pallas_mxu_leaf=True)
@@ -1265,19 +1292,30 @@ def mxu_phases(dev, report, gpu) -> dict:
         for c in (cfg, g_cfg, g_cfg, cfg):
             times.append(cuda_ms(lambda: mega_regen.regen_call(
                 torus, c, cam6, planes.clone(), 1234, 4, 0, 2.0, 30), 2) / 4)
-        wall, by_name, busy = profiled(lambda: tt.resolve_image(
-            g_cfg, tt.render(torus, g_cfg, cam6, tt.init_state(g_cfg), 1234,
-                             4)), 1)
+        def g_path():
+            return tt.resolve_image(g_cfg, tt.render(
+                torus, g_cfg, cam6, tt.init_state(g_cfg), 1234, 4))
+
+        wall, by_name, busy = profiled(g_path, 1)
         print(f"  {label}: G leaf rays {rg} vs exact {rx} (rel "
               f"{(rg - rx) / rx:.2e}); image G vs exact: median {med:.2e},"
               f" {frac:.2%} pixels > 1e-2, max {mx:.3g}; regen kernel per "
               f"1080p sample exact/G/G/exact "
-              f"{'/'.join(f'{t:.3f}' for t in times)} ms; G path under the "
-              f"profiler {wall:.2f} ms wall, regen kernel "
-              f"{named_ms(by_name, 'regen_kernel'):.2f} ms, idle share "
-              f"{1.0 - busy / wall:.3f} | {gpu}")
+              f"{'/'.join(f'{t:.3f}' for t in times)} ms; G path "
+              f"render + resolve by CUDA events {cuda_ms(g_path, 2):.2f} ms;"
+              f" under the profiler {wall:.2f} ms wall, "
+              f"{kernel_share(wall, by_name, busy)} | {gpu}")
         if abs(rg - rx) > 1e-2 * rx:
             raise AssertionError("the G leaf moves the ray count by > 1%")
+
+    # [mesh-mxu] at 1080p: one sample of each G instance, depth 30
+    for label, flags in samplers:
+        cfg = tt.RenderConfig(width=1920, height=1080, depth=30,
+                              backend="pallas", pallas_mxu_leaf=True, **flags)
+        before = mega_regen.MXU_LAUNCHES
+        regen_vs_plain(label, torus, cfg, cam6, 1234, 1, 0, phase="mesh-mxu")
+        if mega_regen.MXU_LAUNCHES != before + 1:
+            raise AssertionError("the 1080p comparison ran no G leaf")
     return {"mxu_leaf": launches["mxu_leaf"]}
 
 
@@ -1305,18 +1343,19 @@ def g_leaf_vs_plain(name, scene, cfg, rays):
     equal = [torch.equal(a, b) for a, b in zip(got, want)]
     err = max(float((a.float() - b.float()).abs().max())
               for a, b in zip(got, want))
-    plain_ms = cuda_ms(plain, 1)
+    plain_ms = cuda_ms(plain, 3)
     hit_g, hit_e = got[0] < 1e29, exact[0] < 1e29
     agree = float((hit_g == hit_e).float().mean())
     pairs = torch.zeros((1,), dtype=torch.int64, device=o.device)
     bvh.probe(scene, cfg, o, d, tm, lam, gleaf=True, pairs=pairs)
     ms = cuda_ms(lambda: bvh.probe(scene, cfg, o, d, tm, lam, gleaf=True), 5)
     ms_exact = cuda_ms(lambda: bvh.probe(scene, cfg, o, d, tm, lam), 5)
-    print(f"[mxu-leaf] {name}: {o.shape[1]} rays ({float(hit_g.float().mean()):.3f}"
-          f" hit): t/loc/n/mat/atten equal {equal}; hit/miss agreement "
-          f"with the exact walk {agree:.5f} ({int((hit_g != hit_e).sum())} "
-          f"rays differ); G walk {ms:.3f} ms, exact walk {ms_exact:.3f} ms, "
-          f"plain G sweep {plain_ms:.1f} ms")
+    print(f"[mxu-leaf] {name}: {o.shape[1]} rays "
+          f"({float(hit_g.float().mean()):.3f} hit): t/loc/n/mat/atten "
+          f"equal {equal}; hit/miss agreement with the exact walk "
+          f"{agree:.5f} ({int((hit_g != hit_e).sum())} rays differ); G "
+          f"walk {ms:.3f} ms, exact walk {ms_exact:.3f} ms, plain G sweep "
+          f"{plain_ms:.1f} ms")
     if not all(equal):
         bad = torch.nonzero((got[0] != want[0]) | (got[3] != want[3]))[:4, 0]
         raise AssertionError(

@@ -14,9 +14,9 @@ where JAX is not installed:
 ``python -m pytest tests/test_torch_mxu_leaf.py -m gpu --noconftest``.
 
 Tolerances: the predicate, the table and the ray counts exact; the leaf
-test's t against tpurt rtol 1e-5 (tpurt forms its sums as XLA dot
-products, whose summation order on the CPU is not the port's fixed one);
-images by the rule of tests/test_golden.py; on the card, bit for bit.
+test's t against tpurt bit for bit with its sums fused as XLA's CPU dot
+fuses them, and rtol 1e-5 with the kernel's unfused sums; images by the
+rule of tests/test_golden.py; on the card, bit for bit.
 """
 
 import types
@@ -198,28 +198,43 @@ def _tpurt_g_walk(tp, fs_j, leaf, o, d):
 
 
 def test_leaf_test_matches_tpurt_interpret(tp):
-    """The plain G sweep against tpurt's G leaf inside its walk, on 512
-    seeded rays at torus_mesh_scene(8, 4), leaf 8: the same hit or miss on
-    every ray, t within rtol 1e-5; and its hit/miss agreement with the
-    exact sweep (tpurt's leaf is not bit-identical to Moller-Trumbore at
-    grazing rays): at least 0.997."""
+    """The plain G sweep against tpurt's G leaf inside its walk, on 2048
+    seeded rays at torus_mesh_scene(8, 4), leaf 8. tpurt's interpret mode
+    forms its four sums with fused multiply-adds in ascending feature
+    order (XLA's CPU dot); the G sweep with ``fused=True`` gives its t bit
+    for bit on every ray, so the port's rows, feature order, epilogue and
+    winner are tpurt's, while the exact Moller-Trumbore sweep's t differs
+    in the last bits on most hit rays. The sweep the kernel runs (no FMA):
+    the same hit or miss on every ray, t within rtol 1e-5 (cancellation in
+    the sums turns one rounding into up to tens of ulp of t). Its hit/miss
+    agreement with the exact sweep (tpurt's leaf is not bit-identical to
+    Moller-Trumbore at grazing rays): at least 0.997."""
     scene = tt.torus_mesh_scene(8, 4, device=CPU)
     fs = freeze_scene(scene)
-    o, d, _, _ = _rays(scene, 512, 21)
+    o, d, _, _ = _rays(scene, 2048, 21)
     want = _tpurt_g_walk(tp, tp.mp.freeze_scene(
         tp.tpurt.scene.torus_mesh_scene(8, 4)), 8, o, d)
     cfg = tt.RenderConfig(backend="pallas", pallas_static_unroll=8,
                           pallas_bvh_leaf=8, pallas_mxu_leaf=True)
     to = lambda x: tuple(torch.from_numpy(x))  # noqa: E731
-    got = intersect.closest_triangle_g(bvh.gmat(fs, cfg), fs.triangles,
-                                       to(o), to(d))[0].numpy()
+    g = bvh.gmat(fs, cfg)
+    got = intersect.closest_triangle_g(g, fs.triangles, to(o),
+                                       to(d))[0].numpy()
+    fused = intersect.closest_triangle_g(g, fs.triangles, to(o), to(d),
+                                         fused=True)[0].numpy()
     exact = intersect.closest_triangle(fs.triangles, to(o), to(d))[0].numpy()
     hit = want < 1e29
     assert 0.2 < hit.mean() < 0.9
+    np.testing.assert_array_equal(fused, want)
     np.testing.assert_array_equal(got < 1e29, hit)
     np.testing.assert_allclose(got[hit], want[hit], rtol=1e-5)
+    same_g = (got[hit] == want[hit]).mean()
+    same_exact = (exact[hit] == want[hit]).mean()
     agree = ((got < 1e29) == (exact < 1e29)).mean()
-    print(f"G sweep against the exact sweep: hit/miss agreement {agree:.4f}")
+    print(f"t equal to tpurt's on hit rays: G sweep {same_g:.3f}, exact "
+          f"sweep {same_exact:.3f}; G against exact hit/miss agreement "
+          f"{agree:.4f}")
+    assert same_exact < 0.5
     assert agree >= 0.997
 
 
@@ -330,6 +345,10 @@ def test_flag_engages_on_the_regen_path_and_needs_a_leaf_cap():
     tri = mega_regen.regen_tri_mode(fs, flag)
     assert tri.kind == "gleaf" and tri.gmat is bvh.gmat(fs, flag)
     assert mega_regen.regen_tri_mode(fs, cfg) is integrate.EXACT
+    cam = _torus_cam(2.0)
+    a = tt.render(scene, cfg, cam, tt.init_state(cfg, device=CPU), 9, 1)
+    b = tt.render(scene, flag, cam, tt.init_state(flag, device=CPU), 9, 1)
+    assert not torch.equal(state_to_planes(a), state_to_planes(b))
     with pytest.raises(ValueError, match="pallas_bvh_leaf"):
         tt.render(scene, flag.with_(pallas_bvh_leaf=0), _torus_cam(2.0),
                   tt.init_state(flag, device=CPU), 1, 1)
@@ -363,15 +382,25 @@ def test_g_probe_matches_plain_on_cuda(cuda, width):
     assert (t < 1e29).float().mean() > 0.5
 
 
+# bench config 6's sampler flags as tpurt ships them: the regen kernel's
+# sampler instance
+CONFIG6_SAMPLER = dict(photon_strata=16, photon_strata_dir=4096,
+                       photon_strata_shared_k=True, photon_strata_bounce=True,
+                       camera_strata_bounce=True, hero_wavelengths=4)
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("sampler", ["reference", "config6"])
 @pytest.mark.parametrize("mode", ["uniform", "budget"])
-def test_g_regen_kernel_matches_plain_on_cuda(cuda, mode):
-    """The regen kernel's G instances against render_plain(_budget) with
-    the G sweep: the same segments, every state plane bit for bit."""
+def test_g_regen_kernel_matches_plain_on_cuda(cuda, mode, sampler):
+    """The regen kernel's G instances (reference sampler and config 6's)
+    against render_plain(_budget) with the G sweep: the same segments,
+    every state plane bit for bit."""
     scene = tt.torus_mesh_scene(45, 45, device=cuda)
     fs = freeze_scene(scene)
+    flags = CONFIG6_SAMPLER if sampler == "config6" else {}
     cfg = tt.RenderConfig(width=64, height=32, depth=8, backend="pallas",
-                          pallas_bvh_leaf=64, pallas_mxu_leaf=True)
+                          pallas_bvh_leaf=64, pallas_mxu_leaf=True, **flags)
     cam = _torus_cam(2.0)
     st = tt.init_state(cfg, cuda)
     tri = mega_regen.regen_tri_mode(fs, cfg)

@@ -20,6 +20,7 @@ on ``backend="pallas"`` that pass is the regen kernel's budget mode
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -208,8 +209,10 @@ def render_adaptive(scene, cfg, camera, base_seed=0, spp: int = 64,
         def budget_fn(*args):
             return wavefront_render_budget(*args, sweep=ws.sweep)
     else:
-        uniform_fn = wavefront.wavefront_render
-        budget_fn = wavefront_render_budget
+        sweep = wavefront.xla_sweep(cfg)
+        uniform_fn = functools.partial(wavefront.wavefront_render,
+                                       sweep=sweep)
+        budget_fn = functools.partial(wavefront_render_budget, sweep=sweep)
 
     state = init_state(cfg, scene.device)
     state = uniform_fn(scene, cfg, camera, state, base_seed, h)

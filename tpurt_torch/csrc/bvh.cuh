@@ -72,7 +72,7 @@ enum NodeField { N_BMIN = 0, N_BMAX = 3, N_FIRST = 6, N_COUNT = 7,
 enum TriField { T_A = 0, T_E1 = 3, T_E2 = 6, T_N = 9, T_MAT = 12,
                 T_INDEX = 13 };
 
-// G row (kernels/bvh.py build_gmat): the non-zero coefficients of tpurt's
+// G row (ops/intersect.py G_* and build_gmat): the non-zero coefficients of tpurt's
 // four blocks over f = [d | o x d | o | 1] (det of d; u_num of d and of
 // o x d; v_num of d and of o x d; t_num of o and of 1), the scene index,
 // then the unit normal and material; 96 bytes, 16-byte aligned

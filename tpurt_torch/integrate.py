@@ -22,7 +22,8 @@ tiles; a bounce loop stops early once every lane is dead.
 The nearest-hit query takes its triangle test from a ``TriMode``: the
 exact sweep (the kernels' walks), the sweep of tpurt's G-matrix leaf test
 (the regen kernel under ``pallas_mxu_leaf``) or tpurt's per-ray BVH walk
-(``use_bvh`` on backend="xla"); shadow segments always take the exact
+(``use_bvh`` on backend="xla" and the plain wavefront pool). The caller
+that knows the backend picks it; shadow segments always take the exact
 any-hit sweep, as in tpurt.
 """
 
@@ -75,16 +76,6 @@ class TriMode:
 
 EXACT = TriMode()
 BVH = TriMode("bvh")
-
-
-def xla_tri_mode(cfg) -> TriMode:
-    """The triangle test of tpurt's XLA paths (backend "xla" and the plain
-    "wavefront" pool; ``tpurt.integrate.intersect_scene``): the per-ray
-    walk under ``use_bvh``, else the exact sweep. The kernels and their
-    plain versions never take the walk."""
-    if cfg.use_bvh and cfg.backend in ("xla", "wavefront"):
-        return BVH
-    return EXACT
 
 
 def intersect_scene(fs, o, d, tri: TriMode = EXACT):

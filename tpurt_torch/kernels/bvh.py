@@ -39,17 +39,13 @@ import torch
 
 from tpurt_torch import accel
 from tpurt_torch.kernels import build
+from tpurt_torch.ops.intersect import build_gmat
 from tpurt_torch.scene import FrozenScene, Scene, freeze_scene, sphere_rows
 
 STACK_DEPTH = 64          # csrc/bvh.cuh STACK_DEPTH
 MAX_BVH_TRIS = 8192       # tpurt's single-table walk (bvh_pallas.py)
 TRI_STRIDE = 16           # a e1 e2 n mat index - -
 NODE_STRIDE = 16          # bmin bmax first count children[8]
-# csrc/bvh.cuh G row: the 19 non-zero coefficients of tpurt's four
-# 16-float blocks over f = [d | o x d | o | 1], then the scene index and the
-# payload: det(d) 0:3, u(d) 3:6, u(oxd) 6:9, v(d) 9:12, v(oxd) 12:15,
-# t(o) 15:18, t(1) 18, index 19, n 20:23, mat 23
-G_STRIDE = 24
 MAX_ALWAYS_SPHERES = 8
 MIN_TREE_SPHERES = 16     # tpurt walks spheres only past this many
 # node boxes grow by this share of their largest coordinate and extent,
@@ -301,33 +297,11 @@ def geometry(fs: FrozenScene, cfg) -> Geometry:
     return geo
 
 
-def build_gmat(rec: np.ndarray) -> np.ndarray:
-    """(T, G_STRIDE) G rows of the triangle records ``rec`` (``tri_records``
-    layout, in the walk's leaf order): the non-zero coefficients of
-    ``bvh_pallas.build_tri_gmat``'s blocks, computed as it computes them
-    (N = e1 x e2 unnormalised; det = d.(-N), u*det = d.(a x e2) +
-    (o x d).e2, v*det = d.(e1 x a) + (o x d).(-e1), t*det = o.N - a.N),
-    then the scene index, the unit normal and the material."""
-    a, e1, e2 = rec[:, 0:3], rec[:, 3:6], rec[:, 6:9]
-    N = np.cross(e1, e2)
-    g = np.zeros((rec.shape[0], G_STRIDE), np.float32)
-    g[:, 0:3] = -N
-    g[:, 3:6] = np.cross(a, e2)
-    g[:, 6:9] = e2
-    g[:, 9:12] = np.cross(e1, a)
-    g[:, 12:15] = -e1
-    g[:, 15:18] = N
-    g[:, 18] = -np.einsum("ij,ij->i", a, N)
-    g[:, 19] = rec[:, 13]
-    g[:, 20:23] = rec[:, 9:12]
-    g[:, 23] = rec[:, 12]
-    return g
-
-
 def gmat(fs: FrozenScene, cfg) -> torch.Tensor:
-    """The G rows of ``geometry(fs, cfg)``'s triangle records, row for row,
-    on the scene's device: built on the first call, then cached on the
-    frozen scene under their own key (the walk's tables stay as they are)."""
+    """The G rows (``ops.intersect.build_gmat``) of ``geometry(fs, cfg)``'s
+    triangle records, row for row, on the scene's device: built on the
+    first call, then cached on the frozen scene under their own key (the
+    walk's tables stay as they are)."""
     key = ("gmat", knobs(cfg))
     g = fs.cache.get(key)
     if g is None:

@@ -30,6 +30,7 @@ rays), and ``bvh_hit``, tpurt's per-ray walk of the Scene's own BVH
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from tpurt_torch.ops import fdiv, fsqrt
@@ -257,25 +258,68 @@ def occluded_triangle(tri, o, d, t_max):
 
 # ----- pallas_mxu_leaf: tpurt's G-matrix leaf test -----
 
-G_INDEX = 19   # kernels/bvh.py G_STRIDE layout: the scene index column
+# The G row, mirrored by csrc/bvh.cuh GField: the non-zero coefficients of
+# tpurt's four 16-float blocks over f = [d | o x d | o | 1] (det of d; u
+# numerator of d and of o x d; v numerator of d and of o x d; t numerator
+# of o and of 1), the scene index, then the unit normal and the material.
+G_DET, G_UD, G_UX, G_VD, G_VX, G_TO, G_TC = 0, 3, 6, 9, 12, 15, 18
+G_INDEX, G_N, G_MAT = 19, 20, 23
+G_STRIDE = 24
 
 
-def _g_hits(g, o1, d1, x1):
-    """(t, valid), each (N, C), of rays against G rows ``g`` (C, 24)
-    (``kernels.bvh.build_gmat``): the four sums of tpurt's leaf test over
+def build_gmat(rec: np.ndarray) -> np.ndarray:
+    """(T, G_STRIDE) G rows of the triangle records ``rec``
+    (``kernels.bvh.tri_records`` layout, in the walk's leaf order): the
+    non-zero coefficients of ``bvh_pallas.build_tri_gmat``'s blocks,
+    computed as it computes them (N = e1 x e2 unnormalised; det = d.(-N),
+    u*det = d.(a x e2) + (o x d).e2, v*det = d.(e1 x a) + (o x d).(-e1),
+    t*det = o.N - a.N), then the scene index, the unit normal and the
+    material."""
+    a, e1, e2 = rec[:, 0:3], rec[:, 3:6], rec[:, 6:9]
+    N = np.cross(e1, e2)
+    g = np.zeros((rec.shape[0], G_STRIDE), np.float32)
+    g[:, G_DET:G_DET + 3] = -N
+    g[:, G_UD:G_UD + 3] = np.cross(a, e2)
+    g[:, G_UX:G_UX + 3] = e2
+    g[:, G_VD:G_VD + 3] = np.cross(e1, a)
+    g[:, G_VX:G_VX + 3] = -e1
+    g[:, G_TO:G_TO + 3] = N
+    g[:, G_TC] = -np.einsum("ij,ij->i", a, N)
+    g[:, G_INDEX] = rec[:, 13]
+    g[:, G_N:G_N + 3] = rec[:, 9:12]
+    g[:, G_MAT] = rec[:, 12]
+    return g
+
+
+def _gsum(terms, fused: bool):
+    """The sum of the products a * b of ``terms`` in their order. Unfused,
+    each product and each sum rounds to float32 (csrc/bvh.cuh, built
+    without FMA); ``fused`` rounds each multiply-add once, as a fused
+    multiply-add (the product is exact in float64), which is how XLA's CPU
+    dot forms tpurt's sums in Pallas interpret mode."""
+    (a, b), *rest = terms
+    acc = a * b
+    for a, b in rest:
+        acc = ((acc.double() + a.double() * b.double()).float() if fused
+               else acc + a * b)
+    return acc
+
+
+def _g_hits(g, o1, d1, x1, fused: bool = False):
+    """(t, valid), each (N, C), of rays against G rows ``g`` (C, G_STRIDE)
+    (``build_gmat``): the four sums of tpurt's leaf test over
     f = [d | o x d | o | 1], each term by term in ascending feature order
     with zero coefficients skipped (a matmul's summation order is not
-    fixed, and csrc/bvh.cuh sums in this one), then its epilogue
-    (``_make_mxu_leaf_fn``): the sign of det folded into u and v, t = t_num
-    / det, a hit when |det| >= eps, 0 <= u, 0 <= v, u <= |det|,
-    u + v <= |det| and t > eps. o1, d1, x1 = o x d: vec3s of (N, 1)."""
-    c = lambda k: g[:, k][None]  # noqa: E731
-    det = c(0) * d1[0] + c(1) * d1[1] + c(2) * d1[2]
-    un = (c(3) * d1[0] + c(4) * d1[1] + c(5) * d1[2] + c(6) * x1[0]
-          + c(7) * x1[1] + c(8) * x1[2])
-    vn = (c(9) * d1[0] + c(10) * d1[1] + c(11) * d1[2] + c(12) * x1[0]
-          + c(13) * x1[1] + c(14) * x1[2])
-    tn = c(15) * o1[0] + c(16) * o1[1] + c(17) * o1[2] + c(18)
+    fixed, and csrc/bvh.cuh sums in this one; ``fused`` as in ``_gsum``),
+    then its epilogue (``_make_mxu_leaf_fn``): the sign of det folded into
+    u and v, t = t_num / det, a hit when |det| >= eps, 0 <= u, 0 <= v,
+    u <= |det|, u + v <= |det| and t > eps. o1, d1, x1 = o x d: vec3s of
+    (N, 1)."""
+    c = lambda k: tuple(g[:, k + i][None] for i in range(3))  # noqa: E731
+    det = _gsum(zip(c(G_DET), d1), fused)
+    un = _gsum([*zip(c(G_UD), d1), *zip(c(G_UX), x1)], fused)
+    vn = _gsum([*zip(c(G_VD), d1), *zip(c(G_VX), x1)], fused)
+    tn = _gsum(zip(c(G_TO), o1), fused) + g[:, G_TC][None]
     sgn = torch.where(det >= 0.0, 1.0, -1.0)
     ad, us, vs = det * sgn, un * sgn, vn * sgn
     t = tn / torch.where(ad >= TRI_EPS, det, 1.0)
@@ -284,11 +328,12 @@ def _g_hits(g, o1, d1, x1):
     return t, valid
 
 
-def closest_triangle_g(g, tri, o, d):
+def closest_triangle_g(g, tri, o, d, fused: bool = False):
     """Nearest triangle along (o, d) by tpurt's G-matrix leaf test, swept
     brute force over the G rows ``g`` of ``tri``'s triangles (any row
     order): the least (t, scene index), as ``closest_triangle``. Returns
-    (t, loc, normal, mat, index) as it does."""
+    (t, loc, normal, mat, index) as it does. ``fused`` forms the sums with
+    fused multiply-adds (``_gsum``); the kernel and the path never do."""
     o1 = tuple(x[:, None] for x in o)
     d1 = tuple(x[:, None] for x in d)
     x1 = tuple(x[:, None] for x in s.vcross(o, d))
@@ -299,7 +344,7 @@ def closest_triangle_g(g, tri, o, d):
     step = _chunk(n, T)
     for lo in range(0, T, step):
         hi = min(lo + step, T)
-        t, valid = _g_hits(g[lo:hi], o1, d1, x1)
+        t, valid = _g_hits(g[lo:hi], o1, d1, x1, fused)
         t = torch.where(valid, t, MISS)
         tmin = t.amin(dim=1)
         imin = torch.where(t == tmin[:, None], idx[lo:hi][None],

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ast
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -131,7 +132,8 @@ def planes_to_state(state: RenderState, planes: torch.Tensor, spp: int,
 def _wavefront_dispatch(cfg: RenderConfig):
     """The renderer of a wavefront backend."""
     if cfg.backend == "wavefront":
-        return wavefront.wavefront_render
+        return functools.partial(wavefront.wavefront_render,
+                                 sweep=wavefront.xla_sweep(cfg))
     if cfg.backend == "wavefront_pallas":
         return wavefront_sweep.wavefront_render_pallas
     return wavefront_fused.wavefront_render_fused
@@ -174,10 +176,12 @@ def _advance(scene, cfg, camera, state, base_seed, spp, depth):
                 state.iteration + i, r, depth)
             r = radius_after(cfg, state.iteration + i, r, 1)
     else:
+        # tpurt's XLA integrator walks the Scene's BVH per ray under use_bvh
+        tri = integrate.BVH if cfg.use_bvh else integrate.EXACT
         rays = integrate.render_plain(freeze_scene(scene), cfg, camera,
                                       planes, int(base_seed), spp,
                                       state.iteration, state.photon_radius,
-                                      depth, integrate.xla_tri_mode(cfg))
+                                      depth, tri)
     radius = radius_after(cfg, state.iteration, state.photon_radius, spp)
     return planes_to_state(state, planes, spp, radius, rays, cfg)
 

@@ -25,15 +25,16 @@ this pool through ``wavefront_render_slab(..., sweep=...)``), and
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from tpurt_torch.camera import spawn_camera_rays
 from tpurt_torch.config import check_slice
-from tpurt_torch.integrate import (_material_kinds, intersect_scene,
-                                   light_emission_rgb, material_lookup,
-                                   material_table, sample_direct_lighting,
-                                   scatter_and_rr, xla_tri_mode)
+from tpurt_torch.integrate import (BVH, EXACT, TriMode, _material_kinds,
+                                   intersect_scene, light_emission_rgb,
+                                   material_lookup, material_table,
+                                   sample_direct_lighting, scatter_and_rr)
 from tpurt_torch.ops import fdiv
 from tpurt_torch.ops import soa as s
 from tpurt_torch.ops.intersect import HIT
@@ -142,13 +143,12 @@ def _regen(cfg, camera, pool: WavefrontPool, next_sample, next_pix, spp: int,
     return pool, next_sample + np2 // n_pix, np2 % n_pix
 
 
-def _sweep(fs, cfg, pool: WavefrontPool):
+def _sweep(fs, cfg, pool: WavefrontPool, tri: TriMode = EXACT):
     """One extend+shade sweep over the whole pool: the plain version of the
-    sweep kernel (and, for backend="wavefront" under use_bvh, tpurt's XLA
-    pool with its per-ray walk). Returns (pool, terminated (Q,) bool,
-    traced segments as an int64 scalar). Terminated slots keep their pix
-    and rad for the splat; inactive slots keep their PCG state and count a
-    bounce, as in the kernel."""
+    sweep kernel; ``tri`` is the nearest hit's triangle test. Returns
+    (pool, terminated (Q,) bool, traced segments as an int64 scalar).
+    Terminated slots keep their pix and rad for the splat; inactive slots
+    keep their PCG state and count a bounce, as in the kernel."""
     mats = material_table(fs, pool.pf.device)
     pf = pool.pf
     o, d, tp, rad = (tuple(pf[b + c] for c in range(3))
@@ -158,7 +158,7 @@ def _sweep(fs, cfg, pool: WavefrontPool):
     bounce = pool.pi[BOUNCE]
     rays = active.sum()
 
-    t, loc, n, mat = intersect_scene(fs, o, d, xla_tri_mode(cfg))
+    t, loc, n, mat = intersect_scene(fs, o, d, tri)
     found = t < HIT
     color, rough, ior, is_diffuse, is_metal = material_lookup(mats, mat)
     wo = s.vneg(d)
@@ -183,6 +183,13 @@ def _sweep(fs, cfg, pool: WavefrontPool):
     return (WavefrontPool(pf=pf_new, pi=pi_new,
                           rng=torch.where(active, rng, pool.rng)),
             terminated, rays)
+
+
+def xla_sweep(cfg):
+    """The sweep of tpurt's XLA pool (backend "wavefront", and "xla" under
+    ``render_adaptive``): ``_sweep``, through the per-ray walk of the
+    Scene's BVH under ``use_bvh``."""
+    return functools.partial(_sweep, tri=BVH) if cfg.use_bvh else _sweep
 
 
 def _drain(fs, cfg, state, regen, pending, sweep):
@@ -250,9 +257,11 @@ def wavefront_render_slab(scene, cfg, camera, state, base_seed, spp: int,
         rays=state.rays + rays if cfg.count_rays else state.rays)
 
 
-def wavefront_render(scene, cfg, camera, state, base_seed, spp: int):
+def wavefront_render(scene, cfg, camera, state, base_seed, spp: int,
+                     sweep=None):
     """Render ``spp`` samples per pixel through the persistent pool into
     the same RenderState as every backend (vispoints and photon radius
-    untouched; ``iteration`` grows by ``spp``)."""
+    untouched; ``iteration`` grows by ``spp``). ``sweep`` as in
+    ``wavefront_render_slab``."""
     return wavefront_render_slab(scene, cfg, camera, state, base_seed, spp,
-                                 0, cfg.n_pixels)
+                                 0, cfg.n_pixels, sweep)
