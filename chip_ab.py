@@ -8,7 +8,9 @@ kernel's CUDA-event milliseconds per 1080p sample (depth 30, 1 spp, mean of
 3 launches after a warm-up) on Cornell, on bench config 6's torus with the
 reference sampler, and on the torus with config 6's sampler flags (a
 checkout whose kernel takes no flags ignores them: its wrapper is called
-directly). Then the card's name and power limit. Needs one CUDA device.
+directly); then one budget launch on Cornell (seeded budgets 0-2, as many
+samples as one uniform sample). Then the card's name and power limit. Needs
+one CUDA device.
 """
 
 from __future__ import annotations
@@ -62,6 +64,15 @@ for name, make, kw, cam in cases:
     t = ms(lambda: mega_regen.regen_call(scene, cfg, camera, planes.clone(),
                                          1234, 1, 0, 2.0, 30))
     out.append(f"{name} {t:.3f}")
+    if name == "cornell":
+        import numpy as np
+        counts = tt.init_state(cfg, dev).n_samples
+        vals = np.random.default_rng(7).integers(0, 3, counts.shape[0])
+        vals[cfg.n_pixels:] = 0
+        budgets = torch.from_numpy(vals).to(dev)
+        t = ms(lambda: mega_regen.regen_budget_call(
+            scene, cfg, camera, planes.clone(), 1234, budgets, counts))
+        out.append(f"cornell-budget {t:.3f}")
 print(f"AB {sys.argv[1]}: " + " | ".join(out), flush=True)
 '''
 

@@ -14,12 +14,17 @@ with the reference sampler; bench config 4 (hero wavelengths with the
 dispersive collapse); the 64,800-triangle torus field and the
 16,384-sphere instanced scene at 1 spp; and config 6's scene with
 ``pallas_mxu_leaf`` (tpurt's G-matrix leaf test in the regen kernel's
-walk), with both samplers.
+walk), with both samplers. The regen and tile-sync kernels run one body,
+persistent blocks whose lanes fetch their pixels from a device counter
+(csrc/path.cuh run_pixels); their phases also hold it on a size that is no
+multiple of the block (50x30), on budget maps with long runs of zeros, and
+on launches back to back on one stream.
 
 The phases: [blit], [regen] (the regen kernel against its plain version),
 [sampler] (the regen kernel with the sampler flags of bench configs 3, 4
-and 6, every state plane bit for bit), [budget] (the budget mode against
-``render_plain_budget``, then ``render_adaptive``), [tile-sync] (the
+and 6, every state plane bit for bit, config 6 at 1080p), [budget] (the
+budget mode against ``render_plain_budget``, then ``render_adaptive``),
+[tile-sync] (the
 tile-synchronized kernel against ``render_plain`` and against the regen
 kernel, then its 1080p path), [wf-sweep], [wf-pool], [wf-fused],
 [wf-budget], [wf-pallas], [config5], [bvh-walk], [mesh-regen], [mesh-wf],
@@ -27,8 +32,14 @@ kernel, then its 1080p path), [wf-sweep], [wf-pool], [wf-fused],
 shipped), [config4], [mesh-field], [mesh-instanced], [mxu-leaf] (the
 probe's G leaf against the plain G sweep), [mesh-mxu] (the regen kernel
 with the G leaf against ``render_plain``, both samplers, both modes, and
-one 1080p sample of each sampler), [config6-mxu]
-(config 6 with the flag, both samplers, timed against the exact leaf).
+one depth-30 sample of config 6 as shipped at 1080p and of the reference
+sampler at 512x288), [config6-mxu] (config 6 with the flag, both samplers,
+timed against the exact leaf). The plain renders of the torus sweep all
+4050 triangles for every pixel at every bounce, and set the run's length:
+config 6 as shipped keeps 1080p with both leaf tests (56 and 69 s), the
+reference sampler, whose 1080p plain renders take 150 and 140 s, is held at
+512x288 (and on Cornell at 1080p). Each group of phases ends with a [time]
+line.
 
     python3 chip_smoke.py
 
@@ -216,10 +227,10 @@ def image_gap(a: np.ndarray, b: np.ndarray):
 
 
 def check_rays(name: str, got: int, want: int) -> None:
-    rel = abs(got - want) / max(want, 1)
-    print(f"  {name}: rays {got} vs {want} (diff {got - want}, rel {rel:.2e})")
-    if rel > 1e-4:
-        raise AssertionError(f"{name}: ray count off by {rel:.2e} > 1e-4")
+    """Ray counts are integer sums of the same draws: exact or wrong."""
+    print(f"  {name}: rays {got} vs {want} (diff {got - want})")
+    if got != want:
+        raise AssertionError(f"{name}: ray count {got} is not {want}")
 
 
 def main() -> int:
@@ -256,6 +267,13 @@ def main() -> int:
         print(f"  {line}")
 
     report = {}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        print(f"[time] {name}: {now - clock[0]:.1f} s")
+        clock[0] = now
 
     # 3. blit kernel against its plain version, 1920x1080
     rs = np.random.default_rng(0)
@@ -305,6 +323,11 @@ def main() -> int:
         rp = int(integrate.render_plain(fs, cfg, cam, pp, seed, spp, 0,
                                         cfg.photon_radius_init, cfg.depth))
         torch.cuda.synchronize()
+        bad = unequal_planes(pk, pp)
+        print(f"[regen] {cfg.width}x{cfg.height} depth {cfg.depth} {spp} spp:"
+              f" rays {rk} vs plain {rp}, unequal planes {bad}")
+        if rk != rp or bad:
+            raise AssertionError("the regen kernel differs from render_plain")
         n_px = cfg.n_pixels
         return (rk, rp, pk[0:3, :n_px].T.cpu().numpy(),
                 pp[0:3, :n_px].T.cpu().numpy(), cam, planes)
@@ -333,6 +356,28 @@ def main() -> int:
     print("[regen] dryrun 64x32 depth 3 seed 7 1 spp:")
     check_rays("kernel vs target", rk, 32698)
     check_rays("kernel vs plain", rk, rp)
+
+    # a pixel count that is no multiple of the block, nor of a warp; then
+    # two launches back to back on one stream, each with its own zeroed
+    # work counter: the second must render every pixel too
+    cfg_r = tt.RenderConfig(width=50, height=30, depth=30, backend="pallas")
+    both(cfg_r, 99, 3)
+    cam_r = tt.make_camera(**CAM, aspect_ratio=50 / 30)
+    planes_r = state_to_planes(tt.init_state(cfg_r))
+    pk, pp = planes_r.clone(), planes_r.clone()
+    got = [mega_regen.regen_call(scene, cfg_r, cam_r, pk, 5, 2, 0, 2.0, 30),
+           mega_regen.regen_call(scene, cfg_r, cam_r, pk, 5, 1, 2, 1.5, 30)]
+    want = [int(integrate.render_plain(fs, cfg_r, cam_r, pp, 5, 2, 0, 2.0,
+                                       30)),
+            int(integrate.render_plain(fs, cfg_r, cam_r, pp, 5, 1, 2, 1.5,
+                                       30))]
+    got = [int(r) for r in got]
+    bad = unequal_planes(pk, pp)
+    print(f"[regen] 50x30 two launches back to back: rays {got} vs plain "
+          f"{want}, unequal planes {bad}")
+    if got != want or bad or min(got) <= 0:
+        raise AssertionError("back-to-back regen launches differ from "
+                             "render_plain")
 
     cfg_e = tt.RenderConfig(width=256, height=144, depth=8, backend="pallas")
     rk, rp, ik, ip, cam_e, planes_e = both(cfg_e, 1234, 2)
@@ -378,21 +423,27 @@ def main() -> int:
 
     # 6. the regen kernel with tpurt's sampler flags; its budget mode; the
     #    tile-synchronized kernel
+    lap("blit, regen, main")
     sampler_phases()
+    lap("sampler")
     launches.update(budget_phases(report, gpu))
     launches.update(tile_sync_phases(report, gpu))
+    lap("budget, adaptive, tile-sync")
 
     # 7. the wavefront kernels on the dispersive scene of tpurt's bench
     #    config 5, each against its plain version
     launches.update(wavefront_phases(dev, report, gpu))
+    lap("wavefront")
 
     # 8. meshes: the BVH walks, bench config 6 (reference sampler and as
     #    shipped), config 4 and the scale paths
     launches.update(mesh_phases(dev, report, gpu))
+    lap("meshes")
 
     # 9. tpurt's G-matrix leaf test (pallas_mxu_leaf): the probe, the regen
     #    kernel in both modes, config 6 with the flag
     launches.update(mxu_phases(dev, report, gpu))
+    lap("G leaf")
 
     src = {"regen": ("tpurt_torch/csrc/mega_regen.cu",
                      "tpurt/kernels/mega_regen.py:84"),
@@ -594,6 +645,26 @@ def budget_phases(report, gpu) -> dict:
           f"{counts_ok}")
     if rk != rp or bad or not counts_ok:
         raise AssertionError("budget mode differs from render_plain_budget")
+    # long runs of zeros (two pixels in three take no sample), also at a
+    # size that is no multiple of the block: a pixel without budget costs
+    # one fetch and keeps its planes
+    for c in (cfg, tt.RenderConfig(width=50, height=30, depth=30,
+                                   backend="pallas")):
+        st_c = tt.render(scene, c, cam_of(c), tt.init_state(c), 1234, 2)
+        n_rows = st_c.n_samples.shape[0]
+        vals = np.random.default_rng(5).integers(0, 5, n_rows)
+        vals[(np.arange(n_rows) // 97) % 3 != 0] = 0
+        vals[c.n_pixels:] = 0
+        bz = torch.from_numpy(vals).to(dev)
+        rk, rp, pk, pp, _, _ = kernel_and_plain(c, st_c, bz)
+        bad = unequal_planes(pk, pp)
+        kept = torch.equal(pk[:, bz == 0], state_to_planes(st_c)[:, bz == 0])
+        print(f"[budget] {c.width}x{c.height} zero-heavy budgets "
+              f"({float((bz == 0).float().mean()):.2f} zero): rays {rk} vs "
+              f"plain {rp}, unequal planes {bad}, zero-budget pixels "
+              f"untouched: {kept}")
+        if rk != rp or bad or not kept:
+            raise AssertionError("zero-heavy budget map differs")
     uni = torch.where(torch.arange(rows, device=dev) < cfg.n_pixels, 2, 0)
     su = mega_regen.render_budget_regen(scene, cfg, cam, st0, 1234, uni, 2)
     sr = tt.render(scene, cfg, cam, st0, 1234, 2)
@@ -608,7 +679,8 @@ def budget_phases(report, gpu) -> dict:
               and int(sa.rays) == int(sc.rays)
               and torch.equal(sa.n_samples, sc.n_samples))
     print(f"  uniform budget 2 = uniform 2 spp bit for bit: {same_u}; two "
-          f"chained calls = one combined: {same_c}")
+          f"chained calls, back to back on one stream = one combined: "
+          f"{same_c}")
     if not (same_u and same_c):
         raise AssertionError("budget mode: uniform or chained calls differ")
 
@@ -675,7 +747,7 @@ def tile_sync_phases(report, gpu) -> dict:
 
     scene = tt.cornell_spheres_scene()
     fs = freeze_scene(scene)
-    for w, h in ((64, 32), (256, 144), (1920, 1080)):
+    for w, h in ((64, 32), (50, 30), (256, 144), (1920, 1080)):
         cfg = tt.RenderConfig(width=w, height=h, depth=30, backend="pallas",
                               pallas_regen=False)
         cam = tt.make_camera(**CAM, aspect_ratio=w / h)
@@ -1081,6 +1153,17 @@ def mesh_phases(dev, report, gpu) -> dict:
                 raise AssertionError("regen kernel differs from render_plain "
                                      "on the mesh")
 
+    # the walk under the reference sampler at full depth; 512x288 keeps
+    # the blocks persistent (more pixels than resident threads), and the
+    # 1080p plain render of this case takes 150 s ([sampler] holds the walk
+    # at 1080p under config 6's sampler, [regen] the reference sampler)
+    cfg_m = tt.RenderConfig(width=512, height=288, depth=30,
+                            backend="pallas", pallas_bvh_leaf=64)
+    regen_vs_plain("config 6 scene, reference sampler", torus, cfg_m,
+                   tt.make_camera(*TORUS_CAM, vfov=55.0,
+                                  aspect_ratio=512 / 288),
+                   1234, 1, 0, phase="mesh-regen")
+
     # [mesh-wf] the wavefront kernels against the plain pool
     cfg_wf = tt.RenderConfig(width=256, height=144, depth=30,
                              enable_photons=False, wf_pool=65536)
@@ -1183,7 +1266,8 @@ def mxu_phases(dev, report, gpu) -> dict:
     [config6-mxu] config 6's scene at 1080p with the flag through
     tt.render (reference sampler, then as shipped) and the regen kernel's
     time per sample, G leaf against exact leaf in turns; then [mesh-mxu]
-    at 1080p, one depth-30 sample of each sampler. Fills
+    at depth 30, one sample of config 6 as shipped at 1080p and of the
+    reference sampler at 512x288. Fills
     report["mxu_leaf"]; returns the shipped path's G-leaf launch count."""
     import tpurt_torch as tt
     from tpurt_torch import integrate
@@ -1308,14 +1392,17 @@ def mxu_phases(dev, report, gpu) -> dict:
         if abs(rg - rx) > 1e-2 * rx:
             raise AssertionError("the G leaf moves the ray count by > 1%")
 
-    # [mesh-mxu] at 1080p: one sample of each G instance, depth 30
-    for label, flags in samplers:
-        cfg = tt.RenderConfig(width=1920, height=1080, depth=30,
-                              backend="pallas", pallas_mxu_leaf=True, **flags)
+    # [mesh-mxu] at full depth: one depth-30 sample of each G instance,
+    # config 6 as shipped at the main path's 1080p, the reference sampler
+    # (whose 1080p plain render with the G sweep takes 140 s) at 512x288
+    for (label, flags), (w, h) in zip(samplers, ((512, 288), (1920, 1080))):
+        cfg = tt.RenderConfig(width=w, height=h, depth=30, backend="pallas",
+                              pallas_mxu_leaf=True, **flags)
+        cam = tt.make_camera(*TORUS_CAM, vfov=55.0, aspect_ratio=w / h)
         before = mega_regen.MXU_LAUNCHES
-        regen_vs_plain(label, torus, cfg, cam6, 1234, 1, 0, phase="mesh-mxu")
+        regen_vs_plain(label, torus, cfg, cam, 1234, 1, 0, phase="mesh-mxu")
         if mega_regen.MXU_LAUNCHES != before + 1:
-            raise AssertionError("the 1080p comparison ran no G leaf")
+            raise AssertionError("the depth-30 comparison ran no G leaf")
     return {"mxu_leaf": launches["mxu_leaf"]}
 
 

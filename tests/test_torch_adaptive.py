@@ -17,8 +17,9 @@ Tolerances:
   continuation (two budget calls against one): rtol 1e-5, atol 1e-5, as
   tests/test_adaptive.py;
 - render_adaptive end to end against tpurt's: at most 1% of the budgets
-  off, by one sample (the pilots' images differ by reassociation, so the
-  proxy by ulps, and a budget rounding near .5 can move).
+  off, by one sample (the pilots' images differ within the image rule, so
+  a budget rounding near .5 can move), exact on a pinned seed; on tpurt's
+  own pilot sums the port's budgets are tpurt's exactly.
 """
 
 import sys
@@ -229,24 +230,141 @@ def test_render_adaptive_end_to_end(backend):
     assert bool(torch.isfinite(tt.resolve_image(cfg, st)).all())
 
 
-def test_render_adaptive_matches_tpurt(tp):
-    """render_adaptive end to end against tpurt's on the plain pool. The
-    pilots' ray counts are exact, but their images differ by float
-    reassociation, so the proxy differs by ulps and a budget that rounds
-    near .5 can move by one: at most 1% of the budgets may differ, by one
-    sample."""
+def _adaptive_pair(tp, seed):
     cfg_j, scene_j, cam_j = _setup(tp.tpurt, wf_pool=1024)
-    st_j, b_j = tp.ad.render_adaptive(scene_j, cfg_j, cam_j, base_seed=17,
+    st_j, b_j = tp.ad.render_adaptive(scene_j, cfg_j, cam_j, base_seed=seed,
                                       spp=8, pilot_spp=4)
     cfg, scene, cam = _setup(tt, wf_pool=1024)
-    st, b = tt.render_adaptive(scene, cfg, cam, base_seed=17, spp=8,
+    st, b = tt.render_adaptive(scene, cfg, cam, base_seed=seed, spp=8,
                                pilot_spp=4)
-    off = np.abs(b.numpy().astype(np.int64) - np.asarray(b_j))
-    print(f"{(off > 0).sum()} of {off.size} budgets differ")
-    assert off.max() <= 1 and (off > 0).mean() <= 0.01
     n = cfg.n_pixels
     assert (st.n_samples.numpy()[:n] == 4 + b.numpy()[:n]).all()
-    assert int(st.rays) > 0 and st.iteration == st_j.iteration
+    assert st.iteration == st_j.iteration
+    return cfg, st, b.numpy(), st_j, np.asarray(b_j)
+
+
+def test_render_adaptive_matches_tpurt(tp):
+    """render_adaptive end to end against tpurt's on the plain pool. The
+    pilots' ray counts are exact, but their images differ (tpurt's jitted
+    integrator and the port's round some sums differently: the image rule
+    of the parity tests allows it), so the proxy differs and a budget that
+    rounds near .5 can move by one: at most 1% of the budgets may differ,
+    by one sample, and the ray count by no more than those samples' longest
+    paths (a segment and a shadow segment per light at each bounce)."""
+    cfg, st, b, st_j, b_j = _adaptive_pair(tp, 17)
+    off = np.abs(b.astype(np.int64) - b_j)
+    print(f"{(off > 0).sum()} of {off.size} budgets differ")
+    assert off.max() <= 1 and (off > 0).mean() <= 0.01
+    n_lights = 1
+    assert 0 < int(st.rays)
+    assert abs(int(st.rays) - int(float(st_j.rays))) \
+        <= int(off.sum()) * cfg.depth * (1 + n_lights)
+
+
+def test_render_adaptive_exact_on_pinned_seed(tp):
+    """On seed 11 no budget sits near .5: the budgets, the sample counts
+    and the ray count of the whole adaptive render are tpurt's exactly."""
+    _, st, b, st_j, b_j = _adaptive_pair(tp, 11)
+    assert np.array_equal(b, b_j)
+    assert np.array_equal(st.n_samples.numpy(), np.asarray(st_j.n_samples))
+    assert int(st.rays) == int(float(st_j.rays)) > 0
+
+
+@pytest.mark.parametrize("seed", [17, 2, 7, 11])
+def test_budgets_from_tpurt_pilots_are_tpurts(tp, seed):
+    """Where render_adaptive's budgets differ from tpurt's, the pilots do:
+    on tpurt's own pilot sums (which differ from the port's on most rows,
+    ray counts equal) the port's proxy and allocation give tpurt's budgets
+    exactly, also on the seeds where the end-to-end budgets differ by one
+    (17, 2, 7)."""
+    from tpurt import wavefront as wf_j
+    from tpurt_torch import wavefront as wf_t
+    cfg_j, scene_j, cam_j = _setup(tp.tpurt, wf_pool=1024)
+    cfg, scene, cam = _setup(tt, wf_pool=1024)
+    sj = wf_j.wavefront_render(scene_j, cfg_j, cam_j,
+                               tp.tpurt.init_state(cfg_j), seed, 2)
+    sum_a, n_a = np.array(sj.rgb_sum), np.array(sj.n_samples)
+    rays_a = int(float(sj.rays))
+    sj = wf_j.wavefront_render(scene_j, cfg_j, cam_j, sj, seed, 2)
+    sum_b = np.array(sj.rgb_sum - sum_a)
+    n_b = np.array(sj.n_samples - n_a)
+    st = wf_t.wavefront_render(scene, cfg, cam, tt.init_state(cfg, device=CPU),
+                               seed, 2, sweep=wf_t.xla_sweep(cfg))
+    assert int(st.rays) == rays_a
+    assert (st.rgb_sum.numpy() != sum_a).any()
+    total, cap = 4 * cfg.n_pixels, 4 * 16
+    want = np.asarray(tp.ad.allocate_budgets(
+        tp.ad.variance_proxy(cfg_j, sum_a, n_a, sum_b, n_b, True), total, cap))
+    proxy = adaptive.variance_proxy(
+        cfg, *(torch.from_numpy(x) for x in (sum_a, n_a, sum_b, n_b)), True)
+    got = adaptive.allocate_budgets(proxy, total, cap).numpy()
+    assert np.array_equal(got, want)
+
+
+def test_luma_fma_rounds_once():
+    """adaptive._fma equals the exact a * b + c rounded once to float32,
+    also where rounding through float64 first would round twice (the
+    float64 sum a tie of float32 that the exact sum is not)."""
+    from fractions import Fraction
+    f32 = np.float32
+    rs = np.random.default_rng(4)
+    a = rs.normal(0, 1, 256).astype(f32)
+    b = rs.normal(0, 1, 256).astype(f32)
+    c = rs.normal(0, 1, 256).astype(f32)
+    eps = f32(2.0 ** -23)
+    # 1 + eps + 2^-24 (1 - 2^-46): below the tie; float64 rounds onto it
+    a[:2] = f32(1) + eps, -(f32(1) + eps)
+    b[:2] = f32(2.0 ** -24) * (f32(1) - eps)
+    c[:2] = f32(1) + eps, -(f32(1) + eps)
+    got = adaptive._fma(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
+    twice = (a.astype(np.float64) * b + c).astype(f32)
+    assert got[0] == f32(1) + eps and twice[0] != got[0]
+    for x, y, z, g in zip(a, b, c, got):
+        exact = Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z))
+        lo, hi = sorted((float(g), float(np.nextafter(g, f32(np.sign(
+            float(exact - Fraction(float(g)))) * np.inf)))))
+        # g is the float32 nearest to the exact sum
+        assert abs(exact - Fraction(float(g))) * 2 <= Fraction(hi) - Fraction(lo)
+
+
+def test_variance_proxy_pieces_match_tpurt(tp):
+    """On the same seeded half-sums the port's luma gap and box filter
+    equal tpurt's jitted ones bit for bit (the luma as XLA's chain of
+    fused multiply-adds, the box scaled by float32(1/9)); the whole proxy
+    then differs by at most one ulp, the floor's mean being summed in
+    another order; and the allocation of one proxy gives equal budgets."""
+    import jax
+    jnp = tp.jnp
+    rs = np.random.default_rng(0)
+    cfg_j, _, _ = _setup(tp.tpurt, wf_pool=1024)
+    cfg, _, _ = _setup(tt, wf_pool=1024)
+    rows = 1152
+    sa, sb = (rs.normal(0, 2, (rows, 3)).astype(np.float32) for _ in "ab")
+    na, nb = (rs.integers(0, 4, rows).astype(np.float32) for _ in "ab")
+    t = lambda *xs: [torch.from_numpy(x) for x in xs]  # noqa: E731
+
+    def gap_j(sa, na, sb, nb):
+        ma = sa / jnp.maximum(na, 1.0)[:, None]
+        mb = sb / jnp.maximum(nb, 1.0)[:, None]
+        return jnp.abs((ma - mb) @ jnp.asarray(tp.ad.LUMA, jnp.float32))
+
+    gap = adaptive.luma_gap(*t(sa, na, sb, nb)).numpy()
+    assert gap.tobytes() == np.asarray(jax.jit(gap_j)(sa, na, sb, nb)
+                                       ).tobytes()
+    img = gap.reshape(24, 48)
+    box = adaptive._box3(torch.from_numpy(img)).numpy()
+    assert box.tobytes() == np.asarray(jax.jit(tp.ad._box3)(img)).tobytes()
+    for smooth in (True, False):
+        pj = np.array(tp.ad.variance_proxy(cfg_j, sa, na, sb, nb, smooth))
+        pt = adaptive.variance_proxy(cfg, *t(sa, na, sb, nb), smooth).numpy()
+        ulps = np.abs(pj.view(np.int32).astype(np.int64)
+                      - pt.view(np.int32))
+        # smoothed: the floor's ulp; unsmoothed the sum below it is
+        # smaller, so the same ulp of the floor is two of the sum
+        assert ulps.max() <= (1 if smooth else 2)
+        bj = np.asarray(tp.ad.allocate_budgets(jnp.asarray(pj), 4 * rows, 64))
+        bt = adaptive.allocate_budgets(torch.from_numpy(pj), 4 * rows, 64)
+        assert np.array_equal(bj, bt.numpy())
 
 
 def test_render_adaptive_pallas_not_ported():

@@ -222,3 +222,48 @@ def test_kernel_uniform_budget_equals_render(cuda):
     st_u = tt.render(scene, cfg, cam, st0, 42, 2)
     assert torch.equal(state_to_planes(st_u), state_to_planes(st_b))
     assert int(st_u.rays) == int(st_b.rays) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [(64, 32), (50, 30)], ids=["64x32", "50x30"])
+def test_kernel_zero_heavy_budget_matches_plain(cuda, size):
+    """A budget map with long runs of zeros (two pixels in three take no
+    sample) on a size that is and one that is not a multiple of the block:
+    a pixel without budget costs its lane one fetch and keeps its planes;
+    rays and all 16 planes equal the plain version bit for bit."""
+    cfg, scene, cam = _setup(device=cuda, width=size[0], height=size[1])
+    st = tt.render(scene, cfg, cam, tt.init_state(cfg, device=cuda), 42, 2)
+    rows = st.n_samples.shape[0]
+    vals = np.random.default_rng(5).integers(0, 5, cfg.n_pixels)
+    vals[(np.arange(cfg.n_pixels) // 97) % 3 != 0] = 0
+    b = torch.from_numpy(_pad(cfg, rows, vals)).to(cuda)
+    planes = state_to_planes(st)
+    pk, pp = planes.clone(), planes.clone()
+    rk = int(mega_regen.regen_budget_call(scene, cfg, cam, pk, 42, b,
+                                          st.n_samples))
+    rp = int(integrate.render_plain_budget(freeze_scene(scene), cfg, cam, pp,
+                                           42, b, st.n_samples))
+    assert rk == rp > 0
+    assert torch.equal(pk, pp)
+    untouched = torch.from_numpy(_pad(cfg, rows, vals) == 0).to(cuda)
+    assert torch.equal(pk[:, untouched], planes[:, untouched])
+
+
+@pytest.mark.gpu
+def test_kernel_budget_launches_back_to_back(cuda):
+    """Two budget launches queued on one stream equal one launch of the
+    summed budgets: the work counter starts from 0 in each."""
+    cfg, scene, cam = _setup(device=cuda)
+    st = tt.render(scene, cfg, cam, tt.init_state(cfg, device=cuda), 42, 1)
+    rows = st.n_samples.shape[0]
+    rs = np.random.default_rng(6)
+    b1, b2 = (torch.from_numpy(_pad(cfg, rows, rs.integers(0, 3,
+                                                           cfg.n_pixels))
+                               ).to(cuda) for _ in range(2))
+    two = mega_regen.render_budget_regen(scene, cfg, cam, st, 42, b1, 2)
+    two = mega_regen.render_budget_regen(scene, cfg, cam, two, 42, b2, 2)
+    one = mega_regen.render_budget_regen(scene, cfg, cam, st, 42, b1 + b2, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(state_to_planes(two), state_to_planes(one))
+    assert int(two.rays) == int(one.rays) > 0
+    assert torch.equal(two.n_samples, one.n_samples)

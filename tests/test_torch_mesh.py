@@ -302,8 +302,9 @@ def test_tri_tables_invariants(leaf, width, sah):
     scene = tt.torus_mesh_scene(16, 8, device=CPU)
     a, e1, e2, n, mat = (getattr(scene, f"tri_{k}").numpy()
                          for k in ("a", "e1", "e2", "n", "mat"))
-    rec, nodes = bvh.build_tri_bvh_tables(a, e1, e2, n, mat, leaf, sah,
-                                          width)
+    rec, table, _ = bvh.build_tri_bvh_tables(a, e1, e2, n, mat, leaf, sah,
+                                             width)
+    nodes = bvh.unpack_nodes(table)    # one record a node, as the walk goes
     rows = sorted(i for f, c in _leaf_rows(nodes) for i in range(f, f + c))
     assert rows == list(range(a.shape[0]))
     idx = rec[:, 13].astype(np.int64)
@@ -401,7 +402,8 @@ def test_walk_reaches_every_winner(width, rays):
         tm = np.full(o.shape[1], 5.5, np.float32)
     host = [getattr(scene, f"tri_{k}").numpy()
             for k in ("a", "e1", "e2", "n", "mat")]
-    rec, nodes = bvh.build_tri_bvh_tables(*host, 8, False, width)
+    rec, table, _ = bvh.build_tri_bvh_tables(*host, 8, False, width)
+    nodes = bvh.unpack_nodes(table)
     row_of = np.argsort(rec[:, 13])            # scene index -> record row
     to = lambda x: tuple(x_[:, None] for x_ in torch.from_numpy(x))  # noqa
     t_all, valid = intersect._tri_hits(fs.triangles, 0, fs.triangles.count,
@@ -458,14 +460,18 @@ def _chain(depth):
 
 
 def test_stack_proofs_raise():
-    """A push past the walk's 64-entry stack must be unreachable: the
-    table builders refuse a tree whose worst case could need one."""
-    assert bvh.pack_nodes(_chain(61)).shape == (123, 16)
+    """A push past the walk's stack must be unreachable: the functions
+    that pack the tables size it by the tree and refuse a tree whose worst
+    case could need more than 64 entries."""
+    nodes, need = bvh.pack_tree(_chain(61))
+    assert nodes.shape == (4 * 61, 4) and need == 62   # two rows a child
+    assert bvh.unpack_nodes(nodes).shape == (123, 16)
     with pytest.raises(ValueError, match="stack"):
         bvh.pack_nodes(_chain(62))
     with pytest.raises(ValueError, match="stack"):
         bvh.pack_nodes(_chain(70), width=3)
-    assert bvh.pack_nodes(_chain(20), width=3).shape[1] == 16
+    nodes, need = bvh.pack_tree(_chain(20), width=3)
+    assert nodes.shape[1] == 4 and need <= 63
 
 
 def test_walk_modes_follow_tpurt_predicates():

@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from tpurt_torch import wavefront
@@ -123,25 +124,55 @@ def wavefront_render_budget(scene, cfg, camera, state, base_seed, budgets,
 
 
 def _box3(img: torch.Tensor) -> torch.Tensor:
-    """3x3 box filter with edge replication on an (H, W) map."""
+    """3x3 box filter with edge replication on an (H, W) map. The nine
+    taps are summed in tpurt's order and scaled by float32(1/9): under jit
+    XLA turns tpurt's division by the constant 9 into that product."""
     p = torch.nn.functional.pad(img[None, None], (1, 1, 1, 1),
                                 mode="replicate")[0, 0]
     acc = torch.zeros_like(img)
     for dy in (0, 1, 2):
         for dx in (0, 1, 2):
             acc = acc + p[dy:dy + img.shape[0], dx:dx + img.shape[1]]
-    return fdiv(acc, 9.0)
+    return acc * float(np.float32(1.0 / 9.0))
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add. The
+    product of two float32 is exact in float64; the float64 sum is rounded
+    to odd (its error from Knuth's two-sum), so that rounding it to float32
+    equals rounding the exact sum."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    inf = torch.full_like(s, float("inf"))
+    nudged = torch.nextafter(s, torch.where(err > 0, inf, -inf))
+    return torch.where((err != 0) & even, nudged, s).float()
+
+
+def luma_gap(sum_a, n_a, sum_b, n_b) -> torch.Tensor:
+    """|luma(mean_a) - luma(mean_b)| per state row. The luma is summed in
+    tpurt's order: XLA's CPU dot forms ``(mean_a - mean_b) @ luma`` as a
+    chain of fused multiply-adds over ascending channels."""
+    diff = (fdiv(sum_a, n_a.clamp_min(1.0)[:, None])
+            - fdiv(sum_b, n_b.clamp_min(1.0)[:, None]))
+    luma = torch.tensor(LUMA, dtype=torch.float32, device=sum_a.device)
+    acc = diff[:, 0] * luma[0]
+    for c in (1, 2):
+        acc = _fma(diff[:, c], luma[c].expand_as(acc), acc)
+    return acc.abs()
 
 
 def variance_proxy(cfg, sum_a, n_a, sum_b, n_b, smooth: bool = True):
     """Per-pixel noise proxy from two independent half-estimates:
-    |luma(mean_a) - luma(mean_b)|, box-smoothed, plus a floor of 5% of its
-    mean so every pixel keeps a nonzero chance. A (rows,) float32 map, pad
-    rows 0."""
-    luma = torch.tensor(LUMA, dtype=torch.float32, device=sum_a.device)
-    mean_a = sum_a / n_a.clamp_min(1.0)[:, None]
-    mean_b = sum_b / n_b.clamp_min(1.0)[:, None]
-    d = ((mean_a - mean_b) @ luma).abs()
+    |luma(mean_a) - luma(mean_b)| (``luma_gap``), box-smoothed, plus a
+    floor of 5% of its mean so every pixel keeps a nonzero chance. A
+    (rows,) float32 map, pad rows 0. The floor's mean is a float32 sum in
+    PyTorch's order, not XLA's, so the map can differ from tpurt's by an
+    ulp of the floor."""
+    d = luma_gap(sum_a, n_a, sum_b, n_b)
     n = cfg.n_pixels
     img = d[:n].reshape(cfg.height, cfg.width)
     if smooth:

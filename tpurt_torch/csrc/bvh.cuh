@@ -13,13 +13,13 @@
 // their static and clustered forms).
 //
 // The walk is the reference's own form (mega_kernel.wgsl:395-428): a
-// per-thread stack of STACK_DEPTH entries, leaves swept by their runtime
-// count, children pushed far-first so the nearest (by this ray's own
-// entry distance) pops first. It is not the TPU's tile-wide walk, which
-// votes per tile, takes a majority near child and gates leaves with
-// lax.cond. It computes what tpurt's walk computes: the nearest hit, and
-// the attenuation over (0, t_max). Its plain version is a brute-force
-// sweep (tpurt_torch/ops/intersect.py), and it equals it bit for bit:
+// per-thread stack, leaves swept by their runtime count, children visited
+// near-first by this ray's own entry distance. It is not the TPU's
+// tile-wide walk, which votes per tile, takes a majority near child and
+// gates leaves with lax.cond. It computes what tpurt's walk computes: the
+// nearest hit, and the attenuation over (0, t_max). Its plain version is a
+// brute-force sweep (tpurt_torch/ops/intersect.py), and it equals it bit
+// for bit:
 // - a hit is taken on the least (t, scene index), whatever the visit
 //   order, so a tie on a shared edge goes to the lower Scene row in both;
 // - a node is pruned only when its entry lies strictly beyond the cap
@@ -32,14 +32,26 @@
 // The triangle walk is clipped at the sphere hit (cap = min(best, t_sph),
 // tpurt's pallas_tri_clip), which is safe because the combine takes a
 // triangle only on a strict t_tri < t_sph. Stack overflow is unreachable:
-// the host proves each tree's worst-case occupancy fits (kernels/bvh.py
-// assert_stack_fits, accel.wide_max_stack); the trap below never fires.
+// the host proves each tree's worst-case occupancy (kernels/bvh.py
+// pack_tree: assert_stack_fits, accel.wide_max_stack) and sizes the
+// launch's stack by it; the trap below never fires.
 //
 // What bounds it: divergence (neighbouring rays take other paths through
-// the tree), dependent loads (each pop waits on a node record from global
-// memory) and the stack in local memory. This first version keeps nodes
-// and records in global memory (through L1/L2) and the stack in local
-// memory, with no shared-memory stack, no treelets, no ray sorting.
+// the tree) and the latency of one dependent fetch per level. The design
+// keeps that fetch to one: a node holds its children's boxes and refs
+// (kernels/bvh.py pack_tree: two 16-byte rows a child, so a binary node is
+// one 64-byte fetch), and a leaf of up to 128 primitives is packed into
+// its parent's ref, so reaching it costs no fetch of its own. The stack
+// lives in shared memory, one word an entry, interleaved by thread
+// (entry e of thread t at e * blockDim.x + t: no bank conflicts), sized per
+// launch by the proven depth. The binary walk keeps its two candidates in
+// registers and stacks only the far one; the wide walk sorts its up to
+// eight candidates in registers with an unrolled odd-even transposition
+// network (adjacent swaps on a strict compare: stable, so ties keep slot
+// order as the insertion sort before it did). Nodes, triangle records, G
+// rows and sphere rows are read as float4; a record's normal, material and
+// index are read only once it wins. Still absent: ray sorting, treelets in
+// shared memory, a sphere-only instance of the kernels.
 //
 // The G leaf (cfg.pallas_mxu_leaf; replaces tpurt/kernels/bvh_pallas.py
 // _make_mxu_leaf_fn with build_tri_gmat): tpurt's closest-hit leaf test in
@@ -60,14 +72,8 @@
 
 namespace tpurt {
 
-constexpr int STACK_DEPTH = 64;
 constexpr int TRI_STRIDE = 16;
-constexpr int NODE_STRIDE = 16;
 constexpr int MAX_CHILDREN = 8;
-// node record: padded box, leaf range, children (0 = absent; binary
-// nodes use the first two slots); a node is a leaf iff count > 0
-enum NodeField { N_BMIN = 0, N_BMAX = 3, N_FIRST = 6, N_COUNT = 7,
-                 N_CHILD = 8 };
 // triangle record: a, e1, e2, unit geometric normal, material, scene index
 enum TriField { T_A = 0, T_E1 = 3, T_E2 = 6, T_N = 9, T_MAT = 12,
                 T_INDEX = 13 };
@@ -85,7 +91,9 @@ constexpr int G_STRIDE = 24;
 // gmat, their G rows row for row, where the G leaf runs (set by the regen
 // kernel's wrapper only, read only by scene_hit<true>). Spheres: the flat
 // sphere rows of the scene table, plus n_sph_tree rows walked through
-// sph_nodes.
+// sph_nodes. Node tables: kernels/bvh.py pack_tree. `stack`: the entries a
+// walk of either tree may hold, proven on the host; every kernel that
+// walks gives each thread that many words of shared memory (WalkStack).
 struct Geom {
   const float* tri;
   const float* tri_nodes;
@@ -95,7 +103,31 @@ struct Geom {
   int n_tri;
   int tri_walk;
   int n_sph_tree;
+  int stack;
 };
+
+// A thread's traversal stack in shared memory: entry e at base[e * stride],
+// stride the block's thread count, so a warp's pushes fall in 32 banks.
+struct WalkStack {
+  int* base;
+  int stride;
+  int cap;
+};
+
+// The stack of the calling thread in a block's region `mem` of
+// geom.stack * blockDim.x words.
+__device__ __forceinline__ WalkStack walk_stack(int* mem, const Geom& g) {
+  WalkStack st;
+  st.base = mem + threadIdx.x;
+  st.stride = blockDim.x;
+  st.cap = g.stack;
+  return st;
+}
+
+// Bytes of shared memory a block of `threads` needs for its walk stacks.
+inline size_t walk_stack_bytes(const Geom& g, int threads) {
+  return sizeof(int) * (size_t)g.stack * threads;
+}
 
 struct Ray {
   V3 o, d, inv;
@@ -119,16 +151,16 @@ __device__ __forceinline__ void slab_axis(float bmin, float bmax, float o,
   }
 }
 
-// Whether the ray may meet a primitive of the node at t in (0, cap]; tn
-// is the entry distance (the near-to-far key). `grow` widens the box by
-// that share of the farthest distance (L-inf) from the ray origin to the
-// box: the sphere test's discriminant loses a few ulps of |o - c|^2, so a
-// far ray "hits" a sphere up to ~5e-4 |o - c| outside its geometric
-// bounds, and at that distance t errs by as much; the tree must not prune
-// what the plain sweep accepts.
-__device__ __forceinline__ bool node_hit(const float* nd, const Ray& r,
+// Whether the ray may meet a primitive of the box (lo, hi: the xyz of a
+// child's two rows) at t in (0, cap]; tn is the entry distance (the
+// near-to-far key). `grow` widens the box by that share of the farthest
+// distance (L-inf) from the ray origin to the box: the sphere test's
+// discriminant loses a few ulps of |o - c|^2, so a far ray "hits" a sphere
+// up to ~5e-4 |o - c| outside its geometric bounds, and at that distance t
+// errs by as much; the tree must not prune what the plain sweep accepts.
+__device__ __forceinline__ bool node_hit(float4 lo4, float4 hi4, const Ray& r,
                                          float cap, float grow, float& tn) {
-  V3 bmin = load3(nd + N_BMIN), bmax = load3(nd + N_BMAX);
+  V3 bmin = v3(lo4.x, lo4.y, lo4.z), bmax = v3(hi4.x, hi4.y, hi4.z);
   if (grow > 0.0f) {
     float m = grow * fmaxf(fmaxf(fmaxf(fabsf(r.o.x - bmin.x),
                                        fabsf(r.o.x - bmax.x)),
@@ -147,54 +179,117 @@ __device__ __forceinline__ bool node_hit(const float* nd, const Ray& r,
   return !(lo > hi || hi <= 0.0f || lo > cap);
 }
 
-// The stack walk shared by the four queries. `q` supplies kGrow (see
-// node_hit), cap() (the distance beyond which nothing can change its
-// answer) and visit(first, count), which sweeps a leaf and returns true to
-// end the walk.
+constexpr int NO_REF = (int)0x80000000;  // no child: never a packed leaf
+
+// Swap two candidates when the first lies strictly farther: adjacent
+// swaps on a strict compare keep equal keys in slot order.
+__device__ __forceinline__ void order_pair(float& ka, int& ra, float& kb,
+                                           int& rb) {
+  if (ka > kb) {
+    float k = ka; ka = kb; kb = k;
+    int r = ra; ra = rb; rb = r;
+  }
+}
+
+// The stack walk shared by the four queries, over a node table of
+// kernels/bvh.py pack_tree. `q` supplies kGrow (see node_hit), cap() (the
+// distance beyond which nothing can change its answer) and visit(first,
+// count), which sweeps a leaf and returns true to end the walk. One trip
+// of the loop handles one ref: a leaf is swept, an inner node's children
+// are tested against the cap as it stands at that moment, the nearest
+// (ties: the lower slot) is taken next and the others stacked far-first.
 template <class Query>
-__device__ __forceinline__ void bvh_walk(const float* nodes, const Ray& r,
-                                         Query& q) {
-  int stack[STACK_DEPTH];
+__device__ __forceinline__ void bvh_walk(const float* table, const Ray& r,
+                                         Query& q, const WalkStack& st) {
+  const float4* nodes = reinterpret_cast<const float4*>(table);
   int sp = 0;
-  stack[sp++] = 0;
-  while (sp > 0) {
-    const float* nd = nodes + stack[--sp] * NODE_STRIDE;
-    const int count = (int)nd[N_COUNT];
-    if (count > 0) {
-      if (q.visit((int)nd[N_FIRST], count)) return;
-      continue;
-    }
-    const float cap = q.cap();
-    int ids[MAX_CHILDREN];
-    float keys[MAX_CHILDREN];
-    int n = 0;
-    for (int c = 0; c < MAX_CHILDREN; ++c) {
-      const int id = (int)nd[N_CHILD + c];
-      if (id == 0) break;
-      float tn;
-      if (!node_hit(nodes + id * NODE_STRIDE, r, cap, Query::kGrow, tn))
-        continue;
-      int k = n++;
-      for (; k > 0 && keys[k - 1] > tn; --k) {  // stable: ties keep slot order
-        keys[k] = keys[k - 1];
-        ids[k] = ids[k - 1];
+  int ref = 0;  // the root
+  for (;;) {
+    int next = NO_REF;
+    int first = 0, count = 0;
+    if (ref < 0) {  // a leaf packed into its parent's ref
+      first = ~ref & 0xffffff;
+      count = (~ref >> 24) + 1;
+    } else {
+      const float4* nd = nodes + 2 * ref;
+      const float4 lo0 = __ldg(nd), hi0 = __ldg(nd + 1);
+      const int k = __float_as_int(hi0.w);
+      if (k < 0) {  // a leaf record
+        first = __float_as_int(lo0.w);
+        count = -k;
+      } else if (k == 2) {
+        const float4 lo1 = __ldg(nd + 2), hi1 = __ldg(nd + 3);
+        const float cap = q.cap();
+        float t0, t1;
+        const bool h0 = node_hit(lo0, hi0, r, cap, Query::kGrow, t0);
+        const bool h1 = node_hit(lo1, hi1, r, cap, Query::kGrow, t1);
+        const int r0 = __float_as_int(lo0.w), r1 = __float_as_int(lo1.w);
+        if (h0 && h1) {
+          const bool swap = t1 < t0;  // a tie keeps slot order
+          if (sp >= st.cap) __trap();  // unreachable, see the header
+          st.base[sp++ * st.stride] = swap ? r0 : r1;
+          next = swap ? r1 : r0;
+        } else if (h0 || h1) {
+          next = h0 ? r0 : r1;
+        }
+      } else {
+        const float cap = q.cap();
+        float key[MAX_CHILDREN];
+        int rf[MAX_CHILDREN];
+#pragma unroll
+        for (int c = 0; c < MAX_CHILDREN; ++c) {
+          key[c] = kINF();
+          rf[c] = NO_REF;
+          if (c < k) {
+            const float4 lo = c == 0 ? lo0 : __ldg(nd + 2 * c);
+            const float4 hi = c == 0 ? hi0 : __ldg(nd + 2 * c + 1);
+            float tn;
+            if (node_hit(lo, hi, r, cap, Query::kGrow, tn)) {
+              key[c] = tn;
+              rf[c] = __float_as_int(lo.w);
+            }
+          }
+        }
+        // odd-even transposition: MAX_CHILDREN passes sort any input; a
+        // missed child keeps key +inf and NO_REF and is skipped below
+#pragma unroll
+        for (int pass = 0; pass < MAX_CHILDREN; ++pass) {
+#pragma unroll
+          for (int c = pass & 1; c + 1 < MAX_CHILDREN; c += 2)
+            order_pair(key[c], rf[c], key[c + 1], rf[c + 1]);
+        }
+#pragma unroll
+        for (int c = MAX_CHILDREN - 1; c >= 0; --c) {
+          if (rf[c] == NO_REF) continue;
+          if (next != NO_REF) {
+            if (sp >= st.cap) __trap();  // unreachable, see the header
+            st.base[sp++ * st.stride] = next;
+          }
+          next = rf[c];
+        }
       }
-      keys[k] = tn;
-      ids[k] = id;
     }
-    if (sp + n > STACK_DEPTH) __trap();  // unreachable, see the header
-    for (int k = n - 1; k >= 0; --k) stack[sp++] = ids[k];
+    if (count > 0 && q.visit(first, count)) return;
+    if (next == NO_REF) {
+      if (sp == 0) return;
+      next = st.base[--sp * st.stride];
+    }
+    ref = next;
   }
 }
 
 // ----- triangles (tpurt_torch/ops/intersect.py _tri_hits) -----
 
 // Moller-Trumbore against one record, in soa.triangle_hit_c's operand
-// order; returns whether it is a hit, with its distance in t.
+// order; returns whether it is a hit, with its distance in t. The vertex
+// and edges come in three 16-byte loads; the fourth row of the record
+// (material, index) is left to the caller.
 __device__ __forceinline__ bool tri_hit(const float* rec, V3 o, V3 d,
                                         float& t) {
-  const V3 a = load3(rec + T_A), e1 = load3(rec + T_E1),
-           e2 = load3(rec + T_E2);
+  const float4* p = reinterpret_cast<const float4*>(rec);
+  const float4 r0 = __ldg(p), r1 = __ldg(p + 1), r2 = __ldg(p + 2);
+  const V3 a = v3(r0.x, r0.y, r0.z), e1 = v3(r0.w, r1.x, r1.y),
+           e2 = v3(r1.z, r1.w, r2.x);
   V3 h = vcross(d, e2);
   float det = vdot(e1, h);
   bool small = fabsf(det) < F(1.17549435e-38);
@@ -220,11 +315,12 @@ struct TriClosest {
 
   __device__ __forceinline__ float cap() const { return fminf(t, clip); }
   __device__ __forceinline__ bool visit(int first, int count) {
+#pragma unroll 1  // unrolled sweeps cost the path kernels registers
     for (int i = first; i < first + count; ++i) {
       const float* r = tri + i * TRI_STRIDE;
       float ti;
       if (!tri_hit(r, o, d, ti)) continue;
-      int idx = (int)r[T_INDEX];
+      int idx = (int)__ldg(r + T_INDEX);
       if (ti < t || (ti == t && idx < index)) {
         t = ti;
         index = idx;
@@ -242,7 +338,8 @@ struct TriClosest {
 __device__ __forceinline__ bool g_hit(const float* row, V3 o, V3 d, V3 x,
                                       float& t, int& idx) {
   const float4* p = reinterpret_cast<const float4*>(row);
-  const float4 c0 = p[0], c1 = p[1], c2 = p[2], c3 = p[3], c4 = p[4];
+  const float4 c0 = __ldg(p), c1 = __ldg(p + 1), c2 = __ldg(p + 2),
+               c3 = __ldg(p + 3), c4 = __ldg(p + 4);
   float det = c0.x * d.x + c0.y * d.y + c0.z * d.z;
   float un = c0.w * d.x + c1.x * d.y + c1.y * d.z + c1.z * x.x + c1.w * x.y +
              c2.x * x.z;
@@ -273,6 +370,7 @@ struct TriClosestG {
   __device__ __forceinline__ float cap() const { return fminf(t, clip); }
   __device__ __forceinline__ bool visit(int first, int count) {
     pairs += (unsigned)count;
+#pragma unroll 1  // unrolled sweeps cost the path kernels registers
     for (int i = first; i < first + count; ++i) {
       const float* r = g + i * G_STRIDE;
       float ti;
@@ -297,6 +395,7 @@ struct TriAny {
 
   __device__ __forceinline__ float cap() const { return t_max; }
   __device__ __forceinline__ bool visit(int first, int count) {
+#pragma unroll 1  // unrolled sweeps cost the path kernels registers
     for (int i = first; i < first + count; ++i) {
       float t;
       if (tri_hit(tri + i * TRI_STRIDE, o, d, t) && t < t_max) {
@@ -309,7 +408,8 @@ struct TriAny {
 };
 
 __device__ __forceinline__ TriClosest closest_triangle(const Geom& g, V3 o,
-                                                       V3 d, float clip) {
+                                                       V3 d, float clip,
+                                                       const WalkStack& st) {
   TriClosest q;
   q.tri = g.tri;
   q.o = o;
@@ -319,16 +419,15 @@ __device__ __forceinline__ TriClosest closest_triangle(const Geom& g, V3 o,
   q.index = 0x7fffffff;
   q.rec = nullptr;
   if (g.tri_walk) {
-    bvh_walk(g.tri_nodes, make_ray(o, d), q);
+    bvh_walk(g.tri_nodes, make_ray(o, d), q, st);
   } else {
     q.visit(0, g.n_tri);
   }
   return q;
 }
 
-__device__ __forceinline__ TriClosestG closest_triangle_g(const Geom& g,
-                                                          V3 o, V3 d,
-                                                          float clip) {
+__device__ __forceinline__ TriClosestG closest_triangle_g(
+    const Geom& g, V3 o, V3 d, float clip, const WalkStack& st) {
   TriClosestG q;
   q.g = g.gmat;
   q.o = o;
@@ -340,7 +439,7 @@ __device__ __forceinline__ TriClosestG closest_triangle_g(const Geom& g,
   q.pairs = 0;
   q.row = nullptr;
   if (g.tri_walk) {
-    bvh_walk(g.tri_nodes, make_ray(o, d), q);
+    bvh_walk(g.tri_nodes, make_ray(o, d), q, st);
   } else {
     q.visit(0, g.n_tri);
   }
@@ -348,7 +447,8 @@ __device__ __forceinline__ TriClosestG closest_triangle_g(const Geom& g,
 }
 
 __device__ __forceinline__ bool occluded_triangle(const Geom& g, V3 o, V3 d,
-                                                  float t_max) {
+                                                  float t_max,
+                                                  const WalkStack& st) {
   TriAny q;
   q.tri = g.tri;
   q.o = o;
@@ -356,7 +456,7 @@ __device__ __forceinline__ bool occluded_triangle(const Geom& g, V3 o, V3 d,
   q.t_max = t_max;
   q.hit = false;
   if (g.tri_walk)
-    bvh_walk(g.tri_nodes, make_ray(o, d), q);
+    bvh_walk(g.tri_nodes, make_ray(o, d), q, st);
   else
     q.visit(0, g.n_tri);
   return q.hit;
@@ -399,14 +499,16 @@ struct SphShadow {
 };
 
 template <class Query>
-__device__ __forceinline__ void walk_sphere_tree(const Geom& g, Query& q) {
+__device__ __forceinline__ void walk_sphere_tree(const Geom& g, Query& q,
+                                                 const WalkStack& st) {
   q.sph = g.sph;
-  bvh_walk(g.sph_nodes, make_ray(q.o, q.d), q);
+  bvh_walk(g.sph_nodes, make_ray(q.o, q.d), q, st);
 }
 
 // Nearest sphere of the flat rows (n_flat of them) and the tree.
 __device__ __forceinline__ Hit closest_sphere(const float* flat, int n_flat,
-                                              const Geom& g, V3 o, V3 d) {
+                                              const Geom& g, V3 o, V3 d,
+                                              const WalkStack& st) {
   SphClosest q;
   q.sph = flat;
   q.o = o;
@@ -417,7 +519,7 @@ __device__ __forceinline__ Hit closest_sphere(const float* flat, int n_flat,
   q.best.index = 0x7fffffff;
   q.best.row = nullptr;
   q.visit(0, n_flat);
-  if (g.n_sph_tree) walk_sphere_tree(g, q);
+  if (g.n_sph_tree) walk_sphere_tree(g, q, st);
   return sphere_finish(q.best, o, d);
 }
 
@@ -425,7 +527,8 @@ __device__ __forceinline__ Hit closest_sphere(const float* flat, int n_flat,
 // then the tree, in walk order.
 __device__ __forceinline__ float shadow_spheres(const float* flat, int n_flat,
                                                 const Geom& g, V3 o, V3 d,
-                                                float t_max, float lam) {
+                                                float t_max, float lam,
+                                                const WalkStack& st) {
   SphShadow q;
   q.sph = flat;
   q.o = o;
@@ -438,7 +541,7 @@ __device__ __forceinline__ float shadow_spheres(const float* flat, int n_flat,
   for (int i = 0; i < n_flat; ++i)
     q.atten = q.atten * sphere_factor(flat + i * SPH_STRIDE, o, d, q.a,
                                       q.inv_a, t_max, lam);
-  if (g.n_sph_tree && q.atten > 0.0f) walk_sphere_tree(g, q);
+  if (g.n_sph_tree && q.atten > 0.0f) walk_sphere_tree(g, q, st);
   return q.atten;
 }
 
@@ -446,14 +549,15 @@ __device__ __forceinline__ float shadow_spheres(const float* flat, int n_flat,
 
 // The triangle at t takes the nearest hit: its point o + n*1e-5 + d*t
 // (_tri_state_finish), its unit normal and material read from nm, which
-// points at [nx ny nz mat] in a record (T_N) or a G row (G_N).
+// points at [nx ny nz mat] in a record (T_N) or a G row (G_N): read only
+// now, for the one record that won.
 static_assert(T_MAT == T_N + 3 && G_MAT == G_N + 3, "normal, then material");
 __device__ __forceinline__ void take_triangle(Hit& h, V3 o, V3 d, float t,
                                               const float* nm) {
   h.t = t;
-  h.n = load3(nm);
+  h.n = v3(__ldg(nm), __ldg(nm + 1), __ldg(nm + 2));
   h.loc = vadd(vadd(o, vscale(h.n, F(1e-5))), vscale(d, t));
-  h.mat = (int)nm[3];
+  h.mat = (int)__ldg(nm + 3);
 }
 
 // Nearest hit: spheres first, then the triangles clipped at the sphere
@@ -463,16 +567,17 @@ __device__ __forceinline__ void take_triangle(Hit& h, V3 o, V3 d, float t,
 // keep GLEAF false.
 template <bool GLEAF = false>
 __device__ __forceinline__ Hit scene_hit(const float* flat, int n_flat,
-                                         const Geom& g, V3 o, V3 d,
+                                         const Geom& g, const WalkStack& st,
+                                         V3 o, V3 d,
                                          unsigned* pairs = nullptr) {
-  Hit h = closest_sphere(flat, n_flat, g, o, d);
+  Hit h = closest_sphere(flat, n_flat, g, o, d, st);
   if (g.n_tri) {
     if constexpr (GLEAF) {
-      TriClosestG tc = closest_triangle_g(g, o, d, h.t);
+      TriClosestG tc = closest_triangle_g(g, o, d, h.t, st);
       if (pairs) *pairs += tc.pairs;
       if (tc.t < h.t) take_triangle(h, o, d, tc.t, tc.row + G_N);
     } else {
-      TriClosest tc = closest_triangle(g, o, d, h.t);
+      TriClosest tc = closest_triangle(g, o, d, h.t, st);
       if (tc.t < h.t) take_triangle(h, o, d, tc.t, tc.rec + T_N);
     }
   }
@@ -482,10 +587,11 @@ __device__ __forceinline__ Hit scene_hit(const float* flat, int n_flat,
 // Shadow factor: the spheres' transmission, 0 where a triangle occludes
 // (a segment the spheres already block is not walked).
 __device__ __forceinline__ float scene_shadow(const float* flat, int n_flat,
-                                              const Geom& g, V3 o, V3 d,
+                                              const Geom& g,
+                                              const WalkStack& st, V3 o, V3 d,
                                               float t_max, float lam) {
-  float atten = shadow_spheres(flat, n_flat, g, o, d, t_max, lam);
-  if (g.n_tri && atten != 0.0f && occluded_triangle(g, o, d, t_max))
+  float atten = shadow_spheres(flat, n_flat, g, o, d, t_max, lam, st);
+  if (g.n_tri && atten != 0.0f && occluded_triangle(g, o, d, t_max, st))
     return 0.0f;
   return atten;
 }

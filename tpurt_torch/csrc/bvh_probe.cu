@@ -9,6 +9,8 @@
 // loc and n (3, N), mat (N,) int32, atten (N,). With geom.gmat set the
 // nearest hit takes the G leaf (GLEAF; its plain version sweeps the G
 // rows), and `pairs`, when not null, has the pairs it tested added to it.
+// Each thread's walk stack lies in dynamic shared memory (geom.stack words
+// a thread).
 
 #include <cuda_runtime.h>
 
@@ -26,12 +28,14 @@ __global__ void __launch_bounds__(128)
                  float* __restrict__ n_out, int* __restrict__ mat_out,
                  float* __restrict__ atten_out,
                  unsigned long long* __restrict__ pairs) {
+  extern __shared__ int stacks[];
+  const WalkStack st = walk_stack(stacks, geom);
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const V3 ro = v3(o[i], o[n + i], o[2 * n + i]);
   const V3 rd = v3(d[i], d[n + i], d[2 * n + i]);
   unsigned tested = 0;
-  Hit h = scene_hit<GLEAF>(sph, n_sph, geom, ro, rd,
+  Hit h = scene_hit<GLEAF>(sph, n_sph, geom, st, ro, rd,
                            pairs ? &tested : nullptr);
   if (GLEAF && pairs) atomicAdd(pairs, (unsigned long long)tested);
   t_out[i] = h.t;
@@ -42,7 +46,8 @@ __global__ void __launch_bounds__(128)
   n_out[n + i] = h.n.y;
   n_out[2 * n + i] = h.n.z;
   mat_out[i] = h.mat;
-  atten_out[i] = scene_shadow(sph, n_sph, geom, ro, rd, t_max[i], lam[i]);
+  atten_out[i] =
+      scene_shadow(sph, n_sph, geom, st, ro, rd, t_max[i], lam[i]);
 }
 
 }  // namespace tpurt
@@ -57,7 +62,11 @@ extern "C" int tpurt_bvh_probe_launch(
   const unsigned int blocks = (unsigned int)((n + threads - 1) / threads);
   auto kernel =
       geom->gmat ? tpurt::probe_kernel<true> : tpurt::probe_kernel<false>;
-  kernel<<<blocks, threads, 0, s>>>(o, d, t_max, lam, n, sph, n_sph, *geom, t,
-                                    loc, nrm, mat, atten, pairs);
+  const size_t smem = tpurt::walk_stack_bytes(*geom, threads);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, threads, smem, s>>>(o, d, t_max, lam, n, sph, n_sph, *geom,
+                                       t, loc, nrm, mat, atten, pairs);
   return (int)cudaGetLastError();
 }

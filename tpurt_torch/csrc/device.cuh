@@ -22,7 +22,6 @@
 namespace tpurt {
 
 constexpr int N_CIE = 81;
-constexpr int MAX_LIGHTS = 16;
 
 // scene table layout (float32), packed by tpurt_torch/kernels/mega_regen.py:
 // camera, spheres, materials, lights, then each light's hero table
@@ -223,20 +222,19 @@ __device__ __forceinline__ V3 hero_lookup(const float* tab, int n_seg,
 
 // ----- spectra (tpurt/ops/spectra.py) -----
 
-// internal linkage: each translation unit that includes this header has
-// its own copy, filled by the launcher that uses it
-static __constant__ float c_cie[N_CIE * 3];
-
-__device__ __forceinline__ V3 cie_to_rgb(float lam) {
+// `cie`: the (N_CIE, 3) table of the launch, in shared or global memory
+// (each lane has its own wavelength, so its own rows: constant memory
+// would serve a warp one address at a time).
+__device__ __forceinline__ V3 cie_to_rgb(const float* cie, float lam) {
   float t = (lam - F(380.0)) / F(5.0);
   int i = __float2int_rz(t);
   float f = t - (float)i;
   int a = min(max(i, 0), N_CIE - 1);
   int b = min(max(i + 1, 0), N_CIE - 1);
   float g = 1.0f - f;
-  return v3(c_cie[3 * a] * g + c_cie[3 * b] * f,
-            c_cie[3 * a + 1] * g + c_cie[3 * b + 1] * f,
-            c_cie[3 * a + 2] * g + c_cie[3 * b + 2] * f);
+  return v3(cie[3 * a] * g + cie[3 * b] * f,
+            cie[3 * a + 1] * g + cie[3 * b + 1] * f,
+            cie[3 * a + 2] * g + cie[3 * b + 2] * f);
 }
 
 __device__ __forceinline__ float blackbody(float lam, float temp) {
@@ -382,13 +380,21 @@ struct Hit {
   int mat;
 };
 
+// The first half of a sphere row, cx cy cz r2, in one 16-byte load. The
+// rows are 32-byte aligned, in shared memory (the staged scene table) or
+// in global memory (the table itself, the tree's rows).
+__device__ __forceinline__ float4 sphere_geom(const float* sp) {
+  return *reinterpret_cast<const float4*>(sp);
+}
+
 // Near root of the ray (o, d) on one sphere row (cx cy cz r2 mat mtype ior
 // index), or MISS; a = |d|^2, inv_a = 1 / a.
 __device__ __forceinline__ float sphere_t(const float* sp, V3 o, V3 d,
                                           float a, float inv_a) {
-  V3 oc = v3(o.x - sp[0], o.y - sp[1], o.z - sp[2]);
+  const float4 g = sphere_geom(sp);
+  V3 oc = v3(o.x - g.x, o.y - g.y, o.z - g.z);
   float half_b = vdot(oc, d);
-  float c = vdot(oc, oc) - sp[3];
+  float c = vdot(oc, oc) - g.w;
   float disc = half_b * half_b - a * c;
   float sq = sqrtf(fmaxf(disc, 0.0f));
   float t = (-half_b - sq) * inv_a;
@@ -406,8 +412,9 @@ __device__ __forceinline__ void sphere_take(const float* sp, V3 o, V3 d,
                                             float a, float inv_a,
                                             SphBest& b) {
   float t = sphere_t(sp, o, d, a, inv_a);
-  int index = (int)sp[7];
-  if (t < kMISS() && (t < b.t || (t == b.t && index < b.index))) {
+  if (!(t < kMISS() && t <= b.t)) return;
+  int index = (int)sp[7];  // read only for a candidate
+  if (t < b.t || index < b.index) {
     b.t = t;
     b.index = index;
     b.row = sp;
@@ -430,16 +437,18 @@ __device__ __forceinline__ Hit sphere_finish(const SphBest& b, V3 o, V3 d) {
 __device__ __forceinline__ float sphere_factor(const float* sp, V3 o, V3 d,
                                                float a, float inv_a,
                                                float t_max, float lam) {
-  V3 c0 = load3(sp);
-  V3 oc = v3(o.x - sp[0], o.y - sp[1], o.z - sp[2]);
+  const float4 g = sphere_geom(sp);
+  V3 c0 = v3(g.x, g.y, g.z);
+  V3 oc = v3(o.x - g.x, o.y - g.y, o.z - g.z);
   float half_b = vdot(oc, d);
-  float c = vdot(oc, oc) - sp[3];
+  float c = vdot(oc, oc) - g.w;
   float disc = half_b * half_b - a * c;
   float sq = sqrtf(fmaxf(disc, 0.0f));
   float t0 = (-half_b - sq) * inv_a;
   float t1 = (-half_b + sq) * inv_a;
   bool overlap = disc > 0.0f && t1 > 0.0f && t0 < t_max;
-  if ((int)sp[5] != 1) return overlap ? 0.0f : 1.0f;
+  if (!overlap) return 1.0f;  // the row's second half is not read
+  if ((int)sp[5] != 1) return 0.0f;
   float t_entry = fmaxf(t0, 0.0f);
   float t_exit = fminf(t1, t_max);
   bool segment = t_entry < t_exit;
@@ -449,8 +458,7 @@ __device__ __forceinline__ float sphere_factor(const float* sp, V3 o, V3 d,
   float r1 = fr_dielectric(-vdot(n1, d), eta);
   V3 n2 = vnormalize(vsub(vadd(o, vscale(d, t_exit)), c0), F(1e-30));
   float r2 = fr_dielectric(-vdot(n2, d), eta);
-  float f = segment ? (1.0f - r1) * (1.0f - r2) : 1.0f;
-  return overlap ? f : 1.0f;
+  return segment ? (1.0f - r1) * (1.0f - r2) : 1.0f;
 }
 
 }  // namespace tpurt

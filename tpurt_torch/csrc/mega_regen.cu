@@ -1,5 +1,6 @@
-// The regenerative SPPM megakernel on Hopper: one thread per pixel runs
-// all of that pixel's samples of a render call.
+// The regenerative SPPM megakernel on Hopper: persistent blocks whose
+// lanes fetch pixels from a device counter and run all of a pixel's
+// samples of a render call, one traced segment per trip of one flat loop.
 //
 // Replaces tpurt's TPU kernel tpurt/kernels/mega_regen.py:
 // _make_regen_kernel (launched by regen_call), in both of its modes, with
@@ -11,35 +12,53 @@
 // the triangle and sphere BVH walks of tpurt/kernels/bvh_pallas.py, whose
 // counterparts it shares with the other path kernels (path.cuh, bvh.cuh).
 //
-// A sample of a pixel is path.cuh:sample_pixel, the body the
-// tile-synchronized kernel (mega_step.cu) runs once per launch: the two
-// kernels cannot drift apart. Between samples the per-pixel SPPM radius
-// steps. A photon gathers only at its own pixel's vispoint, so the pixels
-// are independent: the TPU kernel's tile-wide while loop, spawn gates and
-// drift gate (which keep 128-lane vector tiles busy) have no counterpart
-// here. Draws follow tpurt's per-(pixel, sample, phase, k) PCG streams
-// exactly, so ray counts match the plain version.
+// The body is path.cuh:run_pixels, which the tile-synchronized kernel
+// (mega_step.cu) runs with one sample a pixel: the two kernels cannot
+// drift apart. It is the counterpart of the TPU kernel's tile-wide while
+// loop with spawn gates: there 128-lane vector tiles are kept busy by
+// regenerating finished lanes in place; here each of a warp's 32 lanes is
+// a state machine that holds one ray and its phase (camera bounce, or
+// photon k at bounce b) and one trip of one flat loop traces one segment
+// for it. A photon gathers only at its own pixel's vispoint, so pixels are
+// independent and a lane that finishes one takes the next from a counter
+// in global memory. Per pixel, the draws follow tpurt's per-(pixel,
+// sample, phase, k) PCG streams and every float operation and sum keeps
+// its order, so state planes and ray counts equal the plain version's bit
+// for bit.
 //
 // Uniform mode: every pixel takes `spp` samples from iteration `it0` and
 // radius `radius0`. Budget mode (`aux` not null, tpurt's budget_mode, for
 // adaptive sampling): pixel p takes aux[0][p] samples from its own count
 // aux[1][p] (its n_samples) and its own radius aux[2][p]; `aux` is (3, P)
-// float32 in the planes' pixel order.
+// float32 in the planes' pixel order. A pixel with budget 0 costs one
+// fetch of the counter and touches no plane.
 //
-// State: (16, P) float32 planes in linear pixel order (rgb_sum 0-2,
-// vis_pos 3-5, vis_norm 6-8, vis_wo 9-11, vis_tp 12-14, vis_mat 15), read
-// once and written once per launch, in place; threads past the last pixel
-// do nothing. Traced segments are counted per thread in 64 bits, reduced
-// per block and added with one atomicAdd per block: integer sums, so the
-// count does not depend on the order blocks finish.
+// State: (16, P) float32 planes in linear pixel order (rgb_sum 0-2, vis_pos
+// 3-5, vis_norm 6-8, vis_wo 9-11, vis_tp 12-14, vis_mat 15), updated in
+// place by the one lane that owns the pixel; pixels past width * height
+// are never fetched. `counters`: two uint64 on the device, [0] the traced
+// segments, added to (per thread in 64 bits, reduced per block, one
+// atomicAdd per block: integer sums, so the count does not depend on the
+// order blocks finish), [1] the work counter, which the caller zeroes on
+// the launch's stream before every launch.
 //
 // What bounds it: not bytes (a 1080p launch moves ~133 MB of state in and
 // out once, against tens of millions of traced segments) but divergence
-// (neighbouring pixels follow paths of different length and material)
-// and register pressure (path state, vispoint and per-light emission
-// live across the whole sample loop). This first version takes neither
-// into account: no path sorting or regrouping, scene tables read from
-// global memory, emission in a local array.
+// and latency. What the design does about them: the work fetch removes
+// the wait for a warp's slowest pixel (budget mode: 18.8 -> 10.6 ms at
+// 1080p on an H100 80GB HBM3 at 700 W); the camera, sphere, material and
+// light rows and the CIE table are staged into shared memory once per
+// block (a warp reads them at one address; stage_scene); the vispoint
+// fields a gather needs wait in shared memory and the lights' emission is
+// recomputed where it is added, so no array lives in local memory; scatter
+// + roulette is one call site for camera and photon lanes. Whether a
+// warp's lanes drift apart is a launch constant (`lockstep`, run_pixels):
+// uniform launches keep warps in lockstep, which measured faster than free-running lanes on the H100 wherever rays
+// walk a tree or the sampler makes them coherent; budget launches, whose
+// pixels differ in sample count, never wait (PERF.md has the sweep). What
+// remains: a lockstep warp waits for its longest path in each phase, and
+// free-running lanes pay for it with incoherent rays and mixed shading;
+// no ray sorting or compaction between trips.
 
 #include <cuda_runtime.h>
 
@@ -47,60 +66,17 @@
 
 namespace tpurt {
 
-// SAMPLER: the instance with tpurt's sampler flags (sample_pixel). The
-// reference instance is held to 64 registers (8 blocks of 128 threads an
-// SM), the sampler instance to 80 (6 blocks): left free, the first takes
-// 72 and runs ~5% slower, the second 115 and runs bench config 4 ~18%
-// slower (H100 80GB HBM3, 700 W; PERF.md). GLEAF: the instances with
-// tpurt's G-matrix leaf test (pallas_mxu_leaf, geom.gmat set), under the
-// same bounds; the GLEAF false instances compile as they did without it.
+// SAMPLER: the instance with tpurt's sampler flags (run_pixels). GLEAF:
+// the instances with tpurt's G-matrix leaf test (pallas_mxu_leaf,
+// geom.gmat set).
 template <bool SAMPLER, bool GLEAF>
-__global__ void __launch_bounds__(128, SAMPLER ? 6 : 8)
-    regen_kernel(float* __restrict__ planes, long long P, int width,
-                 int height, const float* __restrict__ table, int n_sph,
-                 int n_mat, int n_light, uint32_t base_seed, int spp,
-                 int it0, int depth, float radius0, int k_photons,
-                 int max_photon_bounces, float rr_thresh,
-                 float photon_rr_thresh, float sppm_alpha, Sampler S,
-                 const float* __restrict__ aux, Geom geom,
-                 unsigned long long* __restrict__ rays_out) {
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  unsigned long long rays = 0;
-  if (idx < (long long)width * height) {
-    const Params prm = scene_params(table, n_sph, n_mat, n_light, geom);
-    const SampleConsts c = {table, width, height, depth, k_photons,
-                            max_photon_bounces, rr_thresh, photon_rr_thresh};
-    const uint32_t px = (uint32_t)(idx % width);
-    const uint32_t py = (uint32_t)(idx / width);
-    PixelState st = load_pixel(planes + idx, P);
-    int n_smp = spp;
-    int base = it0;
-    float base_f = (float)it0;
-    float radius = radius0;
-    if (aux) {  // budget mode: the pixel's own budget, count and radius
-      n_smp = (int)rintf(aux[idx]);
-      base_f = aux[P + idx];
-      base = (int)rintf(base_f);
-      radius = aux[2 * P + idx];
-    }
-    for (int smp = 0; smp < n_smp; ++smp) {
-      const uint32_t it = (uint32_t)(base + smp);
-      const uint32_t seed = frame_seed(base_seed, it);
-      // strata epoch: samples in one window share their cells
-      const uint32_t strata_seed =
-          SAMPLER && S.window > 1
-              ? frame_seed(base_seed, it & ~(uint32_t)(S.window - 1))
-              : seed;
-      sample_pixel<SAMPLER, GLEAF>(prm, S, c, px, py, seed, strata_seed,
-                                   radius, st, rays);
-      // the per-pixel SPPM radius step
-      float itf = base_f + (float)(smp + 1);
-      radius = radius * sqrtf((itf + sppm_alpha) / (itf + 1.0f));
-    }
-    store_pixel(planes + idx, P, st);
-  }
-
-  add_block_rays<4>(rays, rays_out);
+__global__ void TPURT_REGEN_BOUNDS(SAMPLER)
+    regen_kernel(float* planes, const float* __restrict__ table,
+                 const float* __restrict__ cie, int staged, int n_sph,
+                 int n_mat, int n_light, SampleConsts c, Sampler S, Geom geom,
+                 unsigned long long* __restrict__ counters) {
+  run_block<SAMPLER, GLEAF>(planes, table, cie, staged, n_sph, n_mat, n_light,
+                            c, S, geom, counters);
 }
 
 }  // namespace tpurt
@@ -115,26 +91,24 @@ extern "C" int tpurt_regen_launch(float* planes, long long P, int width,
                                   const tpurt::Sampler* sampler,
                                   const float* aux,
                                   const tpurt::Geom* geom,
-                                  unsigned long long* rays,
-                                  const float* cie_host, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemcpyToSymbolAsync(
-      tpurt::c_cie, cie_host, sizeof(float) * tpurt::N_CIE * 3, 0,
-      cudaMemcpyHostToDevice, s);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = 128;
-  const long long n = (long long)width * height;
-  const unsigned int blocks = (unsigned int)((n + threads - 1) / threads);
-  const bool on = tpurt::sampler_on(*sampler);
-  auto kernel = geom->gmat ? (on ? tpurt::regen_kernel<true, true>
-                                 : tpurt::regen_kernel<false, true>)
-                           : (on ? tpurt::regen_kernel<true, false>
-                                 : tpurt::regen_kernel<false, false>);
-  kernel<<<blocks, threads, 0, s>>>(
-      planes, P, width, height, table, n_sph, n_mat, n_light, seed, spp,
-      it0, depth, radius0, k_photons, max_photon_bounces, rr_thresh,
-      photon_rr_thresh, sppm_alpha, *sampler, aux, *geom, rays);
-  return (int)cudaGetLastError();
+                                  unsigned long long* counters,
+                                  const float* cie, void* stream) {
+  using namespace tpurt;
+  const SampleConsts c = {P, width, height, depth, k_photons,
+                          max_photon_bounces, rr_thresh, photon_rr_thresh,
+                          sppm_alpha, seed, spp, it0, radius0, aux,
+                          /*lockstep=*/aux == nullptr};
+  const int staged = staged_floats(n_sph, n_mat, n_light);
+  const bool on = sampler_on(*sampler);
+  auto kernel = geom->gmat ? (on ? regen_kernel<true, true>
+                                 : regen_kernel<false, true>)
+                           : (on ? regen_kernel<true, false>
+                                 : regen_kernel<false, false>);
+  return launch_persistent(kernel, run_pixels_smem(staged, *geom, 128),
+                           (long long)width * height,
+                           static_cast<cudaStream_t>(stream), planes, table,
+                           cie, staged, n_sph, n_mat, n_light, c, *sampler,
+                           *geom, counters);
 }
 
 extern "C" const char* tpurt_error_string(int err) {

@@ -4,8 +4,8 @@
 // bvh.cuh), the camera spawn, per-light emission at one wavelength or
 // hero-averaged, next-event estimation over every light, the BSDF
 // scatters with Russian roulette and tpurt's strata cells, the
-// photon-gather BSDF, and one whole SPPM sample of a pixel
-// (sample_pixel), the body of the regen and tile-sync kernels.
+// photon-gather BSDF, and the SPPM samples of a launch's pixels
+// (run_pixels), the body of the regen and tile-sync kernels.
 //
 // Ported from tpurt's component-form kernel code in
 // tpurt/kernels/mega_pallas.py (nee_direct_c, scatter_rr_c,
@@ -178,41 +178,74 @@ __device__ __forceinline__ V3 evaluate_bsdf(V3 wo, V3 wi, V3 n, V3 color,
 
 // The scene as read from the float32 parameter table (layout in
 // device.cuh, packed by tpurt_torch/kernels/mega_regen.py:pack_scene) and
-// the geometry tables (kernels/bvh.py).
+// the geometry tables (kernels/bvh.py). The pointers are generic: the
+// regen and tile-sync kernels stage the table into shared memory
+// (stage_scene), the wavefront kernels read it where it lies.
 struct Params {
-  const float* sph;
-  const float* mat;
-  const float* light;
-  const float* hero;  // each light's hero table, when C > 1
+  const float* table;  // the whole table, in global memory
+  const float* rows;   // its camera, sphere, material and light rows
+  const float* cie_;   // the (N_CIE, 3) CIE table
   int n_sph, n_mat, n_light;
   Geom geom;
+  WalkStack stack;
+
+  // Each row block is an offset from `rows`, formed where it is read: one
+  // pointer stays live across the kernels' loops, not six.
+  __device__ __forceinline__ const float* cam() const { return rows; }
+  __device__ __forceinline__ const float* sph() const {
+    return rows + CAM_FLOATS;
+  }
+  __device__ __forceinline__ const float* mat() const {
+    return rows + CAM_FLOATS + n_sph * SPH_STRIDE;
+  }
+  __device__ __forceinline__ const float* light() const {
+    return rows + CAM_FLOATS + n_sph * SPH_STRIDE + n_mat * MAT_STRIDE;
+  }
+  // each light's hero table, when C > 1: after the rows, in global memory
+  __device__ __forceinline__ const float* hero() const {
+    return table + CAM_FLOATS + n_sph * SPH_STRIDE + n_mat * MAT_STRIDE +
+           n_light * LIGHT_STRIDE;
+  }
+  __device__ __forceinline__ const float* cie() const { return cie_; }
 };
 
-__device__ __forceinline__ Params scene_params(const float* table, int n_sph,
+// Floats of the table before the hero tables: what stage_scene copies.
+__host__ __device__ inline int scene_floats(int n_sph, int n_mat,
+                                            int n_light) {
+  return CAM_FLOATS + n_sph * SPH_STRIDE + n_mat * MAT_STRIDE +
+         n_light * LIGHT_STRIDE;
+}
+
+// `table` and `cie` in global memory; `rows`: where the camera, sphere,
+// material and light rows are read (the table itself, or its staged copy).
+__device__ __forceinline__ Params scene_params(const float* table,
+                                               const float* rows,
+                                               const float* cie, int n_sph,
                                                int n_mat, int n_light,
-                                               const Geom& geom) {
+                                               const Geom& geom,
+                                               const WalkStack& stack) {
   Params p;
-  p.sph = table + CAM_FLOATS;
-  p.mat = p.sph + n_sph * SPH_STRIDE;
-  p.light = p.mat + n_mat * MAT_STRIDE;
-  p.hero = p.light + n_light * LIGHT_STRIDE;
+  p.table = table;
+  p.rows = rows;
+  p.cie_ = cie;
   p.n_sph = n_sph;
   p.n_mat = n_mat;
   p.n_light = n_light;
   p.geom = geom;
+  p.stack = stack;
   return p;
 }
 
-// The scene's nearest hit (mega_pallas._make_scene_fns' intersect); GLEAF
-// takes the G leaf for the triangles (bvh.cuh scene_hit).
+// The nearest hit of the scene (mega_pallas._make_scene_fns' intersect);
+// GLEAF takes the G leaf for the triangles (bvh.cuh scene_hit).
 template <bool GLEAF = false>
 __device__ __forceinline__ Hit intersect(const Params& P, V3 o, V3 d) {
-  return scene_hit<GLEAF>(P.sph, P.n_sph, P.geom, o, d);
+  return scene_hit<GLEAF>(P.sph(), P.n_sph, P.geom, P.stack, o, d);
 }
 
 // Camera spawn of one (pixel, sample): 2 jitter draws, the pinhole ray
-// through the jittered pixel, 1 wavelength draw. `table` starts with the
-// camera rows origin, horizontal, vertical, lower_left.
+// through the jittered pixel, 1 wavelength draw. `table`: the camera rows
+// origin, horizontal, vertical, lower_left.
 __device__ __forceinline__ void spawn_camera(const float* table, uint32_t px,
                                              uint32_t py, int width,
                                              int height, uint32_t& rng,
@@ -230,50 +263,45 @@ __device__ __forceinline__ void spawn_camera(const float* table, uint32_t px,
   lam = F(380.0) + rand_1f(rng) * F(400.0);
 }
 
-// Per-light emission at wavelength lam into em[3 * n_light]:
-// color*intensity*range (* blackbody(lam, T)) * cie_rgb(lam).
-__device__ __forceinline__ void light_emission(const Params& P, float lam,
-                                               float* em) {
-  V3 cie = cie_to_rgb(lam);
-  for (int li = 0; li < P.n_light; ++li) {
-    const float* L = P.light + li * LIGHT_STRIDE;
-    float temp = L[L_TEMP];
-    float spd = temp > 0.0f ? blackbody(lam, temp) : 1.0f;
-    em[3 * li] = temp > 0.0f ? L[L_EM_SCALE] * spd * cie.x
-                             : L[L_EM_SCALE] * cie.x;
-    em[3 * li + 1] = temp > 0.0f ? L[L_EM_SCALE + 1] * spd * cie.y
-                                 : L[L_EM_SCALE + 1] * cie.y;
-    em[3 * li + 2] = temp > 0.0f ? L[L_EM_SCALE + 2] * spd * cie.z
-                                 : L[L_EM_SCALE + 2] * cie.z;
-  }
-}
-
-// Per-light C-averaged emission at hero wavelength lam into em[3 * n_light]:
-// the lookup into each light's hero table.
-__device__ __forceinline__ void hero_emission(const Params& P,
-                                              const Sampler& S, float lam,
-                                              float* em) {
-  const int stride = 3 * (S.hero_nseg + 1);
-  for (int li = 0; li < P.n_light; ++li) {
-    V3 e = hero_lookup(P.hero + li * stride, S.hero_nseg, S.hero_delta, lam);
-    em[3 * li] = e.x;
-    em[3 * li + 1] = e.y;
-    em[3 * li + 2] = e.z;
-  }
+// Light li's emission as a camera path of wavelength lam sees it. While
+// `hero` (SAMPLER instances with C > 1, until the path collapses): the
+// C-averaged emission, a lookup into the light's hero table. Else the
+// single wavelength: color*intensity*range (* blackbody(lam, T)) *
+// cie_rgb(lam), with cie = cie_to_rgb(lam). It is a pure function of the
+// light and lam, computed where a light is added and kept nowhere.
+template <bool SAMPLER>
+__device__ __forceinline__ V3 light_em(const Params& P, const Sampler& S,
+                                       bool hero, int li, float lam,
+                                       V3 cie) {
+  if (SAMPLER && hero)
+    return hero_lookup(P.hero() + li * 3 * (S.hero_nseg + 1), S.hero_nseg,
+                       S.hero_delta, lam);
+  const float* L = P.light() + li * LIGHT_STRIDE;
+  float temp = L[L_TEMP];
+  float spd = temp > 0.0f ? blackbody(lam, temp) : 1.0f;
+  return temp > 0.0f ? v3(L[L_EM_SCALE] * spd * cie.x,
+                          L[L_EM_SCALE + 1] * spd * cie.y,
+                          L[L_EM_SCALE + 2] * spd * cie.z)
+                     : v3(L[L_EM_SCALE] * cie.x, L[L_EM_SCALE + 1] * cie.y,
+                          L[L_EM_SCALE + 2] * cie.z);
 }
 
 // Next-event estimation over every light (mode "all"): 2 draws per light
 // whatever the surface; the shadow segments are traced, and the light
-// added, only at a diffuse hit.
-__device__ __forceinline__ V3 nee_direct(const Params& P, const Hit& h,
+// added (light_em), only at a diffuse hit.
+template <bool SAMPLER>
+__device__ __forceinline__ V3 nee_direct(const Params& P, const Sampler& S,
+                                         bool hero, const Hit& h,
                                          bool diffuse, float lam,
-                                         const float* em, uint32_t& rng) {
+                                         uint32_t& rng) {
   V3 direct = v3(0.0f, 0.0f, 0.0f);
+  V3 cie = v3(0.0f, 0.0f, 0.0f);
+  if (diffuse && !(SAMPLER && hero)) cie = cie_to_rgb(P.cie(), lam);
   for (int li = 0; li < P.n_light; ++li) {
     float u1 = rand_1f(rng);
     float u2 = rand_1f(rng);
     if (!diffuse) continue;
-    const float* L = P.light + li * LIGHT_STRIDE;
+    const float* L = P.light() + li * LIGHT_STRIDE;
     bool area = (int)L[L_TYPE] == 1;
     V3 lp;
     if (area) {
@@ -301,10 +329,11 @@ __device__ __forceinline__ V3 nee_direct(const Params& P, const Hit& h,
     }
     if (!live) continue;
     V3 so = vadd(h.loc, vscale(h.n, kEPS()));
-    float atten = scene_shadow(P.sph, P.n_sph, P.geom, so, ldir,
+    float atten = scene_shadow(P.sph(), P.n_sph, P.geom, P.stack, so, ldir,
                                dist - kEPS(), lam);
     float w = geom * atten / (dist * dist);
-    direct = vadd(direct, vscale(load3(em + 3 * li), w));
+    direct = vadd(direct,
+                  vscale(light_em<SAMPLER>(P, S, hero, li, lam, cie), w));
   }
   return direct;
 }
@@ -325,7 +354,7 @@ __device__ __forceinline__ bool scatter_rr(const Params& P, int mat, V3 wo,
   float u_choice = rand_1f(rng);
   float u_rr = rand_1f(rng);
   if (cell_ndir > 0) bounce_cells(cell_key, cell_ndir, u2a, u2b, u_choice);
-  const float* m = P.mat + mat * MAT_STRIDE;
+  const float* m = P.mat() + mat * MAT_STRIDE;
   V3 color = load3(m);
   float rough = m[3];
   int mtype = (int)m[5];
@@ -347,24 +376,37 @@ __device__ __forceinline__ bool scatter_rr(const Params& P, int mat, V3 wo,
   return live;
 }
 
-// The shading of one camera-path hit: NEE (added to `rad` at a diffuse
-// hit, with one shadow segment per light counted in `rays`), then scatter
-// + RR at the dielectric IOR plus eta_add (the Cauchy term under
-// dispersion on camera paths, else 0), in the bounce cell of cell_key when
-// cell_ndir > 0. Writes the continuation into (o, d, tp); returns whether
-// the path continues (before any depth limit).
-__device__ __forceinline__ bool shade_camera_hit(
-    const Params& P, const Hit& h, V3 wo, float lam, const float* em,
-    float rr_thresh, uint32_t& rng, V3& o, V3& d, V3& tp, V3& rad,
-    unsigned long long& rays, float eta_add = 0.0f, int cell_ndir = 0,
-    uint32_t cell_key = 0) {
-  const float* m = P.mat + h.mat * MAT_STRIDE;
-  bool diffuse = (int)m[5] == 0;
-  V3 direct = nee_direct(P, h, diffuse, lam, em, rng);
+// Next-event estimation at one camera-path hit: the draws of every light,
+// and at a diffuse hit the direct light added to `rad` and one shadow
+// segment per light counted in `rays`. `hero`: the lights' emission is the
+// hero-averaged one (light_em; S is read by the SAMPLER instances only).
+template <bool SAMPLER = false>
+__device__ __forceinline__ void camera_direct(const Params& P,
+                                              const Sampler& S, bool hero,
+                                              const Hit& h, float lam, V3 tp,
+                                              uint32_t& rng, V3& rad,
+                                              unsigned long long& rays) {
+  const float* m = P.mat() + h.mat * MAT_STRIDE;
+  const bool diffuse = (int)m[5] == 0;
+  V3 direct = nee_direct<SAMPLER>(P, S, hero, h, diffuse, lam, rng);
   if (diffuse) {
     rad = vadd(rad, vmul(vmul(tp, load3(m)), direct));
     rays += (unsigned long long)P.n_light;
   }
+}
+
+// The shading of one camera-path hit: camera_direct, then scatter + RR at
+// the dielectric IOR plus eta_add (the Cauchy term under dispersion on
+// camera paths, else 0), in the bounce cell of cell_key when cell_ndir >
+// 0. Writes the continuation into (o, d, tp); returns whether the path
+// continues (before any depth limit).
+template <bool SAMPLER = false>
+__device__ __forceinline__ bool shade_camera_hit(
+    const Params& P, const Sampler& S, bool hero, const Hit& h, V3 wo,
+    float lam, float rr_thresh, uint32_t& rng, V3& o, V3& d, V3& tp, V3& rad,
+    unsigned long long& rays, float eta_add = 0.0f, int cell_ndir = 0,
+    uint32_t cell_key = 0) {
+  camera_direct<SAMPLER>(P, S, hero, h, lam, tp, rng, rad, rays);
   return scatter_rr(P, h.mat, wo, h.n, h.loc, eta_add, true, rr_thresh, rng,
                     o, d, tp, cell_ndir, cell_key);
 }
@@ -422,152 +464,351 @@ __device__ __forceinline__ void emit_photon(const float* L, const Sampler& S,
   ph_tp = load3(L + L_PH_POWER);
 }
 
-// A pixel's persistent state: the radiance sum and its vispoint, the 16
-// float32 planes of the render state (rgb_sum 0-2, vis_pos 3-5, vis_norm
-// 6-8, vis_wo 9-11, vis_tp 12-14, vis_mat 15), stride P.
-struct PixelState {
-  V3 rgb, vpos, vnorm, vwo, vtp;
-  float vmat;
-};
-
-__device__ __forceinline__ PixelState load_pixel(const float* pl,
-                                                 long long P) {
-  PixelState s;
-  s.rgb = v3(pl[0], pl[P], pl[2 * P]);
-  s.vpos = v3(pl[3 * P], pl[4 * P], pl[5 * P]);
-  s.vnorm = v3(pl[6 * P], pl[7 * P], pl[8 * P]);
-  s.vwo = v3(pl[9 * P], pl[10 * P], pl[11 * P]);
-  s.vtp = v3(pl[12 * P], pl[13 * P], pl[14 * P]);
-  s.vmat = pl[15 * P];
-  return s;
-}
-
-__device__ __forceinline__ void store_pixel(float* pl, long long P,
-                                            const PixelState& s) {
-  pl[0] = s.rgb.x; pl[P] = s.rgb.y; pl[2 * P] = s.rgb.z;
-  pl[3 * P] = s.vpos.x; pl[4 * P] = s.vpos.y; pl[5 * P] = s.vpos.z;
-  pl[6 * P] = s.vnorm.x; pl[7 * P] = s.vnorm.y; pl[8 * P] = s.vnorm.z;
-  pl[9 * P] = s.vwo.x; pl[10 * P] = s.vwo.y; pl[11 * P] = s.vwo.z;
-  pl[12 * P] = s.vtp.x; pl[13 * P] = s.vtp.y; pl[14 * P] = s.vtp.z;
-  pl[15 * P] = s.vmat;
-}
-
-// The launch constants of the SPPM sample (sample_pixel).
+// The launch constants of the SPPM samples (run_pixels).
 struct SampleConsts {
-  const float* table;  // the parameter table, camera rows first
+  long long P;    // pixel stride of the planes
   int width, height, depth, k_photons, max_photon_bounces;
-  float rr_thresh, photon_rr_thresh;
+  float rr_thresh, photon_rr_thresh, sppm_alpha;
+  uint32_t base_seed;
+  // uniform mode: every pixel takes spp samples from iteration it0 and
+  // radius radius0. Budget mode (aux not null): pixel p takes aux[p]
+  // samples from its own count aux[P + p] and its own radius aux[2P + p].
+  int spp, it0;
+  float radius0;
+  const float* aux;
+  // a lane whose path ended enters its next phase (photon k, the next
+  // sample) only once no lane of its warp is still on a path; false: it
+  // never waits (run_pixels). The launchers set it to "not budget mode".
+  bool lockstep;
 };
 
-// One progressive SPPM sample of pixel (px, py), drawing from frame seed
-// `seed`, strata cells keyed by `strata_seed`: the camera spawn (2 jitter
-// draws, 1 wavelength draw), the camera path (up to `depth` bounces:
-// nearest hit, vispoint at the first diffuse hit, next-event estimation
-// over every light with the hero-averaged emission until a dielectric hit
-// collapses the path to its hero wavelength, scatter + Russian roulette),
-// then, if the pixel has a vispoint, K photon walks (light k % L, up to
-// `max_photon_bounces` bounces) that add density-estimated radiance when
-// they land within `radius` of that vispoint; the sample's radiance is
-// added into st.rgb, its segments into `rays`. The plain version is
-// tpurt_torch/integrate.py:render_tile. SAMPLER false compiles the
-// reference sampler alone (S is then not read): the kernels instantiate
-// both and pick one per launch, so a launch without the flags pays nothing
-// for them. GLEAF: every nearest hit takes the G leaf (pallas_mxu_leaf;
-// the regen kernel alone instantiates it).
-template <bool SAMPLER, bool GLEAF = false>
-__device__ __forceinline__ void sample_pixel(const Params& prm,
-                                             const Sampler& S,
-                                             const SampleConsts& c,
-                                             uint32_t px, uint32_t py,
-                                             uint32_t seed,
-                                             uint32_t strata_seed,
-                                             float radius, PixelState& st,
-                                             unsigned long long& rays) {
-  float em[3 * MAX_LIGHTS];
-  float emh[3 * MAX_LIGHTS];  // single-wavelength emission, after collapse
-  // ---- camera spawn: 2 jitter draws, 1 wavelength draw
-  uint32_t rng = seed_pixels(seed, px, py);
-  V3 o, d;
-  float lam;
-  spawn_camera(c.table, px, py, c.width, c.height, rng, o, d, lam);
-  if (SAMPLER && S.hero > 1) {
-    hero_emission(prm, S, lam, em);
-    if (S.collapse) light_emission(prm, lam, emh);
-  } else {
-    light_emission(prm, lam, em);
-  }
-  float lam_um = lam * F(1e-3);
-  float cauchy_add = F(0.004) / (lam_um * lam_um);
-  const float cam_eta_add = SAMPLER && S.disp_cam ? cauchy_add : 0.0f;
-  const int cam_cells = SAMPLER && S.camera_bounce ? S.n_dir : 0;
+// The seed the strata cells of sample `it` hash: the frame seed of its
+// window epoch (samples in one window share their cells).
+template <bool SAMPLER>
+__device__ __forceinline__ uint32_t strata_seed_of(const SampleConsts& c,
+                                                   const Sampler& S,
+                                                   uint32_t it) {
+  if (!SAMPLER) return 0u;
+  return frame_seed(c.base_seed,
+                    S.window > 1 ? it & ~(uint32_t)(S.window - 1) : it);
+}
 
-  // ---- camera path
-  V3 tp = v3(1.0f, 1.0f, 1.0f);
-  V3 rad = v3(0.0f, 0.0f, 0.0f);
-  bool vp_stored = false;
-  bool coll = false;
-  for (int b = 0;; ++b) {
-    rays += 1;
-    Hit h = intersect<GLEAF>(prm, o, d);
-    if (!(h.t < kHIT())) break;
-    const int mtype = (int)prm.mat[h.mat * MAT_STRIDE + 5];
-    V3 wo = vneg(d);
-    if (mtype == 0 && !vp_stored) {
-      st.vpos = h.loc;
-      st.vnorm = h.n;
-      st.vwo = wo;
-      st.vtp = tp;
-      st.vmat = (float)h.mat;
-      vp_stored = true;
-    }
-    bool cont = shade_camera_hit(
-        prm, h, wo, lam, SAMPLER && coll ? emh : em, c.rr_thresh, rng, o, d,
-        tp, rad,
-        rays, cam_eta_add, cam_cells,
-        bounce_key(strata_seed, CAMERA_STRATA_K, (uint32_t)b));
-    // a dielectric steered the path by eta(lam): only the hero goes on
-    if (SAMPLER && S.collapse && mtype == 1) coll = true;
-    if (!(cont && b + 1 < c.depth)) break;
-  }
+// Shared memory of a block of run_pixels, in floats: the CIE table, the
+// staged scene rows (`staged` floats, 0: read from global memory), the
+// lanes' vispoint fields, then the walk stacks (ints).
+constexpr int CIE_FLOATS = (N_CIE * 3 + 3) / 4 * 4;
+constexpr int VIS_FIELDS = 10;  // vis_norm, vis_wo, vis_tp, vis_mat
+inline size_t run_pixels_smem(int staged, const Geom& g, int threads) {
+  return sizeof(float) * (CIE_FLOATS + (staged + 3) / 4 * 4 +
+                          VIS_FIELDS * threads) +
+         walk_stack_bytes(g, threads);
+}
 
-  // ---- photon walks, gathered at this pixel's vispoint
-  if (c.k_photons > 0 && sqrtf(vdot(st.vpos, st.vpos)) > F(0.001)) {
-    const float* vm = prm.mat + (int)st.vmat * MAT_STRIDE;
-    const V3 v_color = load3(vm);
-    const float v_rough = vm[3];
-    const float v_eta = vm[4] + cauchy_add;
-    const int v_type = (int)vm[5];
-    const float inv_pi_r2 =
-        1.0f / fmaxf(F(3.141592653589793) * radius * radius, F(1e-10));
-    const int ph_cells = SAMPLER && S.photon_bounce ? S.n_dir : 0;
-    for (int k = 0; k < c.k_photons; ++k) {
-      uint32_t prng = photon_stream(seed, px, py, (uint32_t)k);
-      V3 ph_o, ph_d, ph_tp;
-      emit_photon(prm.light + (k % prm.n_light) * LIGHT_STRIDE, S,
-                  SAMPLER && S.n_pos > 0, strata_seed, (uint32_t)k, prng,
-                  ph_o, ph_d, ph_tp);
-      const uint32_t cell_k = SAMPLER && S.shared_k ? 0u : (uint32_t)k;
-      for (int b = 0;; ++b) {
-        rays += 1;
-        Hit h = intersect<GLEAF>(prm, ph_o, ph_d);
-        if (!(h.t < kHIT())) break;
-        V3 dvec = vsub(h.loc, st.vpos);
-        float dist = sqrtf(fmaxf(vdot(dvec, dvec), 0.0f));
-        if (dist < radius) {
-          V3 f = evaluate_bsdf(st.vwo, vneg(ph_d), st.vnorm, v_color,
-                               v_rough, v_eta, v_type);
-          float kern = (1.0f - dist / radius) * inv_pi_r2;
-          rad = vadd(rad, vscale(vmul(vmul(st.vtp, f), ph_tp), kern));
+// The SPPM samples of a launch's pixels: the body of the regen kernel
+// (uniform and budget mode) and of the tile-sync kernel (one sample a
+// pixel). Per pixel it computes what one thread per pixel computed,
+// draw for draw and sum for sum (the plain version is
+// tpurt_torch/integrate.py:render_tile, looped by render_plain and
+// render_plain_budget): per sample the camera spawn (2 jitter draws, 1
+// wavelength draw), the camera path (up to `depth` bounces: nearest hit,
+// vispoint at the first diffuse hit, next-event estimation over every
+// light with the hero-averaged emission until a dielectric hit collapses
+// the path to its hero wavelength, scatter + Russian roulette), then, if
+// the pixel has a vispoint, photon walks k = 0..K-1 in order (light k % L,
+// up to `max_photon_bounces` bounces) that add density-estimated radiance
+// when they land within the radius of that vispoint; the sample's radiance
+// added into rgb_sum once, then the per-pixel SPPM radius step.
+//
+// What changes is which lane runs which pixel when. Every lane is a small
+// state machine: it holds one ray and its phase (camera bounce b, or
+// photon k at bounce b), and one trip of the one loop traces one segment
+// for it, runs that phase's shading (next-event estimation for a camera
+// hit, the gather test for a photon; scatter + Russian roulette once for
+// both) and advances the phase; photon, sample and pixel boundaries are
+// short branches between trips (Aila and Laine's persistent threads;
+// tpurt's TPU kernel has the same form in its tile-wide while loop with
+// spawn gates). Blocks are persistent: a lane that has finished its pixel
+// takes the next from the counter `work` (one atomicAdd per warp,
+// consecutive pixels to the waiting lanes in lane order), so a pixel with
+// no budget costs one fetch. A pixel is owned by one lane from fetch to
+// store, so the planes need no synchronisation.
+//
+// `lockstep` sets whether the lanes of a warp may drift apart. Without it
+// a lane never waits: lanes in different phases, samples and pixels share
+// every trip's trace, a warp fetches the moment a lane falls idle, and a
+// warp's time is its longest lane's total. With it a lane whose path ended
+// enters its next phase only once no lane of its warp is still on a path:
+// the warp's 32 neighbouring pixels stay at one sample and phase, their
+// rays coherent, one kind of shading per trip, their planes loaded and
+// stored together, and a warp's time is the sum over phases of its longest
+// lane, as with nested loops. On the H100 lockstep measures faster on
+// every uniform launch but the sphere-only Cornell box, where the two tie,
+// and anything in between is slower than both (PERF.md), so uniform
+// launches run in lockstep. In budget mode the pixels' sample counts
+// differ, lockstep would wait for the largest budget of each warp, and the
+// lanes never wait.
+//
+// Live state is kept small: the ray, throughput, sample radiance, vispoint
+// position and radius in registers; vis_norm, vis_wo, vis_tp and vis_mat,
+// read on a gather hit only, in shared memory (`vis`, field f of thread t
+// at f * blockDim.x + t); rgb_sum in the planes, updated once per sample;
+// the lights' emission recomputed where it is added (light_em).
+//
+// SAMPLER false compiles the reference sampler alone (S is then not read):
+// the kernels instantiate both and pick one per launch, so a launch
+// without the flags pays nothing for them. GLEAF: every nearest hit takes
+// the G leaf (pallas_mxu_leaf; the regen kernel alone instantiates it).
+// Every thread of the block must call it; blockDim.x is a multiple of 32.
+template <bool SAMPLER, bool GLEAF>
+__device__ __forceinline__ void run_pixels(float* planes, const Params& prm,
+                                           const Sampler& S,
+                                           const SampleConsts& c, float* vis,
+                                           unsigned long long* work,
+                                           unsigned long long& rays) {
+  const unsigned FULL = 0xffffffffu;
+  const unsigned long long n_pix =
+      (unsigned long long)c.width * (unsigned long long)c.height;
+  const int vstride = blockDim.x;
+  float* myvis = vis + threadIdx.x;
+  bool more = true;   // the counter may still hold pixels (warp-uniform)
+  int idx = -1;       // this lane's pixel; < 0: it waits for one
+  bool spawn = false; // the next trip begins a sample
+  bool live = false;  // the lane is inside a sample
+  bool done = false;  // its path ended: it enters its next phase
+  uint32_t it = 0, it_end = 0;
+  float radius = 0.0f;
+  int k = -1, b = 0;  // phase: camera path (k < 0) or photon k, bounce b
+  bool vp_stored = false, coll = false;
+  uint32_t rng = 0;
+  float lam = 0.0f;
+  V3 o = v3(0.0f, 0.0f, 0.0f), d = o, tp = o, rad = o, vpos = o;
+
+  for (;;) {
+    // ---- fetch: the waiting lanes take consecutive pixels
+    const unsigned want = __ballot_sync(FULL, idx < 0);
+    if (more && want) {
+      const int leader = __ffs(want) - 1;
+      unsigned long long first = 0;
+      if ((int)(threadIdx.x & 31) == leader)
+        first = atomicAdd(work, (unsigned long long)__popc(want));
+      first = __shfl_sync(FULL, first, leader);
+      more = first + (unsigned long long)__popc(want) < n_pix;
+      const unsigned long long mine =
+          first + __popc(want & ((1u << (threadIdx.x & 31)) - 1u));
+      if (idx < 0 && mine < n_pix) {
+        idx = (int)mine;
+        int n_smp = c.spp;
+        uint32_t base = (uint32_t)c.it0;
+        radius = c.radius0;
+        if (c.aux) {  // budget mode: the pixel's own budget, count, radius
+          n_smp = (int)rintf(c.aux[idx]);
+          base = (uint32_t)(int)rintf(c.aux[c.P + idx]);
+          radius = c.aux[2 * c.P + idx];
         }
-        bool cont = scatter_rr(prm, h.mat, vneg(ph_d), h.n, h.loc,
-                               cauchy_add, false, c.photon_rr_thresh, prng,
-                               ph_o, ph_d, ph_tp, ph_cells,
-                               bounce_key(strata_seed, cell_k, (uint32_t)b));
-        if (!(cont && b + 1 < c.max_photon_bounces)) break;
+        if (n_smp <= 0) {
+          idx = -1;  // nothing to render: the planes stay as they are
+        } else {
+          const float* pl = planes + idx;
+          vpos = v3(pl[3 * c.P], pl[4 * c.P], pl[5 * c.P]);
+#pragma unroll
+          for (int f = 0; f < VIS_FIELDS; ++f)
+            myvis[f * vstride] = pl[(6 + f) * c.P];
+          it = base;
+          it_end = base + (uint32_t)n_smp;
+          spawn = true;
+        }
+      }
+    } else if (!more && want == FULL) {
+      break;  // no pixel left and no lane of the warp at work
+    }
+
+    // ---- lockstep: the lanes of the warp enter their next phase together
+    const bool go =
+        !c.lockstep || __ballot_sync(FULL, live && !done) == 0u;
+
+    // ---- the path ended: the next photon, or the end of the sample
+    if (done && go) {
+      done = false;
+      k += 1;
+      if (k < c.k_photons && sqrtf(vdot(vpos, vpos)) > F(0.001)) {
+        const uint32_t seed = frame_seed(c.base_seed, it);
+        rng = photon_stream(seed, (uint32_t)(idx % c.width),
+                            (uint32_t)(idx / c.width), (uint32_t)k);
+        emit_photon(prm.light() + (k % prm.n_light) * LIGHT_STRIDE, S,
+                    SAMPLER && S.n_pos > 0, strata_seed_of<SAMPLER>(c, S, it),
+                    (uint32_t)k, rng, o, d, tp);
+        b = 0;
+      } else if (c.lockstep && k < c.k_photons) {
+        done = true;  // no vispoint: it sits out photon k with its warp
+      } else {
+        live = false;
+        float* pl = planes + idx;
+        pl[0] += rad.x;
+        pl[c.P] += rad.y;
+        pl[2 * c.P] += rad.z;
+        // the per-pixel SPPM radius step
+        const float base_f = c.aux ? c.aux[c.P + idx] : (float)c.it0;
+        const uint32_t base = (uint32_t)(int)rintf(base_f);
+        it += 1;
+        const float itf = base_f + (float)(int)(it - base);
+        radius = radius * sqrtf((itf + c.sppm_alpha) / (itf + 1.0f));
+        if (it < it_end) {
+          spawn = true;
+        } else {  // the pixel is done: its vispoint goes back to the planes
+          pl[3 * c.P] = vpos.x; pl[4 * c.P] = vpos.y; pl[5 * c.P] = vpos.z;
+#pragma unroll
+          for (int f = 0; f < VIS_FIELDS; ++f)
+            pl[(6 + f) * c.P] = myvis[f * vstride];
+          idx = -1;
+        }
       }
     }
+
+    // ---- a sample begins: 2 jitter draws, 1 wavelength draw
+    if (spawn) {
+      const uint32_t px = (uint32_t)(idx % c.width);
+      const uint32_t py = (uint32_t)(idx / c.width);
+      rng = seed_pixels(frame_seed(c.base_seed, it), px, py);
+      spawn_camera(prm.cam(), px, py, c.width, c.height, rng, o, d, lam);
+      tp = v3(1.0f, 1.0f, 1.0f);
+      rad = v3(0.0f, 0.0f, 0.0f);
+      vp_stored = false;
+      coll = false;
+      k = -1;
+      b = 0;
+      spawn = false;
+      live = true;
+    }
+    if (!live || done) continue;
+
+    // ---- one segment, whatever the phase
+    rays += 1;
+    const Hit h = intersect<GLEAF>(prm, o, d);
+    if (!(h.t < kHIT())) {
+      done = true;
+      continue;
+    }
+    const bool camera = k < 0;
+    const V3 wo = vneg(d);
+    const float lam_um = lam * F(1e-3);
+    const float cauchy_add = F(0.004) / (lam_um * lam_um);
+    const int mtype = (int)prm.mat()[h.mat * MAT_STRIDE + 5];
+    if (camera) {
+      // ---- camera bounce b: the vispoint at the first diffuse hit, then
+      // next-event estimation, added at a diffuse hit with one shadow
+      // segment per light
+      if (mtype == 0 && !vp_stored) {
+        vpos = h.loc;
+        myvis[0] = h.n.x; myvis[vstride] = h.n.y; myvis[2 * vstride] = h.n.z;
+        myvis[3 * vstride] = wo.x; myvis[4 * vstride] = wo.y;
+        myvis[5 * vstride] = wo.z;
+        myvis[6 * vstride] = tp.x; myvis[7 * vstride] = tp.y;
+        myvis[8 * vstride] = tp.z;
+        myvis[9 * vstride] = (float)h.mat;
+        vp_stored = true;
+      }
+      camera_direct<SAMPLER>(prm, S, SAMPLER && S.hero > 1 && !coll, h, lam,
+                             tp, rng, rad, rays);
+      // a dielectric steers the path by eta(lam): only the hero goes on
+      if (SAMPLER && S.collapse && mtype == 1) coll = true;
+    } else {
+      // ---- photon k, bounce b: gathered at this pixel's vispoint
+      const V3 dvec = vsub(h.loc, vpos);
+      const float dist = sqrtf(fmaxf(vdot(dvec, dvec), 0.0f));
+      if (dist < radius) {
+        const V3 vnorm = v3(myvis[0], myvis[vstride], myvis[2 * vstride]);
+        const V3 vwo = v3(myvis[3 * vstride], myvis[4 * vstride],
+                          myvis[5 * vstride]);
+        const V3 vtp = v3(myvis[6 * vstride], myvis[7 * vstride],
+                          myvis[8 * vstride]);
+        const float* vm = prm.mat() + (int)myvis[9 * vstride] * MAT_STRIDE;
+        const V3 f = evaluate_bsdf(vwo, wo, vnorm, load3(vm), vm[3],
+                                   vm[4] + cauchy_add, (int)vm[5]);
+        const float inv_pi_r2 =
+            1.0f / fmaxf(F(3.141592653589793) * radius * radius, F(1e-10));
+        const float kern = (1.0f - dist / radius) * inv_pi_r2;
+        rad = vadd(rad, vscale(vmul(vmul(vtp, f), tp), kern));
+      }
+    }
+    // ---- scatter + Russian roulette, once for the lanes of either phase:
+    // camera paths at the IOR plus the Cauchy term only under dispersion
+    // on camera paths, photons always; each in its own bounce cell
+    int cells = 0;
+    uint32_t key = 0;
+    if (SAMPLER && (camera ? S.camera_bounce : S.photon_bounce)) {
+      cells = S.n_dir;
+      key = bounce_key(strata_seed_of<SAMPLER>(c, S, it),
+                       camera ? CAMERA_STRATA_K
+                              : (S.shared_k ? 0u : (uint32_t)k),
+                       (uint32_t)b);
+    }
+    const bool cont = scatter_rr(
+        prm, h.mat, wo, h.n, h.loc,
+        camera ? (SAMPLER && S.disp_cam ? cauchy_add : 0.0f) : cauchy_add,
+        camera, camera ? c.rr_thresh : c.photon_rr_thresh, rng, o, d, tp,
+        cells, key);
+    if (!(cont && b + 1 < (camera ? c.depth : c.max_photon_bounces)))
+      done = true;
+    b += 1;
   }
-  st.rgb = vadd(st.rgb, rad);
+}
+
+// The staged copy of the launch's tables in a block's shared memory `mem`
+// (run_pixels_smem): the CIE table, and the scene rows when staged > 0.
+// Returns the Params of the block; ends with a __syncthreads().
+__device__ __forceinline__ Params stage_scene(float* mem, const float* table,
+                                              const float* cie, int staged,
+                                              int n_sph, int n_mat,
+                                              int n_light, const Geom& geom) {
+  float* s_cie = mem;
+  float* s_rows = mem + CIE_FLOATS;
+  const int staged4 = (staged + 3) / 4;
+  for (int i = threadIdx.x; i < N_CIE * 3; i += blockDim.x)
+    s_cie[i] = __ldg(cie + i);
+  for (int i = threadIdx.x; i < staged4; i += blockDim.x)
+    reinterpret_cast<float4*>(s_rows)[i] =
+        __ldg(reinterpret_cast<const float4*>(table) + i);
+  __syncthreads();
+  float* vis = s_rows + 4 * staged4;
+  int* stacks = reinterpret_cast<int*>(vis + VIS_FIELDS * blockDim.x);
+  return scene_params(table, staged > 0 ? s_rows : table, s_cie, n_sph,
+                      n_mat, n_light, geom, walk_stack(stacks, geom));
+}
+
+// The floats of the table a launch stages into shared memory: the camera,
+// sphere, material and light rows where they fit the budget (a Cornell
+// box is ~100 floats, 64 flat spheres and 16 lights ~1200), else 0 and
+// the kernel reads them from global memory.
+constexpr int STAGE_MAX_FLOATS = 4096;
+inline int staged_floats(int n_sph, int n_mat, int n_light) {
+  const int n = scene_floats(n_sph, n_mat, n_light);
+  return n <= STAGE_MAX_FLOATS ? n : 0;
+}
+
+// Launches `kernel` with as many blocks of 128 threads as stay resident
+// (the lanes fetch their pixels), at most one thread a pixel.
+template <class Kernel, class... Args>
+inline int launch_persistent(Kernel kernel, size_t smem, long long n_pix,
+                      cudaStream_t s, Args... args) {
+  const int threads = 128;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, threads, smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+  const long long want = (n_pix + threads - 1) / threads;
+  const long long resident = (long long)sms * per_sm;
+  const unsigned int blocks =
+      (unsigned int)(want < resident ? (want > 0 ? want : 1) : resident);
+  kernel<<<blocks, threads, smem, s>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 // Per-block reduction of a per-thread segment count, one atomic per block
@@ -586,6 +827,32 @@ __device__ __forceinline__ void add_block_rays(unsigned long long rays,
     for (int w = 0; w < WARPS; ++w) total += warp_sums[w];
     if (total) atomicAdd(out, total);
   }
+}
+
+// Blocks of 128 threads an SM must hold: the register cap of the
+// reference-sampler instances of the regen and tile-sync kernels (8: 64
+// registers a thread) and of the instances with tpurt's sampler flags (6:
+// 80 registers); PERF.md has the caps that were tried.
+#define TPURT_REGEN_BOUNDS(SAMPLER) __launch_bounds__(128, SAMPLER ? 6 : 8)
+
+// One block of the regen or tile-sync kernel: stage the tables, run the
+// lanes' pixels, add the block's segments to counters[0]; counters[1] is
+// the work counter. `staged`: the floats of `table` to stage into shared
+// memory, 0 where they do not fit (staged_floats).
+template <bool SAMPLER, bool GLEAF>
+__device__ __forceinline__ void run_block(
+    float* planes, const float* table, const float* cie, int staged,
+    int n_sph, int n_mat, int n_light, const SampleConsts& c,
+    const Sampler& S, const Geom& geom, unsigned long long* counters) {
+  extern __shared__ float4 smem4[];
+  float* mem = reinterpret_cast<float*>(smem4);
+  const Params prm =
+      stage_scene(mem, table, cie, staged, n_sph, n_mat, n_light, geom);
+  unsigned long long rays = 0;
+  run_pixels<SAMPLER, GLEAF>(planes, prm, S, c,
+                             mem + CIE_FLOATS + (staged + 3) / 4 * 4,
+                             counters + 1, rays);
+  add_block_rays<4>(rays, counters);
 }
 
 }  // namespace tpurt

@@ -26,7 +26,9 @@
 // divergence (neighbouring slots hold unrelated paths of different
 // materials) rather than bytes; the pool's regeneration keeps every slot
 // busy, which is the point of the wavefront form. This first version does
-// nothing about divergence (no sorting of slots by material).
+// nothing about divergence (no sorting of slots by material). The scene
+// table and the CIE table are read from global memory; each thread's walk
+// stack lies in dynamic shared memory.
 
 #include <cuda_runtime.h>
 
@@ -43,9 +45,11 @@ __global__ void __launch_bounds__(128)
                  float* __restrict__ pf_out, int* __restrict__ pi_out,
                  long long* __restrict__ rng_out,
                  unsigned char* __restrict__ term, long long Q,
-                 const float* __restrict__ table, int n_sph, int n_mat,
+                 const float* __restrict__ table,
+                 const float* __restrict__ cie, int n_sph, int n_mat,
                  int n_light, int depth, float rr_thresh, Geom geom,
                  unsigned long long* __restrict__ rays_out) {
+  extern __shared__ int stacks[];
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   unsigned long long rays = 0;
   if (i < Q) {
@@ -61,16 +65,17 @@ __global__ void __launch_bounds__(128)
     long long rng_word = rng_in[i];
     bool cont = false;
     if (active) {
-      const Params prm = scene_params(table, n_sph, n_mat, n_light, geom);
+      const Params prm = scene_params(table, table, cie, n_sph, n_mat,
+                                      n_light, geom,
+                                      walk_stack(stacks, geom));
+      const Sampler none = {};
       uint32_t rng = (uint32_t)rng_word;
       rays += 1;
       Hit h = intersect(prm, o, d);
       if (h.t < kHIT()) {
-        float em[3 * MAX_LIGHTS];
-        light_emission(prm, lam, em);
         V3 o2 = o, d2 = d, tp2 = tp;
-        cont = shade_camera_hit(prm, h, vneg(d), lam, em, rr_thresh, rng, o2,
-                                d2, tp2, rad, rays) &&
+        cont = shade_camera_hit(prm, none, false, h, vneg(d), lam, rr_thresh,
+                                rng, o2, d2, tp2, rad, rays) &&
                bounce + 1 < depth;
         if (cont) {
           o = o2;
@@ -106,16 +111,17 @@ extern "C" int tpurt_wf_sweep_launch(
     int* pi_out, long long* rng_out, unsigned char* term, long long Q,
     const float* table, int n_sph, int n_mat, int n_light, int depth,
     float rr_thresh, const tpurt::Geom* geom, unsigned long long* rays,
-    const float* cie_host, void* stream) {
+    const float* cie, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemcpyToSymbolAsync(
-      tpurt::c_cie, cie_host, sizeof(float) * tpurt::N_CIE * 3, 0,
-      cudaMemcpyHostToDevice, s);
-  if (err != cudaSuccess) return (int)err;
   const int threads = 128;
   const unsigned int blocks = (unsigned int)((Q + threads - 1) / threads);
-  tpurt::sweep_kernel<<<blocks, threads, 0, s>>>(
-      pf, pi, rng, pf_out, pi_out, rng_out, term, Q, table, n_sph, n_mat,
+  const size_t smem = tpurt::walk_stack_bytes(*geom, threads);
+  cudaError_t err = cudaFuncSetAttribute(
+      tpurt::sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  tpurt::sweep_kernel<<<blocks, threads, smem, s>>>(
+      pf, pi, rng, pf_out, pi_out, rng_out, term, Q, table, cie, n_sph, n_mat,
       n_light, depth, rr_thresh, *geom, rays);
   return (int)cudaGetLastError();
 }

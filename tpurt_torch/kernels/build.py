@@ -46,8 +46,9 @@ _SIGNATURES = {
         _P,             # sampler switches: a mega_regen.SamplerArgs
         _P,             # aux (3, P) f32 budget, count, radius; NULL: uniform
         _P,             # geometry tables: a bvh.GeomArgs on the host
-        _P,             # rays: one uint64 on the device, added to
-        _P,             # CIE table (81, 3) f32 on the host
+        _P,             # two uint64 on the device: rays, added to; the work
+                        # counter, zeroed on the stream before the launch
+        _P,             # CIE table (81, 3) f32 on the device
         _P,             # stream
     ],
     "tpurt_step_launch": [
@@ -56,14 +57,14 @@ _SIGNATURES = {
         _I, _I,         # width, height
         _P,             # scene table f32 (device)
         _I, _I, _I,     # n_spheres, n_materials, n_lights
-        _U, _U,         # frame seed, strata seed of the sample
+        _U, _I,         # base_seed, iteration of the sample
         _I, _F,         # depth, radius
         _I, _I,         # k_photons (0 = off), max_photon_bounces
         _F, _F,         # rr_threshold, photon_rr_threshold
         _P,             # sampler switches: a mega_regen.SamplerArgs
         _P,             # geometry tables: a bvh.GeomArgs on the host
-        _P,             # rays: one uint64 on the device, added to
-        _P,             # CIE table (81, 3) f32 on the host
+        _P,             # two uint64 on the device: rays, work counter
+        _P,             # CIE table (81, 3) f32 on the device
         _P,             # stream
     ],
     "tpurt_wf_sweep_launch": [
@@ -76,7 +77,7 @@ _SIGNATURES = {
         _I, _F,         # depth, rr_threshold
         _P,             # geometry tables: a bvh.GeomArgs on the host
         _P,             # rays: one uint64 on the device, added to
-        _P,             # CIE table (81, 3) f32 on the host
+        _P,             # CIE table (81, 3) f32 on the device
         _P,             # stream
     ],
     "tpurt_wf_fused_launch": [
@@ -91,7 +92,7 @@ _SIGNATURES = {
         _I, _F,         # depth, rr_threshold
         _P,             # geometry tables: a bvh.GeomArgs on the host
         _P,             # rays: one uint64 on the device, added to
-        _P,             # CIE table (81, 3) f32 on the host
+        _P,             # CIE table (81, 3) f32 on the device
         _P,             # stream
     ],
     "tpurt_bvh_probe_launch": [

@@ -11,6 +11,21 @@ scene-spanning spheres (``huge_sphere_mask``, ``n_tree_spheres``,
 packing and guard rows are SMEM workarounds); node boxes are padded
 outward so that the walk never prunes a hit the triangle test accepts.
 
+The node table (``pack_nodes``) holds each child's padded box in its
+parent: an inner node with k children is 2k rows of 16 bytes, two per
+child, ``[lo.xyz, ref]`` and ``[hi.xyz, aux]``, so a binary node is 64
+bytes and one vector fetch per level gives the walk both boxes and both
+ids. ``ref`` and ``aux`` are int32 bit patterns. ``ref >= 0`` names a node
+by the index of its first row pair; ``ref < 0`` is a leaf packed in place,
+``~ref = first | (count - 1) << 24`` (a leaf of up to 128 primitives costs
+no second fetch). ``aux`` of a node's first child is k; a leaf too long to
+pack, or a tree that is one leaf, is a leaf record: one row pair with
+``ref = first`` and ``aux = -count``. The root is node 0 and its own box
+is not stored (the walk never tests it). ``unpack_nodes`` decodes a table
+back into one record per node. The walk keeps its stack in shared memory,
+sized per launch by the occupancy the host proves for the tree
+(``pack_tree``).
+
 The mode of each primitive kind follows tpurt's predicates
 (``mega_pallas._use_tri_bvh`` / ``_use_sph_bvh``; the chunked modes,
 which exist for the TPU's SMEM budget, are served by the same walk):
@@ -45,7 +60,7 @@ from tpurt_torch.scene import FrozenScene, Scene, freeze_scene, sphere_rows
 STACK_DEPTH = 64          # csrc/bvh.cuh STACK_DEPTH
 MAX_BVH_TRIS = 8192       # tpurt's single-table walk (bvh_pallas.py)
 TRI_STRIDE = 16           # a e1 e2 n mat index - -
-NODE_STRIDE = 16          # bmin bmax first count children[8]
+LEAF_PACK_MAX = 128       # primitives of a leaf packed into a child's ref
 MAX_ALWAYS_SPHERES = 8
 MIN_TREE_SPHERES = 16     # tpurt walks spheres only past this many
 # node boxes grow by this share of their largest coordinate and extent,
@@ -70,7 +85,8 @@ class GeomArgs(ctypes.Structure):
                 ("sph", ctypes.c_void_p), ("sph_nodes", ctypes.c_void_p),
                 ("gmat", ctypes.c_void_p),   # G rows; NULL: the exact leaf
                 ("n_tri", ctypes.c_int), ("tri_walk", ctypes.c_int),
-                ("n_sph_tree", ctypes.c_int)]
+                ("n_sph_tree", ctypes.c_int),
+                ("stack", ctypes.c_int)]     # stack entries a walk may hold
 
 
 # ----- trees -----
@@ -111,29 +127,108 @@ def _pad_boxes(lo: np.ndarray, hi: np.ndarray):
     return lo, hi
 
 
-def pack_nodes(bvh, width: int = 0) -> np.ndarray:
-    """(B, 16) node records of a binary tree, or of its collapse into an
-    up-to-``width``-ary tree (``accel.collapse_wide``) when width >= 3:
-    padded bmin, bmax, first, count, children (0 = absent). Raises when
-    the walk's stack could overflow."""
+def _collapse(bvh, width: int):
+    """(tree, children (B, k), stack need) of the walk over ``bvh``, binary
+    or collapsed to ``width`` >= 3. The need is the stack entries the walk
+    of csrc/bvh.cuh can hold at once: one per level for the binary walk,
+    which keeps the near child in a register and stacks the far one;
+    ``accel.wide_max_stack`` for the wide walk. Raises when it could pass
+    STACK_DEPTH."""
     if width >= 3:
         tree = accel.collapse_wide(bvh, width)
         hw = accel.wide_max_stack(tree)
         if hw > STACK_DEPTH - 1:
             raise ValueError(f"wide BVH worst-case stack {hw} can overflow "
                              f"the {STACK_DEPTH}-deep traversal stack")
-        children = tree.children
-    else:
-        assert_stack_fits(bvh)
-        tree = bvh
-        children = np.stack([bvh.left, bvh.right], axis=1)
-    B = tree.bbox_min.shape[0]
-    nodes = np.zeros((B, NODE_STRIDE), np.float32)
-    nodes[:, 0:3], nodes[:, 3:6] = _pad_boxes(tree.bbox_min, tree.bbox_max)
-    nodes[:, 6] = tree.first
-    nodes[:, 7] = tree.count
-    nodes[:, 8:8 + children.shape[1]] = children
-    return nodes
+        return tree, tree.children, hw
+    assert_stack_fits(bvh)
+    return (bvh, np.stack([bvh.left, bvh.right], axis=1),
+            max(1, _tree_depth(bvh)))
+
+
+def pack_leaf(first: int, count: int) -> int:
+    """A leaf's range as a child ref: ~(first | (count - 1) << 24)."""
+    return ~(int(first) | (int(count) - 1) << 24)
+
+
+def pack_nodes(bvh, width: int = 0) -> np.ndarray:
+    """The node table alone (``pack_tree``)."""
+    return pack_tree(bvh, width)[0]
+
+
+def pack_tree(bvh, width: int = 0):
+    """The (R, 4) float32 node table of a binary tree, or of its collapse
+    into an up-to-``width``-ary tree (``accel.collapse_wide``) when width
+    >= 3: each child's padded box and ref in its parent, two rows a child
+    (the layout in this module's header); and the walk's stack need.
+    Raises when the walk's stack could overflow."""
+    tree, children, need = _collapse(bvh, width)
+    count = np.asarray(tree.count)
+    B = count.shape[0]
+    kids = [[int(c) for c in children[i] if c != 0] if count[i] == 0 else []
+            for i in range(B)]
+    # a leaf gets a record of its own only where no ref can hold it
+    record = [count[i] > 0 and (i == 0 or count[i] > LEAF_PACK_MAX)
+              for i in range(B)]
+    pairs = np.asarray([len(kids[i]) if count[i] == 0 else int(record[i])
+                        for i in range(B)])
+    at = np.concatenate([[0], np.cumsum(pairs)])    # node -> first row pair
+    if at[-1] >= 1 << 24:
+        raise ValueError(f"{at[-1]} node rows: the table is too large")
+    lo, hi = _pad_boxes(tree.bbox_min, tree.bbox_max)
+    nodes = np.zeros((2 * int(at[-1]), 4), np.float32)
+    bits = nodes.view(np.int32)
+    for i in range(B):
+        if record[i]:
+            bits[2 * at[i], 3] = tree.first[i]
+            bits[2 * at[i] + 1, 3] = -int(count[i])
+        for s, c in enumerate(kids[i]):
+            row = 2 * (int(at[i]) + s)
+            nodes[row, 0:3], nodes[row + 1, 0:3] = lo[c], hi[c]
+            bits[row, 3] = (at[c] if count[c] == 0 or record[c]
+                            else pack_leaf(tree.first[c], count[c]))
+        if kids[i]:
+            bits[2 * at[i] + 1, 3] = len(kids[i])
+    return nodes, need
+
+
+def unpack_nodes(nodes: np.ndarray) -> np.ndarray:
+    """A node table decoded into one (16,) record per node, in the walk's
+    depth-first order from the root: padded bmin, bmax, first, count,
+    children (record rows, 0 = absent); a node is a leaf iff count > 0.
+    The root's box, which the table does not hold, is the union of its
+    children's (that of its range's record is left infinite)."""
+    bits = nodes.view(np.int32)
+    out = []
+
+    def leaf(box, first, count):
+        out.append(np.concatenate([box, [first, count], np.zeros(8)]))
+
+    def visit(ref, box):
+        me = len(out)
+        if ref < 0:
+            leaf(box, ~ref & 0xFFFFFF, (~ref >> 24) + 1)
+            return me
+        aux = int(bits[2 * ref + 1, 3])
+        if aux < 0:
+            leaf(box, int(bits[2 * ref, 3]), -aux)
+            return me
+        out.append(None)
+        kids = []
+        for s in range(aux):
+            row = 2 * (ref + s)
+            kids.append(visit(int(bits[row, 3]), np.concatenate(
+                [nodes[row, 0:3], nodes[row + 1, 0:3]])))
+        out[me] = np.concatenate([box, [0, 0], kids,
+                                  np.zeros(8 - len(kids))])
+        return me
+
+    visit(0, np.asarray([-np.inf] * 3 + [np.inf] * 3))
+    rec = np.stack(out).astype(np.float32)
+    if rec[0, 7] == 0:
+        kids = rec[rec[0, 8:][rec[0, 8:] > 0].astype(np.int64)]
+        rec[0, 0:3], rec[0, 3:6] = kids[:, 0:3].min(0), kids[:, 3:6].max(0)
+    return rec
 
 
 def _check_exact(n: int) -> None:
@@ -156,15 +251,21 @@ def build_tri_bvh_tables(a, e1, e2, n, mat, leaf_size: int,
     """The triangle tree (``bvh_pallas.build_tri_bvh_tables``): a BVH over
     the triangles' boxes (a, a+e1, a+e2), leaves of at most ``leaf_size``
     (``cfg.pallas_bvh_leaf``), median or SAH splits, binary or wide.
-    Returns (records (T, 16) in the tree's leaf order, nodes (B, 16))."""
+    Returns (records (T, 16) in the tree's leaf order, the node table
+    (R, 4), the walk's stack need)."""
     _check_exact(a.shape[0])
-    v1, v2 = a + e1, a + e2
-    bvh = accel.build_bvh(np.minimum(a, np.minimum(v1, v2)),
-                          np.maximum(a, np.maximum(v1, v2)),
-                          max_prims=max(1, int(leaf_size)), sah=sah)
+    bvh = tri_bvh(a, e1, e2, leaf_size, sah)
     o = bvh.order
     return (tri_records(a[o], e1[o], e2[o], n[o], mat[o], o),
-            pack_nodes(bvh, width))
+            *pack_tree(bvh, width))
+
+
+def tri_bvh(a, e1, e2, leaf_size: int, sah: bool = False):
+    """The binary tree over the triangles' boxes (a, a+e1, a+e2)."""
+    v1, v2 = a + e1, a + e2
+    return accel.build_bvh(np.minimum(a, np.minimum(v1, v2)),
+                           np.maximum(a, np.maximum(v1, v2)),
+                           max_prims=max(1, int(leaf_size)), sah=sah)
 
 
 def build_sphere_bvh_tables(rows: np.ndarray, radius: np.ndarray,
@@ -172,13 +273,20 @@ def build_sphere_bvh_tables(rows: np.ndarray, radius: np.ndarray,
                             width: int = 0):
     """The sphere tree (``bvh_pallas.build_sphere_bvh_tables``) over
     sphere rows (``scene.sphere_rows``) with radii ``radius``: boxes
-    c -+ r. Returns (rows (S, 8) in leaf order, nodes (B, 16))."""
+    c -+ r. Returns (rows (S, 8) in leaf order, the node table (R, 4), the
+    walk's stack need)."""
     _check_exact(rows.shape[0])
+    bvh = sphere_bvh(rows, radius, leaf_size, sah)
+    return (rows[bvh.order], *pack_tree(bvh, width))
+
+
+def sphere_bvh(rows: np.ndarray, radius: np.ndarray, leaf_size: int,
+               sah: bool = False):
+    """The binary tree over the spheres' boxes c -+ r."""
     c = rows[:, 0:3]
     r = radius.reshape(-1, 1).astype(np.float32)
-    bvh = accel.build_bvh(c - r, c + r, max_prims=max(1, int(leaf_size)),
-                          sah=sah)
-    return rows[bvh.order], pack_nodes(bvh, width)
+    return accel.build_bvh(c - r, c + r, max_prims=max(1, int(leaf_size)),
+                           sah=sah)
 
 
 # ----- the scene-spanning spheres (bvh_pallas.py:167-219) -----
@@ -261,9 +369,10 @@ class Geometry:
     ``GeomArgs`` pointers name alive."""
     flat_rows: np.ndarray                # (S_flat, 8) rows, scene indices
     tri: torch.Tensor | None             # (T, 16) records
-    tri_nodes: torch.Tensor | None       # (B, 16), None: a flat sweep
+    tri_nodes: torch.Tensor | None       # (R, 4), None: a flat sweep
     sph: torch.Tensor | None             # (S_tree, 8) rows, leaf order
     sph_nodes: torch.Tensor | None
+    stack: int = 0                       # stack entries a walk may hold
 
     @property
     def walks(self) -> bool:
@@ -278,7 +387,7 @@ class Geometry:
             ptr(self.sph_nodes), ptr(gmat),
             0 if self.tri is None else self.tri.shape[0],
             int(self.tri_nodes is not None),
-            0 if self.sph is None else self.sph.shape[0])
+            0 if self.sph is None else self.sph.shape[0], self.stack)
 
 
 def knobs(cfg) -> tuple:
@@ -316,10 +425,11 @@ def _build_geometry(fs: FrozenScene, cfg) -> Geometry:
     rows = sphere_rows(fs.spheres)
     flat = np.arange(len(fs.spheres))
     sph = sph_nodes = None
+    stack = 0
     if use_sph_walk(fs, cfg):
         flat, tree = split_huge_spheres(fs.spheres)
         radius = np.asarray([fs.spheres[i].r for i in tree], np.float32)
-        srec, snodes = build_sphere_bvh_tables(
+        srec, snodes, stack = build_sphere_bvh_tables(
             rows[tree], radius, cfg.pallas_bvh_leaf, cfg.pallas_bvh_sah,
             cfg.pallas_bvh_width)
         sph, sph_nodes = to_dev(srec), to_dev(snodes)
@@ -328,17 +438,17 @@ def _build_geometry(fs: FrozenScene, cfg) -> Geometry:
         host = {k: getattr(fs.triangles, k).detach().cpu().numpy()
                 for k in ("a", "e1", "e2", "n", "mat")}
         if use_tri_walk(fs, cfg):
-            rec, nodes = build_tri_bvh_tables(
+            rec, nodes, need = build_tri_bvh_tables(
                 host["a"], host["e1"], host["e2"], host["n"], host["mat"],
                 cfg.pallas_bvh_leaf, cfg.pallas_bvh_sah, cfg.pallas_bvh_width)
-            tri_nodes = to_dev(nodes)
+            tri_nodes, stack = to_dev(nodes), max(stack, need)
         else:
             _check_exact(host["a"].shape[0])
             rec = tri_records(host["a"], host["e1"], host["e2"], host["n"],
                               host["mat"], np.arange(host["a"].shape[0]))
         tri = to_dev(rec)
     return Geometry(flat_rows=rows[flat], tri=tri, tri_nodes=tri_nodes,
-                    sph=sph, sph_nodes=sph_nodes)
+                    sph=sph, sph_nodes=sph_nodes, stack=stack)
 
 
 # ----- the walk probe -----

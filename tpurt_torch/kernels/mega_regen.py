@@ -14,7 +14,8 @@ G-matrix leaf test (``pallas_mxu_leaf`` where ``bvh.mxu_leaf_engages``),
 whose plain version is ``ops.intersect.closest_triangle_g``.
 
 The module also builds what every path kernel reads: the parameter table
-(camera, spheres, materials, lights, each light's hero table) and the
+(camera, spheres, materials, lights, each light's hero table), the CIE
+table on the device (``cie_table``, uploaded once per device) and the
 sampler switches (``sampler_args``).
 """
 
@@ -38,11 +39,24 @@ BUDGET_LAUNCHES = 0
 MXU_LAUNCHES = 0
 
 N_CHANNELS = 16
-MAX_LIGHTS = 16       # csrc/device.cuh MAX_LIGHTS
+MAX_LIGHTS = 16       # the wrappers' cap; no kernel array depends on it
 CAM_FLOATS = 12
 MAT_STRIDE = 8
 LIGHT_STRIDE = 40
-CIE_HOST = np.ascontiguousarray(CIE_RGB_TABLE, np.float32)
+_CIE = {}     # device -> the (81, 3) float32 CIE table on it
+
+
+def cie_table(device) -> torch.Tensor:
+    """The CIE table the kernels read, on ``device``: uploaded on the
+    first call, then kept."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    tab = _CIE.get(device)
+    if tab is None:
+        tab = _CIE[device] = torch.from_numpy(np.ascontiguousarray(
+            CIE_RGB_TABLE, np.float32)).to(device)
+    return tab
 
 
 class SamplerArgs(ctypes.Structure):
@@ -146,6 +160,14 @@ def checked_scene(scene, planes: torch.Tensor, cfg):
     return freeze_scene(scene)
 
 
+def launch_counters(device) -> torch.Tensor:
+    """The two int64 a regen or tile-sync launch takes: [0] the traced
+    segments, [1] the counter its lanes fetch their pixels from. Fresh
+    zeros, made on the current stream, so launches back to back on one
+    stream each start from 0."""
+    return torch.zeros((2,), dtype=torch.int64, device=device)
+
+
 def regen_tri_mode(fs, cfg) -> integrate.TriMode:
     """The regen kernel's closest-hit triangle test: tpurt's G-matrix leaf
     over ``bvh.gmat`` where ``bvh.mxu_leaf_engages``, else the exact one.
@@ -164,7 +186,7 @@ def _launch(fs, cfg, camera, planes, base_seed: int, spp: int,
     global MXU_LAUNCHES
     table, geo = scene_table(fs, cfg, camera, planes.device)
     lib = build.library()
-    rays = torch.zeros((), dtype=torch.int64, device=planes.device)
+    counters = launch_counters(planes.device)
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     err = lib.tpurt_regen_launch(
         planes.data_ptr(), planes.shape[1], cfg.width, cfg.height,
@@ -174,13 +196,13 @@ def _launch(fs, cfg, camera, planes, base_seed: int, spp: int,
         cfg.rr_threshold, cfg.photon_rr_threshold, cfg.sppm_alpha,
         ctypes.byref(sampler_args(fs, cfg)),
         None if aux is None else aux.data_ptr(),
-        ctypes.byref(geo.args(gmat)), rays.data_ptr(),
-        CIE_HOST.ctypes.data_as(ctypes.c_void_p), stream)
+        ctypes.byref(geo.args(gmat)), counters.data_ptr(),
+        cie_table(planes.device).data_ptr(), stream)
     build.check_launch(lib, err, "tpurt_regen_launch")
     bvh.count_walk(geo)
     if gmat is not None:
         MXU_LAUNCHES += 1
-    return rays
+    return counters[0]
 
 
 def regen_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,

@@ -1,9 +1,10 @@
 """Wrapper of the tile-synchronized kernel (``csrc/mega_step.cu``),
 ``backend="pallas", pallas_regen=False``: one launch advances every pixel
-by exactly one sample, with the frame seed, strata seed and SPPM radius the
-host gives it (``tpurt.kernels.mega_pallas.megakernel_step``). The host
-loop that steps the radius and the sample index between launches is
-``render._advance``.
+by exactly one sample, at the SPPM radius the host gives it
+(``tpurt.kernels.mega_pallas.megakernel_step``); the kernel hashes the
+sample's frame seed and strata seed from (base_seed, iteration) as the
+regen kernel does, whose body it runs. The host loop that steps the radius
+and the sample index between launches is ``render._advance``.
 
 On a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
 the kernel's plain PyTorch version, ``integrate.render_plain`` with one
@@ -19,10 +20,9 @@ import torch
 
 from tpurt_torch import integrate
 from tpurt_torch.kernels import build, bvh
-from tpurt_torch.kernels.mega_regen import (CIE_HOST, checked_scene,
-                                            photon_count, sampler_args,
-                                            scene_table)
-from tpurt_torch.ops.rng import frame_seed
+from tpurt_torch.kernels.mega_regen import (checked_scene, cie_table,
+                                            launch_counters, photon_count,
+                                            sampler_args, scene_table)
 
 LAUNCHES = 0
 
@@ -39,24 +39,22 @@ def step_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
     if planes.device.type == "cpu":
         return integrate.render_plain(fs, cfg, camera, planes, base_seed, 1,
                                       iteration, radius, depth)
-    seed = frame_seed(base_seed, iteration)
-    strata_seed = integrate.sample_strata_seed(cfg, base_seed, iteration,
-                                               seed)
     table, geo = scene_table(fs, cfg, camera, planes.device)
     args = geo.args()
     assert args.gmat is None    # tpurt never runs its G leaf here
     lib = build.library()
-    rays = torch.zeros((), dtype=torch.int64, device=planes.device)
+    counters = launch_counters(planes.device)
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     err = lib.tpurt_step_launch(
         planes.data_ptr(), planes.shape[1], cfg.width, cfg.height,
         table.data_ptr(), len(geo.flat_rows), len(fs.materials),
-        len(fs.lights), seed, strata_seed, depth, radius,
+        len(fs.lights), int(base_seed) & 0xFFFFFFFF, iteration, depth,
+        radius,
         photon_count(fs, cfg), cfg.max_photon_bounces, cfg.rr_threshold,
         cfg.photon_rr_threshold, ctypes.byref(sampler_args(fs, cfg)),
-        ctypes.byref(args), rays.data_ptr(),
-        CIE_HOST.ctypes.data_as(ctypes.c_void_p), stream)
+        ctypes.byref(args), counters.data_ptr(),
+        cie_table(planes.device).data_ptr(), stream)
     build.check_launch(lib, err, "tpurt_step_launch")
     LAUNCHES += 1
     bvh.count_walk(geo)
-    return rays
+    return counters[0]

@@ -21,7 +21,7 @@ import torch
 from tpurt_torch import adaptive, wavefront
 from tpurt_torch.config import check_slice
 from tpurt_torch.kernels import build, bvh
-from tpurt_torch.kernels.mega_regen import CIE_HOST, scene_table
+from tpurt_torch.kernels.mega_regen import cie_table, scene_table
 from tpurt_torch.scene import freeze_scene
 
 LAUNCHES = 0
@@ -55,7 +55,7 @@ def _launch(scene, cfg, camera, state, base_seed, spp: int, budgets=None,
         int(base_seed) & 0xFFFFFFFF, spp, state.iteration, ptr(budgets),
         ptr(base_counts), cfg.depth, cfg.rr_threshold,
         ctypes.byref(args), rays.data_ptr(),
-        CIE_HOST.ctypes.data_as(ctypes.c_void_p), stream)
+        cie_table(dev).data_ptr(), stream)
     build.check_launch(lib, err, "tpurt_wf_fused_launch")
     LAUNCHES += 1
     bvh.count_walk(geo)

@@ -18,7 +18,7 @@ import torch
 
 from tpurt_torch import wavefront
 from tpurt_torch.kernels import build, bvh
-from tpurt_torch.kernels.mega_regen import CIE_HOST, scene_table
+from tpurt_torch.kernels.mega_regen import cie_table, scene_table
 
 LAUNCHES = 0
 
@@ -66,7 +66,7 @@ def sweep(fs, cfg, pool: wavefront.WavefrontPool):
         table.data_ptr(), len(geo.flat_rows), len(fs.materials),
         len(fs.lights), cfg.depth, cfg.rr_threshold,
         ctypes.byref(args), rays.data_ptr(),
-        CIE_HOST.ctypes.data_as(ctypes.c_void_p), stream)
+        cie_table(dev).data_ptr(), stream)
     build.check_launch(lib, err, "tpurt_wf_sweep_launch")
     LAUNCHES += 1
     bvh.count_walk(geo)
