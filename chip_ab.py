@@ -1,16 +1,27 @@
-"""Same-card A/B of the regen kernel between checkouts of tpurt_torch.
+"""Same-card A/B of the path kernels between checkouts of tpurt_torch.
 
     python3 chip_ab.py PARENT_DIR . . PARENT_DIR
 
 For each checkout given, in the order given (run parent, change, change,
 parent), builds that checkout's kernels and prints one line: the regen
-kernel's CUDA-event milliseconds per 1080p sample (depth 30, 1 spp, mean of
-3 launches after a warm-up) on Cornell, on bench config 6's torus with the
-reference sampler, and on the torus with config 6's sampler flags (a
-checkout whose kernel takes no flags ignores them: its wrapper is called
-directly); then one budget launch on Cornell (seeded budgets 0-2, as many
-samples as one uniform sample). Then the card's name and power limit. Needs
-one CUDA device.
+kernel per 1080p sample (depth 30, 1 spp, mean of 3 wrapper calls after a
+warm-up) on Cornell, on bench config 6's torus with the reference sampler,
+and on the torus with config 6's sampler flags (a checkout whose kernel
+takes no flags ignores them: its wrapper is called directly); then one
+budget launch on Cornell (seeded budgets 0-2, as many samples as one
+uniform sample). Each of these four cells gives three milliseconds:
+CUDA events around the calls, the kernel's device time under
+torch.profiler, and the host's time to issue the calls (no wait for the
+card), so a cell whose events time the host shows it. Then bench config 5
+(the dispersive scene, photons off, 1080p, depth 30): the fused kernel's
+device milliseconds under torch.profiler at 1 and 4 spp and for one budget
+launch (seeded budgets 0-4), the wall milliseconds of a 1-spp
+``wavefront_pallas`` render (``tt.render``, synchronised; mean of 3 after
+a warm-up) and of a 1-spp render of the plain pool (``backend=
+"wavefront"``; mean of 2). Before that line, a hash of each kernel's
+machine code (``cuobjdump -sass`` of the checkout's library), so two
+checkouts show which kernels they compile alike. Then the card's name and
+power limit. Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -23,10 +34,33 @@ import sys
 sys.path.insert(0, sys.argv[1])
 import torch
 import tpurt_torch as tt
-from tpurt_torch.kernels import mega_regen
+from tpurt_torch.kernels import build, mega_regen
 from tpurt_torch.render import state_to_planes
 
 dev = torch.device("cuda")
+
+
+def sass_hashes():
+    """kernel name -> a hash of its SASS in this checkout's library."""
+    import hashlib
+    import pathlib
+    import shutil
+    import subprocess
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not pathlib.Path(tool).exists():
+        return {}
+    text = subprocess.run([tool, "-sass", str(build.library_path())],
+                          capture_output=True, text=True).stdout
+    out = {}
+    for block in text.split("Function : ")[1:]:
+        name, _, body = block.partition("\n")
+        out[name.strip()] = hashlib.sha256(body.encode()).hexdigest()[:12]
+    return out
+
+
+build.library()
+print(f"SASS {sys.argv[1]}: " + " ".join(
+    f"{k}={v}" for k, v in sorted(sass_hashes().items())), flush=True)
 
 
 def ms(fn, reps=3):
@@ -40,6 +74,55 @@ def ms(fn, reps=3):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, part, reps=3):
+    """Device milliseconds per run of the kernels whose name holds part."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and part in e.key
+               ) / 1e3 / reps
+
+
+def wall_ms(fn, reps=3):
+    import time
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def host_ms(fn, reps=3):
+    """The host's milliseconds to issue one call, not waiting for the
+    card."""
+    import time
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return t
+
+
+def three(fn):
+    """CUDA-event, regen-kernel device and host-issue ms of fn."""
+    return (f"{ms(fn):.3f} (device {device_ms(fn, 'regen_kernel'):.3f}, "
+            f"host {host_ms(fn):.3f})")
 
 
 torus_cam = ((0, 3, -6), (0, 1.5, 0), 55.0)
@@ -61,18 +144,46 @@ for name, make, kw, cam in cases:
     camera = tt.make_camera(cam[0], cam[1], vfov=cam[2],
                             aspect_ratio=16 / 9)
     planes = state_to_planes(tt.init_state(cfg, dev))
-    t = ms(lambda: mega_regen.regen_call(scene, cfg, camera, planes.clone(),
-                                         1234, 1, 0, 2.0, 30))
-    out.append(f"{name} {t:.3f}")
+    fn = lambda: mega_regen.regen_call(scene, cfg, camera,  # noqa: E731
+                                       planes.clone(), 1234, 1, 0, 2.0, 30)
+    out.append(f"{name} {three(fn)}")
     if name == "cornell":
         import numpy as np
         counts = tt.init_state(cfg, dev).n_samples
         vals = np.random.default_rng(7).integers(0, 3, counts.shape[0])
         vals[cfg.n_pixels:] = 0
         budgets = torch.from_numpy(vals).to(dev)
-        t = ms(lambda: mega_regen.regen_budget_call(
-            scene, cfg, camera, planes.clone(), 1234, budgets, counts))
-        out.append(f"cornell-budget {t:.3f}")
+        fn = lambda: mega_regen.regen_budget_call(  # noqa: E731
+            scene, cfg, camera, planes.clone(), 1234, budgets, counts)
+        out.append(f"cornell-budget {three(fn)}")
+
+
+import numpy as np
+from tpurt_torch.kernels import wavefront_fused
+scene = tt.dispersive_scene().to(dev)
+cfg = tt.RenderConfig(width=1920, height=1080, depth=30,
+                      backend="wavefront_fused", enable_photons=False,
+                      wf_pool=262144)
+camera = tt.make_camera((0, 3, -4), (0, 1, 5), vfov=55.0, aspect_ratio=16 / 9)
+st0 = tt.init_state(cfg, dev)
+for spp in (1, 4):
+    t = device_ms(lambda: wavefront_fused.wavefront_render_fused(
+        scene, cfg, camera, st0, 1234, spp), "fused_kernel")
+    out.append(f"config5-fused-{spp}spp {t:.4f}")
+vals = np.random.default_rng(8).integers(0, 5, st0.n_samples.shape[0])
+vals[cfg.n_pixels:] = 0
+budgets = torch.from_numpy(vals).to(dev)
+t = device_ms(lambda: wavefront_fused.wavefront_render_budget_fused(
+    scene, cfg, camera, st0, 1234, budgets, 4), "fused_kernel")
+out.append(f"config5-fused-budget {t:.4f}")
+cfg_p = cfg.with_(backend="wavefront_pallas")
+t = wall_ms(lambda: tt.render(scene, cfg_p, camera, tt.init_state(cfg_p, dev),
+                              1234, 1))
+out.append(f"wf-pallas-1spp-wall {t:.3f}")
+cfg_w = cfg.with_(backend="wavefront")
+t = wall_ms(lambda: tt.render(scene, cfg_w, camera, tt.init_state(cfg_w, dev),
+                              1234, 1), 2)
+out.append(f"wf-plain-1spp-wall {t:.1f}")
 print(f"AB {sys.argv[1]}: " + " | ".join(out), flush=True)
 '''
 

@@ -26,8 +26,13 @@ and 6, every state plane bit for bit, config 6 at 1080p), [budget] (the
 budget mode against ``render_plain_budget``, then ``render_adaptive``),
 [tile-sync] (the
 tile-synchronized kernel against ``render_plain`` and against the regen
-kernel, then its 1080p path), [wf-sweep], [wf-pool], [wf-fused],
-[wf-budget], [wf-pallas], [config5], [bvh-walk], [mesh-regen], [mesh-wf],
+kernel, then its 1080p path), [wf-sweep] (one whole sweep of the pool,
+claim, bounce, splat and control words, against ``wavefront._step``),
+[wf-pool], [wf-fused] (also against the regen kernel with photons off),
+[wf-budget], [wf-pallas] (the 1080p path: sweeps, host reads, wall time
+by sweeps per read), [config5], [many-lights] (tpurt's many-light scene
+with 20 lights, its rows in shared memory, and 128, past that budget: the
+regen, fused and sweep kernels against their plain versions), [bvh-walk], [mesh-regen], [mesh-wf],
 [mesh] (config 6 with the reference sampler), [config6] (config 6 as
 shipped), [config4], [mesh-field], [mesh-instanced], [mxu-leaf] (the
 probe's G leaf against the plain G sweep), [mesh-mxu] (the regen kernel
@@ -53,6 +58,7 @@ file; imports nothing of JAX.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 import pathlib
@@ -192,10 +198,12 @@ def ptxas_report(log: str) -> list:
             name = line.split("'")[1]
             # template flags of the instance (SAMPLER, GLEAF), as <0,1>
             flags = re.search(r"I((?:Lb[01]E)+)E", name)
-            for short in ("regen", "step", "sweep", "fused", "probe",
-                          "tonemap"):
-                if short in name:
+            for part, short in (("regen", "regen"), ("pool_step", "sweep"),
+                                ("step", "step"), ("fused", "fused"),
+                                ("probe", "probe"), ("tonemap", "tonemap")):
+                if part in name:
                     name = short
+                    break
             if flags:
                 name += "<" + ",".join(re.findall(r"Lb([01])E",
                                                   flags.group(1))) + ">"
@@ -433,7 +441,8 @@ def main() -> int:
     # 7. the wavefront kernels on the dispersive scene of tpurt's bench
     #    config 5, each against its plain version
     launches.update(wavefront_phases(dev, report, gpu))
-    lap("wavefront")
+    many_light_phases()
+    lap("wavefront, many lights")
 
     # 8. meshes: the BVH walks, bench config 6 (reference sampler and as
     #    shipped), config 4 and the scale paths
@@ -813,7 +822,8 @@ def wavefront_phases(dev, report, gpu) -> dict:
     Fills ``report`` and returns the main paths' launch counts."""
     import tpurt_torch as tt
     from tpurt_torch import wavefront
-    from tpurt_torch.kernels import wavefront_fused, wavefront_sweep
+    from tpurt_torch.kernels import mega_regen, wavefront_fused, wavefront_sweep
+    from tpurt_torch.render import state_to_planes
     from tpurt_torch.scene import freeze_scene
 
     scene = tt.dispersive_scene()
@@ -823,45 +833,72 @@ def wavefront_phases(dev, report, gpu) -> dict:
                            backend="wavefront_fused", enable_photons=False,
                            wf_pool=262144)
     cam5 = dispersive_camera(cfg5)
+    st5 = tt.init_state(cfg5)
 
-    # [wf-sweep] a 1080p pool in mid flight: camera rays from the middle
-    # rows of the image (the top rows see sky), two plain sweeps with
-    # refills, a last refill; then one sweep of each version
-    pool = wavefront.new_pool(cfg5.wf_pool, dev)
-    nxt = (torch.zeros((), dtype=torch.int64, device=dev),
-           torch.tensor((cfg5.n_pixels - cfg5.wf_pool) // 2, device=dev))
-    for k in range(3):
-        pool, *nxt = wavefront._regen(cfg5, cam5, pool, *nxt, 1, 1234, 0, 0,
-                                      cfg5.n_pixels)
-        if k < 2:
-            pool = wavefront._sweep(fs, cfg5, pool)[0]
-    got = wavefront_sweep.sweep(fs, cfg5, pool)
-    want = wavefront._sweep(fs, cfg5, pool)
+    # [wf-sweep] one sweep of the pool loop, whole (claim, bounce, splat,
+    # control words), on a 1080p pool in mid flight: camera rays from the
+    # middle rows of the image (the top rows see sky) after two plain
+    # sweeps; then one launch of the kernel against one wavefront._step
+    work = wavefront.PoolWork(camera=cam5, base_seed=1234, spp=1,
+                              n_valid=cfg5.n_pixels)
+    q = cfg5.wf_pool
+    ctl = wavefront.new_ctl(q, True, dev)
+    ctl[wavefront.NEXT_PIX] = (cfg5.n_pixels - q) // 2
+    start = (wavefront.new_pool(q, dev), torch.zeros_like(st5.rgb_sum),
+             torch.zeros_like(st5.n_samples), ctl)
+    for _ in range(2):
+        start = wavefront._step(fs, cfg5, work, *start)
+
+    def copy(args):
+        pool, *rest = args
+        return (wavefront.WavefrontPool(pf=pool.pf.clone(), pi=pool.pi.clone(),
+                                        rng=pool.rng.clone()),
+                *(t.clone() for t in rest))
+
+    step = wavefront_sweep.stepper(fs, cfg5, work).sweep
+    got = step(*copy(start))
+    want = wavefront._step(fs, cfg5, work, *copy(start))
     torch.cuda.synchronize()
-    pairs = list(zip((got[0].pf, got[0].pi, got[0].rng, got[1], got[2]),
-                     (want[0].pf, want[0].pi, want[0].rng, want[1], want[2])))
-    equal = [torch.equal(a, b) for a, b in pairs]
+    names = ("o/d/tp/rad/lam", "pix/bounce/active", "rng", "rgb_sum",
+             "n_samples", "control words")
+    flat = lambda r: (r[0].pf, r[0].pi, r[0].rng, *r[1:])  # noqa: E731
+    equal = {k: torch.equal(a, b)
+             for k, a, b in zip(names, flat(got), flat(want))}
     err = float((got[0].pf - want[0].pf).abs().max())
-    bounces = pool.pi[wavefront.BOUNCE][pool.active].float()
-    print(f"[wf-sweep] 1920x1080 dispersive, Q={cfg5.wf_pool} "
-          f"({float(pool.active.float().mean()):.3f} active, mean bounce "
-          f"{float(bounces.mean()):.2f}): planes/pix/rng/mask/rays equal "
-          f"{equal}, rays {int(got[2])} vs {int(want[2])}, terminated "
-          f"{int(got[1].sum())}, max |diff| {err}")
-    if not all(equal):
-        raise AssertionError("sweep kernel differs from wavefront._sweep")
-    call_ms, by_name, _ = profiled(
-        lambda: wavefront_sweep.sweep(fs, cfg5, pool), 20)
+    pool0 = start[0]
+    claimed = wavefront._claim(cfg5, work, pool0, start[3])[0]
+    n_old = int(pool0.active.sum())
+    n_live = int(claimed.active.sum())
+    n_term = int(want[2].sum() - start[2].sum())
+    rays = int(want[3][wavefront.RAYS] - start[3][wavefront.RAYS])
+    bounces = pool0.pi[wavefront.BOUNCE][pool0.active].float()
+    print(f"[wf-sweep] 1920x1080 dispersive, Q={q} ({n_old / q:.3f} active,"
+          f" mean bounce {float(bounces.mean()):.2f}; {n_live - n_old} "
+          f"claimed, {n_term} ended): equal {equal}, rays "
+          f"{int(got[3][wavefront.RAYS] - start[3][wavefront.RAYS])} vs "
+          f"{rays}, max |diff| {err}")
+    if not all(equal.values()):
+        raise AssertionError("sweep kernel differs from wavefront._step")
+    call_ms, by_name, _ = profiled(lambda: step(*copy(start)), 20)
+    # what the launch must move: every slot's active flag; the planes of
+    # the slots in flight read (13 f32, pix, bounce, the i64 PCG state)
+    # and of every slot that bounces written (13 f32, 3 i32, the state);
+    # rgb_sum and n_samples of each ended path read and written; before
+    # this PR the launch read and wrote every slot's planes and a mask
+    moved = q * 4 + n_old * (13 * 4 + 2 * 4 + 8) \
+        + n_live * (13 * 4 + 3 * 4 + 8) + n_term * 16 * 2
     report["wf_sweep"] = dict(
-        max_abs_err=err, ms=named_ms(by_name, "sweep_kernel") or call_ms,
-        plain_ms=cuda_ms(lambda: wavefront._sweep(fs, cfg5, pool), 3),
-        # the pool (13 f32, 3 i32, one i64 PCG state a slot) in and out,
-        # the terminated mask out
-        **bound(cfg5.wf_pool * ((13 * 4 + 3 * 4 + 8) * 2 + 1),
-                int(got[2]) * OPS_PER_SEGMENT))
+        max_abs_err=err, ms=named_ms(by_name, "pool_step_kernel") or call_ms,
+        plain_ms=cuda_ms(lambda: wavefront._step(fs, cfg5, work,
+                                                 *copy(start)), 3),
+        **bound(moved, rays * OPS_PER_SEGMENT))
+    old = bound(q * ((13 * 4 + 3 * 4 + 8) * 2 + 1), rays * OPS_PER_SEGMENT)
     print(f"  one sweep: kernel {report['wf_sweep']['ms']:.4f} ms of device "
-          f"time ({call_ms:.4f} ms per wrapper call), plain "
-          f"{report['wf_sweep']['plain_ms']:.3f} ms")
+          f"time ({call_ms:.4f} ms per wrapper call with its input copies), "
+          f"plain {report['wf_sweep']['plain_ms']:.3f} ms; bound "
+          f"{report['wf_sweep']['bound_ms']:.4f} ms "
+          f"({report['wf_sweep']['bound_by']}, {moved} bytes; counted as "
+          f"before this PR: {old['bound_ms']:.4f} ms, {old['bound_by']})")
 
     def pair(cfg, backend, spp, plain="wavefront"):
         """The kernel backend and the plain pool from fresh states."""
@@ -895,16 +932,35 @@ def wavefront_phases(dev, report, gpu) -> dict:
     for w, h, depth in ((64, 32, 30), (256, 144, 30)):
         pair(cfg5.with_(width=w, height=h, depth=depth), "wavefront_fused", 1)
     err, fused_rays = pair(cfg5, "wavefront_fused", 1)
+    # the same camera paths as the regen kernel with photons off, whose
+    # lanes add each sample into the pixel's row in sample order
     st0 = tt.init_state(cfg5)
-    for spp in (1, 4):
+    planes = state_to_planes(st0)
+    rr = int(mega_regen.regen_call(scene, cfg5.with_(backend="pallas"), cam5,
+                                   planes, 1234, 2, 0, 2.0, cfg5.depth))
+    sf = wavefront_fused.wavefront_render_fused(scene, cfg5, cam5, st0, 1234,
+                                                2)
+    same = torch.equal(sf.rgb_sum, planes[0:3].T) and int(sf.rays) == rr
+    print(f"  1080p 2 spp: fused kernel = regen kernel with photons off, "
+          f"rgb_sum bit for bit and rays: {same} ({int(sf.rays)} vs {rr})")
+    if not same:
+        raise AssertionError("the fused kernel differs from the regen kernel "
+                             "with photons off")
+    rows = st0.n_samples.shape[0]
+    vals = np.random.default_rng(8).integers(0, 5, rows)
+    vals[cfg5.n_pixels:] = 0
+    budgets = torch.from_numpy(vals).to(dev)
+    aux = torch.stack([budgets.float(), st0.n_samples]).contiguous()
+    fused_ms = {}
+    for mode, spp, aux_m in (("1 spp", 1, None), ("4 spp", 4, None),
+                             ("budgets 0-4", 0, aux)):
         call_ms, by_name, _ = profiled(
-            lambda: wavefront_fused.wavefront_render_fused(
-                scene, cfg5, cam5, st0, 1234, spp), 3)
-        print(f"  1080p depth 30 {spp} spp: kernel "
-              f"{named_ms(by_name, 'fused_kernel'):.3f} ms of device time "
-              f"({call_ms:.3f} ms per wrapper call)")
-        if spp == 1:
-            kernel_ms = named_ms(by_name, "fused_kernel") or call_ms
+            lambda: wavefront_fused._launch(scene, cfg5, cam5, st0, 1234,
+                                            spp, aux_m), 3)
+        fused_ms[mode] = named_ms(by_name, "fused_kernel") or call_ms
+        print(f"  1080p depth 30 {mode}: kernel {fused_ms[mode]:.4f} ms of "
+              f"device time ({call_ms:.3f} ms per wrapper call)")
+    kernel_ms = fused_ms["1 spp"]
     report["wf_fused"] = dict(
         max_abs_err=err, ms=kernel_ms,
         plain_ms=cuda_ms(lambda: wavefront.wavefront_render(
@@ -942,21 +998,60 @@ def wavefront_phases(dev, report, gpu) -> dict:
         raise AssertionError("fused budget mode differs")
 
     # [wf-pallas] the 1080p wavefront_pallas path; then the same render
-    # under torch.profiler, for the share of wall time in the sweep kernel
+    # under torch.profiler, for the share of wall time in the sweep kernel,
+    # and the render's wall time with k sweeps enqueued per read of the
+    # loop test (reads counted through wavefront._pool_live; the kernel's
+    # step hook with its batch set to k)
     cfg_p = cfg5.with_(backend="wavefront_pallas")
-    launches = drive("wf-pallas", scene, cfg_p, cam5, 1,
-                     ["wf_sweep", "blit"], gpu)
-    sweeps = launches["wf_sweep"]
-    wall, by_name, busy = profiled(lambda: tt.render(
-        scene, cfg_p, cam5, tt.init_state(cfg_p), 1234, 1), 2)
-    in_sweep = named_ms(by_name, "sweep_kernel")
-    print(f"  1 spp under the profiler: {sweeps} sweeps, {wall:.1f} ms wall, "
-          f"{in_sweep:.1f} ms in the sweep kernel ({1.0 - in_sweep / wall:.3f}"
-          f" of the wall time outside it), device busy {busy:.1f} ms "
-          f"(idle share {idle_share(wall, busy)})")
+    k = wavefront_sweep.SWEEP_BATCH
+    reads = [0]
+    live = wavefront._pool_live
+
+    def counted(ctl):
+        reads[0] += 1
+        return live(ctl)
+
+    wavefront._pool_live = counted
+    try:
+        launches = drive("wf-pallas", scene, cfg_p, cam5, 1,
+                         ["wf_sweep", "blit"], gpu)
+        enqueued, n_reads = launches["wf_sweep"], reads[0]
+
+        def render_p(batch=k):
+            return wavefront.wavefront_render(
+                scene, cfg_p, cam5, tt.init_state(cfg_p), 1234, 1,
+                step=functools.partial(wavefront_sweep.stepper, batch=batch))
+
+        wall, by_name, busy = profiled(render_p, 2)
+        in_sweep = named_ms(by_name, "pool_step_kernel")
+        walls = {}
+        for batch in (1, 2, 4, 8, 16, 32, k):
+            render_p(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                render_p(batch)
+            torch.cuda.synchronize()
+            walls[batch] = (time.perf_counter() - t0) * 1e3 / 5
+    finally:
+        wavefront._pool_live = live
+    st = tt.init_state(cfg_p)
+    sweeps = int(wavefront._drain(fs, cfg_p, st, work,
+                                  wavefront_sweep.stepper)[2][wavefront.SWEEPS])
+    print(f"  1 spp: {sweeps} sweeps in {enqueued} launches, k = {k} sweeps "
+          f"per read of the loop test, {n_reads} host reads; wall "
+          f"{walls[k]:.3f} ms (mean of 5); under the profiler {wall:.3f} ms "
+          f"wall, {in_sweep:.3f} ms in the sweep kernel "
+          f"({1.0 - in_sweep / wall:.3f} of the wall time outside it), "
+          f"device busy {busy:.3f} ms (idle share {idle_share(wall, busy)})")
+    print("  wall ms by k: " + ", ".join(f"{b}: {t:.3f}"
+                                         for b, t in sorted(walls.items())))
+    if n_reads > -(-enqueued // k):
+        raise AssertionError(f"{n_reads} reads of the loop test for "
+                             f"{enqueued} launches in batches of {k}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print("  device ms by kernel: " + "; ".join(
-        f"{k[:60]} {v:.2f}" for k, v in top))
+        f"{k_[:60]} {v:.3f}" for k_, v in top))
 
     # [config5] tpurt's bench config 5 at 4 spp through the public entry
     # points: the fused kernel, then the blit
@@ -974,6 +1069,50 @@ def wavefront_phases(dev, report, gpu) -> dict:
           f"{named_ms(by_name, 'tonemap_kernel'):.3f} ms, device busy "
           f"{busy:.2f} ms (idle share {idle_share(wall, busy)})")
     return launches
+
+
+def many_light_phases() -> None:
+    """[many-lights] tpurt's many-light scene (a Cornell room under a grid
+    of area lights) past the 16 lights the kernels once took: 20 lights at
+    256x144, depth 30, with the scene rows staged in shared memory, and 128
+    at 128x72, depth 4, past path.cuh STAGE_MAX_FLOATS (4096 floats; a
+    light row is 40), so the kernels read the rows from global memory. The
+    regen kernel against render_plain, every plane bit for bit; the fused
+    kernel and the pool with the sweep kernel against the plain pool, rays
+    and sample counts exact and the image rule."""
+    import tpurt_torch as tt
+    for n_lights, (w, h), depth in ((20, (256, 144), 30),
+                                    (128, (128, 72), 4)):
+        scene = tt.many_light_scene(n_lights)
+        cfg = tt.RenderConfig(width=w, height=h, depth=depth, k_photons=2,
+                              max_photon_bounces=3, wf_pool=16384,
+                              backend="pallas")
+        cam = tt.make_camera((0.0, 5.0, -12.0), (0.0, 5.0, 0.0), vfov=60.0,
+                             aspect_ratio=w / h)
+        light_floats = 40 * n_lights
+        where = ("past the shared-memory budget: rows read from global "
+                 "memory" if light_floats > 4096 else "rows staged")
+        regen_vs_plain(f"{n_lights} lights ({light_floats} floats of light "
+                       f"rows, {where})", scene, cfg, cam, 5, 2, 0,
+                       phase="many-lights")
+        c = cfg.with_(enable_photons=False, backend="wavefront")
+        plain = tt.render(scene, c, cam, tt.init_state(c), 5, 2)
+        n = c.n_pixels
+        for backend in ("wavefront_pallas", "wavefront_fused"):
+            kc = c.with_(backend=backend)
+            st = tt.render(scene, kc, cam, tt.init_state(kc), 5, 2)
+            torch.cuda.synchronize()
+            med, frac, mx = image_gap(st.rgb_sum[:n].cpu().numpy(),
+                                      plain.rgb_sum[:n].cpu().numpy())
+            same_n = torch.equal(st.n_samples[:n], plain.n_samples[:n])
+            print(f"[many-lights] {n_lights} lights {backend} vs wavefront "
+                  f"2 spp: rays {int(st.rays)} vs {int(plain.rays)}, sample "
+                  f"counts equal {same_n}, image median {med:.2e}, "
+                  f"{frac:.2%} pixels > 1e-2")
+            if int(st.rays) != int(plain.rays) or not same_n \
+                    or not (med < 1e-4 and frac < 0.01):
+                raise AssertionError(f"{backend} differs from the plain pool "
+                                     f"with {n_lights} lights")
 
 
 def probe_rays(scene, n: int, seed: int, dev):

@@ -289,7 +289,7 @@ def test_budgets_from_tpurt_pilots_are_tpurts(tp, seed):
     sum_b = np.array(sj.rgb_sum - sum_a)
     n_b = np.array(sj.n_samples - n_a)
     st = wf_t.wavefront_render(scene, cfg, cam, tt.init_state(cfg, device=CPU),
-                               seed, 2, sweep=wf_t.xla_sweep(cfg))
+                               seed, 2, step=wf_t.xla_stepper(cfg))
     assert int(st.rays) == rays_a
     assert (st.rgb_sum.numpy() != sum_a).any()
     total, cap = 4 * cfg.n_pixels, 4 * 16
@@ -299,6 +299,65 @@ def test_budgets_from_tpurt_pilots_are_tpurts(tp, seed):
         cfg, *(torch.from_numpy(x) for x in (sum_a, n_a, sum_b, n_b)), True)
     got = adaptive.allocate_budgets(proxy, total, cap).numpy()
     assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", [17, 2, 7, 11])
+def test_pilots_differ_where_xla_contracts_the_wavelength(tp, seed):
+    """Where render_adaptive's pilots differ from tpurt's (ROADMAP C3): not
+    in the pool's regeneration or splat. On an empty pool of the pilots'
+    shape the port's _regen equals tpurt's _regen run eagerly, every plane
+    bit for bit. tpurt's wavefront_render runs it under jit, where XLA
+    contracts the wavelength draw 380 + u * 400 (tpurt's
+    sample_wavelength) into one fused multiply-add: the jitted wavelengths
+    are fma(u, 400, 380), rounded once, and differ from the eager ones on
+    a share of the slots. (Its jitted sweep adds more of the same, and
+    forms hit points in another order than the kernel-form code the port
+    follows.)"""
+    import jax
+    from tpurt_torch import wavefront as wf_t
+    from tpurt_torch.ops.rng import frame_seed, rand_1f, seed_pixels
+    jnp, wf_j = tp.jnp, sys.modules["tpurt.wavefront"]
+    cfg_j, _, cam_j = _setup(tp.tpurt, wf_pool=1024)
+    cfg, _, cam = _setup(tt, wf_pool=1024)
+    q, n = 1024, cfg.n_pixels
+    z = lambda *shape: jnp.zeros((q, *shape))  # noqa: E731
+    pool_j = wf_j.WavefrontPool(
+        pix=jnp.zeros((q,), jnp.int32), o=z(3), d=z(3), tp=z(3), rad=z(3),
+        lam=z(), rng=jnp.zeros((q,), jnp.uint32),
+        bounce=jnp.zeros((q,), jnp.int32), active=jnp.zeros((q,), bool),
+        coll=jnp.zeros((q,), bool))
+
+    def regen(pool):
+        return wf_j._regen(cfg_j, cam_j, pool, jnp.int32(0), jnp.int32(0),
+                           jnp.int32(2), jnp.uint32(seed), 0, jnp.int32(0),
+                           jnp.int32(n))[0]
+
+    eager, jitted = regen(pool_j), jax.jit(regen)(pool_j)
+    zero = torch.zeros((), dtype=torch.int64)
+    mine = wf_t._regen(cfg, cam, wf_t.new_pool(q, CPU), zero, zero, 2, seed,
+                       0, 0, n)[0]
+    for name, base in (("o", wf_t.O), ("d", wf_t.D), ("tp", wf_t.TP),
+                       ("rad", wf_t.RAD)):
+        assert np.array_equal(mine.pf[base:base + 3].numpy().T,
+                              np.asarray(getattr(eager, name))), name
+    assert np.array_equal(mine.pf[wf_t.LAM].numpy(), np.asarray(eager.lam))
+    assert np.array_equal(mine.rng.numpy(),
+                          np.asarray(eager.rng).astype(np.int64))
+    assert np.array_equal(mine.pi[wf_t.PIX].numpy(), np.asarray(eager.pix))
+    # the wavelength draw of every slot: the third number of its stream
+    pix = mine.pi[wf_t.PIX].long()
+    rng = seed_pixels(frame_seed(seed, torch.zeros_like(pix)),
+                      pix % cfg.width, pix // cfg.width)
+    for _ in range(2):
+        _, rng = rand_1f(rng)
+    u, _ = rand_1f(rng)
+    fused = adaptive._fma(u, torch.full_like(u, 400.0),
+                          torch.full_like(u, 380.0)).numpy()
+    lam_j = np.asarray(jitted.lam)
+    assert np.array_equal(lam_j, fused)
+    off = (lam_j != np.asarray(eager.lam)).mean()
+    print(f"{off:.1%} of the jitted wavelengths differ from the eager ones")
+    assert 0.05 < off < 0.3
 
 
 def test_luma_fma_rounds_once():

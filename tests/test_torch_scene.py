@@ -58,7 +58,8 @@ def _scene_arrays(scene):
             for f in dataclasses.fields(tt.Scene)}
 
 
-@pytest.mark.parametrize("name", ["cornell_spheres_scene", "default_scene"])
+@pytest.mark.parametrize("name", ["cornell_spheres_scene", "default_scene",
+                                  "many_light_scene"])
 def test_stock_scenes_equal(name):
     want = _scene_arrays(getattr(tpurt, name)())
     got = _scene_arrays(getattr(tt, name)(device=CPU))

@@ -27,6 +27,7 @@ Tolerances:
 """
 
 import dataclasses
+import functools
 import sys
 import types
 
@@ -372,17 +373,208 @@ def test_sweep_planes_match_tpurt_sweep(tp, seed):
                                    rtol=1e-4, atol=1e-4, err_msg=name)
 
 
+def _ctl(q, next_sample=0, next_pix=0, go=1, sweeps=0, rays=0):
+    ctl = wavefront.new_ctl(q, go, CPU)
+    ctl[wavefront.NEXT], ctl[wavefront.NEXT_PIX] = next_sample, next_pix
+    ctl[wavefront.SWEEPS], ctl[wavefront.RAYS] = sweeps, rays
+    return ctl
+
+
+def _work(cam, spp=2, **kw):
+    return wavefront.PoolWork(camera=cam, base_seed=42, spp=spp,
+                              n_valid=48 * 24, **kw)
+
+
 def test_sweep_wrapper_on_cpu_runs_plain():
+    """The sweep kernel's step hook on CPU tensors runs wavefront._step:
+    the same pool, image, counts and control words bit for bit, no
+    launch."""
     a = _seeded_pool("dispersive", 512, 5)
-    cfg, sc, _ = _setup(tt, "dispersive")
+    cfg, sc, cam = _setup(tt, "dispersive")
     fs = freeze_scene(sc)
-    want = wavefront._sweep(fs, cfg, _port_pool(a))
+    work = _work(cam)
+    args = lambda: (_port_pool(a), torch.zeros((1152, 3)),  # noqa: E731
+                    torch.zeros((1152,)), _ctl(512, 1, 700, rays=5))
+    want = wavefront._step(fs, cfg, work, *args())
     before = wavefront_sweep.LAUNCHES
-    got = wavefront_sweep.sweep(fs, cfg, _port_pool(a))
-    for x, y in zip((got[0].pf, got[0].pi, got[0].rng, got[1], got[2]),
-                    (want[0].pf, want[0].pi, want[0].rng, want[1], want[2])):
+    got = wavefront_sweep.stepper(fs, cfg, work).sweep(*args())
+    for x, y in zip((got[0].pf, got[0].pi, got[0].rng, *got[1:]),
+                    (want[0].pf, want[0].pi, want[0].rng, *want[1:])):
         assert torch.equal(x, y)
     assert wavefront_sweep.LAUNCHES == before
+
+
+def _old_drain(fs, cfg, state, work):
+    """The pool loop with one read of the device per sweep: while work is
+    pending or a slot is active, at most cfg.wf_max_sweeps times, claim,
+    sweep and splat."""
+    pool = wavefront.new_pool(cfg.wf_pool, CPU)
+    rgb, ns = state.rgb_sum.clone(), state.n_samples.clone()
+    ctl = _ctl(cfg.wf_pool)
+    rays, sweeps = 0, 0
+    while sweeps < cfg.wf_max_sweeps:
+        if not bool(work.pending(ctl[wavefront.NEXT]) | pool.active.any()):
+            break
+        pool, nxt, nxt_pix = wavefront._claim(cfg, work, pool, ctl)
+        ctl[wavefront.NEXT], ctl[wavefront.NEXT_PIX] = nxt, nxt_pix
+        pool, term, n = wavefront._sweep(fs, cfg, pool)
+        pix = pool.pi[wavefront.PIX].long()
+        rgb.index_add_(0, pix, torch.where(term[:, None],
+                                           pool.pf[wavefront.RAD:
+                                                   wavefront.RAD + 3].T, 0.0))
+        ns.index_add_(0, pix, term.to(torch.float32))
+        rays += int(n)
+        sweeps += 1
+    return rgb, ns, rays, sweeps
+
+
+@pytest.mark.parametrize("batch,mode,max_sweeps", [
+    (1, "uniform", 100000), (3, "uniform", 100000), (8, "uniform", 100000),
+    (1, "budget", 100000), (3, "budget", 100000), (8, "budget", 100000),
+    (8, "uniform", 3), (8, "budget", 3)])
+def test_batched_loop_test_equals_a_read_per_sweep(monkeypatch, batch, mode,
+                                                   max_sweeps):
+    """_drain with the loop test read once per batch of sweeps gives the
+    loop that reads it every sweep bit for bit (image, counts, rays), also
+    when wf_max_sweeps cuts the loop inside a batch; it reads the device
+    once per batch."""
+    from tpurt_torch import adaptive
+    cfg, sc, cam = _setup(tt, wf_pool=256, wf_max_sweeps=max_sweeps)
+    fs = freeze_scene(sc)
+    state = tt.init_state(cfg, device=CPU)
+    if mode == "uniform":
+        work = _work(cam)
+    else:
+        b = torch.from_numpy(np.random.default_rng(3).integers(
+            0, 4, state.n_samples.shape[0]))
+        b[cfg.n_pixels:] = 0
+        order, cum, _ = adaptive._round_major_tables(b, 3)
+        work = wavefront.PoolWork(camera=cam, base_seed=42, order=order,
+                                  cum=cum, base_counts=state.n_samples.long())
+    want_rgb, want_ns, want_rays, sweeps = _old_drain(fs, cfg, state, work)
+    reads = []
+    live = wavefront._pool_live
+    monkeypatch.setattr(wavefront, "_pool_live",
+                        lambda ctl: reads.append(1) or live(ctl))
+    rgb, ns, ctl = wavefront._drain(
+        fs, cfg, state, work,
+        functools.partial(wavefront.plain_stepper, batch=batch))
+    assert torch.equal(rgb, want_rgb) and torch.equal(ns, want_ns)
+    assert int(ctl[wavefront.RAYS]) == want_rays > 0
+    assert int(ctl[wavefront.SWEEPS]) == sweeps > 0
+    assert max_sweeps > 3 or sweeps == 3
+    assert len(reads) == -(-sweeps // batch)
+
+
+@pytest.mark.parametrize("mode", ["uniform", "budget"])
+def test_plain_pool_reads_every_sweep(monkeypatch, mode):
+    """The plain step hook takes one sweep per read of the loop test, so
+    the plain pool runs no sweep past the end of the loop; the kernel's
+    hook enqueues SWEEP_BATCH."""
+    from tpurt_torch import adaptive
+    cfg, sc, cam = _setup(tt, wf_pool=256)
+    fs = freeze_scene(sc)
+    state = tt.init_state(cfg, device=CPU)
+    if mode == "uniform":
+        work = _work(cam)
+    else:
+        b = torch.from_numpy(np.random.default_rng(4).integers(
+            0, 3, state.n_samples.shape[0]))
+        b[cfg.n_pixels:] = 0
+        order, cum, _ = adaptive._round_major_tables(b, 2)
+        work = wavefront.PoolWork(camera=cam, base_seed=42, order=order,
+                                  cum=cum, base_counts=state.n_samples.long())
+    assert wavefront.plain_stepper(fs, cfg, work).batch == 1
+    assert wavefront_sweep.stepper(fs, cfg, work).batch == \
+        wavefront_sweep.SWEEP_BATCH > 1
+    reads, steps = [], []
+    live, step = wavefront._pool_live, wavefront._step
+    monkeypatch.setattr(wavefront, "_pool_live",
+                        lambda ctl: reads.append(1) or live(ctl))
+    monkeypatch.setattr(wavefront, "_step",
+                        lambda *a, **k: steps.append(1) or step(*a, **k))
+    _, _, ctl = wavefront._drain(fs, cfg, state, work,
+                                 wavefront.plain_stepper)
+    sweeps = int(ctl[wavefront.SWEEPS])
+    assert len(reads) == len(steps) == sweeps > 1
+
+
+@pytest.mark.parametrize("seed", [11, 12, 13])
+def test_step_matches_tpurt_regen_sweep_splat(tp, seed):
+    """One whole sweep, wavefront._step, against tpurt's pool loop body on
+    the same seeded pool in mid flight: _regen_planar, sweep_pallas
+    (interpret mode) and the splat. Exact: the segments, the work counters,
+    the pix and active planes, the bounce planes and PCG states of the
+    slots that took the bounce (tpurt also counts a bounce for the others,
+    the port leaves their planes alone), the wavelengths, n_samples. The
+    float planes and the image at rtol 1e-4, atol 1e-4 (tpurt's kernel runs
+    as XLA ops here), on the small-sphere scene (on an R=1000 wall hit
+    points of random rays move by up to ~1e-3, and a shadow test with
+    them)."""
+    wfp, jnp = tp.wfp, tp.jnp
+    scene = "spheres"
+    q, n_pix, spp = 2048, 48 * 24, 2
+    a = _seeded_pool(scene, q, seed)
+    kw = dict(width=48, height=24, depth=4, pallas_lanes=512,
+              enable_photons=False)
+    cam_kw = dict(**DISP_CAM, aspect_ratio=2.0)
+    # tpurt: emission planes of the slots in flight, as its regen fills them
+    scene_j = _scene(tp.tpurt, scene)
+    cfg_j = tp.tpurt.RenderConfig(**kw)
+    from tpurt.integrate import light_emission_rgb
+    ems = light_emission_rgb(scene_j, jnp.asarray(a["lam"]))
+    planar = lambda x: jnp.asarray(x).reshape(-1, q // 128, 128)  # noqa
+    pf = planar(np.concatenate(
+        [a["o"].T, a["d"].T, a["tp"].T, a["rad"].T, a["lam"][None]]
+        + [np.asarray(e).T for e in ems]))
+    pi = planar(np.stack([a["pix"], a["bounce"],
+                          a["active"].astype(np.int32)]))
+    rng = planar(a["rng"])[0]
+    pf, pi, rng, nxt, nxt_pix = wfp._regen_planar(
+        scene_j, cfg_j, tp.tpurt.make_camera(**cam_kw), pf, pi, rng,
+        jnp.int32(0), jnp.int32(700), jnp.int32(spp), jnp.uint32(42), 3)
+    live_j = np.asarray(pi[2]).reshape(-1) > 0
+    pf, pi, rng, term, trays = wfp.sweep_pallas(
+        wfp.freeze_scene(scene_j), cfg_j, pf, pi, rng, interpret=True)
+    t = np.asarray(term).reshape(-1) > 0
+    pix = np.asarray(pi[0]).reshape(-1)
+    rad = np.asarray(pf[wavefront.RAD:wavefront.RAD + 3]).reshape(3, -1).T
+    rgb_j = np.zeros((n_pix, 3), np.float32)
+    ns_j = np.zeros((n_pix,), np.float32)
+    np.add.at(rgb_j, pix[t], rad[t])
+    np.add.at(ns_j, pix[t], 1.0)
+    # the port
+    cfg = tt.RenderConfig(**kw)
+    work = wavefront.PoolWork(camera=tt.make_camera(**cam_kw), base_seed=42,
+                              spp=spp, it0=3, n_valid=n_pix)
+    pool0 = _port_pool(a)
+    pool, rgb, ns, ctl = wavefront._step(
+        freeze_scene(_scene(tt, scene)), cfg, work, pool0,
+        torch.zeros((n_pix, 3)), torch.zeros((n_pix,)), _ctl(q, 0, 700))
+    assert int(ctl[wavefront.RAYS]) == int(np.asarray(trays).sum()) > 0
+    assert (int(ctl[wavefront.NEXT]), int(ctl[wavefront.NEXT_PIX])) == \
+        (int(nxt), int(nxt_pix))
+    assert int(ctl[wavefront.SWEEPS]) == 1 and int(ctl[wavefront.GO]) == 1
+    flat = lambda x: np.asarray(x).reshape(x.shape[0], -1)  # noqa: E731
+    pi_j, pf_j = flat(pi), flat(pf)
+    for row in (wavefront.PIX, wavefront.ACTIVE):
+        np.testing.assert_array_equal(pool.pi[row].numpy(), pi_j[row])
+    np.testing.assert_array_equal(pool.pi[wavefront.BOUNCE].numpy()[live_j],
+                                  pi_j[wavefront.BOUNCE][live_j])
+    np.testing.assert_array_equal(
+        pool.pi[wavefront.BOUNCE].numpy()[~live_j], a["bounce"][~live_j])
+    np.testing.assert_array_equal(
+        pool.rng.numpy()[live_j],
+        np.asarray(rng).reshape(-1).astype(np.int64)[live_j])
+    np.testing.assert_array_equal(pool.pf[wavefront.LAM].numpy(),
+                                  pf_j[wavefront.LAM])
+    np.testing.assert_array_equal(ns.numpy(), ns_j)
+    for name, base in (("o", wavefront.O), ("d", wavefront.D),
+                       ("tp", wavefront.TP), ("rad", wavefront.RAD)):
+        np.testing.assert_allclose(pool.pf[base:base + 3].numpy(),
+                                   pf_j[base:base + 3], rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
+    np.testing.assert_allclose(rgb.numpy(), rgb_j, rtol=1e-4, atol=1e-4)
 
 
 def test_matches_tpurt_sweep_kernel_interpret(tp):
@@ -424,21 +616,61 @@ def test_matches_tpurt_fused_kernel_interpret(tp):
 @pytest.mark.gpu
 @pytest.mark.parametrize("scene", ["cornell", "dispersive"])
 def test_sweep_kernel_matches_plain(cuda, scene):
-    """The sweep kernel and wavefront._sweep on the card, on the same
-    seeded pool: the same bits on every output plane, the same mask and
-    segment count."""
-    a = _seeded_pool(scene, 1 << 16, 3)
-    cfg, sc, _ = _setup(tt, scene)
+    """One launch of the sweep kernel and wavefront._step on the card, on
+    the same seeded pool in mid flight with work pending: the same bits on
+    every pool plane and control word, the same image and counts (each
+    path here is a distinct pixel: the seeded slots hold rows 0-16383, the
+    claims start at row 20000), then the same after a second sweep."""
+    q = 1 << 14
+    a = _seeded_pool(scene, q, 3)
+    a["pix"] = np.arange(q, dtype=np.int32)
+    cfg, sc, cam = _setup(tt, scene, width=256, height=144)
     fs = freeze_scene(sc.to(cuda))
-    pool = _port_pool(a, cuda)
+    work = wavefront.PoolWork(camera=cam, base_seed=42, spp=1,
+                              n_valid=cfg.n_pixels)
+    rows = cfg.n_pixels
+    ctl = _ctl(q, 0, 20000).to(cuda)
+    start = (_port_pool(a, cuda), torch.zeros((rows, 3), device=cuda),
+             torch.zeros((rows,), device=cuda), ctl)
+    got = [t.clone() for t in (start[0].pf, start[0].pi, start[0].rng,
+                               *start[1:])]
+    got = (wavefront.WavefrontPool(*got[:3]), *got[3:])
+    want = start
+    step = wavefront_sweep.stepper(fs, cfg, work).sweep
+    for _ in range(2):
+        before = wavefront_sweep.LAUNCHES
+        got = step(*got)
+        assert wavefront_sweep.LAUNCHES == before + 1
+        want = wavefront._step(fs, cfg, work, *want)
+        torch.cuda.synchronize()
+        for x, y in zip((got[0].pf, got[0].pi, got[0].rng, *got[1:]),
+                        (want[0].pf, want[0].pi, want[0].rng, *want[1:])):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_sweep_kernel_budget_matches_plain(cuda):
+    """The budget pool through the sweep kernel against the plain budget
+    pool on the card, dispersive scene at 256x144, depth 8: rays and
+    sample counts exact, the image rule."""
+    from tpurt_torch import adaptive
+    kw = dict(width=256, height=144, depth=8, wf_pool=16384)
+    cfg, sc, cam = _setup(tt, "dispersive", **kw)
+    sc = sc.to(cuda)
+    st0 = tt.init_state(cfg, cuda)
+    b = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 4, st0.n_samples.shape[0])).to(cuda)
+    b[cfg.n_pixels:] = 0
+    plain = adaptive.wavefront_render_budget(sc, cfg, cam, st0, 42, b, 3)
     before = wavefront_sweep.LAUNCHES
-    got = wavefront_sweep.sweep(fs, cfg, pool)
-    assert wavefront_sweep.LAUNCHES == before + 1
-    want = wavefront._sweep(fs, cfg, pool)
+    st = adaptive.wavefront_render_budget(sc, cfg, cam, st0, 42, b, 3,
+                                          step=wavefront_sweep.stepper)
     torch.cuda.synchronize()
-    for x, y in zip((got[0].pf, got[0].pi, got[0].rng, got[1], got[2]),
-                    (want[0].pf, want[0].pi, want[0].rng, want[1], want[2])):
-        assert torch.equal(x, y)
+    assert wavefront_sweep.LAUNCHES > before
+    assert int(st.rays) == int(plain.rays) > 0
+    assert torch.equal(st.n_samples, plain.n_samples)
+    n = cfg.n_pixels
+    _image_rule(st.rgb_sum[:n].cpu().numpy(), plain.rgb_sum[:n].cpu().numpy())
 
 
 @pytest.mark.gpu

@@ -26,8 +26,9 @@ from tpurt_torch.render import (RenderState, init_state, load_checkpoint,
 from tpurt_torch.scene import (Light, Material, MeshData, Scene, Sphere,
                                build_scene, cornell_spheres_scene,
                                default_scene, dispersive_scene,
-                               instanced_scene, torus_field_scene,
-                               torus_mesh_scene, tri_test_scene)
+                               instanced_scene, many_light_scene,
+                               torus_field_scene, torus_mesh_scene,
+                               tri_test_scene)
 from tpurt_torch.wavefront import WavefrontPool, wavefront_render
 
 __all__ = [
@@ -35,8 +36,8 @@ __all__ = [
     "RenderState", "Scene", "Sphere", "WavefrontPool", "build_scene",
     "cornell_spheres_scene", "default_scene", "dispersive_scene",
     "init_state", "instanced_scene", "load_checkpoint", "make_camera",
-    "render", "render_adaptive", "render_step", "resolve_image",
-    "resolve_radiance", "save_checkpoint", "torus_field_scene",
-    "torus_mesh_scene", "tri_test_scene", "wavefront_render",
-    "wavefront_render_budget",
+    "many_light_scene", "render", "render_adaptive", "render_step",
+    "resolve_image", "resolve_radiance", "save_checkpoint",
+    "torus_field_scene", "torus_mesh_scene", "tri_test_scene",
+    "wavefront_render", "wavefront_render_budget",
 ]

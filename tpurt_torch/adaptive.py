@@ -47,24 +47,6 @@ def _round_major_tables(budgets: torch.Tensor, max_budget: int):
     return order, cum, cum[max_budget - 1]
 
 
-def _regen_budget(cfg, camera, pool, next_work, base_seed: int, base_counts,
-                  order, cum, total, pix_offset: int):
-    """Refill dead slots from the round-major budgeted work stream; pixel
-    p's round-s sample draws from iteration base_counts[p] + s. Returns
-    (pool, next_work)."""
-    dead = ~pool.active
-    w = next_work + torch.cumsum(dead, 0) - 1
-    s = torch.searchsorted(cum, w, right=True)
-    s_safe = s.clamp_max(cum.shape[0] - 1)
-    start = torch.where(s > 0, cum[(s_safe - 1).clamp_min(0)], 0)
-    r = w - start
-    have_work = dead & (w < total)
-    pix = order[r.clamp(0, order.shape[0] - 1)]
-    pool = wavefront._issue(cfg, camera, pool, pix, pix_offset + pix,
-                            base_counts[pix] + s_safe, have_work, base_seed)
-    return pool, next_work + have_work.sum()
-
-
 def clip_budgets(cfg, budgets: torch.Tensor, max_budget: int
                  ) -> torch.Tensor:
     """Budgets as the fused kernel takes them (``tpurt``'s
@@ -77,10 +59,10 @@ def clip_budgets(cfg, budgets: torch.Tensor, max_budget: int
 
 def wavefront_render_budget_slab(scene, cfg, camera, state, base_seed,
                                  budgets, max_budget: int, pix_offset: int,
-                                 sweep=None):
+                                 step=None):
     """``wavefront_render_budget`` over one pixel slab: ``state`` and
     ``budgets`` hold the slab's rows, RNG and camera coordinates add
-    ``pix_offset``. ``sweep`` as in ``wavefront.wavefront_render_slab``."""
+    ``pix_offset``. ``step`` as in ``wavefront.wavefront_render_slab``."""
     wavefront.check_sampler(cfg)
     check_slice(cfg)
     wavefront._check_state(state, scene)
@@ -89,38 +71,30 @@ def wavefront_render_budget_slab(scene, cfg, camera, state, base_seed,
     if budgets.shape != state.n_samples.shape:
         raise ValueError(f"budgets {tuple(budgets.shape)} do not match the "
                          f"state's {tuple(state.n_samples.shape)} rows")
-    sweep = wavefront._sweep if sweep is None else sweep
     fs = freeze_scene(scene)
-    dev = state.device
-    base_seed = int(base_seed)
-    budgets = budgets.to(dev).long().clamp(0, int(max_budget))
-    base_counts = state.n_samples.long()
-    order, cum, total = _round_major_tables(budgets, int(max_budget))
-    next_work = torch.zeros((), dtype=torch.int64, device=dev)
-
-    def regen(pool):
-        nonlocal next_work
-        pool, next_work = _regen_budget(cfg, camera, pool, next_work,
-                                        base_seed, base_counts, order, cum,
-                                        total, pix_offset)
-        return pool
-
-    rgb, ns, rays = wavefront._drain(fs, cfg, state, regen,
-                                     lambda: next_work < total, sweep)
+    budgets = budgets.to(state.device).long().clamp(0, int(max_budget))
+    order, cum, _ = _round_major_tables(budgets, int(max_budget))
+    work = wavefront.PoolWork(camera=camera, base_seed=int(base_seed),
+                              pix_offset=int(pix_offset), order=order,
+                              cum=cum, base_counts=state.n_samples.long())
+    rgb, ns, ctl = wavefront._drain(
+        fs, cfg, state, work,
+        wavefront.plain_stepper if step is None else step)
     return dataclasses.replace(
         state, rgb_sum=rgb, n_samples=ns,
         iteration=state.iteration + int(max_budget),
-        rays=state.rays + rays if cfg.count_rays else state.rays)
+        rays=(state.rays + ctl[wavefront.RAYS] if cfg.count_rays
+              else state.rays))
 
 
 def wavefront_render_budget(scene, cfg, camera, state, base_seed, budgets,
-                            max_budget: int, sweep=None):
+                            max_budget: int, step=None):
     """Render ``budgets[p]`` more samples for every pixel p (budgets: one
     integer per state row, pad rows 0, clipped to [0, max_budget]). Camera
     paths only, like the uniform wavefront; ``iteration`` grows by
     ``max_budget``."""
     return wavefront_render_budget_slab(scene, cfg, camera, state, base_seed,
-                                        budgets, max_budget, 0, sweep)
+                                        budgets, max_budget, 0, step)
 
 
 def _box3(img: torch.Tensor) -> torch.Tensor:
@@ -236,14 +210,12 @@ def render_adaptive(scene, cfg, camera, base_seed=0, spp: int = 64,
     elif cfg.backend == "wavefront_pallas":
         from tpurt_torch.kernels import wavefront_sweep as ws
         uniform_fn = ws.wavefront_render_pallas
-
-        def budget_fn(*args):
-            return wavefront_render_budget(*args, sweep=ws.sweep)
+        budget_fn = functools.partial(wavefront_render_budget,
+                                      step=ws.stepper)
     else:
-        sweep = wavefront.xla_sweep(cfg)
-        uniform_fn = functools.partial(wavefront.wavefront_render,
-                                       sweep=sweep)
-        budget_fn = functools.partial(wavefront_render_budget, sweep=sweep)
+        step = wavefront.xla_stepper(cfg)
+        uniform_fn = functools.partial(wavefront.wavefront_render, step=step)
+        budget_fn = functools.partial(wavefront_render_budget, step=step)
 
     state = init_state(cfg, scene.device)
     state = uniform_fn(scene, cfg, camera, state, base_seed, h)

@@ -4,8 +4,8 @@
 // bvh.cuh), the camera spawn, per-light emission at one wavelength or
 // hero-averaged, next-event estimation over every light, the BSDF
 // scatters with Russian roulette and tpurt's strata cells, the
-// photon-gather BSDF, and the SPPM samples of a launch's pixels
-// (run_pixels), the body of the regen and tile-sync kernels.
+// photon-gather BSDF, and the samples of a launch's pixels (run_pixels),
+// the body of the regen, tile-sync and fused wavefront kernels.
 //
 // Ported from tpurt's component-form kernel code in
 // tpurt/kernels/mega_pallas.py (nee_direct_c, scatter_rr_c,
@@ -178,9 +178,9 @@ __device__ __forceinline__ V3 evaluate_bsdf(V3 wo, V3 wi, V3 n, V3 color,
 
 // The scene as read from the float32 parameter table (layout in
 // device.cuh, packed by tpurt_torch/kernels/mega_regen.py:pack_scene) and
-// the geometry tables (kernels/bvh.py). The pointers are generic: the
-// regen and tile-sync kernels stage the table into shared memory
-// (stage_scene), the wavefront kernels read it where it lies.
+// the geometry tables (kernels/bvh.py). The pointers are generic: every
+// path kernel stages the rows into shared memory where they fit
+// (stage_scene), else reads them where they lie.
 struct Params {
   const float* table;  // the whole table, in global memory
   const float* rows;   // its camera, sphere, material and light rows
@@ -495,12 +495,13 @@ __device__ __forceinline__ uint32_t strata_seed_of(const SampleConsts& c,
 
 // Shared memory of a block of run_pixels, in floats: the CIE table, the
 // staged scene rows (`staged` floats, 0: read from global memory), the
-// lanes' vispoint fields, then the walk stacks (ints).
+// lanes' vispoint fields (`vis` a lane: VIS_FIELDS in the SPPM kernels, 0
+// in the camera-only ones), then the walk stacks (ints).
 constexpr int CIE_FLOATS = (N_CIE * 3 + 3) / 4 * 4;
 constexpr int VIS_FIELDS = 10;  // vis_norm, vis_wo, vis_tp, vis_mat
-inline size_t run_pixels_smem(int staged, const Geom& g, int threads) {
-  return sizeof(float) * (CIE_FLOATS + (staged + 3) / 4 * 4 +
-                          VIS_FIELDS * threads) +
+inline size_t run_pixels_smem(int staged, const Geom& g, int threads,
+                              int vis = VIS_FIELDS) {
+  return sizeof(float) * (CIE_FLOATS + (staged + 3) / 4 * 4 + vis * threads) +
          walk_stack_bytes(g, threads);
 }
 
@@ -558,8 +559,11 @@ inline size_t run_pixels_smem(int staged, const Geom& g, int threads) {
 // the kernels instantiate both and pick one per launch, so a launch
 // without the flags pays nothing for them. GLEAF: every nearest hit takes
 // the G leaf (pallas_mxu_leaf; the regen kernel alone instantiates it).
+// CAM: the camera-path instance of the fused wavefront kernel: no
+// vispoint, no photon phase, no radius; `planes` is then the (P, 3)
+// rgb_sum, row p at planes + 3p, budget-mode aux (2, P) budget and count.
 // Every thread of the block must call it; blockDim.x is a multiple of 32.
-template <bool SAMPLER, bool GLEAF>
+template <bool SAMPLER, bool GLEAF, bool CAM = false>
 __device__ __forceinline__ void run_pixels(float* planes, const Params& prm,
                                            const Sampler& S,
                                            const SampleConsts& c, float* vis,
@@ -599,20 +603,22 @@ __device__ __forceinline__ void run_pixels(float* planes, const Params& prm,
         idx = (int)mine;
         int n_smp = c.spp;
         uint32_t base = (uint32_t)c.it0;
-        radius = c.radius0;
+        if (!CAM) radius = c.radius0;
         if (c.aux) {  // budget mode: the pixel's own budget, count, radius
           n_smp = (int)rintf(c.aux[idx]);
           base = (uint32_t)(int)rintf(c.aux[c.P + idx]);
-          radius = c.aux[2 * c.P + idx];
+          if (!CAM) radius = c.aux[2 * c.P + idx];
         }
         if (n_smp <= 0) {
           idx = -1;  // nothing to render: the planes stay as they are
         } else {
-          const float* pl = planes + idx;
-          vpos = v3(pl[3 * c.P], pl[4 * c.P], pl[5 * c.P]);
+          if (!CAM) {
+            const float* pl = planes + idx;
+            vpos = v3(pl[3 * c.P], pl[4 * c.P], pl[5 * c.P]);
 #pragma unroll
-          for (int f = 0; f < VIS_FIELDS; ++f)
-            myvis[f * vstride] = pl[(6 + f) * c.P];
+            for (int f = 0; f < VIS_FIELDS; ++f)
+              myvis[f * vstride] = pl[(6 + f) * c.P];
+          }
           it = base;
           it_end = base + (uint32_t)n_smp;
           spawn = true;
@@ -630,7 +636,18 @@ __device__ __forceinline__ void run_pixels(float* planes, const Params& prm,
     if (done && go) {
       done = false;
       k += 1;
-      if (k < c.k_photons && sqrtf(vdot(vpos, vpos)) > F(0.001)) {
+      if (CAM) {  // the end of a camera-path sample: its row, in sample order
+        live = false;
+        float* row = planes + 3 * idx;
+        row[0] += rad.x;
+        row[1] += rad.y;
+        row[2] += rad.z;
+        it += 1;
+        if (it < it_end)
+          spawn = true;
+        else
+          idx = -1;
+      } else if (k < c.k_photons && sqrtf(vdot(vpos, vpos)) > F(0.001)) {
         const uint32_t seed = frame_seed(c.base_seed, it);
         rng = photon_stream(seed, (uint32_t)(idx % c.width),
                             (uint32_t)(idx / c.width), (uint32_t)k);
@@ -688,7 +705,7 @@ __device__ __forceinline__ void run_pixels(float* planes, const Params& prm,
       done = true;
       continue;
     }
-    const bool camera = k < 0;
+    const bool camera = CAM || k < 0;
     const V3 wo = vneg(d);
     const float lam_um = lam * F(1e-3);
     const float cauchy_add = F(0.004) / (lam_um * lam_um);
@@ -697,7 +714,7 @@ __device__ __forceinline__ void run_pixels(float* planes, const Params& prm,
       // ---- camera bounce b: the vispoint at the first diffuse hit, then
       // next-event estimation, added at a diffuse hit with one shadow
       // segment per light
-      if (mtype == 0 && !vp_stored) {
+      if (!CAM && mtype == 0 && !vp_stored) {
         vpos = h.loc;
         myvis[0] = h.n.x; myvis[vstride] = h.n.y; myvis[2 * vstride] = h.n.z;
         myvis[3 * vstride] = wo.x; myvis[4 * vstride] = wo.y;
@@ -754,8 +771,10 @@ __device__ __forceinline__ void run_pixels(float* planes, const Params& prm,
 }
 
 // The staged copy of the launch's tables in a block's shared memory `mem`
-// (run_pixels_smem): the CIE table, and the scene rows when staged > 0.
-// Returns the Params of the block; ends with a __syncthreads().
+// (run_pixels_smem with VIS vispoint fields a lane): the CIE table, and
+// the scene rows when staged > 0. Returns the Params of the block; ends
+// with a __syncthreads().
+template <int VIS = VIS_FIELDS>
 __device__ __forceinline__ Params stage_scene(float* mem, const float* table,
                                               const float* cie, int staged,
                                               int n_sph, int n_mat,
@@ -770,32 +789,56 @@ __device__ __forceinline__ Params stage_scene(float* mem, const float* table,
         __ldg(reinterpret_cast<const float4*>(table) + i);
   __syncthreads();
   float* vis = s_rows + 4 * staged4;
-  int* stacks = reinterpret_cast<int*>(vis + VIS_FIELDS * blockDim.x);
+  int* stacks = reinterpret_cast<int*>(vis + VIS * blockDim.x);
   return scene_params(table, staged > 0 ? s_rows : table, s_cie, n_sph,
                       n_mat, n_light, geom, walk_stack(stacks, geom));
 }
 
 // The floats of the table a launch stages into shared memory: the camera,
 // sphere, material and light rows where they fit the budget (a Cornell
-// box is ~100 floats, 64 flat spheres and 16 lights ~1200), else 0 and
-// the kernel reads them from global memory.
+// box is ~100 floats, 64 flat spheres and 16 lights ~1200; every light
+// adds 40), else 0 and the kernel reads them from global memory.
 constexpr int STAGE_MAX_FLOATS = 4096;
 inline int staged_floats(int n_sph, int n_mat, int n_light) {
   const int n = scene_floats(n_sph, n_mat, n_light);
   return n <= STAGE_MAX_FLOATS ? n : 0;
 }
 
-// Launches `kernel` with as many blocks of 128 threads as stay resident
-// (the lanes fetch their pixels), at most one thread a pixel.
-template <class Kernel, class... Args>
-inline int launch_persistent(Kernel kernel, size_t smem, long long n_pix,
-                      cudaStream_t s, Args... args) {
-  const int threads = 128;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The blocks of `threads` threads of `kernel` that stay resident on the
+// current device with `smem` bytes of dynamic shared memory each, in
+// `blocks` (all SMs). The runtime is asked once per kernel, device and
+// size, and the kernel's dynamic shared memory limit is raised only past
+// the largest size it was launched with: a launch's host work is a table
+// lookup.
+inline int resident_blocks(const void* kernel, size_t smem, int threads,
+                           long long* blocks) {
+  struct Entry {
+    const void* kernel;
+    int dev, threads;
+    size_t smem;
+    long long blocks;
+  };
+  static Entry seen[256];
+  static int n_seen = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  size_t limit = 0;
+  for (int i = 0; i < n_seen; ++i) {
+    const Entry& e = seen[i];
+    if (e.kernel != kernel || e.dev != dev) continue;
+    if (e.smem == smem && e.threads == threads) {
+      *blocks = e.blocks;
+      return 0;
+    }
+    if (e.smem > limit) limit = e.smem;
+  }
+  if (smem > limit &&
+      (err = cudaFuncSetAttribute(kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+    return (int)err;
+  int sms = 0, per_sm = 0;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
     return (int)err;
@@ -803,8 +846,22 @@ inline int launch_persistent(Kernel kernel, size_t smem, long long n_pix,
            &per_sm, kernel, threads, smem)) != cudaSuccess)
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+  *blocks = (long long)sms * per_sm;
+  if (n_seen < 256) seen[n_seen++] = {kernel, dev, threads, smem, *blocks};
+  return 0;
+}
+
+// Launches `kernel` with as many blocks of 128 threads as stay resident
+// (the lanes fetch their pixels), at most one thread a pixel.
+template <class Kernel, class... Args>
+inline int launch_persistent(Kernel kernel, size_t smem, long long n_pix,
+                             cudaStream_t s, Args... args) {
+  const int threads = 128;
+  long long resident = 0;
+  const int err = resident_blocks((const void*)kernel, smem, threads,
+                                  &resident);
+  if (err) return err;
   const long long want = (n_pix + threads - 1) / threads;
-  const long long resident = (long long)sms * per_sm;
   const unsigned int blocks =
       (unsigned int)(want < resident ? (want > 0 ? want : 1) : resident);
   kernel<<<blocks, threads, smem, s>>>(args...);
@@ -835,23 +892,24 @@ __device__ __forceinline__ void add_block_rays(unsigned long long rays,
 // 80 registers); PERF.md has the caps that were tried.
 #define TPURT_REGEN_BOUNDS(SAMPLER) __launch_bounds__(128, SAMPLER ? 6 : 8)
 
-// One block of the regen or tile-sync kernel: stage the tables, run the
-// lanes' pixels, add the block's segments to counters[0]; counters[1] is
-// the work counter. `staged`: the floats of `table` to stage into shared
-// memory, 0 where they do not fit (staged_floats).
-template <bool SAMPLER, bool GLEAF>
+// One block of the regen, tile-sync or fused wavefront kernel (CAM): stage
+// the tables, run the lanes' pixels, add the block's segments to
+// counters[0]; counters[1] is the work counter. `staged`: the floats of
+// `table` to stage into shared memory, 0 where they do not fit
+// (staged_floats).
+template <bool SAMPLER, bool GLEAF, bool CAM = false>
 __device__ __forceinline__ void run_block(
     float* planes, const float* table, const float* cie, int staged,
     int n_sph, int n_mat, int n_light, const SampleConsts& c,
     const Sampler& S, const Geom& geom, unsigned long long* counters) {
   extern __shared__ float4 smem4[];
   float* mem = reinterpret_cast<float*>(smem4);
-  const Params prm =
-      stage_scene(mem, table, cie, staged, n_sph, n_mat, n_light, geom);
+  const Params prm = stage_scene<CAM ? 0 : VIS_FIELDS>(
+      mem, table, cie, staged, n_sph, n_mat, n_light, geom);
   unsigned long long rays = 0;
-  run_pixels<SAMPLER, GLEAF>(planes, prm, S, c,
-                             mem + CIE_FLOATS + (staged + 3) / 4 * 4,
-                             counters + 1, rays);
+  run_pixels<SAMPLER, GLEAF, CAM>(planes, prm, S, c,
+                                  mem + CIE_FLOATS + (staged + 3) / 4 * 4,
+                                  counters + 1, rays);
   add_block_rays<4>(rays, counters);
 }
 

@@ -1,34 +1,67 @@
-// The wavefront pool's extend+shade sweep on Hopper: one thread per pool
-// slot takes that slot's path one bounce further.
+// One sweep of the wavefront pool on Hopper, whole: regeneration, one
+// extend+shade bounce and the splat in one launch, with the pool loop's
+// test evaluated on the device, so sweeps follow one another with no host
+// work between them.
 //
 // Replaces tpurt's TPU kernel tpurt/kernels/wavefront_pallas.py:
 // _make_sweep_kernel (launched by sweep_pallas) for sphere and mesh scenes
-// with default flags. Its plain PyTorch version is tpurt_torch/wavefront.py:
-// _sweep, which it matches bit for bit on every output plane.
+// with default flags, together with the XLA stages tpurt keeps around it in
+// its pool loop (_wavefront_pallas_jit's while_loop: _regen_planar, the
+// splat's scatter-adds, the loop test). Its plain PyTorch version is
+// tpurt_torch/wavefront.py:_step (_regen or _regen_budget, then _sweep,
+// then the splat), which it matches bit for bit on every pool plane, the
+// control words and the ray count; rgb_sum and n_samples are added with
+// atomics, so where two paths of one pixel end in one sweep their order,
+// and the last bits of rgb_sum, may differ.
 //
-// A bounce of an active slot: nearest hit; on a miss the path ends
-// (black sky); on a hit, next-event estimation over every light (added at
-// a diffuse hit), scatter + Russian roulette, and the depth gate
-// bounce + 1 < depth. A slot whose path ends is marked terminated and keeps
-// its radiance for the splat; the pool loop (tpurt_torch/wavefront.py)
-// adds it to the image and refills the slot. Every active slot draws
-// 2 * n_light + 4 numbers per sweep, hit or miss, as the plain version
-// does for every lane; inactive slots keep their PCG state. Emission is
-// recomputed from the slot's wavelength each sweep, as in the plain
-// version (tpurt's TPU kernel precomputes it into pool planes at regen).
+// A sweep, in a launch that finds the loop test true (else it returns at
+// once and counts nothing):
+// - regeneration: a dead slot claims the work item of its rank among the
+//   dead slots (the plain version's cumsum), in one of two enumerations:
+//   uniform (work item w -> sample w / n_pix, pixel w % n_pix, as a
+//   (next_sample, next_pix) counter pair) or budget (round-major over
+//   per-pixel budgets: round s = the first with cum[s] > w, pixel
+//   order[w - cum[s-1]]), and becomes a camera ray: frame seed, 2 jitter
+//   draws, the pinhole ray, 1 wavelength draw;
+// - the bounce of every active slot: nearest hit; on a miss the path ends
+//   (black sky); on a hit, next-event estimation over every light (added
+//   at a diffuse hit), scatter + Russian roulette, the depth gate
+//   bounce + 1 < depth. Every active slot draws 2 * n_light + 4 numbers,
+//   hit or miss, as the plain version does for every lane. Emission is
+//   recomputed from the slot's wavelength with the CIE table in shared
+//   memory (tpurt's TPU kernel precomputes it into pool planes at regen);
+// - the splat: a slot whose path ended adds its radiance into
+//   rgb_sum[pix] and 1 into n_samples[pix];
+// - the loop's control words: the next work item, the sweep count, and
+//   the test of the next sweep, (work pending or a slot active) and
+//   sweeps < max_sweeps.
+// A dead slot that claims no work is not read past its active flag, and
+// not written.
 //
-// Pool layout (Q slots): f32 planes (13, Q) o xyz | d xyz | tp rgb |
-// rad rgb | lam; i32 planes (3, Q) pix | bounce | active; the PCG state as
-// int64 (Q,) holding a uint32. Input and output are separate buffers.
+// The rank among dead slots is a scan over the pool, done in the launch:
+// blocks take chunks of 128 slots in ticket order; a chunk publishes its
+// dead count, then its inclusive prefix once the chunks before it are
+// summed (Merrill and Garland's decoupled look-back, a warp reading 32
+// predecessors at a time). The last block to finish closes the sweep: it
+// updates the control words and clears the chunks' words for the next
+// launch.
 //
-// What bounds it: per slot it reads and writes ~80 bytes against one
-// bounce of intersection tests, shadow segments and BSDF math, so compute and
-// divergence (neighbouring slots hold unrelated paths of different
-// materials) rather than bytes; the pool's regeneration keeps every slot
-// busy, which is the point of the wavefront form. This first version does
-// nothing about divergence (no sorting of slots by material). The scene
-// table and the CIE table are read from global memory; each thread's walk
-// stack lies in dynamic shared memory.
+// Pool layout (Q slots), updated in place: f32 planes (13, Q) o xyz |
+// d xyz | tp rgb | rad rgb | lam; i32 planes (3, Q) pix | bounce | active;
+// the PCG state as int64 (Q,) holding a uint32. Control words: int64,
+// wavefront.py CTL_*, then one look-back word a chunk, all zero between
+// launches past C_RAYS.
+//
+// What bounds it: per slot ~80 bytes of planes read and written against
+// one bounce of intersection tests, shadow segments and BSDF math, so
+// compute, divergence (neighbouring slots hold unrelated paths of
+// different materials) and the latency of one dependent chain per slot;
+// launches are short (a 1080p pool sweep is tens of microseconds), so
+// what the host does between them decides the render's time. The design
+// keeps the host out: no PyTorch op and no host read between sweeps (the
+// wrapper reads the test once per batch of launches). The scene rows and
+// the CIE table are staged in shared memory per block; the walk stack lies
+// in dynamic shared memory. Slots are not sorted by material.
 
 #include <cuda_runtime.h>
 
@@ -38,45 +71,201 @@ namespace tpurt {
 
 enum PoolF { PF_O = 0, PF_D = 3, PF_TP = 6, PF_RAD = 9, PF_LAM = 12 };
 enum PoolI { PI_PIX = 0, PI_BOUNCE = 1, PI_ACTIVE = 2 };
+// control words (tpurt_torch/wavefront.py CTL_*): the loop's state, then
+// the launch's scratch, zero between launches
+enum Ctl {
+  C_SWEEPS = 0, C_NEXT = 1, C_NEXT_PIX = 2, C_GO = 3, C_RAYS = 4,
+  C_TICKET = 5, C_DONE = 6, C_DEAD = 7, C_ALIVE = 8, C_WORDS = 9
+};
+constexpr int CHUNK = 128;  // slots a block ranks at once: its threads
+constexpr unsigned long long LB_AGG = 1ull << 62;  // the chunk's own count
+constexpr unsigned long long LB_PRE = 2ull << 62;  // its inclusive prefix
+constexpr unsigned long long LB_VAL = (1ull << 62) - 1;
 
-__global__ void __launch_bounds__(128)
-    sweep_kernel(const float* __restrict__ pf, const int* __restrict__ pi,
-                 const long long* __restrict__ rng_in,
-                 float* __restrict__ pf_out, int* __restrict__ pi_out,
-                 long long* __restrict__ rng_out,
-                 unsigned char* __restrict__ term, long long Q,
-                 const float* __restrict__ table,
-                 const float* __restrict__ cie, int n_sph, int n_mat,
-                 int n_light, int depth, float rr_thresh, Geom geom,
-                 unsigned long long* __restrict__ rays_out) {
-  extern __shared__ int stacks[];
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  unsigned long long rays = 0;
-  if (i < Q) {
-    const float* f = pf + i;
-    float* fo = pf_out + i;
-    V3 o = v3(f[PF_O * Q], f[(PF_O + 1) * Q], f[(PF_O + 2) * Q]);
-    V3 d = v3(f[PF_D * Q], f[(PF_D + 1) * Q], f[(PF_D + 2) * Q]);
-    V3 tp = v3(f[PF_TP * Q], f[(PF_TP + 1) * Q], f[(PF_TP + 2) * Q]);
-    V3 rad = v3(f[PF_RAD * Q], f[(PF_RAD + 1) * Q], f[(PF_RAD + 2) * Q]);
-    const float lam = f[PF_LAM * Q];
-    const int bounce = pi[PI_BOUNCE * Q + i];
-    const bool active = pi[PI_ACTIVE * Q + i] != 0;
-    long long rng_word = rng_in[i];
-    bool cont = false;
-    if (active) {
-      const Params prm = scene_params(table, table, cie, n_sph, n_mat,
-                                      n_light, geom,
-                                      walk_stack(stacks, geom));
-      const Sampler none = {};
-      uint32_t rng = (uint32_t)rng_word;
+// The launch constants of a sweep (tpurt_torch/kernels/wavefront_sweep.py
+// PoolArgs): the pool, the image, and the work enumeration.
+struct PoolWork {
+  long long Q;
+  long long max_sweeps;
+  // uniform: samples per pixel, their first iteration, the slab
+  long long spp, it0, pix_offset, n_valid;
+  // budget (cum not null): pixels in descending-budget order, cumulative
+  // pixels per round (n_cum rounds), each state row's sample count
+  const long long* order;
+  const long long* cum;
+  const long long* base_counts;
+  int n_cum;
+  int width, height, depth;
+  float rr_thresh;
+  unsigned int base_seed;
+};
+
+__device__ __forceinline__ long long ld_volatile(const long long* p) {
+  return *reinterpret_cast<const volatile long long*>(p);
+}
+
+// The exclusive prefix of chunk `chunk`'s dead slots over the chunks
+// before it; publishes the chunk's count `agg` and then its inclusive
+// prefix. Called by the 32 lanes of one warp.
+__device__ __forceinline__ long long look_back(unsigned long long* words,
+                                               long long chunk, int agg) {
+  const unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  volatile unsigned long long* w = words;
+  if (chunk == 0) {
+    if (lane == 0) w[0] = LB_PRE | (unsigned long long)agg;
+    return 0;
+  }
+  if (lane == 0) w[chunk] = LB_AGG | (unsigned long long)agg;
+  long long excl = 0;
+  for (long long j = chunk - 1 - lane;; j -= 32) {
+    unsigned long long s = LB_PRE;  // before chunk 0: a prefix of 0
+    if (j >= 0) {
+      do {
+        s = w[j];
+      } while (s == 0);
+    }
+    // lane 0 reads the nearest chunk: sum up to the nearest prefix
+    const unsigned pre = __ballot_sync(FULL, (s & LB_PRE) != 0);
+    const int stop = pre ? __ffs(pre) - 1 : 31;
+    long long v = (lane <= stop && j >= 0) ? (long long)(s & LB_VAL) : 0;
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(FULL, v, off);
+    excl += __shfl_sync(FULL, v, 0);
+    if (pre) break;
+  }
+  if (lane == 0) w[chunk] = LB_PRE | (unsigned long long)(excl + agg);
+  return excl;
+}
+
+// Round s of budget work item wk: the first s with cum[s] > wk.
+__device__ __forceinline__ int budget_round(const long long* cum, int n,
+                                            long long wk) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (cum[mid] > wk)
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(CHUNK)
+    pool_step_kernel(float* __restrict__ pf, int* __restrict__ pi,
+                     long long* __restrict__ rng_pl, float* rgb, float* ns,
+                     long long* ctl, const float* __restrict__ table,
+                     const float* __restrict__ cie, int staged, int n_sph,
+                     int n_mat, int n_light, PoolWork w, Geom geom) {
+  // the loop test: a launch past the end does nothing
+  if (ld_volatile(ctl + C_GO) == 0) return;
+  extern __shared__ float4 smem4[];
+  __shared__ long long s_chunk, s_excl;
+  __shared__ int s_warp[CHUNK / 32];
+  __shared__ bool s_last;
+  const unsigned FULL = 0xffffffffu;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Params prm = stage_scene<0>(reinterpret_cast<float*>(smem4), table,
+                                    cie, staged, n_sph, n_mat, n_light, geom);
+  const Sampler none = {};
+  const long long Q = w.Q;
+  const long long n_chunks = (Q + CHUNK - 1) / CHUNK;
+  unsigned long long* words =
+      reinterpret_cast<unsigned long long*>(ctl + C_WORDS);
+  const long long next0 = ctl[C_NEXT], pix0 = ctl[C_NEXT_PIX];
+  const long long n_pix = w.n_valid > 1 ? w.n_valid : 1;
+  unsigned long long rays = 0, alive = 0;
+
+  for (;;) {
+    if (tid == 0)
+      s_chunk = (long long)atomicAdd(
+          reinterpret_cast<unsigned long long*>(ctl + C_TICKET), 1ull);
+    __syncthreads();
+    const long long chunk = s_chunk;
+    if (chunk >= n_chunks) break;
+    const long long i = chunk * CHUNK + tid;
+    const bool in = i < Q;
+    const bool was_active = in && pi[PI_ACTIVE * Q + i] != 0;
+    const bool dead = in && !was_active;
+
+    // ---- the slot's rank among the pool's dead slots
+    const unsigned bal = __ballot_sync(FULL, dead);
+    if (lane == 0) s_warp[warp] = __popc(bal);
+    __syncthreads();
+    int before = __popc(bal & ((1u << lane) - 1u)), agg = 0;
+#pragma unroll
+    for (int k = 0; k < CHUNK / 32; ++k) {
+      if (k < warp) before += s_warp[k];
+      agg += s_warp[k];
+    }
+    if (warp == 0) {
+      const long long excl = look_back(words, chunk, agg);
+      if (lane == 0) {
+        s_excl = excl;
+        if (chunk == n_chunks - 1) ctl[C_DEAD] = excl + agg;
+      }
+    }
+    __syncthreads();
+    const long long rank = s_excl + before;
+
+    // ---- regeneration: a dead slot claims work item `rank` of this sweep
+    bool live = was_active;
+    V3 o, d, tp, rad;
+    float lam = 0.0f;
+    int pix = 0, bounce = 0;
+    uint32_t rng = 0;
+    if (dead) {
+      long long row = -1, gpix = 0, it = 0;
+      if (w.cum == nullptr) {
+        const long long p = pix0 + rank;
+        const long long sample = next0 + p / n_pix;
+        if (sample < w.spp && w.n_valid > 0) {
+          row = p % n_pix;
+          gpix = w.pix_offset + row;
+          it = w.it0 + sample;
+        }
+      } else {
+        const long long wk = next0 + rank;
+        if (wk < w.cum[w.n_cum - 1]) {
+          const int s = budget_round(w.cum, w.n_cum, wk);
+          row = w.order[wk - (s > 0 ? w.cum[s - 1] : 0)];
+          gpix = w.pix_offset + row;
+          it = w.base_counts[row] + s;
+        }
+      }
+      if (row >= 0) {
+        live = true;
+        const uint32_t px = (uint32_t)(gpix % w.width);
+        const uint32_t py = (uint32_t)(gpix / w.width);
+        rng = seed_pixels(frame_seed(w.base_seed, (uint32_t)it), px, py);
+        spawn_camera(prm.cam(), px, py, w.width, w.height, rng, o, d, lam);
+        tp = v3(1.0f, 1.0f, 1.0f);
+        rad = v3(0.0f, 0.0f, 0.0f);
+        pix = (int)row;
+        bounce = 0;
+      }
+    } else if (was_active) {
+      const float* f = pf + i;
+      o = v3(f[PF_O * Q], f[(PF_O + 1) * Q], f[(PF_O + 2) * Q]);
+      d = v3(f[PF_D * Q], f[(PF_D + 1) * Q], f[(PF_D + 2) * Q]);
+      tp = v3(f[PF_TP * Q], f[(PF_TP + 1) * Q], f[(PF_TP + 2) * Q]);
+      rad = v3(f[PF_RAD * Q], f[(PF_RAD + 1) * Q], f[(PF_RAD + 2) * Q]);
+      lam = f[PF_LAM * Q];
+      pix = pi[PI_PIX * Q + i];
+      bounce = pi[PI_BOUNCE * Q + i];
+      rng = (uint32_t)rng_pl[i];
+    }
+
+    // ---- the bounce, then the slot's planes and the splat
+    if (live) {
       rays += 1;
-      Hit h = intersect(prm, o, d);
+      bool cont = false;
+      const Hit h = intersect(prm, o, d);
       if (h.t < kHIT()) {
         V3 o2 = o, d2 = d, tp2 = tp;
-        cont = shade_camera_hit(prm, none, false, h, vneg(d), lam, rr_thresh,
-                                rng, o2, d2, tp2, rad, rays) &&
-               bounce + 1 < depth;
+        cont = shade_camera_hit(prm, none, false, h, vneg(d), lam,
+                                w.rr_thresh, rng, o2, d2, tp2, rad, rays) &&
+               bounce + 1 < w.depth;
         if (cont) {
           o = o2;
           d = d2;
@@ -86,42 +275,96 @@ __global__ void __launch_bounds__(128)
         // a miss draws what a hit would: NEE and the scatter + RR step
         for (int k = 0; k < 2 * n_light + 4; ++k) rand_u32(rng);
       }
-      rng_word = (long long)rng;
+      float* f = pf + i;
+      f[PF_O * Q] = o.x; f[(PF_O + 1) * Q] = o.y; f[(PF_O + 2) * Q] = o.z;
+      f[PF_D * Q] = d.x; f[(PF_D + 1) * Q] = d.y; f[(PF_D + 2) * Q] = d.z;
+      f[PF_TP * Q] = tp.x; f[(PF_TP + 1) * Q] = tp.y;
+      f[(PF_TP + 2) * Q] = tp.z;
+      f[PF_RAD * Q] = rad.x; f[(PF_RAD + 1) * Q] = rad.y;
+      f[(PF_RAD + 2) * Q] = rad.z;
+      f[PF_LAM * Q] = lam;
+      pi[PI_PIX * Q + i] = pix;
+      pi[PI_BOUNCE * Q + i] = bounce + 1;
+      pi[PI_ACTIVE * Q + i] = cont ? 1 : 0;
+      rng_pl[i] = (long long)rng;
+      if (cont) {
+        alive += 1;
+      } else {
+        atomicAdd(rgb + 3 * (long long)pix, rad.x);
+        atomicAdd(rgb + 3 * (long long)pix + 1, rad.y);
+        atomicAdd(rgb + 3 * (long long)pix + 2, rad.z);
+        atomicAdd(ns + pix, 1.0f);
+      }
     }
-    fo[PF_O * Q] = o.x; fo[(PF_O + 1) * Q] = o.y; fo[(PF_O + 2) * Q] = o.z;
-    fo[PF_D * Q] = d.x; fo[(PF_D + 1) * Q] = d.y; fo[(PF_D + 2) * Q] = d.z;
-    fo[PF_TP * Q] = tp.x; fo[(PF_TP + 1) * Q] = tp.y;
-    fo[(PF_TP + 2) * Q] = tp.z;
-    fo[PF_RAD * Q] = rad.x; fo[(PF_RAD + 1) * Q] = rad.y;
-    fo[(PF_RAD + 2) * Q] = rad.z;
-    fo[PF_LAM * Q] = lam;
-    pi_out[PI_PIX * Q + i] = pi[PI_PIX * Q + i];
-    pi_out[PI_BOUNCE * Q + i] = bounce + 1;
-    pi_out[PI_ACTIVE * Q + i] = cont ? 1 : 0;
-    rng_out[i] = rng_word;
-    term[i] = (active && !cont) ? 1 : 0;
+    __syncthreads();  // s_chunk, s_warp and s_excl are reused
   }
-  add_block_rays<4>(rays, rays_out);
+
+  // ---- the block's counts; the last block to finish closes the sweep
+  add_block_rays<CHUNK / 32>(rays, reinterpret_cast<unsigned long long*>(
+                                       ctl + C_RAYS));
+  __syncthreads();
+  add_block_rays<CHUNK / 32>(alive, reinterpret_cast<unsigned long long*>(
+                                        ctl + C_ALIVE));
+  if (tid == 0) {
+    __threadfence();
+    s_last = atomicAdd(reinterpret_cast<unsigned long long*>(ctl + C_DONE),
+                       1ull) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  if (tid == 0) {
+    __threadfence();
+    const long long dead_total = ld_volatile(ctl + C_DEAD);
+    const long long n_alive = ld_volatile(ctl + C_ALIVE);
+    const long long sweeps = ctl[C_SWEEPS] + 1;
+    bool pending;
+    if (w.cum == nullptr) {
+      // the dead slots with work: ranks below the items left
+      long long issued = 0;
+      if (w.n_valid > 0 && next0 < w.spp) {
+        const long long left = (w.spp - next0) * n_pix - pix0;
+        issued = dead_total < left ? dead_total : left;
+      }
+      const long long np2 = pix0 + issued;
+      ctl[C_NEXT] = next0 + np2 / n_pix;
+      ctl[C_NEXT_PIX] = np2 % n_pix;
+      pending = ctl[C_NEXT] < w.spp && w.n_valid > 0;
+    } else {
+      const long long total = w.cum[w.n_cum - 1];
+      const long long left = total > next0 ? total - next0 : 0;
+      ctl[C_NEXT] = next0 + (dead_total < left ? dead_total : left);
+      pending = ctl[C_NEXT] < total;
+    }
+    ctl[C_SWEEPS] = sweeps;
+    ctl[C_GO] = ((pending || n_alive > 0) && sweeps < w.max_sweeps) ? 1 : 0;
+    ctl[C_TICKET] = 0;
+    ctl[C_DONE] = 0;
+    ctl[C_DEAD] = 0;
+    ctl[C_ALIVE] = 0;
+  }
+  for (long long j = tid; j < n_chunks; j += CHUNK) words[j] = 0ull;
 }
 
 }  // namespace tpurt
 
-extern "C" int tpurt_wf_sweep_launch(
-    const float* pf, const int* pi, const long long* rng, float* pf_out,
-    int* pi_out, long long* rng_out, unsigned char* term, long long Q,
-    const float* table, int n_sph, int n_mat, int n_light, int depth,
-    float rr_thresh, const tpurt::Geom* geom, unsigned long long* rays,
-    const float* cie, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 128;
-  const unsigned int blocks = (unsigned int)((Q + threads - 1) / threads);
-  const size_t smem = tpurt::walk_stack_bytes(*geom, threads);
-  cudaError_t err = cudaFuncSetAttribute(
-      tpurt::sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  tpurt::sweep_kernel<<<blocks, threads, smem, s>>>(
-      pf, pi, rng, pf_out, pi_out, rng_out, term, Q, table, cie, n_sph, n_mat,
-      n_light, depth, rr_thresh, *geom, rays);
+extern "C" int tpurt_wf_step_launch(float* pf, int* pi, long long* rng,
+                                    float* rgb, float* ns, long long* ctl,
+                                    const float* table, int n_sph, int n_mat,
+                                    int n_light, const tpurt::PoolWork* work,
+                                    const tpurt::Geom* geom, const float* cie,
+                                    void* stream) {
+  using namespace tpurt;
+  const int staged = staged_floats(n_sph, n_mat, n_light);
+  const size_t smem = run_pixels_smem(staged, *geom, CHUNK, 0);
+  long long resident = 0;
+  const int err = resident_blocks((const void*)pool_step_kernel, smem, CHUNK,
+                                  &resident);
+  if (err) return err;
+  const long long n_chunks = (work->Q + CHUNK - 1) / CHUNK;
+  const unsigned int blocks =
+      (unsigned int)(n_chunks < resident ? n_chunks : resident);
+  pool_step_kernel<<<blocks, CHUNK, smem, static_cast<cudaStream_t>(stream)>>>(
+      pf, pi, rng, rgb, ns, ctl, table, cie, staged, n_sph, n_mat, n_light,
+      *work, *geom);
   return (int)cudaGetLastError();
 }

@@ -67,31 +67,30 @@ _SIGNATURES = {
         _P,             # CIE table (81, 3) f32 on the device
         _P,             # stream
     ],
-    "tpurt_wf_sweep_launch": [
-        _P, _P, _P,     # pool in: f32 (13, Q), i32 (3, Q), rng i64 (Q,)
-        _P, _P, _P,     # pool out, the same layout
-        _P,             # terminated mask, bool (Q,)
-        ctypes.c_longlong,  # Q
+    "tpurt_wf_step_launch": [
+        _P, _P, _P,     # pool f32 (13, Q), i32 (3, Q), rng i64 (Q,), in place
+        _P, _P,         # rgb_sum (P, 3), n_samples (P,) f32, added to
+        _P,             # control words i64 (wavefront.CTL_WORDS + chunks)
         _P,             # scene table f32 (device)
         _I, _I, _I,     # n_spheres, n_materials, n_lights
-        _I, _F,         # depth, rr_threshold
+        _P,             # launch constants: a wavefront_sweep.PoolArgs
         _P,             # geometry tables: a bvh.GeomArgs on the host
-        _P,             # rays: one uint64 on the device, added to
         _P,             # CIE table (81, 3) f32 on the device
         _P,             # stream
     ],
     "tpurt_wf_fused_launch": [
         _P,             # rgb_sum (P, 3) f32, updated in place
-        ctypes.c_longlong,  # pixels to render (the first n rows)
+        ctypes.c_longlong,  # P, the rows of rgb_sum (aux's stride)
         _I, _I,         # width, height
         _P,             # scene table f32 (device)
         _I, _I, _I,     # n_spheres, n_materials, n_lights
         _U,             # base_seed
         _I, _I,         # spp, iteration (uniform mode)
-        _P, _P,         # budgets, base counts i32 (n,): budget mode, or NULL
+        _P,             # aux (2, P) f32 budget, count: budget mode, or NULL
         _I, _F,         # depth, rr_threshold
         _P,             # geometry tables: a bvh.GeomArgs on the host
-        _P,             # rays: one uint64 on the device, added to
+        _P,             # two uint64 on the device: rays, added to; the work
+                        # counter, zeroed on the stream before the launch
         _P,             # CIE table (81, 3) f32 on the device
         _P,             # stream
     ],

@@ -39,7 +39,6 @@ BUDGET_LAUNCHES = 0
 MXU_LAUNCHES = 0
 
 N_CHANNELS = 16
-MAX_LIGHTS = 16       # the wrappers' cap; no kernel array depends on it
 CAM_FLOATS = 12
 MAT_STRIDE = 8
 LIGHT_STRIDE = 40
@@ -115,11 +114,10 @@ def scene_table(fs, cfg, camera, device):
     """The kernels' inputs on ``device``: the parameter table
     (``pack_scene`` with the spheres of the flat sweep) and the geometry
     tables (``bvh.geometry``). Everything but the camera rows is built
-    once per frozen scene, knob set and hero count. Raises past the
-    kernels' light limit. Returns (table, geometry)."""
-    if len(fs.lights) > MAX_LIGHTS:
-        raise NotImplementedError(f"the kernels take at most {MAX_LIGHTS} "
-                                  f"lights")
+    once per frozen scene, knob set and hero count; a light is a row, so
+    the kernels take any number (past the shared-memory budget of
+    ``path.cuh staged_floats`` they read the rows from global memory).
+    Returns (table, geometry)."""
     geo = bvh.geometry(fs, cfg)
     key = ("table", cfg.k_photons, integrate.hero_count(cfg),
            bvh.knobs(cfg))

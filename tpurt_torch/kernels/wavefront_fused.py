@@ -1,6 +1,7 @@
 """Wrapper of the fused wavefront kernel (``csrc/wavefront_fused.cu``),
-``backend="wavefront_fused"``: one thread per pixel renders that pixel's
-camera-path samples back to back and adds them into its rgb_sum row.
+``backend="wavefront_fused"``: persistent blocks whose lanes fetch pixels
+from a device counter and render each pixel's camera-path samples, adding
+them into its rgb_sum row (``path.cuh run_pixels``, camera-only).
 
 Two modes, as tpurt's kernel has: uniform (every pixel ``spp`` samples
 from the state's iteration) and budget (pixel p ``budgets[p]`` samples from
@@ -8,7 +9,8 @@ its own count n_samples[p]). On a CUDA state each launches the kernel or
 raises; on a CPU state each runs the kernel's plain version, the pool
 renderer ``wavefront.wavefront_render`` or
 ``adaptive.wavefront_render_budget``, which draws the same streams.
-``LAUNCHES`` counts kernel launches only.
+Uniform launches keep a warp's lanes in lockstep, budget launches let them
+run free (PERF.md has the A/B). ``LAUNCHES`` counts kernel launches only.
 """
 
 from __future__ import annotations
@@ -21,15 +23,16 @@ import torch
 from tpurt_torch import adaptive, wavefront
 from tpurt_torch.config import check_slice
 from tpurt_torch.kernels import build, bvh
-from tpurt_torch.kernels.mega_regen import cie_table, scene_table
+from tpurt_torch.kernels.mega_regen import (cie_table, launch_counters,
+                                              scene_table)
 from tpurt_torch.scene import freeze_scene
 
 LAUNCHES = 0
 
 
-def _launch(scene, cfg, camera, state, base_seed, spp: int, budgets=None,
-            base_counts=None):
-    """The kernel on a copy of the state's rgb_sum. Returns (rgb_sum, rays
+def _launch(scene, cfg, camera, state, base_seed, spp: int, aux=None):
+    """The kernel on a copy of the state's rgb_sum; ``aux``: the (2, P)
+    float32 budgets and counts of budget mode. Returns (rgb_sum, rays
     int64 scalar)."""
     global LAUNCHES
     dev = state.device
@@ -46,20 +49,19 @@ def _launch(scene, cfg, camera, state, base_seed, spp: int, budgets=None,
     args = geo.args()
     assert args.gmat is None    # tpurt never runs its G leaf here
     lib = build.library()
-    rays = torch.zeros((), dtype=torch.int64, device=dev)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    counters = launch_counters(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.tpurt_wf_fused_launch(
-        rgb.data_ptr(), cfg.n_pixels, cfg.width, cfg.height, table.data_ptr(),
-        len(geo.flat_rows), len(fs.materials), len(fs.lights),
-        int(base_seed) & 0xFFFFFFFF, spp, state.iteration, ptr(budgets),
-        ptr(base_counts), cfg.depth, cfg.rr_threshold,
-        ctypes.byref(args), rays.data_ptr(),
+        rgb.data_ptr(), rgb.shape[0], cfg.width, cfg.height,
+        table.data_ptr(), len(geo.flat_rows), len(fs.materials),
+        len(fs.lights), int(base_seed) & 0xFFFFFFFF, spp, state.iteration,
+        None if aux is None else aux.data_ptr(), cfg.depth,
+        cfg.rr_threshold, ctypes.byref(args), counters.data_ptr(),
         cie_table(dev).data_ptr(), stream)
     build.check_launch(lib, err, "tpurt_wf_fused_launch")
     LAUNCHES += 1
     bvh.count_walk(geo)
-    return rgb, rays
+    return rgb, counters[0]
 
 
 def _check(scene, cfg, state) -> None:
@@ -100,10 +102,10 @@ def wavefront_render_budget_fused(scene, cfg, camera, state, base_seed,
         return adaptive.wavefront_render_budget(scene, cfg, camera, state,
                                                 base_seed, budgets,
                                                 max_budget)
-    b32 = budgets.to(torch.int32).contiguous()
-    base = state.n_samples.to(torch.int32).contiguous()
-    rgb, rays = _launch(scene, cfg, camera, state, base_seed, 0, b32, base)
+    aux = torch.stack([budgets.to(torch.float32),
+                       state.n_samples.to(torch.float32)]).contiguous()
+    rgb, rays = _launch(scene, cfg, camera, state, base_seed, 0, aux)
     return dataclasses.replace(
-        state, rgb_sum=rgb, n_samples=state.n_samples + b32.float(),
+        state, rgb_sum=rgb, n_samples=state.n_samples + aux[0],
         iteration=state.iteration + int(max_budget),
         rays=state.rays + rays if cfg.count_rays else state.rays)

@@ -1,13 +1,20 @@
-"""Wrapper of the sweep kernel (``csrc/wavefront_sweep.cu``): one
-extend+shade bounce of every slot of the wavefront pool, and the
-``backend="wavefront_pallas"`` renderer that drives the pool with it.
+"""Wrapper of the sweep kernel (``csrc/wavefront_sweep.cu``): one whole
+sweep of the wavefront pool in one launch (regeneration, one extend+shade
+bounce of every active slot, the splat, the loop's control words and
+test), and the ``backend="wavefront_pallas"`` renderer that drives the
+pool with it.
 
-On a CUDA tensor ``sweep`` launches the kernel or raises; on a CPU tensor
-it runs the kernel's plain version, ``wavefront._sweep``, which has the
-same contract. ``LAUNCHES`` counts kernel launches only: one per sweep.
-The pool loop around it (regeneration by cumsum ranking, the splat by
-``index_add_``) is PyTorch on the device, as tpurt keeps it in XLA around
-its TPU kernel.
+``stepper`` is the step hook of ``wavefront.wavefront_render_slab`` and
+``adaptive.wavefront_render_budget_slab``: on a CUDA pool each sweep
+launches the kernel or raises; on a CPU pool it runs the kernel's plain
+version, ``wavefront._step``, which has the same contract. The scene
+table, the geometry tables and the launch constants are built once per
+render, at the first sweep, so a sweep is one launch and no PyTorch op.
+``LAUNCHES`` counts kernel launches only: one per sweep enqueued,
+including those past the end of the loop, which return at once.
+``SWEEP_BATCH`` sweeps are enqueued per read of the loop test: at 1080p,
+1 spp, 16 is within 2-12% of 32 and costs at most 15 empty launches at the
+end of a render (PERF.md has the measurement).
 """
 
 from __future__ import annotations
@@ -21,6 +28,18 @@ from tpurt_torch.kernels import build, bvh
 from tpurt_torch.kernels.mega_regen import cie_table, scene_table
 
 LAUNCHES = 0
+SWEEP_BATCH = 16
+
+
+class PoolArgs(ctypes.Structure):
+    """csrc/wavefront_sweep.cu ``struct PoolWork``, passed by address."""
+    _fields_ = [(name, ctypes.c_longlong) for name in (
+        "Q", "max_sweeps", "spp", "it0", "pix_offset", "n_valid")] + [
+        (name, ctypes.c_void_p) for name in (
+            "order", "cum", "base_counts")] + [
+        (name, ctypes.c_int) for name in (
+            "n_cum", "width", "height", "depth")] + [
+        ("rr_thresh", ctypes.c_float), ("base_seed", ctypes.c_uint)]
 
 
 def _check_pool(pool: wavefront.WavefrontPool) -> None:
@@ -37,40 +56,93 @@ def _check_pool(pool: wavefront.WavefrontPool) -> None:
         raise ValueError("pool planes on different devices")
 
 
-def sweep(fs, cfg, pool: wavefront.WavefrontPool):
-    """One sweep over ``pool`` (left unchanged). Returns (new pool,
-    terminated (Q,) bool, traced segments as an int64 scalar on the pool's
-    device), as ``wavefront._sweep``."""
-    global LAUNCHES
+def _check_step(pool, rgb, ns, ctl) -> None:
+    """What the kernel updates in place: contiguous, on the pool's CUDA
+    device, of the layouts of ``wavefront._step``."""
     _check_pool(pool)
-    dev = pool.pf.device
-    if dev.type == "cpu":
-        return wavefront._sweep(fs, cfg, pool)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    pf, pi, rng = (t.contiguous() for t in (pool.pf, pool.pi, pool.rng))
-    q = rng.shape[0]
-    table, geo = scene_table(fs, cfg, None, dev)
-    args = geo.args()
-    assert args.gmat is None    # tpurt never runs its G leaf here
-    lib = build.library()
-    out = wavefront.WavefrontPool(pf=torch.empty_like(pf),
-                                  pi=torch.empty_like(pi),
-                                  rng=torch.empty_like(rng))
-    term = torch.empty((q,), dtype=torch.bool, device=dev)
-    rays = torch.zeros((), dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.tpurt_wf_sweep_launch(
-        pf.data_ptr(), pi.data_ptr(), rng.data_ptr(), out.pf.data_ptr(),
-        out.pi.data_ptr(), out.rng.data_ptr(), term.data_ptr(), q,
-        table.data_ptr(), len(geo.flat_rows), len(fs.materials),
-        len(fs.lights), cfg.depth, cfg.rr_threshold,
-        ctypes.byref(args), rays.data_ptr(),
-        cie_table(dev).data_ptr(), stream)
-    build.check_launch(lib, err, "tpurt_wf_sweep_launch")
-    LAUNCHES += 1
-    bvh.count_walk(geo)
-    return out, term, rays
+    q = pool.rng.shape[0]
+    rows = rgb.shape[0]
+    words = wavefront.CTL_WORDS + -(-q // wavefront.POOL_CHUNK)
+    if rgb.dtype != torch.float32 or rgb.shape != (rows, 3) \
+            or ns.dtype != torch.float32 or ns.shape != (rows,) \
+            or ctl.dtype != torch.int64 or ctl.shape != (words,):
+        raise ValueError(f"rgb_sum must be f32 (P, 3), n_samples f32 (P,), "
+                         f"ctl i64 ({words},); got {tuple(rgb.shape)} "
+                         f"{rgb.dtype}, {tuple(ns.shape)} {ns.dtype}, "
+                         f"{tuple(ctl.shape)} {ctl.dtype}")
+    tensors = (pool.pf, pool.pi, pool.rng, rgb, ns, ctl)
+    if any(t.device != pool.pf.device for t in tensors):
+        raise ValueError("pool, image and control words on different "
+                         "devices")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the sweep kernel updates its tensors in place: "
+                         "they must be contiguous")
+
+
+def stepper(fs, cfg, work: wavefront.PoolWork,
+            batch: int = SWEEP_BATCH) -> wavefront.PoolStep:
+    """The step hook of the kernel, as ``wavefront.plain_stepper``: one
+    sweep, ``(pool, rgb_sum, n_samples, ctl) -> the same``, ``batch``
+    sweeps per read of the loop test. On CUDA tensors the kernel updates
+    them in place and the call returns them."""
+    plain = wavefront.plain_stepper(fs, cfg, work).sweep
+    launch = {}     # built at the first sweep on the card
+
+    def step(pool, rgb, ns, ctl):
+        global LAUNCHES
+        dev = pool.pf.device
+        if dev.type == "cpu":
+            return plain(pool, rgb, ns, ctl)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        if not launch:
+            launch.update(_prepare(fs, cfg, work, pool.rng.shape[0], dev))
+        # a loop passes back what the last sweep returned: checked once
+        tensors = (pool.pf, pool.pi, pool.rng, rgb, ns, ctl)
+        last = launch.get("last")
+        if last is None or any(a is not b for a, b in zip(tensors, last)):
+            _check_step(pool, rgb, ns, ctl)
+            launch["last"] = tensors
+            launch["ptrs"] = tuple(t.data_ptr() for t in tensors)
+        err = launch["lib"].tpurt_wf_step_launch(
+            *launch["ptrs"], launch["table"], launch["n_sph"],
+            launch["n_mat"], launch["n_light"], launch["args_ref"],
+            launch["geom_ref"], launch["cie"],
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check_launch(launch["lib"], err, "tpurt_wf_step_launch")
+        LAUNCHES += 1
+        bvh.count_walk(launch["geo"])
+        return pool, rgb, ns, ctl
+
+    return wavefront.PoolStep(step, batch)
+
+
+def _prepare(fs, cfg, work: wavefront.PoolWork, q: int, dev) -> dict:
+    """What every sweep of one render launches with: the tables on the
+    device, kept alive here, and the launch constants."""
+    table, geo = scene_table(fs, cfg, work.camera, dev)
+    geom = geo.args()
+    assert geom.gmat is None    # tpurt never runs its G leaf here
+    keep = [table]
+    ptrs = {}
+    for name in ("order", "cum", "base_counts"):
+        t = getattr(work, name)
+        if t is not None:
+            t = t.to(dev, torch.int64).contiguous()
+            keep.append(t)
+        ptrs[name] = None if t is None else t.data_ptr()
+    args = PoolArgs(
+        Q=q, max_sweeps=cfg.wf_max_sweeps, spp=work.spp, it0=work.it0,
+        pix_offset=work.pix_offset, n_valid=work.n_valid,
+        n_cum=0 if work.cum is None else work.cum.shape[0],
+        width=cfg.width, height=cfg.height, depth=cfg.depth,
+        rr_thresh=cfg.rr_threshold, base_seed=work.base_seed & 0xFFFFFFFF,
+        **ptrs)
+    return dict(lib=build.library(), table=table.data_ptr(), keep=keep,
+                geo=geo, geom=geom, args=args, geom_ref=ctypes.byref(geom),
+                args_ref=ctypes.byref(args), n_sph=len(geo.flat_rows),
+                n_mat=len(fs.materials), n_light=len(fs.lights),
+                cie=cie_table(dev).data_ptr())
 
 
 def wavefront_render_pallas(scene, cfg, camera, state, base_seed, spp: int):
@@ -79,4 +151,4 @@ def wavefront_render_pallas(scene, cfg, camera, state, base_seed, spp: int):
     counts as ``wavefront.wavefront_render``."""
     return wavefront.wavefront_render_slab(scene, cfg, camera, state,
                                            base_seed, spp, 0, cfg.n_pixels,
-                                           sweep=sweep)
+                                           step=stepper)

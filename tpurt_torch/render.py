@@ -133,7 +133,7 @@ def _wavefront_dispatch(cfg: RenderConfig):
     """The renderer of a wavefront backend."""
     if cfg.backend == "wavefront":
         return functools.partial(wavefront.wavefront_render,
-                                 sweep=wavefront.xla_sweep(cfg))
+                                 step=wavefront.xla_stepper(cfg))
     if cfg.backend == "wavefront_pallas":
         return wavefront_sweep.wavefront_render_pallas
     return wavefront_fused.wavefront_render_fused

@@ -400,6 +400,47 @@ def instanced_scene(n_instances: int = 256, seed: int = 7,
     return build_scene(materials, spheres, [], lights, device=device)
 
 
+def many_light_scene(n_lights: int = 16, seed: int = 11,
+                     device=None) -> Scene:
+    """Cornell-style room lit by a grid of ``n_lights`` small area lights
+    of very unequal power, with two sphere props (tpurt's many-light
+    stress scene). Next-event estimation goes over every light, so its cost
+    grows with ``n_lights``; past the kernels' shared-memory budget the
+    light rows are read from global memory."""
+    rng = np.random.default_rng(seed)
+    materials = [
+        Material.diffuse((0.73, 0.73, 0.73)),
+        Material.diffuse((0.65, 0.05, 0.05)),
+        Material.diffuse((0.12, 0.45, 0.15)),
+        Material.dielectric(1.5, 0.0),
+    ]
+    R = 1000.0
+    box = 5.0
+    spheres = [
+        Sphere(0, R, (0.0, -R, 0.0)),
+        Sphere(0, R, (0.0, R + 2 * box, 0.0)),
+        Sphere(0, R, (0.0, box, R + box)),
+        Sphere(1, R, (-R - box, box, 0.0)),
+        Sphere(2, R, (R + box, box, 0.0)),
+        Sphere(3, 1.5, (-1.8, 1.5, 1.0)),
+        Sphere(0, 1.2, (1.8, 1.2, -0.5)),
+    ]
+    side = int(math.ceil(math.sqrt(n_lights)))
+    lights = []
+    for i in range(n_lights):
+        gx, gz = i % side, i // side
+        x = (gx + 0.5) / side * 2 * (box - 0.5) - (box - 0.5)
+        z = (gz + 0.5) / side * 2 * (box - 0.5) - (box - 0.5)
+        # log-uniform power spread
+        inten = float(10.0 ** rng.uniform(-1.0, 1.0))
+        col = tuple(float(c) for c in rng.uniform(0.3, 1.0, 3))
+        lights.append(Light.square_area(
+            [x, 2 * box - 0.01, z], [0.0, -1.0, 0.0],
+            float(rng.uniform(0.2, 0.6)), col, inten,
+            float(rng.uniform(2500.0, 6500.0))))
+    return build_scene(materials, spheres, (), lights, device=device)
+
+
 def _torus(nu: int, nv: int):
     """The 2*nu*nv-triangle torus of tpurt's mesh presets, outward
     winding: vertices (nu*nv, 3) and faces (2*nu*nv, 3)."""

@@ -1,31 +1,39 @@
 """The wavefront path tracer of the port (``tpurt/wavefront.py``): a
 persistent pool of Q ray slots, refilled by regeneration.
 
-Each sweep: dead slots claim the next pending (pixel, sample) work items
-and become fresh camera rays (``_regen``/``_issue``); every active slot
-takes one bounce (``_sweep``: nearest hit, NEE over every light,
-scatter + Russian roulette, the depth gate); slots whose paths ended add
-their radiance into the image (the splat, ``index_add_``). The loop ends
-when no work is pending and the pool has drained, or after
-``cfg.wf_max_sweeps`` sweeps; the loop test reads one flag from the device
-per sweep.
+Each sweep (``_step``): dead slots claim the next pending work items and
+become fresh camera rays (``_claim``: ``_regen`` for the uniform
+(pixel, sample) enumeration, ``_regen_budget`` for adaptive sampling's
+round-major one); every active slot takes one bounce (``_sweep``: nearest
+hit, NEE over every light, scatter + Russian roulette, the depth gate);
+slots whose paths ended add their radiance into the image (the splat);
+then the loop's control words advance and the loop test of the next sweep
+is evaluated, all on the device. The loop ends when no work is pending and
+the pool has drained, or after ``cfg.wf_max_sweeps`` sweeps. The host
+enqueues sweeps in batches and reads the test once per batch
+(``_pool_live``); a sweep past the end changes nothing, so the result is
+the one of a read per sweep. The step hook sets the batch: one sweep for
+the plain step, whose sweeps past the end would each cost a whole sweep,
+and ``kernels/wavefront_sweep.py SWEEP_BATCH`` for the kernel, whose
+launches past the end return at once.
 
 Camera paths only: the photon pass and the vispoints are left as they are
 (``enable_photons`` is ignored, as in tpurt's wavefront tracers). Work
 items are the same per-(pixel, sample) PCG streams as every other backend,
 so ray counts equal the progressive renderer's with photons off.
 
-This module is ``backend="wavefront"``. ``_sweep`` is also the plain
-version of the sweep kernel (``kernels/wavefront_sweep.py``, which drives
-this pool through ``wavefront_render_slab(..., sweep=...)``), and
-``wavefront_render`` the plain version of the fused kernel
-(``kernels/wavefront_fused.py``).
+This module is ``backend="wavefront"``. ``_step`` is also the plain
+version of the sweep kernel (``kernels/wavefront_sweep.py``, a whole sweep
+in one launch, which drives this pool through
+``wavefront_render_slab(..., step=...)``), and ``wavefront_render`` the
+plain version of the fused kernel (``kernels/wavefront_fused.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -46,6 +54,14 @@ from tpurt_torch.scene import freeze_scene
 O, D, TP, RAD, LAM = 0, 3, 6, 9, 12
 N_F = 13
 PIX, BOUNCE, ACTIVE = 0, 1, 2
+# The pool loop's control words, int64 on the pool's device: sweeps taken,
+# the next work item (next_sample, or next_work in budget mode), next_pix
+# (uniform mode), the loop test of the next sweep (0/1), traced segments.
+# The sweep kernel's words for one launch follow, zero between launches:
+# up to CTL_WORDS, then one per POOL_CHUNK slots.
+SWEEPS, NEXT, NEXT_PIX, GO, RAYS = 0, 1, 2, 3, 4
+CTL_WORDS = 9
+POOL_CHUNK = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +85,43 @@ def new_pool(q: int, device) -> WavefrontPool:
         pf=torch.zeros((N_F, q), dtype=torch.float32, device=device),
         pi=torch.zeros((3, q), dtype=torch.int32, device=device),
         rng=torch.zeros((q,), dtype=torch.int64, device=device))
+
+
+def new_ctl(q: int, go, device) -> torch.Tensor:
+    """The control words of a fresh loop over a pool of q slots: nothing
+    claimed, no sweep taken, the loop test ``go`` (a bool or a device
+    bool)."""
+    ctl = torch.zeros((CTL_WORDS + -(-q // POOL_CHUNK),), dtype=torch.int64,
+                      device=device)
+    ctl[GO] = go
+    return ctl
+
+
+@dataclasses.dataclass(frozen=True)
+class PoolWork:
+    """The work items of a pool render and how a claimed one becomes a
+    camera ray. Uniform (``cum`` None): pixel-major (sample, pixel) items,
+    ``spp`` samples for each of the slab's ``n_valid`` rows from iteration
+    ``it0``. Budget: round-major items over per-pixel budgets
+    (``adaptive._round_major_tables``: ``order``, ``cum``), pixel p's
+    round-s sample from iteration ``base_counts[p] + s``. The RNG and the
+    camera take the global pixel ``pix_offset + row``."""
+    camera: object
+    base_seed: int
+    pix_offset: int = 0
+    spp: int = 0
+    it0: int = 0
+    n_valid: int = 0
+    order: torch.Tensor | None = None
+    cum: torch.Tensor | None = None
+    base_counts: torch.Tensor | None = None
+
+    def pending(self, nxt: torch.Tensor) -> torch.Tensor:
+        """Whether work is left from item counter ``nxt`` (a device
+        bool)."""
+        if self.cum is None:
+            return (nxt < self.spp) & (self.n_valid > 0)
+        return nxt < self.cum[-1]
 
 
 def reject_camera_strata(cfg) -> None:
@@ -185,37 +238,130 @@ def _sweep(fs, cfg, pool: WavefrontPool, tri: TriMode = EXACT):
             terminated, rays)
 
 
-def xla_sweep(cfg):
-    """The sweep of tpurt's XLA pool (backend "wavefront", and "xla" under
-    ``render_adaptive``): ``_sweep``, through the per-ray walk of the
-    Scene's BVH under ``use_bvh``."""
-    return functools.partial(_sweep, tri=BVH) if cfg.use_bvh else _sweep
+def _regen_budget(cfg, camera, pool, next_work, base_seed: int, base_counts,
+                  order, cum, total, pix_offset: int):
+    """Refill dead slots from the round-major budgeted work stream; pixel
+    p's round-s sample draws from iteration base_counts[p] + s. Returns
+    (pool, next_work)."""
+    dead = ~pool.active
+    w = next_work + torch.cumsum(dead, 0) - 1
+    rnd = torch.searchsorted(cum, w, right=True)
+    s_safe = rnd.clamp_max(cum.shape[0] - 1)
+    start = torch.where(rnd > 0, cum[(s_safe - 1).clamp_min(0)], 0)
+    r = w - start
+    have_work = dead & (w < total)
+    pix = order[r.clamp(0, order.shape[0] - 1)]
+    pool = _issue(cfg, camera, pool, pix, pix_offset + pix,
+                  base_counts[pix] + s_safe, have_work, base_seed)
+    return pool, next_work + have_work.sum()
 
 
-def _drain(fs, cfg, state, regen, pending, sweep):
+def _claim(cfg, work: PoolWork, pool: WavefrontPool, ctl: torch.Tensor):
+    """The regeneration of a sweep: dead slots claim the next work items
+    of ``work`` from the counters in ``ctl``. Returns (pool, next item,
+    next_pix)."""
+    if work.cum is None:
+        return _regen(cfg, work.camera, pool, ctl[NEXT], ctl[NEXT_PIX],
+                      work.spp, work.base_seed, work.it0, work.pix_offset,
+                      work.n_valid)
+    pool, nxt = _regen_budget(cfg, work.camera, pool, ctl[NEXT],
+                              work.base_seed, work.base_counts, work.order,
+                              work.cum, work.cum[-1], work.pix_offset)
+    return pool, nxt, ctl[NEXT_PIX]
+
+
+def _step(fs, cfg, work: PoolWork, pool: WavefrontPool, rgb: torch.Tensor,
+          ns: torch.Tensor, ctl: torch.Tensor, tri: TriMode = EXACT):
+    """One sweep of the pool loop, whole: the plain version of the sweep
+    kernel. If the loop test ``ctl[GO]`` holds: ``_claim``, ``_sweep``
+    (``tri``: the nearest hit's triangle test), the splat of the slots
+    whose paths ended into rgb_sum (P, 3) and n_samples (P,), then the
+    control words: the counters, one more sweep, the segments, and the
+    test of the next sweep, (work pending or a slot active) and sweeps <
+    cfg.wf_max_sweeps. Else everything stays as it is. A dead slot that
+    claims no work keeps its planes. The splat adds into ``rgb`` and ``ns``
+    in place. Returns (pool, rgb_sum, n_samples, ctl); the kernel updates
+    all of its arguments in place and returns them."""
+    go = ctl[GO] != 0
+    claimed, nxt, nxt_pix = _claim(cfg, work, pool, ctl)
+    swept, term, rays = _sweep(fs, cfg, claimed, tri)
+    # _sweep counts a bounce for every slot, as tpurt's sweep does
+    bounce = torch.where(claimed.active, swept.pi[BOUNCE],
+                         claimed.pi[BOUNCE])
+    swept = WavefrontPool(
+        pf=swept.pf, rng=swept.rng,
+        pi=torch.stack([swept.pi[PIX], bounce, swept.pi[ACTIVE]]))
+    pix = swept.pi[PIX].long()
+    ended = term & go
+    rgb.index_add_(0, pix, torch.where(ended[:, None],
+                                       swept.pf[RAD:RAD + 3].T, 0.0))
+    ns.index_add_(0, pix, ended.to(torch.float32))
+    sweeps = ctl[SWEEPS] + 1
+    ctl_new = ctl.clone()
+    ctl_new[SWEEPS] = sweeps
+    ctl_new[NEXT] = nxt
+    ctl_new[NEXT_PIX] = nxt_pix
+    ctl_new[GO] = ((work.pending(nxt) | swept.active.any())
+                   & (sweeps < cfg.wf_max_sweeps))
+    ctl_new[RAYS] = ctl[RAYS] + rays
+    keep = lambda new, old: torch.where(go, new, old)  # noqa: E731
+    return (WavefrontPool(pf=keep(swept.pf, pool.pf),
+                          pi=keep(swept.pi, pool.pi),
+                          rng=keep(swept.rng, pool.rng)),
+            rgb, ns, keep(ctl_new, ctl))
+
+
+class PoolStep(NamedTuple):
+    """What a step hook gives ``_drain``: ``sweep``, one sweep, ``(pool,
+    rgb_sum, n_samples, ctl) -> the same`` as ``_step``; ``batch``, the
+    sweeps enqueued per read of the loop test."""
+    sweep: Callable
+    batch: int
+
+
+def plain_stepper(fs, cfg, work: PoolWork, tri: TriMode = EXACT,
+                  batch: int = 1) -> PoolStep:
+    """The step hook of the plain pool, (fs, cfg, work) -> ``_step``, one
+    read of the loop test per ``batch`` sweeps."""
+    return PoolStep(functools.partial(_step, fs, cfg, work, tri=tri), batch)
+
+
+def xla_stepper(cfg):
+    """The step hook of tpurt's XLA pool (backend "wavefront", and "xla"
+    under ``render_adaptive``): ``plain_stepper``, through the per-ray walk
+    of the Scene's BVH under ``use_bvh``."""
+    if cfg.use_bvh:
+        return functools.partial(plain_stepper, tri=BVH)
+    return plain_stepper
+
+
+def _pool_live(ctl: torch.Tensor) -> bool:
+    """The loop test of the next sweep: the one read of the device per
+    batch of sweeps."""
+    return bool(ctl[GO])
+
+
+def _drain(fs, cfg, state, work: PoolWork, step):
     """The sweep loop shared by the uniform and the budget renderers, over
-    a pool of cfg.wf_pool slots: while work is ``pending()`` (a device
-    bool) or a slot is active, and at most cfg.wf_max_sweeps times,
-    ``regen(pool)`` refills dead slots, ``sweep`` takes one bounce and the
-    terminated slots splat into rgb_sum and n_samples. Returns (rgb_sum,
-    n_samples, rays)."""
-    pool = new_pool(cfg.wf_pool, state.device)
+    a pool of cfg.wf_pool slots: the hook ``step(fs, cfg, work)`` gives one
+    sweep (``plain_stepper`` or the sweep kernel's ``stepper``) and the
+    sweeps enqueued per read of the loop test. Returns (rgb_sum, n_samples,
+    control words): the segments traced are ctl[RAYS], the sweeps taken
+    ctl[SWEEPS]."""
+    sweep, batch = step(fs, cfg, work)
+    dev = state.device
+    pool = new_pool(cfg.wf_pool, dev)
     rgb = state.rgb_sum.clone()
     ns = state.n_samples.clone()
-    rays = torch.zeros((), dtype=torch.int64, device=rgb.device)
-    sweeps = 0
-    while sweeps < cfg.wf_max_sweeps:
-        if not bool(pending() | pool.active.any()):
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    ctl = new_ctl(cfg.wf_pool, work.pending(zero) & (cfg.wf_max_sweeps > 0),
+                  dev)
+    while True:
+        for _ in range(batch):
+            pool, rgb, ns, ctl = sweep(pool, rgb, ns, ctl)
+        if not _pool_live(ctl):
             break
-        pool = regen(pool)
-        pool, term, nrays = sweep(fs, cfg, pool)
-        pix = pool.pi[PIX].long()
-        rgb.index_add_(0, pix, torch.where(term[:, None],
-                                           pool.pf[RAD:RAD + 3].T, 0.0))
-        ns.index_add_(0, pix, term.to(torch.float32))
-        rays = rays + nrays
-        sweeps += 1
-    return rgb, ns, rays
+    return rgb, ns, ctl
 
 
 def _check_state(state, scene) -> None:
@@ -225,43 +371,32 @@ def _check_state(state, scene) -> None:
 
 
 def wavefront_render_slab(scene, cfg, camera, state, base_seed, spp: int,
-                          pix_offset: int, n_valid: int, sweep=None):
+                          pix_offset: int, n_valid: int, step=None):
     """``wavefront_render`` over one pixel slab: ``state`` holds the slab's
     rows, pixel ids are slab-local, RNG and camera use the global pixel
-    ``pix_offset + row``. ``sweep`` is the sweep function, ``_sweep`` by
-    default; the sweep kernel's wrapper takes its place for
+    ``pix_offset + row``. ``step`` is the step hook, ``plain_stepper`` by
+    default; the sweep kernel's ``stepper`` takes its place for
     ``backend="wavefront_pallas"``."""
     check_sampler(cfg)
     check_slice(cfg)
     _check_state(state, scene)
-    sweep = _sweep if sweep is None else sweep
     fs = freeze_scene(scene)
-    dev = state.device
-    spp, base_seed = int(spp), int(base_seed)
-    next_sample = torch.zeros((), dtype=torch.int64, device=dev)
-    next_pix = torch.zeros((), dtype=torch.int64, device=dev)
-
-    def regen(pool):
-        nonlocal next_sample, next_pix
-        pool, next_sample, next_pix = _regen(
-            cfg, camera, pool, next_sample, next_pix, spp, base_seed,
-            state.iteration, pix_offset, n_valid)
-        return pool
-
-    def pending():
-        return (next_sample < spp) & (n_valid > 0)
-
-    rgb, ns, rays = _drain(fs, cfg, state, regen, pending, sweep)
+    spp = int(spp)
+    work = PoolWork(camera=camera, base_seed=int(base_seed),
+                    pix_offset=int(pix_offset), spp=spp, it0=state.iteration,
+                    n_valid=int(n_valid))
+    rgb, ns, ctl = _drain(fs, cfg, state, work,
+                          plain_stepper if step is None else step)
     return dataclasses.replace(
         state, rgb_sum=rgb, n_samples=ns, iteration=state.iteration + spp,
-        rays=state.rays + rays if cfg.count_rays else state.rays)
+        rays=state.rays + ctl[RAYS] if cfg.count_rays else state.rays)
 
 
 def wavefront_render(scene, cfg, camera, state, base_seed, spp: int,
-                     sweep=None):
+                     step=None):
     """Render ``spp`` samples per pixel through the persistent pool into
     the same RenderState as every backend (vispoints and photon radius
-    untouched; ``iteration`` grows by ``spp``). ``sweep`` as in
+    untouched; ``iteration`` grows by ``spp``). ``step`` as in
     ``wavefront_render_slab``."""
     return wavefront_render_slab(scene, cfg, camera, state, base_seed, spp,
-                                 0, cfg.n_pixels, sweep)
+                                 0, cfg.n_pixels, step)
