@@ -9,7 +9,8 @@ warm-up) on Cornell, on bench config 6's torus with the reference sampler,
 and on the torus with config 6's sampler flags (a checkout whose kernel
 takes no flags ignores them: its wrapper is called directly); then one
 budget launch on Cornell (seeded budgets 0-2, as many samples as one
-uniform sample). Each of these four cells gives three milliseconds:
+uniform sample), and both torus cells again with ``pallas_mxu_leaf`` (the
+G leaf). Each of these six cells gives three milliseconds:
 CUDA events around the calls, the kernel's device time under
 torch.profiler, and the host's time to issue the calls (no wait for the
 card), so a cell whose events time the host shows it. Then bench config 5
@@ -18,10 +19,16 @@ device milliseconds under torch.profiler at 1 and 4 spp and for one budget
 launch (seeded budgets 0-4), the wall milliseconds of a 1-spp
 ``wavefront_pallas`` render (``tt.render``, synchronised; mean of 3 after
 a warm-up) and of a 1-spp render of the plain pool (``backend=
-"wavefront"``; mean of 2). Before that line, a hash of each kernel's
-machine code (``cuobjdump -sass`` of the checkout's library), so two
-checkouts show which kernels they compile alike. Then the card's name and
-power limit. Needs one CUDA device.
+"wavefront"``; mean of 2). Between the two, the walk probe's device
+milliseconds per launch under torch.profiler with the G leaf and with the
+exact leaf, and the pairs its G leaf tested, on chip_smoke's 65,536 random
+rays through bench config 6's torus alone (binary leaf 64, and width 8), on
+65,536 rays that all reach one leaf of it, and on config 6's scene with
+its 1080p pinhole rays. Before that line, a hash of each kernel's
+machine code (``cuobjdump -sass`` of the checkout's library, runs of
+blanks taken as one), so two checkouts show which kernels they compile
+alike. Then the card's name and power limit. Needs one CUDA
+device.
 """
 
 from __future__ import annotations
@@ -41,9 +48,14 @@ dev = torch.device("cuda")
 
 
 def sass_hashes():
-    """kernel name -> a hash of its SASS in this checkout's library."""
+    """kernel name -> a hash of its SASS in this checkout's library: every
+    instruction with its encoding (scheduling bits included), with runs of
+    blanks taken as one: cuobjdump aligns its columns across all kernels of
+    a source, so without that one kernel's hash would move when another
+    kernel of its source gets a longer instruction."""
     import hashlib
     import pathlib
+    import re
     import shutil
     import subprocess
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -54,6 +66,7 @@ def sass_hashes():
     out = {}
     for block in text.split("Function : ")[1:]:
         name, _, body = block.partition("\n")
+        body = re.sub(r"[ \t]+", " ", body)
         out[name.strip()] = hashlib.sha256(body.encode()).hexdigest()[:12]
     return out
 
@@ -147,6 +160,11 @@ for name, make, kw, cam in cases:
     fn = lambda: mega_regen.regen_call(scene, cfg, camera,  # noqa: E731
                                        planes.clone(), 1234, 1, 0, 2.0, 30)
     out.append(f"{name} {three(fn)}")
+    if name.startswith("torus"):  # the same with the G leaf
+        g_cfg = cfg.with_(pallas_mxu_leaf=True)
+        fn = lambda: mega_regen.regen_call(  # noqa: E731
+            scene, g_cfg, camera, planes.clone(), 1234, 1, 0, 2.0, 30)
+        out.append(f"{name}-g {three(fn)}")
     if name == "cornell":
         import numpy as np
         counts = tt.init_state(cfg, dev).n_samples
@@ -158,7 +176,37 @@ for name, make, kw, cam in cases:
         out.append(f"cornell-budget {three(fn)}")
 
 
+# the G probe: one launch's device ms (a nearest-hit walk with the G leaf
+# and an exact shadow walk a ray) and the pairs its G leaf tested, on the
+# torus alone with chip_smoke's 65,536 random rays (binary leaf 64, and
+# width 8) and on config 6's scene with its 1080p pinhole rays
+import importlib.util
 import numpy as np
+from tpurt_torch.kernels import bvh
+spec = importlib.util.spec_from_file_location("smoke", "chip_smoke.py")
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+torus_only = smoke.torus_only_scene()
+torus = tt.torus_mesh_scene(45, 45).to(dev)
+camera = tt.make_camera((0, 3, -6), (0, 1.5, 0), vfov=55.0,
+                        aspect_ratio=16 / 9)
+for name, scene, kw, rays in (
+        ("probe-random", torus_only, {}, smoke.probe_rays(torus_only, 65536,
+                                                          1, dev)),
+        ("probe-random-w8", torus_only, dict(pallas_bvh_width=8),
+         smoke.probe_rays(torus_only, 65536, 1, dev)),
+        ("probe-one-leaf", torus_only, {}, smoke.one_leaf_rays(
+            torus_only, 65536, 7, dev)),
+        ("probe-camera", torus, {}, smoke.camera_rays(camera, 1920, 1080,
+                                                      dev))):
+    cfg = tt.RenderConfig(backend="pallas", pallas_bvh_leaf=64, **kw)
+    pairs = torch.zeros((1,), dtype=torch.int64, device=dev)
+    bvh.probe(scene, cfg, *rays, gleaf=True, pairs=pairs)
+    t_g = device_ms(lambda: bvh.probe(scene, cfg, *rays, gleaf=True),
+                    "probe_kernel", 5)
+    t_x = device_ms(lambda: bvh.probe(scene, cfg, *rays), "probe_kernel", 5)
+    out.append(f"{name} G {t_g:.4f} exact {t_x:.4f} pairs {int(pairs)}")
+
 from tpurt_torch.kernels import wavefront_fused
 scene = tt.dispersive_scene().to(dev)
 cfg = tt.RenderConfig(width=1920, height=1080, depth=30,

@@ -20,7 +20,8 @@ persistent blocks whose lanes fetch their pixels from a device counter
 multiple of the block (50x30), on budget maps with long runs of zeros, and
 on launches back to back on one stream.
 
-The phases: [blit], [regen] (the regen kernel against its plain version),
+The phases: [blit] (also its device time under torch.profiler against its
+bound), [regen] (the regen kernel against its plain version),
 [sampler] (the regen kernel with the sampler flags of bench configs 3, 4
 and 6, every state plane bit for bit, config 6 at 1080p), [budget] (the
 budget mode against ``render_plain_budget``, then ``render_adaptive``),
@@ -35,7 +36,10 @@ with 20 lights, its rows in shared memory, and 128, past that budget: the
 regen, fused and sweep kernels against their plain versions), [bvh-walk], [mesh-regen], [mesh-wf],
 [mesh] (config 6 with the reference sampler), [config6] (config 6 as
 shipped), [config4], [mesh-field], [mesh-instanced], [mxu-leaf] (the
-probe's G leaf against the plain G sweep), [mesh-mxu] (the regen kernel
+probe's warp G leaf against the plain G sweep on random rays, a count no
+multiple of 32, leaf 128, the wide tree, rays that all reach one leaf,
+config 6's 1080p pinhole rays and NaN-plane rays; its pairs tested on the
+torus at leaf 64 held to the one-thread leaf's 6,432,004), [mesh-mxu] (the regen kernel
 with the G leaf against ``render_plain``, both samplers, both modes, and
 one depth-30 sample of config 6 as shipped at 1080p and of the reference
 sampler at 512x288), [config6-mxu] (config 6 with the flag, both samplers,
@@ -189,6 +193,28 @@ def profiled(fn, reps: int = 1):
     return wall, by_name, sum(by_name.values())
 
 
+def launch_ms(fn, part: str, reps: int) -> list:
+    """The device milliseconds of each launch of the kernels whose name
+    holds part, under torch.profiler (device-side events only), over reps
+    runs of fn after one warm-up. Fails where the profiler saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = [getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+           for e in prof.events()
+           if e.device_type == DeviceType.CUDA and part in e.name]
+    if not out:
+        raise AssertionError(f"torch.profiler saw no {part} launch")
+    return out
+
+
 def ptxas_report(log: str) -> list:
     """One line per kernel of the build log's -Xptxas -v report: registers,
     stack frame and spill stores/loads."""
@@ -309,7 +335,14 @@ def main() -> int:
             lambda: tm.tonemap(tm.resolve(rgb, cnt), 0.8, 1.0), 50),
         # rgb_sum and n_samples in, the image out
         **bound(n * (12 + 4 + 12), n * OPS_PER_BLIT_PIXEL))
-    print(f"[blit] 1080p: kernel {report['blit']['ms']:.4f} ms, plain "
+    dev_ms = launch_ms(lambda: blit.tonemap_pixels(rgb, cnt, n, 0.8, 1.0),
+                       "tonemap", 50)
+    med = float(np.median(dev_ms))
+    print(f"[blit] 1080p: kernel {report['blit']['ms']:.4f} ms by CUDA "
+          f"events, {med:.4f} ms device time (median of {len(dev_ms)} "
+          f"launches under torch.profiler, min {min(dev_ms):.4f}) against "
+          f"the {report['blit']['bound_ms']:.4f} ms bound ("
+          f"{report['blit']['bound_ms'] / med:.2f} of it); plain "
           f"{report['blit']['plain_ms']:.4f} ms, max ulp {worst}")
     m = 256 * 144
     ms_small = cuda_ms(lambda: blit.tonemap_pixels(rgb, cnt, m, 0.8, 1.0), 50)
@@ -1134,6 +1167,51 @@ def probe_rays(scene, n: int, seed: int, dev):
     return f(o.T), f(d.T), f(t_max), f(lam)
 
 
+def camera_rays(cam, width: int, height: int, dev):
+    """Unit pinhole rays through the pixel centres of ``cam`` in linear
+    pixel order (a warp's lanes are neighbours in a row): o, d (3, P),
+    t_max 1e3 and lam 550 (P,), float32 on dev."""
+    px = (np.arange(width * height) % width + 0.5) / width
+    py = (np.arange(width * height) // width + 0.5) / height
+    rows = cam.rows().astype(np.float64)
+    d = rows[3] + px[:, None] * rows[1] + py[:, None] * rows[2] - rows[0]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    n = width * height
+    f = lambda x: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(x, np.float32)).to(dev)
+    return (f(np.broadcast_to(rows[0], d.shape).T), f(d.T),
+            f(np.full(n, 1e3)), f(np.full(n, 550.0)))
+
+
+def one_leaf_rays(scene, n: int, seed: int, dev):
+    """n rays from a small patch in front of one triangle of the scene,
+    aimed at a small disk around its centroid: they walk the same nodes and
+    reach the same leaves, so every lane of a warp holds the same leaf."""
+    rs = np.random.default_rng(seed)
+    k = scene.num_triangles // 3
+    a, e1, e2, nrm = (x[k].cpu().numpy().astype(np.float64) for x in (
+        scene.tri_a, scene.tri_e1, scene.tri_e2, scene.tri_n))
+    c = a + (e1 + e2) / 3.0
+    size = min(np.linalg.norm(e1), np.linalg.norm(e2))
+    o = c + 2.0 * nrm + rs.uniform(-1e-3, 1e-3, (n, 3))
+    tgt = c + rs.uniform(-0.05, 0.05, (n, 3)) * size
+    d = (tgt - o) / np.linalg.norm(tgt - o, axis=1, keepdims=True)
+    f = lambda x: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(x, np.float32)).to(dev)
+    return f(o.T), f(d.T), f(np.full(n, 3.0)), f(rs.uniform(380, 780, n))
+
+
+def torus_only_scene(dev=None):
+    """Bench config 6's torus alone (no spheres): every probe hit is a
+    triangle's."""
+    import tpurt_torch as tt
+    verts, faces = tt.scene._torus(45, 45)
+    mesh = tt.MeshData(material_id=2, translation=(0.0, 0.0, 6.0))
+    mesh.add_triangles(verts, faces)
+    return tt.build_scene([tt.Material.diffuse((0.5, 0.5, 0.5))] * 3, [],
+                          [mesh], [], device=dev)
+
+
 def nan_plane_rays(dev, n: int = 65536):
     """Rays straight down +z whose x and y sit exactly on the integer box
     planes of the quad grid (0 * inf in the slab test) or between them
@@ -1224,11 +1302,7 @@ def mesh_phases(dev, report, gpu) -> dict:
 
     base = tt.RenderConfig(backend="pallas")
     torus = tt.torus_mesh_scene(45, 45)
-    verts, faces = tt.scene._torus(45, 45)
-    mesh = tt.MeshData(material_id=2, translation=(0.0, 0.0, 6.0))
-    mesh.add_triangles(verts, faces)
-    torus_only = tt.build_scene([tt.Material.diffuse((0.5, 0.5, 0.5))] * 3,
-                                [], [mesh], [])
+    torus_only = torus_only_scene()
     field = tt.torus_field_scene(16, 45, 45)
     inst = tt.instanced_scene(16384)
     cfg_field = base.with_(pallas_bvh_leaf=16, pallas_bvh_chunk=1024,
@@ -1415,30 +1489,45 @@ def mxu_phases(dev, report, gpu) -> dict:
     from tpurt_torch.scene import freeze_scene
 
     base = tt.RenderConfig(backend="pallas", pallas_mxu_leaf=True)
-    verts, faces = tt.scene._torus(45, 45)
-    mesh = tt.MeshData(material_id=2, translation=(0.0, 0.0, 6.0))
-    mesh.add_triangles(verts, faces)
-    torus_only = tt.build_scene([tt.Material.diffuse((0.5, 0.5, 0.5))] * 3,
-                                [], [mesh], [])
+    torus_only = torus_only_scene()
     n = 65536
     rays = probe_rays(torus_only, n, 1, dev)
     grid = grid_quads()
-    errs, first = [], None
+    torus = tt.torus_mesh_scene(45, 45)
+    cam6 = tt.make_camera(*TORUS_CAM, vfov=55.0, aspect_ratio=16 / 9)
+    errs = []
     for name, scene, cfg, rs in (
             ("torus 4050 tris, binary leaf 64", torus_only,
              base.with_(pallas_bvh_leaf=64), rays),
             ("torus 4050 tris, width 8 leaf 64", torus_only,
              base.with_(pallas_bvh_leaf=64, pallas_bvh_width=8), rays),
+            ("torus, binary leaf 64, 65,499 rays (no multiple of 32)",
+             torus_only, base.with_(pallas_bvh_leaf=64),
+             probe_rays(torus_only, n - 37, 5, dev)),
+            ("torus, binary leaf 128", torus_only,
+             base.with_(pallas_bvh_leaf=128), probe_rays(torus_only, n, 6,
+                                                         dev)),
+            ("torus, rays into one leaf", torus_only,
+             base.with_(pallas_bvh_leaf=64), one_leaf_rays(torus_only, n, 7,
+                                                           dev)),
+            ("config 6 scene, 1080p pinhole rays, leaf 64", torus,
+             base.with_(pallas_bvh_leaf=64), camera_rays(cam6, 1920, 1080,
+                                                         dev)),
             ("NaN-plane rays, quad grid, width 0", grid,
              base.with_(pallas_bvh_leaf=8, pallas_static_unroll=8),
              nan_plane_rays(dev)),
             ("NaN-plane rays, quad grid, width 8", grid,
              base.with_(pallas_bvh_leaf=8, pallas_static_unroll=8,
                         pallas_bvh_width=8), nan_plane_rays(dev))):
-        res = g_leaf_vs_plain(name, scene, cfg, rs)
+        res = g_leaf_vs_plain(name, scene, cfg, rs, timed=not errs)
+        if not errs:
+            _, ms, plain_ms, pairs = res
         errs.append(res[0])
-        first = first or res
-    _, ms, plain_ms, pairs = first
+    # the pairs the one-thread G leaf tested on this set: the warp leaf
+    # visits the same leaves
+    if pairs != 6432004:
+        raise AssertionError(f"the G leaf tested {pairs} pairs on the torus "
+                             f"at leaf 64, not 6432004")
     # per probe ray: o, d, t_max and lam in; t, point, normal, material and
     # shadow factor out; ~50 operations per pair tested (19 products and
     # their sums, o x d shared per ray, the sign fold, a divide, 6 compares)
@@ -1453,7 +1542,6 @@ def mxu_phases(dev, report, gpu) -> dict:
     # [mesh-mxu] the regen kernel's two G instances (the reference sampler
     # and config 6's) against render_plain with the G sweep, uniform and
     # budget mode; then each at the main path's 1080p shape
-    torus = tt.torus_mesh_scene(45, 45)
     fs = freeze_scene(torus)
     samplers = (("reference sampler", dict(pallas_bvh_leaf=64)),
                 ("as shipped", CONFIG6))
@@ -1495,7 +1583,6 @@ def mxu_phases(dev, report, gpu) -> dict:
     # [config6-mxu] config 6's scene at 1080p with the flag, through the
     # public entry points; then the regen kernel per sample, exact leaf
     # against G leaf in turns (exact, G, G, exact)
-    cam6 = tt.make_camera(*TORUS_CAM, vfov=55.0, aspect_ratio=16 / 9)
     names = ["regen", "blit", "bvh_walk", "mxu_leaf"]
     launches = {}
     for label, flags in samplers:
@@ -1545,11 +1632,11 @@ def mxu_phases(dev, report, gpu) -> dict:
     return {"mxu_leaf": launches["mxu_leaf"]}
 
 
-def g_leaf_vs_plain(name, scene, cfg, rays):
+def g_leaf_vs_plain(name, scene, cfg, rays, timed=False):
     """The probe's G leaf against the plain G sweep on the same rays: t,
     point, normal, material and shadow factor bit for bit; the hit/miss
     agreement with the exact walk. Returns (max |diff|, probe ms, plain
-    ms, pairs tested)."""
+    ms or None where not timed, pairs tested)."""
     from tpurt_torch import integrate
     from tpurt_torch.kernels import bvh
     from tpurt_torch.scene import freeze_scene
@@ -1569,7 +1656,7 @@ def g_leaf_vs_plain(name, scene, cfg, rays):
     equal = [torch.equal(a, b) for a, b in zip(got, want)]
     err = max(float((a.float() - b.float()).abs().max())
               for a, b in zip(got, want))
-    plain_ms = cuda_ms(plain, 3)
+    plain_ms = cuda_ms(plain, 3) if timed else None
     hit_g, hit_e = got[0] < 1e29, exact[0] < 1e29
     agree = float((hit_g == hit_e).float().mean())
     pairs = torch.zeros((1,), dtype=torch.int64, device=o.device)
@@ -1580,8 +1667,8 @@ def g_leaf_vs_plain(name, scene, cfg, rays):
           f"({float(hit_g.float().mean()):.3f} hit): t/loc/n/mat/atten "
           f"equal {equal}; hit/miss agreement with the exact walk "
           f"{agree:.5f} ({int((hit_g != hit_e).sum())} rays differ); G "
-          f"walk {ms:.3f} ms, exact walk {ms_exact:.3f} ms, plain G sweep "
-          f"{plain_ms:.1f} ms")
+          f"walk {ms:.3f} ms, exact walk {ms_exact:.3f} ms"
+          + (f", plain G sweep {plain_ms:.1f} ms" if timed else ""))
     if not all(equal):
         bad = torch.nonzero((got[0] != want[0]) | (got[3] != want[3]))[:4, 0]
         raise AssertionError(

@@ -1,6 +1,6 @@
 // BVH walks of the path kernels: closest hit and occlusion against the
 // triangle tree, closest hit and shadow factor against the sphere tree,
-// one thread per ray.
+// one thread per ray (the G leaf: a warp per leaf).
 //
 // Replaces the device code tpurt inlines into its TPU path kernels for
 // meshes and many-sphere scenes: tpurt/kernels/bvh_pallas.py _bvh_walk
@@ -57,15 +57,33 @@
 // _make_mxu_leaf_fn with build_tri_gmat): tpurt's closest-hit leaf test in
 // the form linear in f = [d | o x d | o | 1], four dot products per
 // triangle against a row of its G matrix and a divide/compare epilogue
-// (TriClosestG). It is not bit-identical to Moller-Trumbore at grazing
-// rays. The TPU ran it as four (leaf, 16) x (16, 128) MXU products per
-// 128-lane row because the walk left the MXU idle; here each thread forms
-// its own sums on the CUDA cores in float32 without FMA, term by term in
-// the order of the plain version (ops/intersect.py _g_hits), so it equals
-// that sweep bit for bit. Its row is 80 bytes read per pair against the
-// exact test's 36, for about the same arithmetic. A tensor-core form needs
-// a warp-cooperative leaf and split-float products (TF32 keeps ~3 digits)
-// and is left for later. Shadow rays keep the exact test, as in tpurt.
+// (g_hit). It is not bit-identical to Moller-Trumbore at grazing rays. The
+// TPU ran it as four (leaf, 16) x (16, 128) MXU products per 128-lane row
+// because the walk left the MXU idle. Here the sums are formed in float32
+// without FMA, term by term in the order of the plain version
+// (ops/intersect.py _g_hits), so the leaf equals that sweep bit for bit.
+// What bounds it is not arithmetic (~50 operations a pair) but how a warp
+// reaches its leaves: one thread per ray sweeping its own leaf of up to 64
+// (config 6) or 128 rows leaves the warp's other lanes waiting (at inner
+// nodes, done, or, in the regen kernel, without a segment this trip), and
+// each trip of the sweep reads 32 unrelated 96-byte rows. So the warp
+// sweeps together (closest_triangle_g): each lane walks its inner nodes
+// and holds the leaf it reaches; the warp takes the held leaves one after
+// another, lane j testing rows first + j, first + j + 32, ... (neighbouring
+// rows, so a warp's reads of a leaf are contiguous), reduces the least
+// (t, scene index) by shuffles, and the leaf's lane takes it and goes on.
+// Every lane of the warp helps, with or without a ray of its own: the
+// regen kernel's GLEAF instances and the probe call it from all 32 lanes.
+// A ray visits the leaves the one-thread walk visits, in the same order
+// and with the same cap, so results and pairs tested are unchanged. What
+// it costs: a leaf that all 32 lanes reach together, which the one-thread
+// sweep read in lockstep at one address, now takes 32 sweeps with a
+// shuffle reduction each. A tensor-core form of tpurt's MXU products
+// (TF32 mma.sync over the rows of a leaf that several lanes hold, as a
+// filter that drops only provable misses before the exact sums) was
+// measured beside this design on an H100 and removed: its registers cost
+// the regen kernel more than it saved, even where no leaf engaged it
+// (PERF.md has the numbers).
 #pragma once
 
 #include "device.cuh"
@@ -88,8 +106,9 @@ constexpr int G_STRIDE = 24;
 
 // The geometry tables of a launch (kernels/bvh.py GeomArgs). Triangles:
 // n_tri records, walked through tri_nodes when tri_walk, else swept flat;
-// gmat, their G rows row for row, where the G leaf runs (set by the regen
-// kernel's wrapper only, read only by scene_hit<true>). Spheres: the flat
+// gmat, their G rows row for row, where the G leaf runs (set by the
+// wrappers of the regen kernel and the probe, read only by scene_hit_g).
+// Spheres: the flat
 // sphere rows of the scene table, plus n_sph_tree rows walked through
 // sph_nodes. Node tables: kernels/bvh.py pack_tree. `stack`: the entries a
 // walk of either tree may hold, proven on the host; every kernel that
@@ -189,6 +208,85 @@ __device__ __forceinline__ void order_pair(float& ka, int& ra, float& kb,
     float k = ka; ka = kb; kb = k;
     int r = ra; ra = rb; rb = r;
   }
+}
+
+// One ref of bvh_walk's loop, for the G leaf's walk (closest_triangle_g),
+// which must stop at a leaf and go on later: a leaf sets first and count;
+// an inner node's children are tested against the cap as it stands at
+// that moment, the nearest (ties: the lower slot) is returned as the next
+// ref and the others stacked far-first. Returns NO_REF where the ref leads
+// nowhere further (a leaf, or an inner node whose children all miss). It
+// repeats bvh_walk's body rather than serve it, so that the kernels
+// without the G leaf keep their machine code.
+template <class Query>
+__device__ __forceinline__ int walk_ref(const float4* nodes, int ref,
+                                        const Ray& r, const Query& q,
+                                        const WalkStack& st, int& sp,
+                                        int& first, int& count) {
+  int next = NO_REF;
+  if (ref < 0) {  // a leaf packed into its parent's ref
+    first = ~ref & 0xffffff;
+    count = (~ref >> 24) + 1;
+  } else {
+    const float4* nd = nodes + 2 * ref;
+    const float4 lo0 = __ldg(nd), hi0 = __ldg(nd + 1);
+    const int k = __float_as_int(hi0.w);
+    if (k < 0) {  // a leaf record
+      first = __float_as_int(lo0.w);
+      count = -k;
+    } else if (k == 2) {
+      const float4 lo1 = __ldg(nd + 2), hi1 = __ldg(nd + 3);
+      const float cap = q.cap();
+      float t0, t1;
+      const bool h0 = node_hit(lo0, hi0, r, cap, Query::kGrow, t0);
+      const bool h1 = node_hit(lo1, hi1, r, cap, Query::kGrow, t1);
+      const int r0 = __float_as_int(lo0.w), r1 = __float_as_int(lo1.w);
+      if (h0 && h1) {
+        const bool swap = t1 < t0;  // a tie keeps slot order
+        if (sp >= st.cap) __trap();  // unreachable, see the header
+        st.base[sp++ * st.stride] = swap ? r0 : r1;
+        next = swap ? r1 : r0;
+      } else if (h0 || h1) {
+        next = h0 ? r0 : r1;
+      }
+    } else {
+      const float cap = q.cap();
+      float key[MAX_CHILDREN];
+      int rf[MAX_CHILDREN];
+#pragma unroll
+      for (int c = 0; c < MAX_CHILDREN; ++c) {
+        key[c] = kINF();
+        rf[c] = NO_REF;
+        if (c < k) {
+          const float4 lo = c == 0 ? lo0 : __ldg(nd + 2 * c);
+          const float4 hi = c == 0 ? hi0 : __ldg(nd + 2 * c + 1);
+          float tn;
+          if (node_hit(lo, hi, r, cap, Query::kGrow, tn)) {
+            key[c] = tn;
+            rf[c] = __float_as_int(lo.w);
+          }
+        }
+      }
+      // odd-even transposition: MAX_CHILDREN passes sort any input; a
+      // missed child keeps key +inf and NO_REF and is skipped below
+#pragma unroll
+      for (int pass = 0; pass < MAX_CHILDREN; ++pass) {
+#pragma unroll
+        for (int c = pass & 1; c + 1 < MAX_CHILDREN; c += 2)
+          order_pair(key[c], rf[c], key[c + 1], rf[c + 1]);
+      }
+#pragma unroll
+      for (int c = MAX_CHILDREN - 1; c >= 0; --c) {
+        if (rf[c] == NO_REF) continue;
+        if (next != NO_REF) {
+          if (sp >= st.cap) __trap();  // unreachable, see the header
+          st.base[sp++ * st.stride] = next;
+        }
+        next = rf[c];
+      }
+    }
+  }
+  return next;
 }
 
 // The stack walk shared by the four queries, over a node table of
@@ -355,37 +453,6 @@ __device__ __forceinline__ bool g_hit(const float* row, V3 o, V3 d, V3 x,
          us + vs <= ad && t > eps;
 }
 
-// The nearest triangle so far by the G leaf: the least (t, scene index);
-// `pairs` counts the triangles tested (the probe reads it).
-struct TriClosestG {
-  static constexpr float kGrow = 0.0f;
-  const float* g;
-  V3 o, d, x;
-  float clip;
-  float t;
-  int index;
-  unsigned pairs;
-  const float* row;
-
-  __device__ __forceinline__ float cap() const { return fminf(t, clip); }
-  __device__ __forceinline__ bool visit(int first, int count) {
-    pairs += (unsigned)count;
-#pragma unroll 1  // unrolled sweeps cost the path kernels registers
-    for (int i = first; i < first + count; ++i) {
-      const float* r = g + i * G_STRIDE;
-      float ti;
-      int idx;
-      if (!g_hit(r, o, d, x, ti, idx)) continue;
-      if (ti < t || (ti == t && idx < index)) {
-        t = ti;
-        index = idx;
-        row = r;
-      }
-    }
-    return false;
-  }
-};
-
 struct TriAny {
   static constexpr float kGrow = 0.0f;
   const float* tri;
@@ -426,26 +493,6 @@ __device__ __forceinline__ TriClosest closest_triangle(const Geom& g, V3 o,
   return q;
 }
 
-__device__ __forceinline__ TriClosestG closest_triangle_g(
-    const Geom& g, V3 o, V3 d, float clip, const WalkStack& st) {
-  TriClosestG q;
-  q.g = g.gmat;
-  q.o = o;
-  q.d = d;
-  q.x = vcross(o, d);
-  q.clip = clip;
-  q.t = kMISS();
-  q.index = 0x7fffffff;
-  q.pairs = 0;
-  q.row = nullptr;
-  if (g.tri_walk) {
-    bvh_walk(g.tri_nodes, make_ray(o, d), q, st);
-  } else {
-    q.visit(0, g.n_tri);
-  }
-  return q;
-}
-
 __device__ __forceinline__ bool occluded_triangle(const Geom& g, V3 o, V3 d,
                                                   float t_max,
                                                   const WalkStack& st) {
@@ -460,6 +507,136 @@ __device__ __forceinline__ bool occluded_triangle(const Geom& g, V3 o, V3 d,
   else
     q.visit(0, g.n_tri);
   return q.hit;
+}
+
+// ----- the G leaf: a warp sweeps one leaf at a time -----
+
+// The nearest triangle of a ray by the G leaf: the least (t, scene index)
+// and its G row; `pairs` counts the triangles tested (the probe reads it).
+struct TriClosestG {
+  static constexpr float kGrow = 0.0f;
+  float clip;  // the sphere hit, as in TriClosest
+  float t;
+  int index;
+  unsigned pairs;
+  const float* row;
+
+  __device__ __forceinline__ float cap() const { return fminf(t, clip); }
+};
+
+// Whether (t, i) comes before (bt, bi) in the nearest-hit order.
+__device__ __forceinline__ bool g_before(float t, int i, float bt, int bi) {
+  return t < bt || (t == bt && i < bi);
+}
+
+// The rows [first, first + count) of the G table `g` swept by the whole
+// warp for one ray (o, d, x = o x d) whose best so far is (bt, bi): lane j
+// tests rows first + j, first + j + 32, ... Returns, alike on every lane,
+// whether some row comes before (bt, bi); then (bt, bi) is the least
+// (t, scene index) of the rows and brow its row.
+__device__ __forceinline__ bool g_sweep_warp(const float* g, int first,
+                                             int count, V3 o, V3 d, V3 x,
+                                             float& bt, int& bi, int& brow) {
+  const unsigned FULL = 0xffffffffu;
+  brow = -1;
+#pragma unroll 1
+  for (int i = first + (int)(threadIdx.x & 31); i < first + count; i += 32) {
+    float ti;
+    int idx;
+    if (g_hit(g + i * G_STRIDE, o, d, x, ti, idx) &&
+        g_before(ti, idx, bt, bi)) {
+      bt = ti;
+      bi = idx;
+      brow = i;
+    }
+  }
+  if (!__ballot_sync(FULL, brow >= 0)) return false;
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ot = __shfl_xor_sync(FULL, bt, off);
+    const int oi = __shfl_xor_sync(FULL, bi, off);
+    const int orow = __shfl_xor_sync(FULL, brow, off);
+    if (g_before(ot, oi, bt, bi)) {
+      bt = ot;
+      bi = oi;
+      brow = orow;
+    }
+  }
+  return true;
+}
+
+// The nearest triangle of each lane's ray by the G leaf. Every lane of the
+// warp calls it at one point; `active` is false on lanes without a ray,
+// which only help. Each lane walks its tree (walk_ref) down to its next
+// leaf and holds it; the warp then sweeps the held leaves one after
+// another, all 32 lanes on each (g_sweep_warp), and each lane goes on
+// from its stack with its cap updated. So every ray visits the leaves the
+// one-thread walk visits, in the same order, with the same cap, and takes
+// the least (t, scene index) of the same pairs: the results are the
+// one-thread walk's (and the plain G sweep's) bit for bit. Without a tree
+// (tri_walk 0) each ray's one leaf is the whole table.
+__device__ __forceinline__ TriClosestG closest_triangle_g(const Geom& g, V3 o,
+                                                          V3 d, float clip,
+                                                          const WalkStack& st,
+                                                          bool active) {
+  const unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const V3 x = vcross(o, d);
+  TriClosestG q;
+  q.clip = clip;
+  q.t = kMISS();
+  q.index = 0x7fffffff;
+  q.pairs = 0;
+  q.row = nullptr;
+  const float4* nodes = reinterpret_cast<const float4*>(g.tri_nodes);
+  const Ray r = make_ray(o, d);
+  bool walking = active && g.tri_walk;
+  int first = 0, count = active && !g.tri_walk ? g.n_tri : 0;
+  int ref = 0, sp = 0;
+  for (;;) {
+    // down to this lane's next leaf, or to the end of its walk
+    while (walking && count == 0) {
+      int next = walk_ref(nodes, ref, r, q, st, sp, first, count);
+      if (count > 0) break;
+      if (next == NO_REF) {
+        if (sp == 0) {
+          walking = false;
+          break;
+        }
+        next = st.base[--sp * st.stride];
+      }
+      ref = next;
+    }
+    unsigned pend = __ballot_sync(FULL, count > 0);
+    if (!pend) return q;
+    do {  // the held leaves, one after another, lowest lane first
+      const int s = __ffs(pend) - 1;
+      pend &= pend - 1;
+      const V3 so = v3(__shfl_sync(FULL, o.x, s), __shfl_sync(FULL, o.y, s),
+                       __shfl_sync(FULL, o.z, s));
+      const V3 sd = v3(__shfl_sync(FULL, d.x, s), __shfl_sync(FULL, d.y, s),
+                       __shfl_sync(FULL, d.z, s));
+      const V3 sx = v3(__shfl_sync(FULL, x.x, s), __shfl_sync(FULL, x.y, s),
+                       __shfl_sync(FULL, x.z, s));
+      float bt = __shfl_sync(FULL, q.t, s);
+      int bi = __shfl_sync(FULL, q.index, s), brow;
+      if (g_sweep_warp(g.gmat, __shfl_sync(FULL, first, s),
+                       __shfl_sync(FULL, count, s), so, sd, sx, bt, bi,
+                       brow) &&
+          lane == s) {
+        q.t = bt;
+        q.index = bi;
+        q.row = g.gmat + brow * G_STRIDE;
+      }
+    } while (pend);
+    if (count > 0) {  // the leaf is swept: on from the stack's top
+      q.pairs += (unsigned)count;
+      count = 0;
+      if (walking && sp > 0)
+        ref = st.base[--sp * st.stride];
+      else
+        walking = false;
+    }
+  }
 }
 
 // ----- spheres: the flat rows, then the tree (tpurt's split_huge_spheres:
@@ -562,24 +739,35 @@ __device__ __forceinline__ void take_triangle(Hit& h, V3 o, V3 d, float t,
 
 // Nearest hit: spheres first, then the triangles clipped at the sphere
 // hit; a triangle wins only on a strict t_tri < t_sph (_combine_nearest).
-// GLEAF: the closest-hit leaf is the G leaf (g.gmat), which adds its pairs
-// tested to *pairs when pairs is not null; the kernels that never run it
-// keep GLEAF false.
-template <bool GLEAF = false>
 __device__ __forceinline__ Hit scene_hit(const float* flat, int n_flat,
                                          const Geom& g, const WalkStack& st,
-                                         V3 o, V3 d,
-                                         unsigned* pairs = nullptr) {
+                                         V3 o, V3 d) {
   Hit h = closest_sphere(flat, n_flat, g, o, d, st);
   if (g.n_tri) {
-    if constexpr (GLEAF) {
-      TriClosestG tc = closest_triangle_g(g, o, d, h.t, st);
-      if (pairs) *pairs += tc.pairs;
-      if (tc.t < h.t) take_triangle(h, o, d, tc.t, tc.row + G_N);
-    } else {
-      TriClosest tc = closest_triangle(g, o, d, h.t, st);
-      if (tc.t < h.t) take_triangle(h, o, d, tc.t, tc.rec + T_N);
-    }
+    TriClosest tc = closest_triangle(g, o, d, h.t, st);
+    if (tc.t < h.t) take_triangle(h, o, d, tc.t, tc.rec + T_N);
+  }
+  return h;
+}
+
+// The nearest hit with the G leaf for the triangles (g.gmat; the kernels'
+// GLEAF instances), which adds its pairs tested to *pairs when pairs is
+// not null. Every lane of the warp calls it at one point; `active` is
+// false on lanes without a ray, which only help sweep the others' leaves
+// (closest_triangle_g) and get a miss.
+__device__ __forceinline__ Hit scene_hit_g(const float* flat, int n_flat,
+                                           const Geom& g, const WalkStack& st,
+                                           V3 o, V3 d, bool active,
+                                           unsigned* pairs = nullptr) {
+  Hit h;
+  h.t = kMISS();
+  h.loc = h.n = v3(0.0f, 0.0f, 0.0f);
+  h.mat = 0;
+  if (active) h = closest_sphere(flat, n_flat, g, o, d, st);
+  if (g.n_tri) {
+    const TriClosestG tc = closest_triangle_g(g, o, d, h.t, st, active);
+    if (pairs) *pairs += tc.pairs;
+    if (tc.t < h.t) take_triangle(h, o, d, tc.t, tc.row + G_N);
   }
   return h;
 }

@@ -236,11 +236,16 @@ __device__ __forceinline__ Params scene_params(const float* table,
   return p;
 }
 
-// The nearest hit of the scene (mega_pallas._make_scene_fns' intersect);
-// GLEAF takes the G leaf for the triangles (bvh.cuh scene_hit).
-template <bool GLEAF = false>
+// The nearest hit of the scene (mega_pallas._make_scene_fns' intersect).
 __device__ __forceinline__ Hit intersect(const Params& P, V3 o, V3 d) {
-  return scene_hit<GLEAF>(P.sph(), P.n_sph, P.geom, P.stack, o, d);
+  return scene_hit(P.sph(), P.n_sph, P.geom, P.stack, o, d);
+}
+
+// The same with the G leaf for the triangles (bvh.cuh scene_hit_g): every
+// lane of the warp calls it, `active` false where it has no segment.
+__device__ __forceinline__ Hit intersect_g(const Params& P, V3 o, V3 d,
+                                           bool active) {
+  return scene_hit_g(P.sph(), P.n_sph, P.geom, P.stack, o, d, active);
 }
 
 // Camera spawn of one (pixel, sample): 2 jitter draws, the pinhole ray
@@ -558,7 +563,9 @@ inline size_t run_pixels_smem(int staged, const Geom& g, int threads,
 // SAMPLER false compiles the reference sampler alone (S is then not read):
 // the kernels instantiate both and pick one per launch, so a launch
 // without the flags pays nothing for them. GLEAF: every nearest hit takes
-// the G leaf (pallas_mxu_leaf; the regen kernel alone instantiates it).
+// the G leaf (pallas_mxu_leaf; the regen kernel alone instantiates it),
+// which the warp's lanes sweep together: every lane of the warp takes part
+// in every trip's trace, a lane without a segment only to help.
 // CAM: the camera-path instance of the fused wavefront kernel: no
 // vispoint, no photon phase, no radius; `planes` is then the (P, 3)
 // rgb_sum, row p at planes + 3p, budget-mode aux (2, P) budget and count.
@@ -696,11 +703,15 @@ __device__ __forceinline__ void run_pixels(float* planes, const Params& prm,
       spawn = false;
       live = true;
     }
+    // GLEAF: the G leaf sweeps leaves with the whole warp, so every lane
+    // traces, those without a segment this trip only to help
+    Hit hg;
+    if constexpr (GLEAF) hg = intersect_g(prm, o, d, live && !done);
     if (!live || done) continue;
 
     // ---- one segment, whatever the phase
     rays += 1;
-    const Hit h = intersect<GLEAF>(prm, o, d);
+    const Hit h = GLEAF ? hg : intersect(prm, o, d);
     if (!(h.t < kHIT())) {
       done = true;
       continue;

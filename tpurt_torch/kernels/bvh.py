@@ -40,7 +40,10 @@ them on it.
 kernel's triangle walk for tpurt's G-matrix form
 (``bvh_pallas.build_tri_gmat`` and ``_make_mxu_leaf_fn``), where
 ``mxu_leaf_engages`` says tpurt runs it: ``gmat`` holds its rows, built
-from the walk's own leaf-ordered records and cached beside them.
+from the walk's own leaf-ordered records and cached beside them. On the
+card a warp sweeps each G leaf its rays reach together, lane j on rows
+first + j, first + j + 32, ... (``csrc/bvh.cuh closest_triangle_g``), so a
+leaf's rows are read contiguously in the table's own order.
 """
 
 from __future__ import annotations
