@@ -18,8 +18,16 @@ card), so a cell whose events time the host shows it. Then bench config 5
 device milliseconds under torch.profiler at 1 and 4 spp and for one budget
 launch (seeded budgets 0-4), the wall milliseconds of a 1-spp
 ``wavefront_pallas`` render (``tt.render``, synchronised; mean of 3 after
-a warm-up) and of a 1-spp render of the plain pool (``backend=
-"wavefront"``; mean of 2). Between the two, the walk probe's device
+a warm-up) and its sweep launches' device milliseconds, and the wall
+milliseconds of a 1-spp render of the plain pool (``backend=
+"wavefront"``; mean of 2). Then the device milliseconds of the hero and
+emission instances at chip_smoke's [wf-hero] and [emission] shapes (the
+fused kernel at 1 and 4 spp and in a budget launch, and the sweeps of a
+1-spp ``wavefront_pallas`` render, with bench config 4's sampler flags on
+config 5; the regen kernel at 1 spp, one tile-sync sample, the fused
+kernel and the sweeps with chip_smoke's emission scene and flags; the G
+leaf with the sky and the clamp on config 6 as shipped), "n/a" in a
+checkout that rejects those flags. Between the two, the walk probe's device
 milliseconds per launch under torch.profiler with the G leaf and with the
 exact leaf, and the pairs its G leaf tested, on chip_smoke's 65,536 random
 rays through bench config 6's torus alone (binary leaf 64, and width 8), on
@@ -228,10 +236,65 @@ cfg_p = cfg.with_(backend="wavefront_pallas")
 t = wall_ms(lambda: tt.render(scene, cfg_p, camera, tt.init_state(cfg_p, dev),
                               1234, 1))
 out.append(f"wf-pallas-1spp-wall {t:.3f}")
+t = device_ms(lambda: tt.render(scene, cfg_p, camera,
+                                tt.init_state(cfg_p, dev), 1234, 1),
+              "pool_step_kernel")
+out.append(f"wf-pallas-1spp-sweeps {t:.4f}")
 cfg_w = cfg.with_(backend="wavefront")
 t = wall_ms(lambda: tt.render(scene, cfg_w, camera, tt.init_state(cfg_w, dev),
                               1234, 1), 2)
 out.append(f"wf-plain-1spp-wall {t:.1f}")
+
+# the hero and emission instances (chip_smoke [wf-hero], [emission]):
+# device ms of each launch; "n/a" in a checkout without them
+hero = cfg.with_(**smoke.CONFIG4)
+cells = [("hero-fused-1spp", "fused", lambda: (
+              wavefront_fused.wavefront_render_fused(scene, hero, camera, st0,
+                                                     1234, 1))),
+         ("hero-fused-4spp", "fused", lambda: (
+              wavefront_fused.wavefront_render_fused(scene, hero, camera, st0,
+                                                     1234, 4))),
+         ("hero-fused-budget", "fused", lambda: (
+              wavefront_fused.wavefront_render_budget_fused(
+                  scene, hero, camera, st0, 1234, budgets, 4))),
+         ("hero-pallas-1spp-sweeps", "pool_step", lambda: tt.render(
+             scene, hero.with_(backend="wavefront_pallas"), camera,
+             tt.init_state(hero, dev), 1234, 1))]
+try:
+    emit_scene = smoke.emission_scene().to(dev)
+except AttributeError:      # no emissive materials in this checkout
+    emit_scene = None
+emit = tt.RenderConfig(width=1920, height=1080, depth=30, backend="pallas",
+                       wf_pool=262144, **smoke.CONFIG4, **smoke.EMIT_FLAGS)
+emit_w = emit.with_(enable_photons=False, backend="wavefront_fused")
+g_emit = tt.RenderConfig(width=1920, height=1080, depth=30, backend="pallas",
+                         pallas_mxu_leaf=True, sky_intensity=0.2,
+                         sky_temp=6500.0, radiance_clamp=20.0,
+                         **smoke.CONFIG6)
+torus6 = tt.make_camera((0, 3, -6), (0, 1.5, 0), vfov=55.0,
+                        aspect_ratio=16 / 9)
+planes = state_to_planes(tt.init_state(emit, dev))
+cells += [("emission-regen-1spp", "regen", lambda: mega_regen.regen_call(
+              emit_scene, emit, camera, planes.clone(), 1234, 1, 0, 2.0,
+              30)),
+          ("emission-tile-sync", "regen", lambda: mega_step.step_call(
+              emit_scene, emit, camera, planes.clone(), 1234, 3, 1.5, 30)),
+          ("emission-fused-1spp", "fused", lambda: (
+              wavefront_fused.wavefront_render_fused(
+                  emit_scene, emit_w, camera, st0, 1234, 1))),
+          ("emission-pallas-1spp-sweeps", "pool_step", lambda: tt.render(
+              emit_scene, emit_w.with_(backend="wavefront_pallas"), camera,
+              tt.init_state(emit_w, dev), 1234, 1)),
+          ("emission-g-leaf-1spp", "regen", lambda: mega_regen.regen_call(
+              torus, g_emit, torus6, planes.clone(), 1234, 1, 0, 2.0, 30))]
+from tpurt_torch.kernels import mega_step
+for name, part, fn in cells:
+    try:
+        if emit_scene is None and name.startswith("emission"):
+            raise NotImplementedError
+        out.append(f"{name} {device_ms(fn, part):.4f}")
+    except NotImplementedError:     # flags this checkout rejects
+        out.append(f"{name} n/a")
 print(f"AB {sys.argv[1]}: " + " | ".join(out), flush=True)
 '''
 

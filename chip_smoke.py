@@ -33,7 +33,17 @@ claim, bounce, splat and control words, against ``wavefront._step``),
 [wf-budget], [wf-pallas] (the 1080p path: sweeps, host reads, wall time
 by sweeps per read), [config5], [many-lights] (tpurt's many-light scene
 with 20 lights, its rows in shared memory, and 128, past that budget: the
-regen, fused and sweep kernels against their plain versions), [bvh-walk], [mesh-regen], [mesh-wf],
+regen, fused and sweep kernels against their plain versions), [wf-hero]
+(bench config 4's hero wavelengths and dispersion on config 5's scene and
+pool: the sweep and fused kernels' sampler instances, 4 spp, a budget
+launch and wavefront_pallas at 1080p against their plain versions),
+[emission] (an emitter added to the dispersive scene, the sky with its
+blackbody and ramp and the radiance clamp, with config 4's flags: the
+emission instances of the regen (uniform, budget; also with the G leaf),
+tile-sync, fused and sweep kernels at 1080p against their plain
+versions, the reference sampler and the legacy ramp at 256x144; every new
+launch timed beside the same launch without the flags), [bvh-walk],
+[mesh-regen], [mesh-wf],
 [mesh] (config 6 with the reference sampler), [config6] (config 6 as
 shipped), [config4], [mesh-field], [mesh-instanced], [mxu-leaf] (the
 probe's warp G leaf against the plain G sweep on random rays, a count no
@@ -45,9 +55,10 @@ one depth-30 sample of config 6 as shipped at 1080p and of the reference
 sampler at 512x288), [config6-mxu] (config 6 with the flag, both samplers,
 timed against the exact leaf). The plain renders of the torus sweep all
 4050 triangles for every pixel at every bounce, and set the run's length:
-config 6 as shipped keeps 1080p with both leaf tests (56 and 69 s), the
-reference sampler, whose 1080p plain renders take 150 and 140 s, is held at
-512x288 (and on Cornell at 1080p). Each group of phases ends with a [time]
+config 6 as shipped keeps 1080p with both leaf tests (the exact leaf at
+depth 15 in [sampler], the G leaf at depth 30, 69 s), the reference
+sampler, whose 1080p plain renders take 150 and 140 s, is held at 512x288
+(and on Cornell at 1080p). Each group of phases ends with a [time]
 line.
 
     python3 chip_smoke.py
@@ -137,6 +148,12 @@ def counters() -> dict:
             "blit": (blit, "LAUNCHES"),
             "wf_sweep": (wavefront_sweep, "LAUNCHES"),
             "wf_fused": (wavefront_fused, "LAUNCHES"),
+            "regen_emit": (mega_regen, "EMIT_LAUNCHES"),
+            "tile_sync_emit": (mega_step, "EMIT_LAUNCHES"),
+            "wf_sweep_sampler": (wavefront_sweep, "SAMPLER_LAUNCHES"),
+            "wf_sweep_emit": (wavefront_sweep, "EMIT_LAUNCHES"),
+            "wf_fused_sampler": (wavefront_fused, "SAMPLER_LAUNCHES"),
+            "wf_fused_emit": (wavefront_fused, "EMIT_LAUNCHES"),
             "bvh_walk": (bvh, "WALKS"),
             "mxu_leaf": (mega_regen, "MXU_LAUNCHES")}
 
@@ -162,10 +179,17 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# kernel name -> launches the last profiled() session recorded: in a long
+# run of this script torch.profiler records only some launches of the
+# path kernels (PERF.md), so each profile says how many it saw
+RECORDED = {}
+
+
 def profiled(fn, reps: int = 1):
     """Run fn() reps times under torch.profiler, after one warm-up. Returns
     (wall ms per run, device ms per run by kernel name, device busy ms per
-    run): the kernels' own device time, summed per name."""
+    run): the kernels' own device time, summed per name. RECORDED holds
+    the launches of each kernel the session recorded."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -178,6 +202,7 @@ def profiled(fn, reps: int = 1):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
     by_name = {}
+    RECORDED.clear()
     for e in prof.key_averages():
         # device-side entries only (kernels, copies): a CPU op's own
         # device time repeats its kernels'
@@ -187,10 +212,24 @@ def profiled(fn, reps: int = 1):
                      getattr(e, "self_cuda_time_total", 0.0))
         if us > 0:
             by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3 / reps
+            RECORDED[e.key] = RECORDED.get(e.key, 0) + e.count
     if not by_name:
         print("  (torch.profiler saw no device time: CUDA-event and host "
               "times only)")
     return wall, by_name, sum(by_name.values())
+
+
+def recorded(part: str) -> int:
+    """Launches of the kernels named ``part`` the last session recorded."""
+    return sum(v for k, v in RECORDED.items() if part in k)
+
+
+def launch_device_ms(by_name: dict, part: str, reps: int) -> float:
+    """The device ms of one launch of the kernels named ``part``: the mean
+    over the launches the last session recorded (0.0 where it recorded
+    none); ``by_name`` holds that session's ms per run of ``reps``."""
+    n = recorded(part)
+    return named_ms(by_name, part) * reps / n if n else 0.0
 
 
 def launch_ms(fn, part: str, reps: int) -> list:
@@ -222,11 +261,16 @@ def ptxas_report(log: str) -> list:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            # template flags of the instance (SAMPLER, GLEAF), as <0,1>
-            flags = re.search(r"I((?:Lb[01]E)+)E", name)
-            for part, short in (("regen", "regen"), ("pool_step", "sweep"),
-                                ("step", "step"), ("fused", "fused"),
-                                ("probe", "probe"), ("tonemap", "tonemap")):
+            # template flags of the instance (regen: SAMPLER, GLEAF; the
+            # emission instances: GLEAF or EMIT), as <0,1>
+            flags = re.search(r"I((?:Lb[01]E)+)", name)
+            for part, short in (("regen_emit", "regen_emit"),
+                                ("regen", "regen"),
+                                ("pool_step", "sweep"),
+                                ("step", "step"),
+                                ("fused_sampler", "fused_sampler"),
+                                ("fused", "fused"), ("probe", "probe"),
+                                ("tonemap", "tonemap")):
                 if part in name:
                     name = short
                     break
@@ -477,6 +521,13 @@ def main() -> int:
     many_light_phases()
     lap("wavefront, many lights")
 
+    # 7b. hero wavelengths and dispersion on the wavefront kernels; the
+    #     emission instances of all four path kernels
+    launches.update(wf_hero_phases(dev, report, gpu))
+    lap("wf-hero")
+    launches.update(emission_phases(dev, report, gpu))
+    lap("emission")
+
     # 8. meshes: the BVH walks, bench config 6 (reference sampler and as
     #    shipped), config 4 and the scale paths
     launches.update(mesh_phases(dev, report, gpu))
@@ -499,6 +550,20 @@ def main() -> int:
                         "tpurt/kernels/wavefront_pallas.py:102"),
            "wf_fused": ("tpurt_torch/csrc/wavefront_fused.cu",
                         "tpurt/kernels/wavefront_pallas.py:572"),
+           "regen_emit": ("tpurt_torch/csrc/path_emit.cu",
+                          "tpurt/kernels/mega_regen.py:84"),
+           "regen_emit_gleaf": ("tpurt_torch/csrc/path_emit.cu",
+                                "tpurt/kernels/mega_regen.py:84"),
+           "tile_sync_emit": ("tpurt_torch/csrc/path_emit.cu",
+                              "tpurt/kernels/mega_pallas.py:1666"),
+           "wf_sweep_sampler": ("tpurt_torch/csrc/wavefront_sweep.cu",
+                                "tpurt/kernels/wavefront_pallas.py:102"),
+           "wf_sweep_emit": ("tpurt_torch/csrc/wavefront_sweep.cu",
+                             "tpurt/kernels/wavefront_pallas.py:102"),
+           "wf_fused_sampler": ("tpurt_torch/csrc/wavefront_fused.cu",
+                                "tpurt/kernels/wavefront_pallas.py:572"),
+           "wf_fused_emit": ("tpurt_torch/csrc/wavefront_fused.cu",
+                             "tpurt/kernels/wavefront_pallas.py:572"),
            "bvh_walk": ("tpurt_torch/csrc/bvh.cuh",
                         "tpurt/kernels/bvh_pallas.py:466"),
            "mxu_leaf": ("tpurt_torch/csrc/bvh.cuh",
@@ -610,7 +675,10 @@ def sampler_phases() -> None:
     configs 6 (photon strata 16/4096, shared k, bounce and camera strata,
     hero 4, on the torus mesh), 4 (hero 4 with the dispersive collapse) and
     3 (hero 8, strata 16/256, window 16, from iteration 14 so one call
-    crosses a window) against render_plain; then config 6 at 1080p."""
+    crosses a window) against render_plain; then config 6 at 1080p, depth
+    15 (its plain render took 56 s at depth 30; config 6 runs at depth 30
+    through the main path in [config6] and, with the G leaf, against its
+    plain version in [mesh-mxu])."""
     import tpurt_torch as tt
     scenes = {"config 6": (tt.torus_mesh_scene(45, 45), CONFIG6, TORUS_CAM,
                            0, 2),
@@ -623,7 +691,7 @@ def sampler_phases() -> None:
             camera = tt.make_camera(*cam, vfov=55.0, aspect_ratio=w / h)
             regen_vs_plain(label, scene, cfg, camera, 1234, spp, it0)
     scene, flags, cam, _, _ = scenes["config 6"]
-    cfg = tt.RenderConfig(width=1920, height=1080, depth=30,
+    cfg = tt.RenderConfig(width=1920, height=1080, depth=15,
                           backend="pallas", **flags)
     regen_vs_plain("config 6", scene, cfg,
                    tt.make_camera(*cam, vfov=55.0, aspect_ratio=16 / 9),
@@ -842,6 +910,101 @@ def tile_sync_phases(report, gpu) -> dict:
     return {"tile_sync": launches["tile_sync"]}
 
 
+def sweep_vs_step(tag, fs, cfg, work, dev, part):
+    """[tag] one sweep of the pool loop, whole (claim, bounce, splat,
+    control words), on a pool in mid flight: camera rays from the middle
+    rows of the image (the top rows see sky) after two plain sweeps; then
+    one launch of the sweep kernel against one wavefront._step, every
+    pool plane, the control words, the image and the rays bit for bit.
+    Times the launch (device ms of the kernels named ``part``) and returns
+    its report entry."""
+    from tpurt_torch import wavefront
+    from tpurt_torch.kernels import wavefront_sweep
+    q = cfg.wf_pool
+    rgb0 = torch.zeros((cfg.n_pixels, 3), device=dev)
+    ctl = wavefront.new_ctl(q, True, dev)
+    ctl[wavefront.NEXT_PIX] = max(cfg.n_pixels - q, 0) // 2
+    start = (wavefront.new_pool(q, dev), rgb0,
+             torch.zeros((cfg.n_pixels,), device=dev), ctl)
+    for _ in range(2):
+        start = wavefront._step(fs, cfg, work, *start)
+
+    def copy(args):
+        pool, *rest = args
+        return (wavefront.WavefrontPool(pf=pool.pf.clone(), pi=pool.pi.clone(),
+                                        rng=pool.rng.clone()),
+                *(t.clone() for t in rest))
+
+    step = wavefront_sweep.stepper(fs, cfg, work).sweep
+    got = step(*copy(start))
+    want = wavefront._step(fs, cfg, work, *copy(start))
+    torch.cuda.synchronize()
+    names = ("o/d/tp/rad/lam", "pix/bounce/state", "rng", "rgb_sum",
+             "n_samples", "control words")
+    flat = lambda r: (r[0].pf, r[0].pi, r[0].rng, *r[1:])  # noqa: E731
+    equal = {k: torch.equal(a, b)
+             for k, a, b in zip(names, flat(got), flat(want))}
+    err = float((got[0].pf - want[0].pf).abs().max())
+    pool0 = start[0]
+    claimed = wavefront._claim(cfg, work, pool0, start[3])[0]
+    n_old = int(pool0.active.sum())
+    n_live = int(claimed.active.sum())
+    n_term = int(want[2].sum() - start[2].sum())
+    rays = int(want[3][wavefront.RAYS] - start[3][wavefront.RAYS])
+    bounces = pool0.pi[wavefront.BOUNCE][pool0.active].float()
+    print(f"[{tag}] {cfg.width}x{cfg.height} Q={q} ({n_old / q:.3f} active,"
+          f" {int(pool0.coll.sum())} collapsed, mean bounce "
+          f"{float(bounces.mean()):.2f}; {n_live - n_old} claimed, {n_term} "
+          f"ended): equal {equal}, rays "
+          f"{int(got[3][wavefront.RAYS] - start[3][wavefront.RAYS])} vs "
+          f"{rays}, max |diff| {err}")
+    if not all(equal.values()):
+        raise AssertionError(f"{tag}: the sweep kernel differs from "
+                             f"wavefront._step")
+    call_ms, by_name, _ = profiled(lambda: step(*copy(start)), 20)
+    # what the launch must move: every slot's state word; the planes of
+    # the slots in flight read (13 f32, pix, bounce, the i64 PCG state)
+    # and of every slot that bounces written (13 f32, 3 i32, the state);
+    # rgb_sum and n_samples of each ended path read and written
+    moved = q * 4 + n_old * (13 * 4 + 2 * 4 + 8) \
+        + n_live * (13 * 4 + 3 * 4 + 8) + n_term * 16 * 2
+    entry = dict(
+        max_abs_err=err, ms=launch_device_ms(by_name, part, 20) or call_ms,
+        plain_ms=cuda_ms(lambda: wavefront._step(fs, cfg, work,
+                                                 *copy(start)), 3),
+        **bound(moved, rays * OPS_PER_SEGMENT))
+    print(f"  one sweep: kernel {entry['ms']:.4f} ms of device time "
+          f"({recorded(part)} of 20 launches recorded; {call_ms:.4f} ms per "
+          f"wrapper call with its input copies), "
+          f"plain {entry['plain_ms']:.3f} ms; bound {entry['bound_ms']:.4f} "
+          f"ms ({entry['bound_by']}, {moved} bytes)")
+    return entry
+
+
+def pool_pair(scene, cfg, cam, backend, spp, plain="wavefront"):
+    """The kernel backend and the plain pool from fresh states: rays and
+    sample counts exact, the image rule (median < 1e-4, < 2% of pixels
+    past 1e-2). Returns (max |diff|, rays)."""
+    import tpurt_torch as tt
+    kcfg = cfg.with_(backend=backend)
+    sk = tt.render(scene, kcfg, cam, tt.init_state(kcfg), 1234, spp)
+    pcfg = cfg.with_(backend=plain)
+    sp = tt.render(scene, pcfg, cam, tt.init_state(pcfg), 1234, spp)
+    torch.cuda.synchronize()
+    n = cfg.n_pixels
+    med, frac, mx = image_gap(sk.rgb_sum[:n].cpu().numpy(),
+                              sp.rgb_sum[:n].cpu().numpy())
+    print(f"  {backend} {cfg.width}x{cfg.height} depth {cfg.depth} {spp} "
+          f"spp: image median {med:.2e}, {frac:.2%} pixels > 1e-2, "
+          f"max {mx:.3g}")
+    check_rays(f"{backend} vs {plain}", int(sk.rays), int(sp.rays))
+    if int(sk.rays) != int(sp.rays) \
+            or not bool((sk.n_samples[:n] == spp).all()) \
+            or not (med < 1e-4 and frac < 0.02):
+        raise AssertionError(f"{backend} differs from {plain}")
+    return mx, int(sk.rays)
+
+
 def dispersive_camera(cfg):
     """tpurt's bench config 5 camera (bench.py:117-122)."""
     import tpurt_torch as tt
@@ -866,93 +1029,17 @@ def wavefront_phases(dev, report, gpu) -> dict:
                            backend="wavefront_fused", enable_photons=False,
                            wf_pool=262144)
     cam5 = dispersive_camera(cfg5)
-    st5 = tt.init_state(cfg5)
 
     # [wf-sweep] one sweep of the pool loop, whole (claim, bounce, splat,
-    # control words), on a 1080p pool in mid flight: camera rays from the
-    # middle rows of the image (the top rows see sky) after two plain
-    # sweeps; then one launch of the kernel against one wavefront._step
+    # control words), on a 1080p pool in mid flight, against wavefront._step
     work = wavefront.PoolWork(camera=cam5, base_seed=1234, spp=1,
                               n_valid=cfg5.n_pixels)
-    q = cfg5.wf_pool
-    ctl = wavefront.new_ctl(q, True, dev)
-    ctl[wavefront.NEXT_PIX] = (cfg5.n_pixels - q) // 2
-    start = (wavefront.new_pool(q, dev), torch.zeros_like(st5.rgb_sum),
-             torch.zeros_like(st5.n_samples), ctl)
-    for _ in range(2):
-        start = wavefront._step(fs, cfg5, work, *start)
-
-    def copy(args):
-        pool, *rest = args
-        return (wavefront.WavefrontPool(pf=pool.pf.clone(), pi=pool.pi.clone(),
-                                        rng=pool.rng.clone()),
-                *(t.clone() for t in rest))
-
-    step = wavefront_sweep.stepper(fs, cfg5, work).sweep
-    got = step(*copy(start))
-    want = wavefront._step(fs, cfg5, work, *copy(start))
-    torch.cuda.synchronize()
-    names = ("o/d/tp/rad/lam", "pix/bounce/active", "rng", "rgb_sum",
-             "n_samples", "control words")
-    flat = lambda r: (r[0].pf, r[0].pi, r[0].rng, *r[1:])  # noqa: E731
-    equal = {k: torch.equal(a, b)
-             for k, a, b in zip(names, flat(got), flat(want))}
-    err = float((got[0].pf - want[0].pf).abs().max())
-    pool0 = start[0]
-    claimed = wavefront._claim(cfg5, work, pool0, start[3])[0]
-    n_old = int(pool0.active.sum())
-    n_live = int(claimed.active.sum())
-    n_term = int(want[2].sum() - start[2].sum())
-    rays = int(want[3][wavefront.RAYS] - start[3][wavefront.RAYS])
-    bounces = pool0.pi[wavefront.BOUNCE][pool0.active].float()
-    print(f"[wf-sweep] 1920x1080 dispersive, Q={q} ({n_old / q:.3f} active,"
-          f" mean bounce {float(bounces.mean()):.2f}; {n_live - n_old} "
-          f"claimed, {n_term} ended): equal {equal}, rays "
-          f"{int(got[3][wavefront.RAYS] - start[3][wavefront.RAYS])} vs "
-          f"{rays}, max |diff| {err}")
-    if not all(equal.values()):
-        raise AssertionError("sweep kernel differs from wavefront._step")
-    call_ms, by_name, _ = profiled(lambda: step(*copy(start)), 20)
-    # what the launch must move: every slot's active flag; the planes of
-    # the slots in flight read (13 f32, pix, bounce, the i64 PCG state)
-    # and of every slot that bounces written (13 f32, 3 i32, the state);
-    # rgb_sum and n_samples of each ended path read and written; before
-    # this PR the launch read and wrote every slot's planes and a mask
-    moved = q * 4 + n_old * (13 * 4 + 2 * 4 + 8) \
-        + n_live * (13 * 4 + 3 * 4 + 8) + n_term * 16 * 2
-    report["wf_sweep"] = dict(
-        max_abs_err=err, ms=named_ms(by_name, "pool_step_kernel") or call_ms,
-        plain_ms=cuda_ms(lambda: wavefront._step(fs, cfg5, work,
-                                                 *copy(start)), 3),
-        **bound(moved, rays * OPS_PER_SEGMENT))
-    old = bound(q * ((13 * 4 + 3 * 4 + 8) * 2 + 1), rays * OPS_PER_SEGMENT)
-    print(f"  one sweep: kernel {report['wf_sweep']['ms']:.4f} ms of device "
-          f"time ({call_ms:.4f} ms per wrapper call with its input copies), "
-          f"plain {report['wf_sweep']['plain_ms']:.3f} ms; bound "
-          f"{report['wf_sweep']['bound_ms']:.4f} ms "
-          f"({report['wf_sweep']['bound_by']}, {moved} bytes; counted as "
-          f"before this PR: {old['bound_ms']:.4f} ms, {old['bound_by']})")
+    report["wf_sweep"] = sweep_vs_step("wf-sweep", fs, cfg5, work, dev,
+                                       "pool_step_kernel")
 
     def pair(cfg, backend, spp, plain="wavefront"):
-        """The kernel backend and the plain pool from fresh states."""
-        cam = dispersive_camera(cfg)
-        kcfg = cfg.with_(backend=backend)
-        sk = tt.render(scene, kcfg, cam, tt.init_state(kcfg), 1234, spp)
-        pcfg = cfg.with_(backend=plain)
-        sp = tt.render(scene, pcfg, cam, tt.init_state(pcfg), 1234, spp)
-        torch.cuda.synchronize()
-        n = cfg.n_pixels
-        med, frac, mx = image_gap(sk.rgb_sum[:n].cpu().numpy(),
-                                  sp.rgb_sum[:n].cpu().numpy())
-        print(f"  {cfg.width}x{cfg.height} depth {cfg.depth} {spp} spp: "
-              f"image median {med:.2e}, {frac:.2%} pixels > 1e-2, "
-              f"max {mx:.3g}")
-        check_rays(f"{backend} vs {plain}", int(sk.rays), int(sp.rays))
-        if int(sk.rays) != int(sp.rays) \
-                or not bool((sk.n_samples[:n] == spp).all()) \
-                or not (med < 1e-4 and frac < 0.02):
-            raise AssertionError(f"{backend} differs from {plain}")
-        return mx, int(sk.rays)
+        return pool_pair(scene, cfg, dispersive_camera(cfg), backend, spp,
+                         plain)
 
     # [wf-pool] the pool driven by the sweep kernel against the plain pool
     print("[wf-pool] wavefront_pallas vs wavefront:")
@@ -990,9 +1077,11 @@ def wavefront_phases(dev, report, gpu) -> dict:
         call_ms, by_name, _ = profiled(
             lambda: wavefront_fused._launch(scene, cfg5, cam5, st0, 1234,
                                             spp, aux_m), 3)
-        fused_ms[mode] = named_ms(by_name, "fused_kernel") or call_ms
+        fused_ms[mode] = launch_device_ms(by_name, "fused_kernel", 3) \
+            or call_ms
         print(f"  1080p depth 30 {mode}: kernel {fused_ms[mode]:.4f} ms of "
-              f"device time ({call_ms:.3f} ms per wrapper call)")
+              f"device time ({recorded('fused_kernel')} of 3 launches "
+              f"recorded; {call_ms:.3f} ms per wrapper call)")
     kernel_ms = fused_ms["1 spp"]
     report["wf_fused"] = dict(
         max_abs_err=err, ms=kernel_ms,
@@ -1098,9 +1187,11 @@ def wavefront_phases(dev, report, gpu) -> dict:
 
     wall, by_name, busy = profiled(config5, 3)
     print(f"  under the profiler: {wall:.2f} ms wall, fused kernel "
-          f"{named_ms(by_name, 'fused_kernel'):.2f} ms, blit "
+          f"{launch_device_ms(by_name, 'fused_kernel', 3):.2f} ms a launch "
+          f"({recorded('fused_kernel')} of 3 recorded), blit "
           f"{named_ms(by_name, 'tonemap_kernel'):.3f} ms, device busy "
-          f"{busy:.2f} ms (idle share {idle_share(wall, busy)})")
+          f"{busy:.2f} ms (idle share {idle_share(wall, busy)}, of the "
+          f"launches recorded)")
     return launches
 
 
@@ -1146,6 +1237,360 @@ def many_light_phases() -> None:
                     or not (med < 1e-4 and frac < 0.01):
                 raise AssertionError(f"{backend} differs from the plain pool "
                                      f"with {n_lights} lights")
+
+
+# the emission flags of [emission] (the sky with its blackbody and ramp,
+# the clamp), beside bench config 4's sampler flags
+EMIT_FLAGS = dict(sky_intensity=0.2, sky_temp=6500.0, sky_gradient=True,
+                  radiance_clamp=20.0)
+
+
+def emission_scene():
+    """tpurt_torch.scene.dispersive_scene's materials, spheres and lights
+    (tpurt's bench configs 4 and 5) plus one emitter, a sphere of radius
+    0.5 at (0, 3, 2) in view of config 5's camera."""
+    import tpurt_torch as tt
+    from tpurt_torch.scene import Light, Material, Sphere
+    materials = [Material.diffuse((0.8, 0.8, 0.8)),
+                 Material.dielectric(1.52, 0.0),
+                 Material.dielectric(1.72, 0.0),
+                 Material.metal((1.0, 0.71, 0.29), 0.05),
+                 Material.diffuse((0.3, 0.3, 0.8)),
+                 Material.emissive((0.4, 0.8, 1.0), 8.0)]
+    spheres = [Sphere(0, 1000.0, (0.0, -1000.0, 0.0)),
+               Sphere(1, 1.0, (-2.2, 1.0, 4.0)),
+               Sphere(2, 1.0, (0.0, 1.0, 4.5)),
+               Sphere(3, 1.0, (2.2, 1.0, 4.0)),
+               Sphere(4, 0.7, (0.0, 0.7, 7.0)),
+               Sphere(5, 0.5, (0.0, 3.0, 2.0))]
+    lights = [Light.point([0.0, 8.0, 0.0], [1.0, 1.0, 1.0], 60.0, 5500.0),
+              Light.square_area([6.0, 4.0, 4.0], [-1.0, -0.3, 0.0], 2.0,
+                                [1.0, 1.0, 1.0], 4.0, 3200.0)]
+    return tt.build_scene(materials, spheres, (), lights)
+
+
+def launch_times(label, fn, part, base=None, base_part=None) -> float:
+    """CUDA-event ms of fn (mean of 3 after a warm-up), the device ms of a
+    launch of the kernels named ``part`` under torch.profiler (3 runs; the
+    mean of the launches the session recorded: chip_ab.py, whose fresh
+    processes record every launch, gives the device ms of these launches
+    too) and the idle share of the profiled wall time; the same for
+    ``base``, the launch without the flags, in the same call. Returns the
+    events' ms."""
+    out = []
+    for name, f, kpart in ((label, fn, part),
+                           ("without the flags", base, base_part)):
+        if f is None:
+            continue
+        ev = cuda_ms(f, 3)
+        wall, by_name, busy = profiled(f, 3)
+        out.append(ev)
+        print(f"  {name}: {ev:.4f} ms by CUDA events; under torch.profiler "
+              f"{launch_device_ms(by_name, kpart, 3):.4f} ms of device time "
+              f"a launch ({kpart}, mean of the {recorded(kpart)} launches "
+              f"recorded in 3 runs), idle share {idle_share(wall, busy)}")
+    return out[0]
+
+
+def fused_budget_pair(scene, cfg, cam, dev):
+    """The fused kernel's budget launch (budgets 0-4, seed 8, the
+    [wf-fused] map) against its plain version, the budget pool: rays and
+    sample counts exact, the image rule. Returns the budgets."""
+    import tpurt_torch as tt
+    from tpurt_torch.kernels import wavefront_fused
+    st0 = tt.init_state(cfg)
+    budgets = budget_map(st0.n_samples.shape[0], cfg.n_pixels, 4, 8, dev)
+    sk = wavefront_fused.wavefront_render_budget_fused(scene, cfg, cam, st0,
+                                                       1234, budgets, 4)
+    sp = tt.wavefront_render_budget(scene, cfg, cam, st0, 1234, budgets, 4)
+    torch.cuda.synchronize()
+    n = cfg.n_pixels
+    med, frac, mx = image_gap(sk.rgb_sum[:n].cpu().numpy(),
+                              sp.rgb_sum[:n].cpu().numpy())
+    same_n = torch.equal(sk.n_samples, sp.n_samples)
+    print(f"  fused budget launch {cfg.width}x{cfg.height} budgets 0-4: "
+          f"rays {int(sk.rays)} vs plain {int(sp.rays)}, sample counts "
+          f"equal {same_n}, image median {med:.2e}, {frac:.2%} pixels > "
+          f"1e-2")
+    if int(sk.rays) != int(sp.rays) or not same_n \
+            or not (med < 1e-4 and frac < 0.02):
+        raise AssertionError("the fused budget launch differs from the "
+                             "budget pool")
+    return budgets
+
+
+def fused_equals_regen(scene, cfg, cam, spp) -> None:
+    """The fused kernel against the regen kernel with photons off, which
+    adds each pixel's samples in the same order: rgb_sum and rays bit for
+    bit."""
+    import tpurt_torch as tt
+    from tpurt_torch.kernels import mega_regen, wavefront_fused
+    from tpurt_torch.render import state_to_planes
+    st0 = tt.init_state(cfg)
+    planes = state_to_planes(st0)
+    rr = int(mega_regen.regen_call(scene, cfg.with_(backend="pallas"), cam,
+                                   planes, 1234, spp, 0, 2.0, cfg.depth))
+    sf = wavefront_fused.wavefront_render_fused(scene, cfg, cam, st0, 1234,
+                                                spp)
+    same = torch.equal(sf.rgb_sum, planes[0:3].T) and int(sf.rays) == rr
+    print(f"  {cfg.width}x{cfg.height} {spp} spp: fused kernel = regen "
+          f"kernel with photons off, rgb_sum and rays bit for bit: {same} "
+          f"({int(sf.rays)} vs {rr})")
+    if not same:
+        raise AssertionError("the fused kernel differs from the regen "
+                             "kernel with photons off")
+
+
+def wf_hero_phases(dev, report, gpu) -> dict:
+    """[wf-hero] bench config 4's sampler flags (4 hero wavelengths,
+    camera-path dispersion, the collapse) on config 5's scene, camera and
+    pool (1080p, depth 30, photons off, wf_pool=262144): one sweep of the
+    sweep kernel's sampler instance against wavefront._step bit for bit;
+    the fused kernel's sampler instance at 4 spp and in a budget launch
+    and wavefront_pallas at 1 spp against the plain pool (rays exact, the
+    image rule); the fused kernel against the regen kernel with photons
+    off bit for bit; each launch timed beside config 5's own; then the two
+    main paths through the public entry points."""
+    import tpurt_torch as tt
+    from tpurt_torch import wavefront
+    from tpurt_torch.kernels import wavefront_fused
+    from tpurt_torch.scene import freeze_scene
+    scene = tt.dispersive_scene()
+    fs = freeze_scene(scene)
+    cfg = tt.RenderConfig(width=1920, height=1080, depth=30,
+                          backend="wavefront_fused", enable_photons=False,
+                          wf_pool=262144, **CONFIG4)
+    cfg5 = cfg.with_(hero_wavelengths=1, dispersion_in_camera_path=False)
+    cam = dispersive_camera(cfg)
+    work = wavefront.PoolWork(camera=cam, base_seed=1234, spp=1,
+                              n_valid=cfg.n_pixels)
+    entry = sweep_vs_step("wf-hero", fs, cfg, work, dev,
+                          "pool_step_kernel<true")
+    report["wf_sweep_sampler"] = entry
+    print("[wf-hero] wavefront_fused and wavefront_pallas vs wavefront:")
+    err, rays = pool_pair(scene, cfg, cam, "wavefront_fused", 4)
+    pool_pair(scene, cfg, cam, "wavefront_pallas", 1)
+    budgets = fused_budget_pair(scene, cfg, cam, dev)
+    fused_equals_regen(scene, cfg, cam, 1)
+    st0 = tt.init_state(cfg)
+    aux = torch.stack([budgets.float(), st0.n_samples]).contiguous()
+    ms = {}
+    for mode, spp, aux_m in (("1 spp", 1, None), ("4 spp", 4, None),
+                             ("budgets 0-4", 0, aux)):
+        print(f"[wf-hero] fused kernel 1080p depth 30 {mode}:")
+        ms[mode] = launch_times(
+            "hero 4, dispersion", lambda: wavefront_fused._launch(
+                scene, cfg, cam, st0, 1234, spp, aux_m),
+            "fused_sampler_kernel",
+            lambda: wavefront_fused._launch(scene, cfg5, cam, st0, 1234, spp,
+                                            aux_m), "fused_kernel")
+    one = tt.init_state(cfg)
+    report["wf_fused_sampler"] = dict(
+        max_abs_err=err, ms=ms["4 spp"],
+        plain_ms=cuda_ms(lambda: wavefront.wavefront_render(
+            scene, cfg, cam, one, 1234, 4), 1),
+        **bound(cfg.n_pixels * 12 * 2, rays * OPS_PER_SEGMENT))
+    print(f"  4 spp: plain pool {report['wf_fused_sampler']['plain_ms']:.1f}"
+          f" ms; bound {report['wf_fused_sampler']['bound_ms']:.4f} ms")
+    print("[wf-hero] wavefront_pallas render 1080p 1 spp (sweep launches):")
+    cfg_p = cfg.with_(backend="wavefront_pallas")
+    launch_times(
+        "hero 4, dispersion", lambda: tt.render(scene, cfg_p, cam,
+                                                tt.init_state(cfg_p), 1234,
+                                                1),
+        "pool_step_kernel<true",
+        lambda: tt.render(scene, cfg5.with_(backend="wavefront_pallas"), cam,
+                          tt.init_state(cfg_p), 1234, 1), "pool_step_kernel")
+    launches = drive("wf-hero", scene, cfg, cam, 4,
+                     ["wf_fused_sampler", "blit"], gpu)
+    launches.update(drive("wf-hero", scene, cfg_p, cam, 1,
+                          ["wf_sweep_sampler", "blit"], gpu))
+    launches.pop("blit")
+    return launches
+
+
+def emission_phases(dev, report, gpu) -> dict:
+    """[emission] the kernels' emission instances on emission_scene() with
+    EMIT_FLAGS and bench config 4's sampler flags at tpurt's bench shapes
+    (1080p, depth 30): the regen kernel (1 spp, then one budget launch of
+    budgets 0-2), the tile-sync kernel (1 sample), against render_plain
+    and render_plain_budget on every plane bit for bit; with photons off
+    the fused kernel (1 spp; also against the regen kernel bit for bit)
+    and wavefront_pallas (1 spp) against the plain pool, and one sweep
+    against wavefront._step bit for bit. Then the reference sampler with
+    the emission flags and sky_gradient alone (the wavefront tracers'
+    legacy ramp) at 256x144; the G leaf with the emission flags (config
+    6 as shipped, sky and clamp) at 256x144; each launch timed beside
+    config 4's or 5's without the flags; then the main paths."""
+    import tpurt_torch as tt
+    from tpurt_torch import integrate, wavefront
+    from tpurt_torch.kernels import mega_regen, mega_step, wavefront_fused
+    from tpurt_torch.render import state_to_planes
+    from tpurt_torch.scene import freeze_scene
+    scene = emission_scene()
+    fs = freeze_scene(scene)
+    disp = tt.dispersive_scene()
+    flags = dict(CONFIG4, **EMIT_FLAGS)
+    cfg = tt.RenderConfig(width=1920, height=1080, depth=30,
+                          backend="pallas", wf_pool=262144, **flags)
+    cfg4 = tt.RenderConfig(width=1920, height=1080, depth=30,
+                           backend="pallas", **CONFIG4)
+    cam = dispersive_camera(cfg)
+
+    # the regen kernel, uniform and budget mode, and the tile-sync kernel
+    rk, _, p_s = regen_vs_plain("hero 4, dispersion, emission", scene,
+                                cfg, cam, 1234, 1, 0, phase="emission")
+    planes = state_to_planes(tt.init_state(cfg))
+    print("[emission] regen kernel 1080p 1 spp:")
+    ms = launch_times("emission", lambda: mega_regen.regen_call(
+        scene, cfg, cam, planes.clone(), 1234, 1, 0, 2.0, 30),
+        "regen_emit_kernel", lambda: mega_regen.regen_call(
+            disp, cfg4, cam, planes.clone(), 1234, 1, 0, 2.0, 30),
+        "regen_kernel")
+    report["regen_emit"] = dict(max_abs_err=0.0, ms=ms, plain_ms=p_s * 1e3,
+                                **path_bound(cfg.n_pixels, rk))
+    st1 = tt.render(scene, cfg, cam, tt.init_state(cfg), 1234, 1)
+    b = budget_map(st1.n_samples.shape[0], cfg.n_pixels, 2, 5, dev)
+    pl = state_to_planes(st1)
+    bk, bp = pl.clone(), pl.clone()
+    rbk = int(mega_regen.regen_budget_call(scene, cfg, cam, bk, 1234, b,
+                                           st1.n_samples))
+    rbp = int(integrate.render_plain_budget(fs, cfg, cam, bp, 1234, b,
+                                            st1.n_samples))
+    bad = unequal_planes(bk, bp)
+    print(f"[emission] regen budget launch, budgets 0-2 after 1 spp: rays "
+          f"{rbk} vs plain {rbp}, unequal planes {bad}")
+    if rbk != rbp or bad:
+        raise AssertionError("the regen kernel's emission instance differs "
+                             "from render_plain_budget")
+    pk, pp = planes.clone(), planes.clone()
+    rk1 = int(mega_step.step_call(scene, cfg, cam, pk, 1234, 3, 1.5, 30))
+    t0 = time.perf_counter()
+    rp1 = int(integrate.render_plain(fs, cfg, cam, pp, 1234, 1, 3, 1.5, 30))
+    plain_step = (time.perf_counter() - t0) * 1e3
+    bad = unequal_planes(pk, pp)
+    print(f"[emission] tile-sync kernel 1080p sample 3: rays {rk1} vs plain "
+          f"{rp1}, unequal planes {bad}")
+    if rk1 != rp1 or bad:
+        raise AssertionError("the tile-sync kernel's emission instance "
+                             "differs from render_plain")
+    ms = launch_times("emission", lambda: mega_step.step_call(
+        scene, cfg, cam, planes.clone(), 1234, 3, 1.5, 30),
+        "regen_emit_kernel", lambda: mega_step.step_call(
+            disp, cfg4, cam, planes.clone(), 1234, 3, 1.5, 30),
+        "step_kernel")
+    report["tile_sync_emit"] = dict(max_abs_err=0.0, ms=ms,
+                                    plain_ms=plain_step,
+                                    **path_bound(cfg.n_pixels, rk1))
+
+    # the wavefront kernels, photons off
+    cfg_w = cfg.with_(enable_photons=False, backend="wavefront_fused")
+    cfg5 = tt.RenderConfig(width=1920, height=1080, depth=30,
+                           backend="wavefront_fused", enable_photons=False,
+                           wf_pool=262144)
+    work = wavefront.PoolWork(camera=cam, base_seed=1234, spp=1,
+                              n_valid=cfg.n_pixels)
+    report["wf_sweep_emit"] = sweep_vs_step(
+        "emission", fs, cfg_w, work, dev, "pool_step_kernel<true")
+    print("[emission] wavefront_fused and wavefront_pallas vs wavefront:")
+    err, rays = pool_pair(scene, cfg_w, cam, "wavefront_fused", 1)
+    pool_pair(scene, cfg_w, cam, "wavefront_pallas", 1)
+    fused_equals_regen(scene, cfg_w, cam, 1)
+    st0 = tt.init_state(cfg_w)
+    print("[emission] fused kernel 1080p 1 spp:")
+    ms = launch_times("emission", lambda: wavefront_fused._launch(
+        scene, cfg_w, cam, st0, 1234, 1), "fused_sampler_kernel",
+        lambda: wavefront_fused._launch(disp, cfg5, cam, st0, 1234, 1),
+        "fused_kernel")
+    report["wf_fused_emit"] = dict(
+        max_abs_err=err, ms=ms,
+        plain_ms=cuda_ms(lambda: wavefront.wavefront_render(
+            scene, cfg_w, cam, st0, 1234, 1), 1),
+        **bound(cfg.n_pixels * 12 * 2, rays * OPS_PER_SEGMENT))
+    print("[emission] wavefront_pallas render 1080p 1 spp:")
+    cfg_p = cfg_w.with_(backend="wavefront_pallas")
+    launch_times(
+        "emission", lambda: tt.render(scene, cfg_p, cam, tt.init_state(cfg_p),
+                                      1234, 1), "pool_step_kernel<true",
+        lambda: tt.render(disp, cfg5.with_(backend="wavefront_pallas"), cam,
+                          tt.init_state(cfg_p), 1234, 1), "pool_step_kernel")
+
+    # the reference sampler with the emission flags, and the legacy ramp
+    small = dict(width=256, height=144, depth=30, wf_pool=16384)
+    ref = tt.RenderConfig(backend="pallas", **small, **EMIT_FLAGS)
+    cam_s = dispersive_camera(ref)
+    regen_vs_plain("reference sampler, emission", scene, ref, cam_s, 1234, 2,
+                   0, phase="emission")
+    pl = state_to_planes(tt.init_state(ref))
+    pk, pp = pl.clone(), pl.clone()
+    rk1 = int(mega_step.step_call(scene, ref, cam_s, pk, 1234, 0, 2.0, 30))
+    rp1 = int(integrate.render_plain(fs, ref, cam_s, pp, 1234, 1, 0, 2.0,
+                                     30))
+    bad = unequal_planes(pk, pp)
+    print(f"[emission] reference sampler tile-sync 256x144: rays {rk1} vs "
+          f"plain {rp1}, unequal planes {bad}")
+    if rk1 != rp1 or bad:
+        raise AssertionError("tile-sync emission instance differs "
+                             "(reference sampler)")
+    for label, c in (("reference sampler, emission",
+                      ref.with_(enable_photons=False)),
+                     ("sky_gradient alone (legacy ramp)",
+                      tt.RenderConfig(enable_photons=False, sky_gradient=True,
+                                      **small))):
+        print(f"[emission] {label}:")
+        for backend in ("wavefront_fused", "wavefront_pallas"):
+            pool_pair(scene, c, cam_s, backend, 2)
+        w = wavefront.PoolWork(camera=cam_s, base_seed=1234, spp=1,
+                               n_valid=c.n_pixels)
+        sweep_vs_step("emission", fs, c, w, dev, "pool_step_kernel<true")
+
+    # the G leaf with the emission flags: config 6 as shipped, sky, clamp
+    torus = tt.torus_mesh_scene(45, 45)
+    g_flags = dict(CONFIG6, pallas_mxu_leaf=True, sky_intensity=0.2,
+                   sky_temp=6500.0, radiance_clamp=20.0)
+    g_cfg = tt.RenderConfig(backend="pallas", **{**small, **g_flags})
+    cam_g = tt.make_camera(*TORUS_CAM, vfov=55.0, aspect_ratio=256 / 144)
+    before = mega_regen.MXU_LAUNCHES, mega_regen.EMIT_LAUNCHES
+    rg, _, g_p = regen_vs_plain("config 6 as shipped, G leaf, sky, clamp",
+                                torus, g_cfg, cam_g, 1234, 1, 0,
+                                phase="emission")
+    if (mega_regen.MXU_LAUNCHES, mega_regen.EMIT_LAUNCHES) != (
+            before[0] + 1, before[1] + 1):
+        raise AssertionError("the G-leaf emission instance did not run")
+    pl_g = state_to_planes(tt.init_state(g_cfg))
+    g_ms = cuda_ms(lambda: mega_regen.regen_call(
+        torus, g_cfg, cam_g, pl_g.clone(), 1234, 1, 0, 2.0, 30), 3)
+    g_main = tt.RenderConfig(width=1920, height=1080, depth=30,
+                             backend="pallas", **g_flags)
+    cam6 = tt.make_camera(*TORUS_CAM, vfov=55.0, aspect_ratio=16 / 9)
+    pl6 = state_to_planes(tt.init_state(g_main))
+    print("[emission] G-leaf regen kernel 1080p 1 spp:")
+    ms = launch_times("G leaf, emission", lambda: mega_regen.regen_call(
+        torus, g_main, cam6, pl6.clone(), 1234, 1, 0, 2.0, 30),
+        "regen_emit_kernel", lambda: mega_regen.regen_call(
+            torus, g_main.with_(sky_intensity=0.0, radiance_clamp=0.0), cam6,
+            pl6.clone(), 1234, 1, 0, 2.0, 30), "regen_kernel")
+    # held against the plain G sweep at 256x144 (whose 1080p render takes
+    # ~70 s): ms, plain_ms and the bound there, the 1080p device ms beside
+    report["regen_emit_gleaf"] = dict(
+        max_abs_err=0.0, ms=g_ms, plain_ms=g_p * 1e3, ms_1080p=ms,
+        **path_bound(g_cfg.n_pixels, rg))
+
+    # the main paths through the public entry points
+    launches = drive("emission", scene, cfg, cam, 4, ["regen_emit", "blit"],
+                     gpu)
+    launches.update(drive("emission", scene, cfg.with_(pallas_regen=False),
+                          cam, 4, ["tile_sync_emit", "blit"], gpu))
+    launches.update(drive("emission", scene, cfg_w, cam, 4,
+                          ["wf_fused_emit", "blit"], gpu))
+    launches.update(drive("emission", scene, cfg_p, cam, 1,
+                          ["wf_sweep_emit", "blit"], gpu))
+    g_launch = drive("emission", torus, g_main, cam6, 1,
+                     ["regen_emit", "mxu_leaf", "blit"], gpu)
+    launches["regen_emit_gleaf"] = min(g_launch["regen_emit"],
+                                       g_launch["mxu_leaf"])
+    launches.pop("blit")
+    return launches
 
 
 def probe_rays(scene, n: int, seed: int, dev):
@@ -1369,7 +1814,8 @@ def mesh_phases(dev, report, gpu) -> dict:
     # the walk under the reference sampler at full depth; 512x288 keeps
     # the blocks persistent (more pixels than resident threads), and the
     # 1080p plain render of this case takes 150 s ([sampler] holds the walk
-    # at 1080p under config 6's sampler, [regen] the reference sampler)
+    # at 1080p, depth 15, under config 6's sampler, [regen] the reference
+    # sampler)
     cfg_m = tt.RenderConfig(width=512, height=288, depth=30,
                             backend="pallas", pallas_bvh_leaf=64)
     regen_vs_plain("config 6 scene, reference sampler", torus, cfg_m,
@@ -1452,8 +1898,12 @@ def mesh_profile(name, scene, cfg, cam, spp) -> None:
     wall, by_name, busy = profiled(path, 1)
     planes = state_to_planes(tt.init_state(cfg))
     ev_path = cuda_ms(path, 2)
-    ev_kernel = cuda_ms(lambda: mega_regen.regen_call(
-        scene, cfg, cam, planes.clone(), 1234, spp, 0, 2.0, cfg.depth), 2)
+
+    def kernel():
+        return mega_regen.regen_call(scene, cfg, cam, planes.clone(), 1234,
+                                     spp, 0, 2.0, cfg.depth)
+
+    ev_kernel = cuda_ms(kernel, 2)
     print(f"  {name} under the profiler: {wall:.2f} ms wall, "
           f"{kernel_share(wall, by_name, busy)}; by CUDA events: render + "
           f"resolve {ev_path:.2f} ms, regen kernel {ev_kernel:.2f} ms "
@@ -1464,10 +1914,15 @@ def kernel_share(wall: float, by_name: dict, busy: float) -> str:
     """The regen kernel's profiled device ms, device busy ms and idle
     share; "not measured" where the profiler saw no regen kernel."""
     kernel = named_ms(by_name, "regen_kernel")
+    n = recorded("regen_kernel")
     if kernel <= 0:
-        return "regen kernel not in the profile: device time not measured"
-    return (f"regen kernel {kernel:.2f} ms, device busy {busy:.2f} ms (idle "
-            f"share {idle_share(wall, busy)})")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        return ("regen kernel not in the profile: device time not measured"
+                f" (device entries: {len(by_name)}; "
+                + "; ".join(f"{k[:50]} {v:.3f}" for k, v in top) + ")")
+    return (f"regen kernel {kernel:.2f} ms ({n} launch{'es' * (n != 1)} "
+            f"recorded), device busy {busy:.2f} ms (idle share "
+            f"{idle_share(wall, busy)})")
 
 
 def mxu_phases(dev, report, gpu) -> dict:

@@ -269,15 +269,26 @@ def test_hero_adds_no_draws_but_changes_the_image():
 
 
 def test_wavefront_backends_reject_hero():
+    """The wavefront backends no longer reject hero wavelengths or
+    camera-path dispersion: each takes them and traces the rays of the
+    regen kernel's plain version with photons off, which draws the same
+    streams (tests/test_hero_wavelengths.py:63); the image by the rule."""
     cam = tt.make_camera(*DISP[:2], vfov=55.0, aspect_ratio=2.0)
-    for backend in ("wavefront", "wavefront_pallas", "wavefront_fused"):
-        for kw in (dict(hero_wavelengths=4),
-                   dict(dispersion_in_camera_path=True)):
-            cfg = tt.RenderConfig(width=16, height=8, backend=backend,
-                                  enable_photons=False, **kw)
-            with pytest.raises(NotImplementedError, match=backend):
-                tt.render(tt.dispersive_scene(device=CPU), cfg, cam,
-                          tt.init_state(cfg, device=CPU), 1, 1)
+    scene = tt.dispersive_scene(device=CPU)
+    for kw in (dict(hero_wavelengths=4),
+               dict(dispersion_in_camera_path=True),
+               dict(hero_wavelengths=4, dispersion_in_camera_path=True)):
+        cfg = tt.RenderConfig(width=32, height=16, depth=4, wf_pool=256,
+                              enable_photons=False, backend="pallas", **kw)
+        want = tt.render(scene, cfg, cam, tt.init_state(cfg, device=CPU), 1,
+                         2)
+        for backend in ("wavefront", "wavefront_pallas", "wavefront_fused"):
+            cfg_w = cfg.with_(backend=backend)
+            got = tt.render(scene, cfg_w, cam,
+                            tt.init_state(cfg_w, device=CPU), 1, 2)
+            assert int(got.rays) == int(want.rays) > 0, (backend, kw)
+            _image_rule(got.rgb_sum.numpy()[:512],
+                        want.rgb_sum.numpy()[:512])
 
 
 def test_wavefront_backends_ignore_photon_strata():

@@ -129,9 +129,9 @@ def test_make_camera_equal(args):
 @pytest.mark.parametrize("kw", [
     dict(motion_blur=True), dict(photon_aim=0.5), dict(qmc=True),
     dict(aperture=0.3), dict(light_sample="power"),
-    dict(backend="pallas", sky_intensity=1.0), dict(count_walk_stats=True),
-    dict(backend="wavefront_fused", sky_intensity=1.0),
-    dict(backend="pallas", radiance_clamp=4.0),
+    dict(backend="pallas", focus_dist=2.0), dict(count_walk_stats=True),
+    dict(backend="wavefront_fused", light_sample="spatial"),
+    dict(backend="pallas", photon_aim_widen=2.0),
     dict(count_iters=True), dict(photon_rr_scale=0.5),
 ])
 def test_flags_outside_the_slice_raise(kw):
@@ -153,7 +153,8 @@ def test_slice_and_scheduling_flags_accepted():
         dispersion_in_camera_path=True, photon_strata=16,
         photon_strata_dir=4096, photon_strata_shared_k=True,
         photon_strata_bounce=True, photon_strata_window=16,
-        camera_strata_bounce=True))
+        camera_strata_bounce=True, sky_gradient=True, sky_intensity=0.2,
+        sky_color=(1.0, 0.5, 0.25), sky_temp=6500.0, radiance_clamp=20.0))
 
 
 def test_import_leaves_jax_out():

@@ -100,9 +100,9 @@ _SLICE_FIELDS = frozenset({
     "wf_pool", "wf_max_sweeps",
     "pallas_bvh", "pallas_bvh_leaf", "pallas_bvh_width", "pallas_bvh_sah",
     "pallas_sphere_bvh", "pallas_static_unroll",
-    # tpurt's sampler: on the regen and tile-sync kernels and backend="xla";
-    # the wavefront tracers reject hero wavelengths and camera-path
-    # dispersion (wavefront.check_sampler) and trace no photons
+    # tpurt's sampler: on every backend, except that the wavefront tracers
+    # trace no photons (photon strata change nothing there) and reject
+    # camera strata (wavefront.check_sampler)
     "hero_wavelengths", "dispersion_in_camera_path",
     "photon_strata", "photon_strata_dir", "photon_strata_shared_k",
     "photon_strata_bounce", "photon_strata_window", "camera_strata_bounce",
@@ -110,6 +110,12 @@ _SLICE_FIELDS = frozenset({
     # kernels/bvh.py mxu_leaf_engages holds) and the XLA per-ray walk
     # (backend="xla" and the plain "wavefront" pool)
     "pallas_mxu_leaf", "use_bvh",
+    # emission on every backend: the sky on a camera miss (sky_gradient
+    # alone is the wavefront tracers' legacy RGB ramp, ignored elsewhere,
+    # as in tpurt) and the per-sample radiance clamp; emissive materials
+    # (type 3) are a property of the scene
+    "sky_gradient", "sky_intensity", "sky_color", "sky_temp",
+    "radiance_clamp",
 })
 
 # Knobs tpurt documents as scheduling-only (bit-identical results): the

@@ -132,6 +132,21 @@ inline bool sampler_on(const Sampler& S) {
   return S.n_pos > 0 || S.hero > 1 || S.disp_cam;
 }
 
+// Emission besides the lights and the radiance clamp (tpurt's sky,
+// type-3 materials and radiance_clamp): the switches of a path kernel's
+// emission instance, filled by tpurt_torch/kernels/mega_regen.py:
+// emission_args. A launch without any of them passes none and runs an
+// instance that has no code for them.
+struct Emission {
+  int sky;         // a camera path that misses adds the sky
+  int gradient;    // the sky's tint lerps toward (.5, .7, 1) by height
+  int legacy;      // wavefront tracers: the legacy RGB ramp on a miss
+  float sky_k;     // f32(sky_intensity * 400)
+  float sky_temp;  // the sky's blackbody temperature, 0: a flat spectrum
+  float sky_r, sky_g, sky_b;  // sky_color
+  float clamp;     // each sample's radiance cap per channel, 0: off
+};
+
 constexpr uint32_t STRATA_OFFSET = 0xA511E9B3u;
 constexpr uint32_t STRATA_K_STEP = 0x632BE5ABu;
 constexpr uint32_t BOUNCE_OFFSET = 0x7F4A7C15u;

@@ -26,6 +26,11 @@
 // its order, so state planes and ray counts equal the plain version's bit
 // for bit.
 //
+// Emission (tpurt's sky on a camera miss, emissive materials that end a
+// camera path and absorb a photon, the per-sample radiance clamp) runs in
+// the emission instances of path_emit.cu, which a launch takes when it
+// passes `emission` (not null).
+//
 // Uniform mode: every pixel takes `spp` samples from iteration `it0` and
 // radius `radius0`. Budget mode (`aux` not null, tpurt's budget_mode, for
 // adaptive sampling): pixel p takes aux[0][p] samples from its own count
@@ -92,13 +97,19 @@ extern "C" int tpurt_regen_launch(float* planes, long long P, int width,
                                   const float* aux,
                                   const tpurt::Geom* geom,
                                   unsigned long long* counters,
-                                  const float* cie, void* stream) {
+                                  const float* cie,
+                                  const tpurt::Emission* emission,
+                                  void* stream) {
   using namespace tpurt;
   const SampleConsts c = {P, width, height, depth, k_photons,
                           max_photon_bounces, rr_thresh, photon_rr_thresh,
                           sppm_alpha, seed, spp, it0, radius0, aux,
                           /*lockstep=*/aux == nullptr};
   const int staged = staged_floats(n_sph, n_mat, n_light);
+  if (emission)
+    return launch_emit(planes, table, cie, staged, n_sph, n_mat, n_light, c,
+                       *sampler, *emission, *geom, counters,
+                       static_cast<cudaStream_t>(stream));
   const bool on = sampler_on(*sampler);
   auto kernel = geom->gmat ? (on ? regen_kernel<true, true>
                                  : regen_kernel<false, true>)

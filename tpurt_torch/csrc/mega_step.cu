@@ -50,7 +50,9 @@ extern "C" int tpurt_step_launch(float* planes, long long P, int width,
                                  const tpurt::Sampler* sampler,
                                  const tpurt::Geom* geom,
                                  unsigned long long* counters,
-                                 const float* cie, void* stream) {
+                                 const float* cie,
+                                 const tpurt::Emission* emission,
+                                 void* stream) {
   using namespace tpurt;
   // one sample: the radius step after it is the host's
   const SampleConsts c = {P, width, height, depth, k_photons,
@@ -58,6 +60,10 @@ extern "C" int tpurt_step_launch(float* planes, long long P, int width,
                           0.0f, seed, 1, iteration, radius, nullptr,
                           /*lockstep=*/true};
   const int staged = staged_floats(n_sph, n_mat, n_light);
+  if (emission)  // the emission instances of path_emit.cu, one sample
+    return launch_emit(planes, table, cie, staged, n_sph, n_mat, n_light, c,
+                       *sampler, *emission, *geom, counters,
+                       static_cast<cudaStream_t>(stream));
   auto kernel = sampler_on(*sampler) ? step_kernel<true> : step_kernel<false>;
   return launch_persistent(kernel, run_pixels_smem(staged, *geom, 128),
                            (long long)width * height,

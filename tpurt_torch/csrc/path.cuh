@@ -2,10 +2,11 @@
 // wavefront sweep and fused wavefront kernels: the scene's nearest hit and
 // shadow factor (spheres and triangles, flat or through the BVH walks of
 // bvh.cuh), the camera spawn, per-light emission at one wavelength or
-// hero-averaged, next-event estimation over every light, the BSDF
-// scatters with Russian roulette and tpurt's strata cells, the
-// photon-gather BSDF, and the samples of a launch's pixels (run_pixels),
-// the body of the regen, tile-sync and fused wavefront kernels.
+// hero-averaged, the sky's and the emissive materials' emission,
+// next-event estimation over every light, the BSDF scatters with Russian
+// roulette and tpurt's strata cells, the photon-gather BSDF, and the
+// samples of a launch's pixels (run_pixels), the body of the regen,
+// tile-sync and fused wavefront kernels.
 //
 // Ported from tpurt's component-form kernel code in
 // tpurt/kernels/mega_pallas.py (nee_direct_c, scatter_rr_c,
@@ -201,7 +202,9 @@ struct Params {
   __device__ __forceinline__ const float* light() const {
     return rows + CAM_FLOATS + n_sph * SPH_STRIDE + n_mat * MAT_STRIDE;
   }
-  // each light's hero table, when C > 1: after the rows, in global memory
+  // each light's hero table, when C > 1: after the rows, in global memory;
+  // with the emission instances' tables after them, the sky's (hero table
+  // n_light) and the emission base's (n_light + 1)
   __device__ __forceinline__ const float* hero() const {
     return table + CAM_FLOATS + n_sph * SPH_STRIDE + n_mat * MAT_STRIDE +
            n_light * LIGHT_STRIDE;
@@ -289,6 +292,100 @@ __device__ __forceinline__ V3 light_em(const Params& P, const Sampler& S,
                           L[L_EM_SCALE + 2] * spd * cie.z)
                      : v3(L[L_EM_SCALE] * cie.x, L[L_EM_SCALE + 1] * cie.y,
                           L[L_EM_SCALE + 2] * cie.z);
+}
+
+// The sky's and the emissive materials' emission as a camera path of
+// wavelength lam sees it (tpurt's _sky_em_c and _flat_em_c): while `hero`,
+// the C-averaged emission, a lookup into hero table n_light (the sky) or
+// n_light + 1 (the base); else the sky's f32(intensity * range)
+// (* blackbody(lam, T)) * cie_rgb(lam), and the base's range *
+// cie_rgb(lam), which the hit material's color scales.
+template <bool SAMPLER>
+__device__ __forceinline__ V3 sky_emission(const Params& P, const Sampler& S,
+                                           const Emission& E, bool hero,
+                                           float lam) {
+  if (SAMPLER && hero)
+    return hero_lookup(P.hero() + P.n_light * 3 * (S.hero_nseg + 1),
+                       S.hero_nseg, S.hero_delta, lam);
+  const V3 cie = cie_to_rgb(P.cie(), lam);
+  if (E.sky_temp > 0.0f) {
+    const float spd = blackbody(lam, E.sky_temp);
+    return v3(E.sky_k * spd * cie.x, E.sky_k * spd * cie.y,
+              E.sky_k * spd * cie.z);
+  }
+  return v3(E.sky_k * cie.x, E.sky_k * cie.y, E.sky_k * cie.z);
+}
+
+template <bool SAMPLER>
+__device__ __forceinline__ V3 flat_emission(const Params& P, const Sampler& S,
+                                            bool hero, float lam) {
+  if (SAMPLER && hero)
+    return hero_lookup(P.hero() + (P.n_light + 1) * 3 * (S.hero_nseg + 1),
+                       S.hero_nseg, S.hero_delta, lam);
+  const V3 cie = cie_to_rgb(P.cie(), lam);
+  return v3(F(400.0) * cie.x, F(400.0) * cie.y, F(400.0) * cie.z);
+}
+
+// The sky gradient's ramp parameter along d: 0.5 * (normalize(d).y + 1).
+__device__ __forceinline__ float sky_height(V3 d) {
+  const float inv = 1.0f / sqrtf(fmaxf(vdot(d, d), F(1e-30)));
+  return 0.5f * (d.y * inv + 1.0f);
+}
+
+// rad plus what a camera path of throughput tp that missed along d sees:
+// tp * the sky's emission * its tint (sky_color, lerped toward (.5, .7,
+// 1) by height under the gradient), or tp * the wavefront tracers' legacy
+// RGB ramp, or nothing.
+template <bool SAMPLER>
+__device__ __forceinline__ V3 add_sky(const Params& P, const Sampler& S,
+                                      const Emission& E, bool hero, float lam,
+                                      V3 d, V3 tp, V3 rad) {
+  if (E.sky) {
+    const V3 em = sky_emission<SAMPLER>(P, S, E, hero, lam);
+    V3 tint = v3(E.sky_r, E.sky_g, E.sky_b);
+    if (E.gradient) {
+      const float t = sky_height(d);
+      tint = v3(E.sky_r * ((1.0f - t) + t * F(0.5)),
+                E.sky_g * ((1.0f - t) + t * F(0.7)),
+                E.sky_b * ((1.0f - t) + t * F(1.0)));
+    }
+    return v3(rad.x + tp.x * em.x * tint.x, rad.y + tp.y * em.y * tint.y,
+              rad.z + tp.z * em.z * tint.z);
+  }
+  if (E.legacy) {
+    const float t = sky_height(d);
+    return v3(rad.x + tp.x * ((1.0f - t) + t * F(0.5)),
+              rad.y + tp.y * ((1.0f - t) + t * F(0.7)),
+              rad.z + tp.z * ((1.0f - t) + t * F(1.0)));
+  }
+  return rad;
+}
+
+// rad plus tp * color * the emission base: a camera path hits material
+// `mat` of type 3.
+template <bool SAMPLER>
+__device__ __forceinline__ V3 add_emitter(const Params& P, const Sampler& S,
+                                          bool hero, int mat, float lam,
+                                          V3 tp, V3 rad) {
+  const V3 color = load3(P.mat() + mat * MAT_STRIDE);
+  const V3 em = flat_emission<SAMPLER>(P, S, hero, lam);
+  return v3(rad.x + tp.x * color.x * em.x, rad.y + tp.y * color.y * em.y,
+            rad.z + tp.z * color.z * em.z);
+}
+
+// The emission switches an EMIT instance passes its body (run_block,
+// run_pixels) as the last argument; the instances without emission pass
+// none, so their bodies are what they were before emission existed.
+__device__ __forceinline__ const Emission& emission(const Emission& E) {
+  return E;
+}
+
+// A sample's radiance as it is added to the image: capped channel by
+// channel at E.clamp when it is on (a NaN stays NaN).
+__device__ __forceinline__ V3 clamp_sample(const Emission& E, V3 r) {
+  if (!(E.clamp > 0.0f)) return r;
+  const float c = E.clamp;
+  return v3(r.x > c ? c : r.x, r.y > c ? c : r.y, r.z > c ? c : r.z);
 }
 
 // Next-event estimation over every light (mode "all"): 2 draws per light
@@ -569,13 +666,22 @@ inline size_t run_pixels_smem(int staged, const Geom& g, int threads,
 // CAM: the camera-path instance of the fused wavefront kernel: no
 // vispoint, no photon phase, no radius; `planes` is then the (P, 3)
 // rgb_sum, row p at planes + 3p, budget-mode aux (2, P) budget and count.
+// EMIT: the emission instances, which pass their switches as `em`: a
+// camera path that misses adds the sky (add_sky); a camera path that hits
+// an emissive
+// material (type 3) adds its emission and ends there, with no vispoint
+// and no collapse; a photon that hits one is gathered and absorbed; each
+// sample's radiance is capped by the clamp as it is added (the sample is
+// over: the radiance a path carries is never capped).
 // Every thread of the block must call it; blockDim.x is a multiple of 32.
-template <bool SAMPLER, bool GLEAF, bool CAM = false>
+template <bool SAMPLER, bool GLEAF, bool CAM = false, bool EMIT = false,
+          class... Em>
 __device__ __forceinline__ void run_pixels(float* planes, const Params& prm,
                                            const Sampler& S,
                                            const SampleConsts& c, float* vis,
                                            unsigned long long* work,
-                                           unsigned long long& rays) {
+                                           unsigned long long& rays,
+                                           const Em&... em) {
   const unsigned FULL = 0xffffffffu;
   const unsigned long long n_pix =
       (unsigned long long)c.width * (unsigned long long)c.height;
@@ -646,6 +752,7 @@ __device__ __forceinline__ void run_pixels(float* planes, const Params& prm,
       if (CAM) {  // the end of a camera-path sample: its row, in sample order
         live = false;
         float* row = planes + 3 * idx;
+        if constexpr (EMIT) rad = clamp_sample(emission(em...), rad);
         row[0] += rad.x;
         row[1] += rad.y;
         row[2] += rad.z;
@@ -667,6 +774,7 @@ __device__ __forceinline__ void run_pixels(float* planes, const Params& prm,
       } else {
         live = false;
         float* pl = planes + idx;
+        if constexpr (EMIT) rad = clamp_sample(emission(em...), rad);
         pl[0] += rad.x;
         pl[c.P] += rad.y;
         pl[2 * c.P] += rad.z;
@@ -713,6 +821,12 @@ __device__ __forceinline__ void run_pixels(float* planes, const Params& prm,
     rays += 1;
     const Hit h = GLEAF ? hg : intersect(prm, o, d);
     if (!(h.t < kHIT())) {
+      if constexpr (EMIT) {
+        if (CAM || k < 0)
+          rad = add_sky<SAMPLER>(prm, S, emission(em...),
+                                 SAMPLER && S.hero > 1 && !coll, lam, d, tp,
+                                 rad);
+      }
       done = true;
       continue;
     }
@@ -722,9 +836,14 @@ __device__ __forceinline__ void run_pixels(float* planes, const Params& prm,
     const float cauchy_add = F(0.004) / (lam_um * lam_um);
     const int mtype = (int)prm.mat()[h.mat * MAT_STRIDE + 5];
     if (camera) {
-      // ---- camera bounce b: the vispoint at the first diffuse hit, then
-      // next-event estimation, added at a diffuse hit with one shadow
-      // segment per light
+      // ---- camera bounce b: an emitter's emission; the vispoint at the
+      // first diffuse hit, then next-event estimation, added at a diffuse
+      // hit with one shadow segment per light
+      if constexpr (EMIT) {
+        if (mtype == 3)
+          rad = add_emitter<SAMPLER>(prm, S, SAMPLER && S.hero > 1 && !coll,
+                                     h.mat, lam, tp, rad);
+      }
       if (!CAM && mtype == 0 && !vp_stored) {
         vpos = h.loc;
         myvis[0] = h.n.x; myvis[vstride] = h.n.y; myvis[2 * vstride] = h.n.z;
@@ -756,6 +875,13 @@ __device__ __forceinline__ void run_pixels(float* planes, const Params& prm,
             1.0f / fmaxf(F(3.141592653589793) * radius * radius, F(1e-10));
         const float kern = (1.0f - dist / radius) * inv_pi_r2;
         rad = vadd(rad, vscale(vmul(vmul(vtp, f), tp), kern));
+      }
+    }
+    if constexpr (EMIT) {
+      if (mtype == 3) {  // an emitter ends a camera path, absorbs a photon
+        done = true;
+        b += 1;
+        continue;
       }
     }
     // ---- scatter + Russian roulette, once for the lanes of either phase:
@@ -907,21 +1033,31 @@ __device__ __forceinline__ void add_block_rays(unsigned long long rays,
 // the tables, run the lanes' pixels, add the block's segments to
 // counters[0]; counters[1] is the work counter. `staged`: the floats of
 // `table` to stage into shared memory, 0 where they do not fit
-// (staged_floats).
-template <bool SAMPLER, bool GLEAF, bool CAM = false>
+// (staged_floats). `em`: the emission instances' switches (EMIT).
+template <bool SAMPLER, bool GLEAF, bool CAM = false, bool EMIT = false,
+          class... Em>
 __device__ __forceinline__ void run_block(
     float* planes, const float* table, const float* cie, int staged,
     int n_sph, int n_mat, int n_light, const SampleConsts& c,
-    const Sampler& S, const Geom& geom, unsigned long long* counters) {
+    const Sampler& S, const Geom& geom, unsigned long long* counters,
+    const Em&... em) {
   extern __shared__ float4 smem4[];
   float* mem = reinterpret_cast<float*>(smem4);
   const Params prm = stage_scene<CAM ? 0 : VIS_FIELDS>(
       mem, table, cie, staged, n_sph, n_mat, n_light, geom);
   unsigned long long rays = 0;
-  run_pixels<SAMPLER, GLEAF, CAM>(planes, prm, S, c,
-                                  mem + CIE_FLOATS + (staged + 3) / 4 * 4,
-                                  counters + 1, rays);
+  run_pixels<SAMPLER, GLEAF, CAM, EMIT>(
+      planes, prm, S, c, mem + CIE_FLOATS + (staged + 3) / 4 * 4, counters + 1,
+      rays, em...);
   add_block_rays<4>(rays, counters);
 }
+
+// One launch of the emission instances of the regen and tile-sync
+// kernels (path_emit.cu), with the G leaf where geom.gmat is set.
+int launch_emit(float* planes, const float* table, const float* cie,
+                int staged, int n_sph, int n_mat, int n_light,
+                const SampleConsts& c, const Sampler& S, const Emission& E,
+                const Geom& geom, unsigned long long* counters,
+                cudaStream_t stream);
 
 }  // namespace tpurt

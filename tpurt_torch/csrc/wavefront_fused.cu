@@ -7,7 +7,10 @@
 // _make_fused_kernel, in both of its launches: _fused_wavefront_jit (every
 // pixel takes `spp` samples from iteration it0) and _fused_budget_jit
 // (budget mode: pixel p takes budgets[p] samples from its own base count
-// base_counts[p]), for sphere and mesh scenes with default flags. Its
+// base_counts[p]), for sphere and mesh scenes, with tpurt's camera-path
+// sampler flags (hero wavelengths, camera-path dispersion) and emission
+// (the sky or the legacy ramp on a miss, emissive materials, the
+// per-sample radiance clamp). Its
 // plain PyTorch versions are the pool renderers tpurt_torch/wavefront.py:
 // wavefront_render and tpurt_torch/adaptive.py:wavefront_render_budget,
 // which draw the same per-(pixel, sample) PCG streams, so ray counts are
@@ -18,6 +21,12 @@
 // spawn (2 jitter draws, 1 wavelength draw), then up to `depth` bounces
 // (nearest hit, NEE over every light, scatter + Russian roulette). Camera
 // paths only: no vispoints, no photon pass.
+//
+// Three instances: fused_kernel, the reference sampler without emission
+// (launches with neither, as bench config 5 ships, keep its machine code),
+// and fused_sampler_kernel<EMIT>, with the sampler flags (the hero's
+// averaged emission until a dielectric collapses the path, the Cauchy IOR)
+// and, with EMIT, the emission (run_pixels' EMIT).
 //
 // The body is path.cuh:run_pixels in its camera-only instance (CAM), the
 // machine of the regen and tile-sync kernels: persistent blocks sized to
@@ -59,12 +68,27 @@ __global__ void TPURT_REGEN_BOUNDS(false)
                                 n_light, c, none, geom, counters);
 }
 
+template <bool EMIT>
+__global__ void TPURT_REGEN_BOUNDS(false)
+    fused_sampler_kernel(float* rgb, const float* __restrict__ table,
+                         const float* __restrict__ cie, int staged, int n_sph,
+                         int n_mat, int n_light, SampleConsts c, Sampler S,
+                         Emission E, Geom geom,
+                         unsigned long long* __restrict__ counters) {
+  run_block<true, false, true, EMIT>(rgb, table, cie, staged, n_sph, n_mat,
+                                     n_light, c, S, geom, counters, E);
+}
+
 }  // namespace tpurt
 
+// `sampler`: the camera-path sampler flags; `emission`: null, or the
+// emission switches. With neither on, the reference instance runs.
 extern "C" int tpurt_wf_fused_launch(
     float* rgb, long long P, int width, int height, const float* table,
     int n_sph, int n_mat, int n_light, unsigned int seed, int spp, int it0,
-    const float* aux, int depth, float rr_thresh, const tpurt::Geom* geom, unsigned long long* counters, const float* cie,
+    const float* aux, int depth, float rr_thresh, const tpurt::Geom* geom,
+    unsigned long long* counters, const float* cie,
+    const tpurt::Sampler* sampler, const tpurt::Emission* emission,
     void* stream) {
   using namespace tpurt;
   const SampleConsts c = {P, width, height, depth, /*k_photons=*/0,
@@ -73,9 +97,17 @@ extern "C" int tpurt_wf_fused_launch(
                           seed, spp, it0, /*radius0=*/0.0f, aux,
                           /*lockstep=*/aux == nullptr};
   const int staged = staged_floats(n_sph, n_mat, n_light);
-  return launch_persistent(fused_kernel,
-                           run_pixels_smem(staged, *geom, 128, 0),
-                           (long long)width * height,
-                           static_cast<cudaStream_t>(stream), rgb, table, cie,
-                           staged, n_sph, n_mat, n_light, c, *geom, counters);
+  const size_t smem = run_pixels_smem(staged, *geom, 128, 0);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (emission || sampler_on(*sampler)) {
+    const Emission none = {};
+    return launch_persistent(
+        emission ? fused_sampler_kernel<true> : fused_sampler_kernel<false>,
+        smem, (long long)width * height, s, rgb, table, cie, staged, n_sph,
+        n_mat, n_light, c, *sampler, emission ? *emission : none, *geom,
+        counters);
+  }
+  return launch_persistent(fused_kernel, smem, (long long)width * height, s,
+                           rgb, table, cie, staged, n_sph, n_mat, n_light, c,
+                           *geom, counters);
 }

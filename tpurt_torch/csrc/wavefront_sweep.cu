@@ -4,8 +4,9 @@
 // work between them.
 //
 // Replaces tpurt's TPU kernel tpurt/kernels/wavefront_pallas.py:
-// _make_sweep_kernel (launched by sweep_pallas) for sphere and mesh scenes
-// with default flags, together with the XLA stages tpurt keeps around it in
+// _make_sweep_kernel (launched by sweep_pallas) for sphere and mesh scenes,
+// with tpurt's camera-path sampler flags and emission, together with the
+// XLA stages tpurt keeps around it in
 // its pool loop (_wavefront_pallas_jit's while_loop: _regen_planar, the
 // splat's scatter-adds, the loop test). Its plain PyTorch version is
 // tpurt_torch/wavefront.py:_step (_regen or _regen_budget, then _sweep,
@@ -24,14 +25,18 @@
 //   order[w - cum[s-1]]), and becomes a camera ray: frame seed, 2 jitter
 //   draws, the pinhole ray, 1 wavelength draw;
 // - the bounce of every active slot: nearest hit; on a miss the path ends
-//   (black sky); on a hit, next-event estimation over every light (added
-//   at a diffuse hit), scatter + Russian roulette, the depth gate
-//   bounce + 1 < depth. Every active slot draws 2 * n_light + 4 numbers,
-//   hit or miss, as the plain version does for every lane. Emission is
-//   recomputed from the slot's wavelength with the CIE table in shared
-//   memory (tpurt's TPU kernel precomputes it into pool planes at regen);
-// - the splat: a slot whose path ended adds its radiance into
-//   rgb_sum[pix] and 1 into n_samples[pix];
+//   (a black sky, or the sky or the legacy ramp with emission); on a hit,
+//   next-event estimation over every light (added at a diffuse hit),
+//   scatter + Russian roulette, the depth gate bounce + 1 < depth; an
+//   emissive hit instead adds its emission and ends the path. Every
+//   active slot draws 2 * n_light + 4 numbers, whatever it hits, as the
+//   plain version does for every lane. Emission is recomputed from the
+//   slot's wavelength with the CIE table in shared memory (tpurt's TPU
+//   kernel precomputes it into pool planes at regen, one set of planes per
+//   emitter that its collapse rewrites); a slot keeps only its collapse
+//   bit, beside its active flag;
+// - the splat: a slot whose path ended adds its radiance (capped by the
+//   radiance clamp) into rgb_sum[pix] and 1 into n_samples[pix];
 // - the loop's control words: the next work item, the sweep count, and
 //   the test of the next sweep, (work pending or a slot active) and
 //   sweeps < max_sweeps.
@@ -47,21 +52,18 @@
 // launch.
 //
 // Pool layout (Q slots), updated in place: f32 planes (13, Q) o xyz |
-// d xyz | tp rgb | rad rgb | lam; i32 planes (3, Q) pix | bounce | active;
-// the PCG state as int64 (Q,) holding a uint32. Control words: int64,
-// wavefront.py CTL_*, then one look-back word a chunk, all zero between
-// launches past C_RAYS.
+// d xyz | tp rgb | rad rgb | lam; i32 planes (3, Q) pix | bounce | state
+// (0 dead, else 1 | COLLAPSED); the PCG state as int64 (Q,) holding a
+// uint32. Control words: int64, wavefront.py CTL_*, then one look-back
+// word a chunk, all zero between launches past C_RAYS.
 //
-// What bounds it: per slot ~80 bytes of planes read and written against
-// one bounce of intersection tests, shadow segments and BSDF math, so
-// compute, divergence (neighbouring slots hold unrelated paths of
-// different materials) and the latency of one dependent chain per slot;
-// launches are short (a 1080p pool sweep is tens of microseconds), so
-// what the host does between them decides the render's time. The design
-// keeps the host out: no PyTorch op and no host read between sweeps (the
-// wrapper reads the test once per batch of launches). The scene rows and
-// the CIE table are staged in shared memory per block; the walk stack lies
-// in dynamic shared memory. Slots are not sorted by material.
+// Three instances of pool_step_kernel: pool_step_kernel<> (no template
+// arguments), the reference sampler without emission, as bench config 5
+// ships, whose machine code is what it was before the others existed;
+// <true, false, Sampler, Emission>, with the sampler flags (hero
+// wavelengths, whose averaged emission a dielectric collapses to the
+// hero's under camera-path dispersion, and the Cauchy IOR); <true, true,
+// ...>, with the emission too.
 
 #include <cuda_runtime.h>
 
@@ -71,6 +73,7 @@ namespace tpurt {
 
 enum PoolF { PF_O = 0, PF_D = 3, PF_TP = 6, PF_RAD = 9, PF_LAM = 12 };
 enum PoolI { PI_PIX = 0, PI_BOUNCE = 1, PI_ACTIVE = 2 };
+constexpr int COLLAPSED = 2;  // the state word's collapse bit
 // control words (tpurt_torch/wavefront.py CTL_*): the loop's state, then
 // the launch's scratch, zero between launches
 enum Ctl {
@@ -151,12 +154,68 @@ __device__ __forceinline__ int budget_round(const long long* cum, int n,
   return lo;
 }
 
+// The emission switches of the sampler instances' (Sampler, Emission).
+__device__ __forceinline__ const Emission& emission(const Sampler&,
+                                                    const Emission& E) {
+  return E;
+}
+
+// The bounce of an active slot in the sampler instances: on a hit,
+// next-event estimation with the hero-averaged emission until the slot
+// collapses (a dielectric under camera-path dispersion, which also bends
+// the path by the Cauchy IOR), scatter + Russian roulette and the depth
+// gate; with EMIT, a miss adds the sky (or the legacy ramp) and an
+// emissive hit its emission, and both end the path drawing what a hit
+// would. Returns whether the path goes on, its ray in (o, d, tp).
+template <bool EMIT>
+__device__ __forceinline__ bool sampled_bounce(
+    const Params& prm, const Sampler& S, const Emission& E, const Hit& h,
+    float lam, const PoolWork& w, int bounce, int n_light, uint32_t& rng,
+    bool& coll, V3& o, V3& d, V3& tp, V3& rad, unsigned long long& rays) {
+  const bool hero = S.hero > 1 && !coll;
+  const int mtype =
+      h.t < kHIT() ? (int)prm.mat()[h.mat * MAT_STRIDE + 5] : -1;
+  if (h.t < kHIT() && !(EMIT && mtype == 3)) {
+    V3 o2 = o, d2 = d, tp2 = tp;
+    float eta_add = 0.0f;
+    if (S.disp_cam) {
+      const float lam_um = lam * F(1e-3);
+      eta_add = F(0.004) / (lam_um * lam_um);
+    }
+    const bool cont = shade_camera_hit<true>(prm, S, hero, h, vneg(d), lam,
+                                             w.rr_thresh, rng, o2, d2, tp2,
+                                             rad, rays, eta_add) &&
+                      bounce + 1 < w.depth;
+    // a dielectric steers the path by eta(lam): only the hero goes on
+    if (S.collapse && mtype == 1) coll = true;
+    if (cont) {
+      o = o2;
+      d = d2;
+      tp = tp2;
+    }
+    return cont;
+  }
+  if constexpr (EMIT)
+    rad = mtype == 3 ? add_emitter<true>(prm, S, hero, h.mat, lam, tp, rad)
+                     : add_sky<true>(prm, S, E, hero, lam, d, tp, rad);
+  // a miss or an emitter draws what a hit would: NEE and the scatter + RR
+  for (int k = 0; k < 2 * n_light + 4; ++k) rand_u32(rng);
+  return false;
+}
+
+// One sweep. The instance without template arguments is the reference
+// sampler without emission and takes nothing more; the sampler instances
+// (SAMPLER) take the switches `sw`, a Sampler and an Emission (read with
+// EMIT), and run their own copy of the bounce, so that the reference
+// instance's code is what it was before they existed.
+template <bool SAMPLER = false, bool EMIT = false, class... Sw>
 __global__ void __launch_bounds__(CHUNK)
     pool_step_kernel(float* __restrict__ pf, int* __restrict__ pi,
                      long long* __restrict__ rng_pl, float* rgb, float* ns,
                      long long* ctl, const float* __restrict__ table,
                      const float* __restrict__ cie, int staged, int n_sph,
-                     int n_mat, int n_light, PoolWork w, Geom geom) {
+                     int n_mat, int n_light, PoolWork w, Geom geom,
+                     Sw... sw) {
   // the loop test: a launch past the end does nothing
   if (ld_volatile(ctl + C_GO) == 0) return;
   extern __shared__ float4 smem4[];
@@ -214,6 +273,7 @@ __global__ void __launch_bounds__(CHUNK)
     float lam = 0.0f;
     int pix = 0, bounce = 0;
     uint32_t rng = 0;
+    [[maybe_unused]] bool coll = false;  // the path carries its hero alone
     if (dead) {
       long long row = -1, gpix = 0, it = 0;
       if (w.cum == nullptr) {
@@ -245,6 +305,8 @@ __global__ void __launch_bounds__(CHUNK)
         bounce = 0;
       }
     } else if (was_active) {
+      if constexpr (SAMPLER)
+        coll = (pi[PI_ACTIVE * Q + i] & COLLAPSED) != 0;
       const float* f = pf + i;
       o = v3(f[PF_O * Q], f[(PF_O + 1) * Q], f[(PF_O + 2) * Q]);
       d = v3(f[PF_D * Q], f[(PF_D + 1) * Q], f[(PF_D + 2) * Q]);
@@ -261,7 +323,10 @@ __global__ void __launch_bounds__(CHUNK)
       rays += 1;
       bool cont = false;
       const Hit h = intersect(prm, o, d);
-      if (h.t < kHIT()) {
+      if constexpr (SAMPLER) {
+        cont = sampled_bounce<EMIT>(prm, sw..., h, lam, w, bounce, n_light,
+                                    rng, coll, o, d, tp, rad, rays);
+      } else if (h.t < kHIT()) {
         V3 o2 = o, d2 = d, tp2 = tp;
         cont = shade_camera_hit(prm, none, false, h, vneg(d), lam,
                                 w.rr_thresh, rng, o2, d2, tp2, rad, rays) &&
@@ -285,11 +350,15 @@ __global__ void __launch_bounds__(CHUNK)
       f[PF_LAM * Q] = lam;
       pi[PI_PIX * Q + i] = pix;
       pi[PI_BOUNCE * Q + i] = bounce + 1;
-      pi[PI_ACTIVE * Q + i] = cont ? 1 : 0;
+      if constexpr (SAMPLER)
+        pi[PI_ACTIVE * Q + i] = cont ? (coll ? 1 | COLLAPSED : 1) : 0;
+      else
+        pi[PI_ACTIVE * Q + i] = cont ? 1 : 0;
       rng_pl[i] = (long long)rng;
       if (cont) {
         alive += 1;
-      } else {
+      } else {  // the pool keeps rad; the image takes it capped
+        if constexpr (EMIT) rad = clamp_sample(emission(sw...), rad);
         atomicAdd(rgb + 3 * (long long)pix, rad.x);
         atomicAdd(rgb + 3 * (long long)pix + 1, rad.y);
         atomicAdd(rgb + 3 * (long long)pix + 2, rad.z);
@@ -347,24 +416,45 @@ __global__ void __launch_bounds__(CHUNK)
 
 }  // namespace tpurt
 
+// `sampler`: the camera-path sampler flags; `emission`: null, or the
+// emission switches. With neither on, the reference instance runs.
 extern "C" int tpurt_wf_step_launch(float* pf, int* pi, long long* rng,
                                     float* rgb, float* ns, long long* ctl,
                                     const float* table, int n_sph, int n_mat,
                                     int n_light, const tpurt::PoolWork* work,
                                     const tpurt::Geom* geom, const float* cie,
+                                    const tpurt::Sampler* sampler,
+                                    const tpurt::Emission* emission,
                                     void* stream) {
   using namespace tpurt;
   const int staged = staged_floats(n_sph, n_mat, n_light);
   const size_t smem = run_pixels_smem(staged, *geom, CHUNK, 0);
+  const bool sampled = emission || sampler_on(*sampler);
+  const void* kernel =
+      !sampled ? (const void*)pool_step_kernel<>
+               : emission ? (const void*)pool_step_kernel<true, true, Sampler,
+                                                           Emission>
+                          : (const void*)pool_step_kernel<true, false, Sampler,
+                                                           Emission>;
   long long resident = 0;
-  const int err = resident_blocks((const void*)pool_step_kernel, smem, CHUNK,
-                                  &resident);
+  const int err = resident_blocks(kernel, smem, CHUNK, &resident);
   if (err) return err;
   const long long n_chunks = (work->Q + CHUNK - 1) / CHUNK;
   const unsigned int blocks =
       (unsigned int)(n_chunks < resident ? n_chunks : resident);
-  pool_step_kernel<<<blocks, CHUNK, smem, static_cast<cudaStream_t>(stream)>>>(
-      pf, pi, rng, rgb, ns, ctl, table, cie, staged, n_sph, n_mat, n_light,
-      *work, *geom);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!sampled) {
+    pool_step_kernel<><<<blocks, CHUNK, smem, s>>>(
+        pf, pi, rng, rgb, ns, ctl, table, cie, staged, n_sph, n_mat, n_light,
+        *work, *geom);
+  } else {
+    const Emission off = {};
+    auto k = emission ? pool_step_kernel<true, true, Sampler, Emission>
+                      : pool_step_kernel<true, false, Sampler, Emission>;
+    k<<<blocks, CHUNK, smem, s>>>(pf, pi, rng, rgb, ns, ctl, table, cie,
+                                  staged, n_sph, n_mat, n_light, *work,
+                                  *geom, *sampler,
+                                  emission ? *emission : off);
+  }
   return (int)cudaGetLastError();
 }

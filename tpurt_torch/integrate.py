@@ -7,8 +7,10 @@ tile-synchronized kernel ``csrc/mega_step.cu``) and the port's
 ``backend="xla"``. It ports ``tpurt/integrate.py`` for sphere and mesh
 scenes with tpurt's sampler flags (hero wavelengths with the collapse bit,
 dispersion on camera paths, photon emission and bounce strata, camera
-bounce strata), in the component form and op order of tpurt's kernel
-device code (``tpurt/kernels/mega_pallas.py``: ``nee_direct_c``,
+bounce strata) and tpurt's emission besides the lights (the sky on a miss,
+emissive materials, the per-sample radiance clamp), in the component form
+and op order of tpurt's kernel device code
+(``tpurt/kernels/mega_pallas.py``: ``nee_direct_c``,
 ``scatter_rr_c``, ``_evaluate_bsdf_c``, ``_single_lambda_em_c``), so that
 it, tpurt and the CUDA kernels draw the same PCG streams and take the same
 branches. The hero emission comes from the host table
@@ -44,8 +46,11 @@ from tpurt_torch.ops.intersect import (HIT, bvh_hit, closest_sphere,
 from tpurt_torch.ops import rng as rngmod
 from tpurt_torch.ops.rng import frame_seed, photon_stream, rand_1f, seed_pixels
 from tpurt_torch.ops.spectra import (DISPERSION_B, blackbody,
+                                     flat_emission, flat_hero_table,
                                      hero_emission_lookup,
-                                     hero_emission_table, sample_wavelength)
+                                     hero_emission_table, legacy_sky,
+                                     sample_wavelength, sky_emission,
+                                     sky_hero_table, sky_on, sky_tint)
 from tpurt_torch.scene import EPS, PHOTON_CONE_COS, photon_power
 
 
@@ -61,6 +66,11 @@ def material_lookup(mats, mat_id):
     mtype = row[:, 5]
     return ((row[:, 0], row[:, 1], row[:, 2]), row[:, 3], row[:, 4],
             mtype == 0.0, mtype == 2.0)
+
+
+def is_emitter(mats, mat_id):
+    """Per-lane: the hit material is emissive (type 3)."""
+    return mats[mat_id][:, 5] == 3.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,6 +162,113 @@ def hero_emission_rgb(fs, cfg, lam):
     return [hero_emission_lookup(torch.from_numpy(tab).to(lam.device), c,
                                  lam).unbind(-1)
             for tab in hero_tables(fs, c)]
+
+
+def any_emitter(fs) -> bool:
+    return any(m.mtype == 3 for m in fs.materials)
+
+
+def emission_on(fs, cfg, wavefront: bool = False) -> bool:
+    """Whether a render adds emission besides the lights' or clamps its
+    samples: the sky, an emissive material, the radiance clamp and, on the
+    wavefront tracers (``wavefront``), the legacy sky ramp. It selects the
+    kernels' emission instances."""
+    return (sky_on(cfg) or any_emitter(fs) or cfg.radiance_clamp > 0.0
+            or (wavefront and bool(cfg.sky_gradient)))
+
+
+def emission_tables(fs, cfg, c: int) -> tuple:
+    """The sky's and the type-3 base's hero tables for C wavelengths (host
+    float32 NumPy), built once per frozen scene, C and sky."""
+    key = ("emit", c, float(cfg.sky_intensity), float(cfg.sky_temp))
+    if key not in fs.cache:
+        fs.cache[key] = (sky_hero_table(cfg, c), flat_hero_table(c))
+    return fs.cache[key]
+
+
+@dataclasses.dataclass(frozen=True)
+class Emit:
+    """A camera path's emission besides the lights, per lane, as a render
+    adds it. ``sky``: the sky's untinted emission (None: a black sky);
+    ``base``: the type-3 emission base (None: no emitter in the scene);
+    each hero-averaged when C > 1, and ``*_hero`` its single-wavelength
+    form that a collapsed path takes (None without collapse tracking).
+    ``legacy``: the wavefront tracers' RGB ramp on a miss instead (the sky
+    off, sky_gradient on)."""
+    sky: tuple | None = None
+    sky_hero: tuple | None = None
+    base: tuple | None = None
+    base_hero: tuple | None = None
+    legacy: bool = False
+
+
+def camera_emission(fs, cfg, lam, wavefront: bool = False):
+    """The emission a camera path of wavelength lam adds: (em, em_hero,
+    emit). ``em``: the lights' emission for NEE (hero-averaged when C > 1),
+    ``em_hero`` its single-wavelength form a collapsed path takes (None
+    without collapse tracking), ``emit`` the rest (``Emit``; the legacy
+    ramp only with ``wavefront``)."""
+    c = hero_count(cfg)
+    track = tracks_collapse(fs, cfg)
+    em, em_hero = light_emission_rgb(fs, lam), None
+    if c > 1:
+        em, em_hero = hero_emission_rgb(fs, cfg, lam), (em if track
+                                                         else None)
+    sky = sky_hero = base = base_hero = None
+    if sky_on(cfg):
+        sky = sky_emission(cfg, lam)
+    if any_emitter(fs):
+        base = flat_emission(lam)
+    if c > 1 and (sky is not None or base is not None):
+        tabs = [hero_emission_lookup(torch.from_numpy(t).to(lam.device), c,
+                                     lam).unbind(-1)
+                for t in emission_tables(fs, cfg, c)]
+        if sky is not None:
+            sky, sky_hero = tabs[0], (sky if track else None)
+        if base is not None:
+            base, base_hero = tabs[1], (base if track else None)
+    return em, em_hero, Emit(
+        sky=sky, sky_hero=sky_hero, base=base, base_hero=base_hero,
+        legacy=wavefront and sky is None and bool(cfg.sky_gradient))
+
+
+def _collapsed(coll, hero, avg):
+    return avg if hero is None else s.vwhere(coll, hero, avg)
+
+
+def add_sky(cfg, emit: Emit, rad, tp, d, miss, coll):
+    """rad plus the sky's radiance along d where ``miss`` (camera lanes
+    that hit nothing): tp * emission * tint, or tp * the legacy ramp."""
+    if emit.sky is not None:
+        em = _collapsed(coll, emit.sky_hero, emit.sky)
+        tint = sky_tint(cfg, d)
+        add = tuple(rad[c] + tp[c] * em[c] * tint[c] for c in range(3))
+    elif emit.legacy:
+        ramp = legacy_sky(d)
+        add = tuple(rad[c] + tp[c] * ramp[c] for c in range(3))
+    else:
+        return rad
+    return s.vwhere(miss, add, rad)
+
+
+def add_emitters(emit: Emit, rad, tp, color, hit_em, coll):
+    """rad plus tp * color * the emission base where ``hit_em`` (camera
+    lanes that hit an emissive material)."""
+    if emit.base is None:
+        return rad
+    em = _collapsed(coll, emit.base_hero, emit.base)
+    return s.vwhere(hit_em, tuple(rad[c] + tp[c] * color[c] * em[c]
+                                  for c in range(3)), rad)
+
+
+def clamp_sample(cfg, rad):
+    """A sample's radiance capped channel by channel at radiance_clamp (0:
+    off). Only what is added to the image is capped, never the radiance a
+    path carries."""
+    if cfg.radiance_clamp <= 0.0:
+        return rad
+    cl = float(np.float32(cfg.radiance_clamp))
+    return tuple(torch.clamp_max(r, cl) for r in rad)
 
 
 def sample_direct_lighting(fs, loc, n, lam, rng, em):
@@ -384,15 +501,17 @@ def _material_kinds(fs):
 
 def trace_camera_paths(fs, cfg, mats, o, d, lam, rng, depth: int, vis,
                        valid, em, em_hero=None, strata_seed=None,
-                       tri: TriMode = EXACT):
+                       tri: TriMode = EXACT, emit: Emit = Emit()):
     """One camera path per lane, up to ``depth`` bounces. The first
     diffuse hit of the path overwrites the lane's vispoint (``vis``, 13
     planes: pos 3, norm 3, wo 3, tp 3, mat 1). ``em`` is the per-light
     emission NEE adds (hero-averaged when C > 1); with ``em_hero`` (the
     single-wavelength emission) a lane collapses to it on its first
-    dielectric hit. ``strata_seed`` keys the camera bounce cells under
-    camera_strata_bounce; ``tri`` is the nearest hit's triangle test.
-    Returns (rad, vis, rays)."""
+    dielectric hit, and so do ``emit``'s sky and emission base. A miss adds
+    ``emit``'s sky; a hit on an emissive material adds its emission and
+    ends the path, with no vispoint and no collapse. ``strata_seed`` keys
+    the camera bounce cells under camera_strata_bounce; ``tri`` is the
+    nearest hit's triangle test. Returns (rad, vis, rays)."""
     zero = torch.zeros_like(o[0])
     one = torch.ones_like(o[0])
     tp = (one, one, one)
@@ -415,7 +534,11 @@ def trace_camera_paths(fs, cfg, mats, o, d, lam, rng, depth: int, vis,
         t, loc, n, mat = intersect_scene(fs, o, d, tri)
         found = t < HIT
         color, rough, ior, is_diffuse, is_metal = material_lookup(mats, mat)
+        is_em = is_emitter(mats, mat)
         wo = s.vneg(d)
+        rad = add_sky(cfg, emit, rad, tp, d, active & ~found, coll)
+        rad = add_emitters(emit, rad, tp, color, active & found & is_em,
+                           coll)
 
         store = active & found & is_diffuse & ~vp_stored
         for base, val in ((0, loc), (3, n), (6, wo), (9, tp)):
@@ -440,8 +563,8 @@ def trace_camera_paths(fs, cfg, mats, o, d, lam, rng, depth: int, vis,
                 (strata_seed, rngmod.CAMERA_STRATA_K, b) if cam_strata
                 else None))
         if em_hero is not None:
-            coll = coll | (active & found & ~(is_diffuse | is_metal))
-        cont = active & found & scat_ok & rr_live
+            coll = coll | (active & found & ~(is_diffuse | is_metal | is_em))
+        cont = active & found & scat_ok & rr_live & ~is_em
         o = s.vwhere(cont, new_o, o)
         d = s.vwhere(cont, wi, d)
         tp = s.vwhere(cont, new_tp, tp)
@@ -551,7 +674,8 @@ def trace_photons(fs, cfg, mats, lam, seed, px, py, vis, radius, valid, rad,
                 any_dielectric=any_diel, any_metal=any_metal,
                 bounce_strata=((strata_seed, rngmod.strata_k(cfg, k), b)
                                if ph_strata else None))
-            cont = active & found & scat_ok & rr_live
+            # an emissive material absorbs the photon
+            cont = active & found & scat_ok & rr_live & ~is_emitter(mats, mat)
             o = s.vwhere(cont, new_o, o)
             d = s.vwhere(cont, wi, d)
             tp = s.vwhere(cont, new_tp, tp)
@@ -565,7 +689,8 @@ def render_tile(fs, cfg, mats, camera, px, py, valid, seed, radius,
     (2 jitter draws, 1 wavelength draw), camera path, photon pass.
     ``seed`` and ``strata_seed`` (default ``seed``) are ints or one per
     pixel, ``radius`` a float or one per pixel; ``tri`` is the nearest
-    hit's triangle test. Returns (color vec3, vis, rays)."""
+    hit's triangle test. The color is the sample's radiance under the
+    radiance clamp. Returns (color vec3, vis, rays)."""
     strata_seed = seed if strata_seed is None else strata_seed
     rng = seed_pixels(seed, px, py)
     uj1, rng = rand_1f(rng)
@@ -575,16 +700,13 @@ def render_tile(fs, cfg, mats, camera, px, py, valid, seed, radius,
     o, d, rng = spawn_camera_rays(cfg, camera, u, v, rng)
     ulam, rng = rand_1f(rng)
     lam = sample_wavelength(ulam)
-    em, em_hero = light_emission_rgb(fs, lam), None
-    if hero_count(cfg) > 1:
-        em, em_hero = hero_emission_rgb(fs, cfg, lam), (
-            em if tracks_collapse(fs, cfg) else None)
+    em, em_hero, emit = camera_emission(fs, cfg, lam)
     rad, vis, rays = trace_camera_paths(fs, cfg, mats, o, d, lam, rng, depth,
                                         vis, valid, em, em_hero, strata_seed,
-                                        tri)
+                                        tri, emit)
     rad, prays = trace_photons(fs, cfg, mats, lam, seed, px, py, vis, radius,
                                valid, rad, strata_seed, tri)
-    return rad, vis, rays + prays
+    return clamp_sample(cfg, rad), vis, rays + prays
 
 
 def sppm_radius_step(cfg, k, radius):

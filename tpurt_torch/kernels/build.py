@@ -49,6 +49,8 @@ _SIGNATURES = {
         _P,             # two uint64 on the device: rays, added to; the work
                         # counter, zeroed on the stream before the launch
         _P,             # CIE table (81, 3) f32 on the device
+        _P,             # emission switches: a mega_regen.EmissionArgs, or
+                        # NULL (no emission: the instances without it)
         _P,             # stream
     ],
     "tpurt_step_launch": [
@@ -65,6 +67,8 @@ _SIGNATURES = {
         _P,             # geometry tables: a bvh.GeomArgs on the host
         _P,             # two uint64 on the device: rays, work counter
         _P,             # CIE table (81, 3) f32 on the device
+        _P,             # emission switches: a mega_regen.EmissionArgs, or
+                        # NULL (no emission: the instances without it)
         _P,             # stream
     ],
     "tpurt_wf_step_launch": [
@@ -76,6 +80,10 @@ _SIGNATURES = {
         _P,             # launch constants: a wavefront_sweep.PoolArgs
         _P,             # geometry tables: a bvh.GeomArgs on the host
         _P,             # CIE table (81, 3) f32 on the device
+        _P,             # camera-path sampler switches: a
+                        # mega_regen.SamplerArgs (camera_sampler_args)
+        _P,             # emission switches: a mega_regen.EmissionArgs, or
+                        # NULL (no emission)
         _P,             # stream
     ],
     "tpurt_wf_fused_launch": [
@@ -92,6 +100,10 @@ _SIGNATURES = {
         _P,             # two uint64 on the device: rays, added to; the work
                         # counter, zeroed on the stream before the launch
         _P,             # CIE table (81, 3) f32 on the device
+        _P,             # camera-path sampler switches: a
+                        # mega_regen.SamplerArgs (camera_sampler_args)
+        _P,             # emission switches: a mega_regen.EmissionArgs, or
+                        # NULL (no emission)
         _P,             # stream
     ],
     "tpurt_bvh_probe_launch": [

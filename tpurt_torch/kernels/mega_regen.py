@@ -11,12 +11,16 @@ the kernel's plain PyTorch version, ``integrate.render_plain`` or
 ``LAUNCHES`` and ``BUDGET_LAUNCHES`` count kernel launches only;
 ``MXU_LAUNCHES`` counts the launches of either mode that ran tpurt's
 G-matrix leaf test (``pallas_mxu_leaf`` where ``bvh.mxu_leaf_engages``),
-whose plain version is ``ops.intersect.closest_triangle_g``.
+whose plain version is ``ops.intersect.closest_triangle_g``, and
+``EMIT_LAUNCHES`` those of either mode that ran an emission instance
+(``emission_args``).
 
 The module also builds what every path kernel reads: the parameter table
-(camera, spheres, materials, lights, each light's hero table), the CIE
-table on the device (``cie_table``, uploaded once per device) and the
-sampler switches (``sampler_args``).
+(camera, spheres, materials, lights, each light's hero table, then those
+of the sky and of the type-3 emission base), the CIE table on the device
+(``cie_table``, uploaded once per device), the sampler switches
+(``sampler_args``, ``camera_sampler_args``) and the emission switches
+(``emission_args``), which select the kernels' emission instances.
 """
 
 from __future__ import annotations
@@ -31,12 +35,13 @@ from tpurt_torch import integrate
 from tpurt_torch.kernels import build, bvh
 from tpurt_torch.ops import rng as rngmod
 from tpurt_torch.ops.spectra import (CIE_RGB_TABLE, VISIBLE_RANGE,
-                                     hero_segments)
+                                     hero_segments, sky_on)
 from tpurt_torch.scene import freeze_scene, photon_power, sphere_rows
 
 LAUNCHES = 0
 BUDGET_LAUNCHES = 0
 MXU_LAUNCHES = 0
+EMIT_LAUNCHES = 0
 
 N_CHANNELS = 16
 CAM_FLOATS = 12
@@ -85,13 +90,64 @@ def sampler_args(fs, cfg) -> SamplerArgs:
         collapse=int(integrate.tracks_collapse(fs, cfg)))
 
 
+def sampler_on(args: SamplerArgs) -> bool:
+    """Whether a launch takes a kernel's sampler instance
+    (csrc/device.cuh sampler_on)."""
+    return args.n_pos > 0 or args.hero > 1 or bool(args.disp_cam)
+
+
+def camera_sampler_args(fs, cfg) -> SamplerArgs:
+    """The sampler switches of the wavefront kernels: hero wavelengths,
+    camera-path dispersion and the collapse; the photon strata are off
+    (no photons) and camera strata are rejected before a launch."""
+    c = integrate.hero_count(cfg)
+    return SamplerArgs(
+        n_pos=0, n_dir=0, shared_k=0, window=1, photon_bounce=0,
+        camera_bounce=0, disp_cam=int(cfg.dispersion_in_camera_path),
+        hero=c, hero_nseg=hero_segments(c),
+        hero_delta=float(np.float32(VISIBLE_RANGE / c)),
+        collapse=int(integrate.tracks_collapse(fs, cfg)))
+
+
+class EmissionArgs(ctypes.Structure):
+    """csrc/device.cuh ``struct Emission``, passed by address."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "sky", "gradient", "legacy")] + [
+        (name, ctypes.c_float) for name in (
+            "sky_k", "sky_temp", "sky_r", "sky_g", "sky_b", "clamp")]
+
+
+def emission_args(fs, cfg, wavefront: bool = False):
+    """The emission switches of a launch (``integrate.emission_on``;
+    ``wavefront``: the wavefront kernels, which also take the legacy sky
+    ramp), or None: the launch runs an instance without emission."""
+    if not integrate.emission_on(fs, cfg, wavefront):
+        return None
+    f32 = lambda x: float(np.float32(x))  # noqa: E731
+    on = sky_on(cfg)
+    return EmissionArgs(
+        sky=int(on), gradient=int(bool(cfg.sky_gradient)),
+        legacy=int(wavefront and not on and bool(cfg.sky_gradient)),
+        sky_k=f32(cfg.sky_intensity * VISIBLE_RANGE),
+        sky_temp=f32(cfg.sky_temp), sky_r=f32(cfg.sky_color[0]),
+        sky_g=f32(cfg.sky_color[1]), sky_b=f32(cfg.sky_color[2]),
+        clamp=f32(cfg.radiance_clamp))
+
+
+def emission_ref(args):
+    """A launch's pointer argument for ``emission_args``' result."""
+    return None if args is None else ctypes.byref(args)
+
+
 def pack_scene(fs, cfg, camera=None, sph_rows=None) -> np.ndarray:
     """The kernels' float32 parameter table (layout in csrc/device.cuh):
     camera rows (zeros without a camera), then the spheres of the flat
     sweep (``sph_rows``, all of them by default), materials and lights
     with every derived constant computed on the host as the plain version
     computes it, then, with hero_wavelengths C > 1, each light's hero
-    table (``integrate.hero_tables``)."""
+    table (``integrate.hero_tables``) and, where the sky is on or the scene
+    has an emissive material, the sky's and the emission base's
+    (``integrate.emission_tables``)."""
     sph = sphere_rows(fs.spheres) if sph_rows is None else sph_rows
     mat = np.zeros((len(fs.materials), MAT_STRIDE), np.float32)
     for i, m in enumerate(fs.materials):
@@ -106,6 +162,8 @@ def pack_scene(fs, cfg, camera=None, sph_rows=None) -> np.ndarray:
            else camera.rows())
     c = integrate.hero_count(cfg)
     hero = [t.ravel() for t in integrate.hero_tables(fs, c)] if c > 1 else []
+    if c > 1 and (sky_on(cfg) or integrate.any_emitter(fs)):
+        hero += [t.ravel() for t in integrate.emission_tables(fs, cfg, c)]
     return np.concatenate([cam.ravel(), sph.ravel(), mat.ravel(),
                            lit.ravel(), *hero]).astype(np.float32)
 
@@ -114,13 +172,13 @@ def scene_table(fs, cfg, camera, device):
     """The kernels' inputs on ``device``: the parameter table
     (``pack_scene`` with the spheres of the flat sweep) and the geometry
     tables (``bvh.geometry``). Everything but the camera rows is built
-    once per frozen scene, knob set and hero count; a light is a row, so
+    once per frozen scene, knob set, hero count and sky; a light is a row, so
     the kernels take any number (past the shared-memory budget of
     ``path.cuh staged_floats`` they read the rows from global memory).
     Returns (table, geometry)."""
     geo = bvh.geometry(fs, cfg)
     key = ("table", cfg.k_photons, integrate.hero_count(cfg),
-           bvh.knobs(cfg))
+           float(cfg.sky_intensity), float(cfg.sky_temp), bvh.knobs(cfg))
     body = fs.cache.get(key)
     if body is None:
         body = fs.cache[key] = torch.from_numpy(pack_scene(
@@ -181,8 +239,9 @@ def regen_tri_mode(fs, cfg) -> integrate.TriMode:
 def _launch(fs, cfg, camera, planes, base_seed: int, spp: int,
             iteration: int, radius: float, depth: int, aux=None,
             gmat=None):
-    global MXU_LAUNCHES
+    global MXU_LAUNCHES, EMIT_LAUNCHES
     table, geo = scene_table(fs, cfg, camera, planes.device)
+    emission = emission_args(fs, cfg)
     lib = build.library()
     counters = launch_counters(planes.device)
     stream = torch.cuda.current_stream(planes.device).cuda_stream
@@ -195,11 +254,13 @@ def _launch(fs, cfg, camera, planes, base_seed: int, spp: int,
         ctypes.byref(sampler_args(fs, cfg)),
         None if aux is None else aux.data_ptr(),
         ctypes.byref(geo.args(gmat)), counters.data_ptr(),
-        cie_table(planes.device).data_ptr(), stream)
+        cie_table(planes.device).data_ptr(), emission_ref(emission), stream)
     build.check_launch(lib, err, "tpurt_regen_launch")
     bvh.count_walk(geo)
     if gmat is not None:
         MXU_LAUNCHES += 1
+    if emission is not None:
+        EMIT_LAUNCHES += 1
     return counters[0]
 
 

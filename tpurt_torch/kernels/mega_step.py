@@ -9,7 +9,8 @@ and the sample index between launches is ``render._advance``.
 On a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
 the kernel's plain PyTorch version, ``integrate.render_plain`` with one
 sample, which has the same contract. ``LAUNCHES`` counts kernel launches
-only.
+only, ``EMIT_LAUNCHES`` those of the emission instance
+(``mega_regen.emission_args``).
 """
 
 from __future__ import annotations
@@ -21,10 +22,12 @@ import torch
 from tpurt_torch import integrate
 from tpurt_torch.kernels import build, bvh
 from tpurt_torch.kernels.mega_regen import (checked_scene, cie_table,
+                                            emission_args, emission_ref,
                                             launch_counters, photon_count,
                                             sampler_args, scene_table)
 
 LAUNCHES = 0
+EMIT_LAUNCHES = 0
 
 
 def step_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
@@ -34,7 +37,7 @@ def step_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
     that sample's strata seed, and gathers photons within ``radius``.
     Returns the traced segments as an int64 scalar on the planes'
     device."""
-    global LAUNCHES
+    global LAUNCHES, EMIT_LAUNCHES
     fs = checked_scene(scene, planes, cfg)
     if planes.device.type == "cpu":
         return integrate.render_plain(fs, cfg, camera, planes, base_seed, 1,
@@ -44,6 +47,7 @@ def step_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
     assert args.gmat is None    # tpurt never runs its G leaf here
     lib = build.library()
     counters = launch_counters(planes.device)
+    emission = emission_args(fs, cfg)
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     err = lib.tpurt_step_launch(
         planes.data_ptr(), planes.shape[1], cfg.width, cfg.height,
@@ -53,8 +57,10 @@ def step_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
         photon_count(fs, cfg), cfg.max_photon_bounces, cfg.rr_threshold,
         cfg.photon_rr_threshold, ctypes.byref(sampler_args(fs, cfg)),
         ctypes.byref(args), counters.data_ptr(),
-        cie_table(planes.device).data_ptr(), stream)
+        cie_table(planes.device).data_ptr(), emission_ref(emission), stream)
     build.check_launch(lib, err, "tpurt_step_launch")
     LAUNCHES += 1
+    if emission is not None:
+        EMIT_LAUNCHES += 1
     bvh.count_walk(geo)
     return counters[0]

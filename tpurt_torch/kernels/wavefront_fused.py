@@ -10,7 +10,12 @@ raises; on a CPU state each runs the kernel's plain version, the pool
 renderer ``wavefront.wavefront_render`` or
 ``adaptive.wavefront_render_budget``, which draws the same streams.
 Uniform launches keep a warp's lanes in lockstep, budget launches let them
-run free (PERF.md has the A/B). ``LAUNCHES`` counts kernel launches only.
+run free (PERF.md has the A/B). A launch with hero wavelengths or
+camera-path dispersion runs the kernel's sampler instance, one with the
+sky, the legacy ramp, an emissive material or the clamp its emission
+instance (``mega_regen.camera_sampler_args``, ``emission_args``).
+``LAUNCHES`` counts kernel launches only, ``SAMPLER_LAUNCHES`` those of
+the sampler instance, ``EMIT_LAUNCHES`` those of the emission instance.
 """
 
 from __future__ import annotations
@@ -23,18 +28,22 @@ import torch
 from tpurt_torch import adaptive, wavefront
 from tpurt_torch.config import check_slice
 from tpurt_torch.kernels import build, bvh
-from tpurt_torch.kernels.mega_regen import (cie_table, launch_counters,
-                                              scene_table)
+from tpurt_torch.kernels.mega_regen import (camera_sampler_args, cie_table,
+                                            emission_args, emission_ref,
+                                            launch_counters, sampler_on,
+                                            scene_table)
 from tpurt_torch.scene import freeze_scene
 
 LAUNCHES = 0
+SAMPLER_LAUNCHES = 0
+EMIT_LAUNCHES = 0
 
 
 def _launch(scene, cfg, camera, state, base_seed, spp: int, aux=None):
     """The kernel on a copy of the state's rgb_sum; ``aux``: the (2, P)
     float32 budgets and counts of budget mode. Returns (rgb_sum, rays
     int64 scalar)."""
-    global LAUNCHES
+    global LAUNCHES, SAMPLER_LAUNCHES, EMIT_LAUNCHES
     dev = state.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -51,15 +60,22 @@ def _launch(scene, cfg, camera, state, base_seed, spp: int, aux=None):
     lib = build.library()
     counters = launch_counters(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    sampler = camera_sampler_args(fs, cfg)
+    emission = emission_args(fs, cfg, wavefront=True)
     err = lib.tpurt_wf_fused_launch(
         rgb.data_ptr(), rgb.shape[0], cfg.width, cfg.height,
         table.data_ptr(), len(geo.flat_rows), len(fs.materials),
         len(fs.lights), int(base_seed) & 0xFFFFFFFF, spp, state.iteration,
         None if aux is None else aux.data_ptr(), cfg.depth,
         cfg.rr_threshold, ctypes.byref(args), counters.data_ptr(),
-        cie_table(dev).data_ptr(), stream)
+        cie_table(dev).data_ptr(), ctypes.byref(sampler),
+        emission_ref(emission), stream)
     build.check_launch(lib, err, "tpurt_wf_fused_launch")
     LAUNCHES += 1
+    if emission is not None:
+        EMIT_LAUNCHES += 1
+    elif sampler_on(sampler):
+        SAMPLER_LAUNCHES += 1
     bvh.count_walk(geo)
     return rgb, counters[0]
 

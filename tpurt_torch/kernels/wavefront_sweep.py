@@ -11,7 +11,10 @@ version, ``wavefront._step``, which has the same contract. The scene
 table, the geometry tables and the launch constants are built once per
 render, at the first sweep, so a sweep is one launch and no PyTorch op.
 ``LAUNCHES`` counts kernel launches only: one per sweep enqueued,
-including those past the end of the loop, which return at once.
+including those past the end of the loop, which return at once;
+``SAMPLER_LAUNCHES`` and ``EMIT_LAUNCHES`` count those of the sampler and
+the emission instance (hero wavelengths or camera-path dispersion; the sky,
+the legacy ramp, an emissive material or the clamp).
 ``SWEEP_BATCH`` sweeps are enqueued per read of the loop test: at 1080p,
 1 spp, 16 is within 2-12% of 32 and costs at most 15 empty launches at the
 end of a render (PERF.md has the measurement).
@@ -25,9 +28,13 @@ import torch
 
 from tpurt_torch import wavefront
 from tpurt_torch.kernels import build, bvh
-from tpurt_torch.kernels.mega_regen import cie_table, scene_table
+from tpurt_torch.kernels.mega_regen import (camera_sampler_args, cie_table,
+                                            emission_args, emission_ref,
+                                            sampler_on, scene_table)
 
 LAUNCHES = 0
+SAMPLER_LAUNCHES = 0
+EMIT_LAUNCHES = 0
 SWEEP_BATCH = 16
 
 
@@ -89,7 +96,7 @@ def stepper(fs, cfg, work: wavefront.PoolWork,
     launch = {}     # built at the first sweep on the card
 
     def step(pool, rgb, ns, ctl):
-        global LAUNCHES
+        global LAUNCHES, SAMPLER_LAUNCHES, EMIT_LAUNCHES
         dev = pool.pf.device
         if dev.type == "cpu":
             return plain(pool, rgb, ns, ctl)
@@ -107,10 +114,14 @@ def stepper(fs, cfg, work: wavefront.PoolWork,
         err = launch["lib"].tpurt_wf_step_launch(
             *launch["ptrs"], launch["table"], launch["n_sph"],
             launch["n_mat"], launch["n_light"], launch["args_ref"],
-            launch["geom_ref"], launch["cie"],
-            torch.cuda.current_stream(dev).cuda_stream)
+            launch["geom_ref"], launch["cie"], launch["sampler_ref"],
+            launch["emission_ref"], torch.cuda.current_stream(dev).cuda_stream)
         build.check_launch(launch["lib"], err, "tpurt_wf_step_launch")
         LAUNCHES += 1
+        if launch["emission"] is not None:
+            EMIT_LAUNCHES += 1
+        elif sampler_on(launch["sampler"]):
+            SAMPLER_LAUNCHES += 1
         bvh.count_walk(launch["geo"])
         return pool, rgb, ns, ctl
 
@@ -138,11 +149,15 @@ def _prepare(fs, cfg, work: wavefront.PoolWork, q: int, dev) -> dict:
         width=cfg.width, height=cfg.height, depth=cfg.depth,
         rr_thresh=cfg.rr_threshold, base_seed=work.base_seed & 0xFFFFFFFF,
         **ptrs)
+    sampler = camera_sampler_args(fs, cfg)
+    emission = emission_args(fs, cfg, wavefront=True)
     return dict(lib=build.library(), table=table.data_ptr(), keep=keep,
                 geo=geo, geom=geom, args=args, geom_ref=ctypes.byref(geom),
                 args_ref=ctypes.byref(args), n_sph=len(geo.flat_rows),
                 n_mat=len(fs.materials), n_light=len(fs.lights),
-                cie=cie_table(dev).data_ptr())
+                cie=cie_table(dev).data_ptr(), sampler=sampler,
+                emission=emission, sampler_ref=ctypes.byref(sampler),
+                emission_ref=emission_ref(emission))
 
 
 def wavefront_render_pallas(scene, cfg, camera, state, base_seed, spp: int):

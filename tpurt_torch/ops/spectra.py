@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpurt_torch.ops import fdiv
+from tpurt_torch.ops import fdiv, fsqrt
 
 VISIBLE_MIN = 380.0
 VISIBLE_MAX = 780.0
@@ -185,3 +185,75 @@ def hero_emission_lookup(tab, c: int, lam):
     f = (u - i.to(torch.float32))[..., None]
     i = i.long()
     return tab[i] * (1.0 - f) + tab[i + 1] * f
+
+
+# ----- emission besides the lights: the sky and type-3 materials -----
+# (tpurt.integrate.sky_emission_rgb and _sky_tint, and the component forms
+# its kernels use, tpurt.kernels.mega_pallas._sky_em_c, _sky_tint_c and
+# _flat_em_c). Vec3s are tuples of planes, as in ops.soa, in the op order
+# of tpurt's kernels and of csrc/path.cuh.
+
+SKY_RAMP = (0.5, 0.7, 1.0)   # the sky gradient's tint straight up
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def sky_on(cfg) -> bool:
+    """Whether a camera path that misses adds the sky's emission."""
+    return float(cfg.sky_intensity) > 0.0
+
+
+def sky_emission(cfg, lam):
+    """The sky's white emission at lam: f32(intensity * range)
+    (* blackbody(lam, sky_temp) where sky_temp > 0) * cie_rgb(lam)."""
+    cie = cie_to_rgb(lam).unbind(-1)
+    k = _f32(cfg.sky_intensity * VISIBLE_RANGE)
+    if cfg.sky_temp > 0.0:
+        spd = blackbody(lam, _f32(cfg.sky_temp))
+        return tuple(k * spd * cie[c] for c in range(3))
+    return tuple(k * cie[c] for c in range(3))
+
+
+def sky_height(d):
+    """The gradient's ramp parameter 0.5 * (normalize(d).y + 1)."""
+    dd = (d[0] * d[0] + d[1] * d[1] + d[2] * d[2]).clamp_min(1e-30)
+    return 0.5 * (d[1] * fdiv(1.0, fsqrt(dd)) + 1.0)
+
+
+def sky_tint(cfg, d):
+    """The sky's per-channel tint along d: sky_color, lerped toward
+    SKY_RAMP by direction height under sky_gradient."""
+    col = tuple(_f32(c) for c in cfg.sky_color)
+    if not cfg.sky_gradient:
+        return col
+    t = sky_height(d)
+    return tuple(col[c] * ((1.0 - t) + t * _f32(g))
+                 for c, g in enumerate(SKY_RAMP))
+
+
+def legacy_sky(d):
+    """The wavefront tracers' RGB sky under sky_gradient alone (tpurt's
+    legacy ramp, white at the nadir to SKY_RAMP at the zenith)."""
+    t = sky_height(d)
+    return tuple((1.0 - t) + t * _f32(g) for g in SKY_RAMP)
+
+
+def flat_emission(lam):
+    """The type-3 emission base at lam, range * cie_rgb(lam): a flat
+    spectrum (the intensity is folded into the material's color)."""
+    k = _f32(VISIBLE_RANGE)
+    return tuple(k * c for c in cie_to_rgb(lam).unbind(-1))
+
+
+def sky_hero_table(cfg, c: int) -> np.ndarray:
+    """The sky's hero table for C wavelengths (white; the tint is applied
+    per direction)."""
+    return hero_emission_table((1.0, 1.0, 1.0), cfg.sky_intensity,
+                               cfg.sky_temp, c)
+
+
+def flat_hero_table(c: int) -> np.ndarray:
+    """The type-3 emission base's hero table for C wavelengths."""
+    return hero_emission_table((1.0, 1.0, 1.0), 1.0, 0.0, c)

@@ -23,7 +23,7 @@ from tpurt_torch.device import resolve_device
 @dataclasses.dataclass(frozen=True)
 class Material:
     """Type 0 diffuse, 1 dielectric, 2 metal (GGX conductor, color = F0),
-    3 emissive (not in the ported slice)."""
+    3 emissive (color = the emitted color times its intensity)."""
     color: tuple = (0.0, 0.0, 0.0)
     roughness: float = 0.0
     ior: float = 1.0
@@ -43,6 +43,15 @@ class Material:
     def metal(f0_color, roughness: float = 0.0) -> "Material":
         return Material(color=tuple(f0_color), roughness=roughness, ior=1.0,
                         mtype=2)
+
+    @staticmethod
+    def emissive(color, intensity: float = 1.0) -> "Material":
+        """Type-3 emitter (``tpurt.scene.Material.emissive``): a camera
+        path that hits it adds color * intensity * cie_rgb(lambda) * range
+        and ends, a photon that hits it is absorbed, a shadow ray sees an
+        occluder. Next-event estimation does not sample it."""
+        return Material(color=tuple(float(intensity) * c for c in color),
+                        roughness=0.0, ior=1.0, mtype=3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -667,9 +676,9 @@ def _freeze(scene: Scene) -> FrozenScene:
                   rough=float(h["mat_rough"][i]),
                   ior=float(h["mat_ior"][i]), mtype=int(h["mat_type"][i]))
         for i in range(h["mat_color"].shape[0]))
-    if any(m.mtype not in (0, 1, 2) for m in materials):
-        raise NotImplementedError(
-            "emissive materials (type 3) are not ported to tpurt_torch yet")
+    if any(m.mtype not in (0, 1, 2, 3) for m in materials):
+        raise ValueError(f"material types are 0-3, got "
+                         f"{sorted({m.mtype for m in materials})}")
     lights = []
     for j in range(h["light_pos"].shape[0]):
         ltype = int(h["light_type"][j])

@@ -20,7 +20,16 @@ launches past the end return at once.
 Camera paths only: the photon pass and the vispoints are left as they are
 (``enable_photons`` is ignored, as in tpurt's wavefront tracers). Work
 items are the same per-(pixel, sample) PCG streams as every other backend,
-so ray counts equal the progressive renderer's with photons off.
+so ray counts equal the progressive renderer's with photons off. tpurt's
+sampler runs here as on the path kernels, but for the photon flags (no
+photons) and the camera strata (rejected, as in tpurt): hero wavelengths
+average the lights', the sky's and the emitters' emission, and a slot
+whose path meets a dielectric under camera-path dispersion collapses to
+its hero wavelength (a bit of the slot's state word, kept with its active
+flag). A miss adds the sky, or under ``sky_gradient`` alone tpurt's legacy
+RGB ramp (the path kernels ignore sky_gradient alone, as tpurt's do); an
+emissive hit adds its emission and ends the path; the splat caps each
+path at ``radiance_clamp``.
 
 This module is ``backend="wavefront"``. ``_step`` is also the plain
 version of the sweep kernel (``kernels/wavefront_sweep.py``, a whole sweep
@@ -40,20 +49,25 @@ import torch
 from tpurt_torch.camera import spawn_camera_rays
 from tpurt_torch.config import check_slice
 from tpurt_torch.integrate import (BVH, EXACT, TriMode, _material_kinds,
-                                   intersect_scene, light_emission_rgb,
+                                   add_emitters, add_sky, camera_emission,
+                                   clamp_sample, intersect_scene, is_emitter,
                                    material_lookup, material_table,
-                                   sample_direct_lighting, scatter_and_rr)
+                                   sample_direct_lighting, scatter_and_rr,
+                                   tracks_collapse)
 from tpurt_torch.ops import fdiv
 from tpurt_torch.ops import soa as s
 from tpurt_torch.ops.intersect import HIT
 from tpurt_torch.ops.rng import frame_seed, rand_1f, seed_pixels
-from tpurt_torch.ops.spectra import sample_wavelength
+from tpurt_torch.ops.spectra import DISPERSION_B, sample_wavelength
 from tpurt_torch.scene import freeze_scene
 
 # f32 plane bases of the pool (each vec3 takes 3 planes), i32 plane rows
 O, D, TP, RAD, LAM = 0, 3, 6, 9, 12
 N_F = 13
 PIX, BOUNCE, ACTIVE = 0, 1, 2
+# the ACTIVE row is the slot's state word: 0 dead, else 1 | COLLAPSED when
+# its path has collapsed to its hero wavelength
+COLLAPSED = 2
 # The pool loop's control words, int64 on the pool's device: sweeps taken,
 # the next work item (next_sample, or next_work in budget mode), next_pix
 # (uniform mode), the loop test of the next sweep (0/1), traced segments.
@@ -68,8 +82,9 @@ POOL_CHUNK = 128
 class WavefrontPool:
     """The ray pool in planes (Q slots), the layout the sweep kernel reads.
     Fields of tpurt's ``WavefrontPool``: ``pf`` holds o, d, tp, rad, lam,
-    ``pi`` pix (the state row the path adds into), bounce, active (0/1),
-    ``rng`` the PCG state (a uint32 held in int64, as in ``ops.rng``)."""
+    ``pi`` pix (the state row the path adds into), bounce, and the state
+    word (0 dead; 1 active, plus COLLAPSED for tpurt's ``coll``), ``rng``
+    the PCG state (a uint32 held in int64, as in ``ops.rng``)."""
     pf: torch.Tensor    # (13, Q) f32
     pi: torch.Tensor    # (3, Q)  i32
     rng: torch.Tensor   # (Q,)    i64
@@ -77,6 +92,12 @@ class WavefrontPool:
     @property
     def active(self) -> torch.Tensor:
         return self.pi[ACTIVE] != 0
+
+    @property
+    def coll(self) -> torch.Tensor:
+        """tpurt's collapse bit: the slot's path carries its hero
+        wavelength alone."""
+        return (self.pi[ACTIVE] & COLLAPSED) != 0
 
 
 def new_pool(q: int, device) -> WavefrontPool:
@@ -134,18 +155,10 @@ def reject_camera_strata(cfg) -> None:
 
 
 def check_sampler(cfg) -> None:
-    """The sampler flags the wavefront tracers take: camera strata raise
-    as in tpurt; hero wavelengths and camera-path dispersion are not
-    ported to them yet. Photon strata need no check: these tracers trace
-    no photons, in tpurt as here."""
+    """The sampler flags the wavefront tracers take: all of them but the
+    camera strata, which raise as in tpurt. Photon strata need no check:
+    these tracers trace no photons, in tpurt as here."""
     reject_camera_strata(cfg)
-    if cfg.hero_wavelengths > 1 or cfg.dispersion_in_camera_path:
-        raise NotImplementedError(
-            f"hero_wavelengths={cfg.hero_wavelengths} and "
-            f"dispersion_in_camera_path={cfg.dispersion_in_camera_path} are "
-            f"not ported to the wavefront tracers of tpurt_torch yet "
-            f"(backend={cfg.backend!r}); backend='pallas' and 'xla' take "
-            f"them")
 
 
 def _issue(cfg, camera, pool: WavefrontPool, pix, gpix, seed_iter,
@@ -154,7 +167,8 @@ def _issue(cfg, camera, pool: WavefrontPool, pix, gpix, seed_iter,
     ``have_work``: ``pix`` is the state row, ``gpix`` the global pixel (they
     differ only for a slab), ``seed_iter`` the per-slot sample iteration.
     Draws: 2 jitter, 1 wavelength, from seed_pixels(frame_seed(base_seed,
-    seed_iter), px, py), as every backend draws a camera spawn."""
+    seed_iter), px, py), as every backend draws a camera spawn. A fresh
+    ray's state word is 1: active, not collapsed."""
     px = gpix % cfg.width
     py = gpix // cfg.width
     rng = seed_pixels(frame_seed(base_seed, seed_iter), px, py)
@@ -198,7 +212,9 @@ def _regen(cfg, camera, pool: WavefrontPool, next_sample, next_pix, spp: int,
 
 def _sweep(fs, cfg, pool: WavefrontPool, tri: TriMode = EXACT):
     """One extend+shade sweep over the whole pool: the plain version of the
-    sweep kernel; ``tri`` is the nearest hit's triangle test. Returns
+    sweep kernel; ``tri`` is the nearest hit's triangle test. A miss adds
+    the sky (or the legacy ramp), an emissive hit its emission; NEE adds
+    the lights' emission, hero-averaged until the slot collapses. Returns
     (pool, terminated (Q,) bool, traced segments as an int64 scalar).
     Terminated slots keep their pix and rad for the splat; inactive slots
     keep their PCG state and count a bounce, as in the kernel."""
@@ -208,14 +224,20 @@ def _sweep(fs, cfg, pool: WavefrontPool, tri: TriMode = EXACT):
                      for b in (O, D, TP, RAD))
     lam = pf[LAM]
     active = pool.active
+    coll = pool.coll
     bounce = pool.pi[BOUNCE]
     rays = active.sum()
 
     t, loc, n, mat = intersect_scene(fs, o, d, tri)
     found = t < HIT
     color, rough, ior, is_diffuse, is_metal = material_lookup(mats, mat)
+    is_em = is_emitter(mats, mat)
     wo = s.vneg(d)
-    em = light_emission_rgb(fs, lam)
+    em, em_hero, emit = camera_emission(fs, cfg, lam, wavefront=True)
+    rad = add_sky(cfg, emit, rad, tp, d, active & ~found, coll)
+    rad = add_emitters(emit, rad, tp, color, active & found & is_em, coll)
+    if em_hero is not None:
+        em = [s.vwhere(coll, h, a) for h, a in zip(em_hero, em)]
     direct, rng = sample_direct_lighting(fs, loc, n, lam, pool.rng, em)
     lane_d = active & found & is_diffuse
     nee = s.vmul(s.vmul(tp, color), direct)
@@ -223,16 +245,25 @@ def _sweep(fs, cfg, pool: WavefrontPool, tri: TriMode = EXACT):
     rays = rays + lane_d.sum() * len(fs.lights)
 
     any_diel, any_metal = _material_kinds(fs)
+    eta = ior
+    if cfg.dispersion_in_camera_path:
+        lam_um = lam * 1e-3
+        eta = ior + fdiv(DISPERSION_B, lam_um * lam_um)
     wi, new_tp, new_o, scat_ok, rr_live, rng = scatter_and_rr(
-        cfg, wo, n, loc, color, rough, ior, is_diffuse, is_metal, tp, rng,
+        cfg, wo, n, loc, color, rough, eta, is_diffuse, is_metal, tp, rng,
         camera_path=True, any_dielectric=any_diel, any_metal=any_metal)
-    cont = active & found & scat_ok & rr_live & (bounce + 1 < cfg.depth)
+    cont = (active & found & scat_ok & rr_live & (bounce + 1 < cfg.depth)
+            & ~is_em)
     terminated = active & ~cont
+    if tracks_collapse(fs, cfg):
+        # a dielectric steers the path by eta(lam): only the hero goes on
+        coll = coll | (active & found & ~(is_diffuse | is_metal | is_em))
 
     pf_new = torch.stack([*s.vwhere(cont, new_o, o), *s.vwhere(cont, wi, d),
                           *s.vwhere(cont, new_tp, tp), *rad, lam])
+    state = torch.where(cont, torch.where(coll, 1 | COLLAPSED, 1), 0)
     pi_new = torch.stack([pool.pi[PIX], bounce + 1,
-                          cont.to(torch.int32)]).to(torch.int32)
+                          state]).to(torch.int32)
     return (WavefrontPool(pf=pf_new, pi=pi_new,
                           rng=torch.where(active, rng, pool.rng)),
             terminated, rays)
@@ -293,8 +324,9 @@ def _step(fs, cfg, work: PoolWork, pool: WavefrontPool, rgb: torch.Tensor,
         pi=torch.stack([swept.pi[PIX], bounce, swept.pi[ACTIVE]]))
     pix = swept.pi[PIX].long()
     ended = term & go
+    splat = clamp_sample(cfg, swept.pf[RAD:RAD + 3].unbind(0))
     rgb.index_add_(0, pix, torch.where(ended[:, None],
-                                       swept.pf[RAD:RAD + 3].T, 0.0))
+                                       torch.stack(splat, 1), 0.0))
     ns.index_add_(0, pix, ended.to(torch.float32))
     sweeps = ctl[SWEEPS] + 1
     ctl_new = ctl.clone()
