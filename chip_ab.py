@@ -26,8 +26,17 @@ fused kernel at 1 and 4 spp and in a budget launch, and the sweeps of a
 1-spp ``wavefront_pallas`` render, with bench config 4's sampler flags on
 config 5; the regen kernel at 1 spp, one tile-sync sample, the fused
 kernel and the sweeps with chip_smoke's emission scene and flags; the G
-leaf with the sky and the clamp on config 6 as shipped), "n/a" in a
-checkout that rejects those flags. Between the two, the walk probe's device
+leaf with the sky and the clamp on config 6 as shipped); then the same
+for the camera-spawn extensions at chip_smoke's [spawn] shapes (Cornell,
+1080p, depth 30, 1 spp: the regen kernel with hero 4 alone, with the
+emission instance doing nothing more than the reference (a clamp no
+sample reaches), with each spawn flag alone, the three together, and
+tpurt's "quality" and "fast" presets; the fused kernel with photons off
+the same way, from the reference instance; the three flags on one
+tile-sync sample; the sweeps of a ``wavefront_pallas`` render without and
+with the three flags), "n/a"
+in a checkout that rejects those flags or has no MotionCamera. Between
+the two, the walk probe's device
 milliseconds per launch under torch.profiler with the G leaf and with the
 exact leaf, and the pairs its G leaf tested, on chip_smoke's 65,536 random
 rays through bench config 6's torus alone (binary leaf 64, and width 8), on
@@ -58,9 +67,11 @@ dev = torch.device("cuda")
 def sass_hashes():
     """kernel name -> a hash of its SASS in this checkout's library: every
     instruction with its encoding (scheduling bits included), with runs of
-    blanks taken as one: cuobjdump aligns its columns across all kernels of
-    a source, so without that one kernel's hash would move when another
-    kernel of its source gets a longer instruction."""
+    blanks taken as one and the blank lines at its end dropped: cuobjdump
+    aligns its columns across all kernels of a source, and the last kernel
+    of a source ends in a blank line the others lack, so without that one
+    kernel's hash would move when another kernel of its source gets a
+    longer instruction or comes after it."""
     import hashlib
     import pathlib
     import re
@@ -74,7 +85,7 @@ def sass_hashes():
     out = {}
     for block in text.split("Function : ")[1:]:
         name, _, body = block.partition("\n")
-        body = re.sub(r"[ \t]+", " ", body)
+        body = re.sub(r"[ \t]+", " ", body).rstrip()
         out[name.strip()] = hashlib.sha256(body.encode()).hexdigest()[:12]
     return out
 
@@ -287,6 +298,60 @@ cells += [("emission-regen-1spp", "regen", lambda: mega_regen.regen_call(
               tt.init_state(emit_w, dev), 1234, 1)),
           ("emission-g-leaf-1spp", "regen", lambda: mega_regen.regen_call(
               torus, g_emit, torus6, planes.clone(), 1234, 1, 0, 2.0, 30))]
+# the camera-spawn extensions (chip_smoke [spawn]) on Cornell: the regen
+# kernel with hero 4 alone (the sampler instance), the emission instance
+# with no flag doing work (a clamp no sample reaches), each spawn flag
+# alone, all three, and tpurt's "quality" and "fast" presets; all three on
+# the tile-sync kernel; the fused kernel the same way (photons off, from
+# the reference instance) and the sweeps of a wavefront_pallas render
+# without and with all three.
+# A checkout without MotionCamera, or one whose check_slice rejects a
+# flag, reports "n/a"
+from tpurt_torch.config import check_slice
+cornell = tt.cornell_spheres_scene().to(dev)
+spawn = tt.RenderConfig(width=1920, height=1080, depth=30, backend="pallas",
+                        wf_pool=262144)
+spawn_w = spawn.with_(enable_photons=False, backend="wavefront_fused")
+flag_sets = [("ref", {}), ("hero4", dict(hero_wavelengths=4)),
+             ("clamp", dict(radiance_clamp=1e30)),
+             ("qmc", dict(qmc=True)),
+             ("lens", dict(aperture=0.1, focus_dist=12.0)),
+             ("motion", dict(motion_blur=True)), ("all", smoke.SPAWN_FLAGS),
+             ("quality", dict(hero_wavelengths=4, qmc=True)),
+             ("fast", dict(hero_wavelengths=4, qmc=True,
+                           photon_rr_scale=0.5))]
+
+
+def spawn_cell(c, call):
+    """Check c as the entry points do, then call(c, camera)."""
+    check_slice(c)
+    if c.motion_blur and not hasattr(tt, "MotionCamera"):
+        raise NotImplementedError   # a checkout from before the shutter
+    return call(c, smoke.cornell_camera(c, c.motion_blur))
+
+
+for name, kw in flag_sets:
+    if name != "ref":
+        cells.append((f"spawn-regen-{name}", "regen", lambda c=spawn.with_(
+            **kw): spawn_cell(c, lambda c, cam: mega_regen.regen_call(
+                cornell, c, cam, planes.clone(), 1234, 1, 0, 2.0, 30))))
+    if name not in ("quality", "fast"):
+        cells.append((f"spawn-fused-{name}", "fused", lambda c=spawn_w.with_(
+            **kw): spawn_cell(c, lambda c, cam: (
+                wavefront_fused.wavefront_render_fused(cornell, c, cam, st0,
+                                                       1234, 1)))))
+cells += [("spawn-tile-sync-all", "regen", lambda: spawn_cell(
+              spawn.with_(**smoke.SPAWN_FLAGS), lambda c, cam: (
+                  mega_step.step_call(cornell, c, cam, planes.clone(), 1234,
+                                      3, 1.5, 30)))),
+          ("spawn-pallas-ref-1spp-sweeps", "pool_step", lambda: spawn_cell(
+              spawn_w.with_(backend="wavefront_pallas"),
+              lambda c, cam: tt.render(cornell, c, cam,
+                                       tt.init_state(c, dev), 1234, 1))),
+          ("spawn-pallas-all-1spp-sweeps", "pool_step", lambda: spawn_cell(
+              spawn_w.with_(backend="wavefront_pallas", **smoke.SPAWN_FLAGS),
+              lambda c, cam: tt.render(cornell, c, cam,
+                                       tt.init_state(c, dev), 1234, 1)))]
 from tpurt_torch.kernels import mega_step
 for name, part, fn in cells:
     try:

@@ -42,7 +42,13 @@ blackbody and ramp and the radiance clamp, with config 4's flags: the
 emission instances of the regen (uniform, budget; also with the G leaf),
 tile-sync, fused and sweep kernels at 1080p against their plain
 versions, the reference sampler and the legacy ramp at 256x144; every new
-launch timed beside the same launch without the flags), [bvh-walk],
+launch timed beside the same launch without the flags), [spawn] (tpurt's
+"quality" and "fast" presets and the Sobol spawn with a thin lens and a
+MotionCamera's shutter on Cornell: the spawn instances of the regen
+(uniform, budget), tile-sync, fused and sweep kernels against their plain
+versions at 256x144 and 1080p, each 1080p launch timed beside the same
+launch without the flags, fast held to fewer segments than quality),
+[bvh-walk],
 [mesh-regen], [mesh-wf],
 [mesh] (config 6 with the reference sampler), [config6] (config 6 as
 shipped), [config4], [mesh-field], [mesh-instanced], [mxu-leaf] (the
@@ -154,6 +160,10 @@ def counters() -> dict:
             "wf_sweep_emit": (wavefront_sweep, "EMIT_LAUNCHES"),
             "wf_fused_sampler": (wavefront_fused, "SAMPLER_LAUNCHES"),
             "wf_fused_emit": (wavefront_fused, "EMIT_LAUNCHES"),
+            "regen_spawn": (mega_regen, "SPAWN_LAUNCHES"),
+            "tile_sync_spawn": (mega_step, "SPAWN_LAUNCHES"),
+            "wf_sweep_spawn": (wavefront_sweep, "SPAWN_LAUNCHES"),
+            "wf_fused_spawn": (wavefront_fused, "SPAWN_LAUNCHES"),
             "bvh_walk": (bvh, "WALKS"),
             "mxu_leaf": (mega_regen, "MXU_LAUNCHES")}
 
@@ -265,10 +275,12 @@ def ptxas_report(log: str) -> list:
             # emission instances: GLEAF or EMIT), as <0,1>
             flags = re.search(r"I((?:Lb[01]E)+)", name)
             for part, short in (("regen_emit", "regen_emit"),
+                                ("regen_spawn", "regen_spawn"),
                                 ("regen", "regen"),
                                 ("pool_step", "sweep"),
                                 ("step", "step"),
                                 ("fused_sampler", "fused_sampler"),
+                                ("fused_spawn", "fused_spawn"),
                                 ("fused", "fused"), ("probe", "probe"),
                                 ("tonemap", "tonemap")):
                 if part in name:
@@ -277,6 +289,8 @@ def ptxas_report(log: str) -> list:
             if flags:
                 name += "<" + ",".join(re.findall(r"Lb([01])E",
                                                   flags.group(1))) + ">"
+            if name.startswith("sweep") and "5Spawn" in line:
+                name += "+Spawn"  # the sweep's spawn instances
         elif "bytes stack frame" in line and name:
             frame = line.strip()
         elif "Used" in line and "registers" in line and name:
@@ -528,6 +542,12 @@ def main() -> int:
     launches.update(emission_phases(dev, report, gpu))
     lap("emission")
 
+    # 7c. tpurt's camera-spawn extensions (the Sobol spawn, the thin lens,
+    #     the shutter) and photon_rr_scale, with its presets, in the
+    #     spawn instances of all four path kernels
+    launches.update(spawn_phases(dev, report, gpu))
+    lap("spawn")
+
     # 8. meshes: the BVH walks, bench config 6 (reference sampler and as
     #    shipped), config 4 and the scale paths
     launches.update(mesh_phases(dev, report, gpu))
@@ -564,6 +584,14 @@ def main() -> int:
                                 "tpurt/kernels/wavefront_pallas.py:572"),
            "wf_fused_emit": ("tpurt_torch/csrc/wavefront_fused.cu",
                              "tpurt/kernels/wavefront_pallas.py:572"),
+           "regen_spawn": ("tpurt_torch/csrc/path_spawn.cu",
+                           "tpurt/kernels/mega_regen.py:84"),
+           "tile_sync_spawn": ("tpurt_torch/csrc/path_spawn.cu",
+                               "tpurt/kernels/mega_pallas.py:1666"),
+           "wf_sweep_spawn": ("tpurt_torch/csrc/wavefront_sweep.cu",
+                              "tpurt/kernels/wavefront_pallas.py:102"),
+           "wf_fused_spawn": ("tpurt_torch/csrc/wavefront_fused.cu",
+                              "tpurt/kernels/wavefront_pallas.py:572"),
            "bvh_walk": ("tpurt_torch/csrc/bvh.cuh",
                         "tpurt/kernels/bvh_pallas.py:466"),
            "mxu_leaf": ("tpurt_torch/csrc/bvh.cuh",
@@ -1589,6 +1617,210 @@ def emission_phases(dev, report, gpu) -> dict:
                      ["regen_emit", "mxu_leaf", "blit"], gpu)
     launches["regen_emit_gleaf"] = min(g_launch["regen_emit"],
                                        g_launch["mxu_leaf"])
+    launches.pop("blit")
+    return launches
+
+
+# the camera flags of [spawn]: the Sobol spawn, the thin lens and the
+# shutter of a MotionCamera together
+SPAWN_FLAGS = dict(qmc=True, aperture=0.1, focus_dist=12.0, motion_blur=True)
+
+
+def cornell_camera(cfg, motion: bool = False):
+    """The Cornell camera (CAM); with ``motion`` a MotionCamera whose
+    shutter-close pose moves to (0.4, 5.2, -11.8), still aimed at the
+    box."""
+    import tpurt_torch as tt
+    c0 = tt.make_camera(**CAM, aspect_ratio=cfg.width / cfg.height)
+    if not motion:
+        return c0
+    c1 = tt.make_camera((0.4, 5.2, -11.8), CAM["look_at"], vfov=CAM["vfov"],
+                        aspect_ratio=cfg.width / cfg.height)
+    return tt.MotionCamera(c0, c1)
+
+
+def spawn_phases(dev, report, gpu) -> dict:
+    """[spawn] the spawn instances with tpurt's camera-spawn extensions on
+    Cornell: tpurt's "quality" and "fast" presets (hero 4 and the Sobol
+    spawn; fast also photon_rr_scale 0.5: the instances with the sampler
+    flags) and SPAWN_FLAGS (Sobol spawn, thin lens, shutter: the reference
+    sampler's instances). At 256x144, depth 8: the regen kernel under each
+    against render_plain, its budget mode and the tile-sync kernel under
+    qmc and the lens against their plain versions, every plane bit for
+    bit; with photons off under SPAWN_FLAGS and under quality the fused
+    kernel against the regen kernel bit for bit and against the plain
+    pool, wavefront_pallas against the plain pool, one sweep against
+    wavefront._step bit for bit. At 1080p, depth 30 (the main path's
+    shapes): the regen kernel under each of the three and the tile-sync
+    kernel under SPAWN_FLAGS against render_plain, the fused kernel against
+    the regen kernel and one sweep against wavefront._step, bit for bit;
+    each launch timed beside the same launch without the flags; then the
+    main paths."""
+    import tpurt_torch as tt
+    from tpurt_torch import integrate, wavefront
+    from tpurt_torch.kernels import mega_regen, mega_step, wavefront_fused
+    from tpurt_torch.render import state_to_planes
+    from tpurt_torch.scene import freeze_scene
+    scene = tt.cornell_spheres_scene()
+    fs = freeze_scene(scene)
+    presets = {"quality": tt.RenderConfig.PRESETS["quality"],
+               "fast": tt.RenderConfig.PRESETS["fast"],
+               "qmc+lens+shutter": SPAWN_FLAGS}
+    qmc_lens = dict(qmc=True, aperture=0.1, focus_dist=12.0)
+
+    # 256x144, depth 8: each spawn instance against its plain version
+    small = dict(width=256, height=144, depth=8, backend="pallas",
+                 wf_pool=16384)
+    for label, flags in presets.items():
+        cfg = tt.RenderConfig(**small, **flags)
+        regen_vs_plain(label, scene, cfg,
+                       cornell_camera(cfg, cfg.motion_blur), 1234, 2, 3,
+                       phase="spawn")
+    cfg = tt.RenderConfig(**small, **qmc_lens)
+    cam = cornell_camera(cfg)
+    st1 = tt.render(scene, cfg, cam, tt.init_state(cfg), 1234, 1)
+    b = budget_map(st1.n_samples.shape[0], cfg.n_pixels, 2, 5, dev)
+    pl = state_to_planes(st1)
+    bk, bp = pl.clone(), pl.clone()
+    rbk = int(mega_regen.regen_budget_call(scene, cfg, cam, bk, 1234, b,
+                                           st1.n_samples))
+    rbp = int(integrate.render_plain_budget(fs, cfg, cam, bp, 1234, b,
+                                            st1.n_samples))
+    bad = unequal_planes(bk, bp)
+    print(f"[spawn] qmc+lens regen budget launch 256x144, budgets 0-2 after "
+          f"1 spp: rays {rbk} vs plain {rbp}, unequal planes {bad}")
+    if rbk != rbp or bad:
+        raise AssertionError("the regen kernel's budget mode differs from "
+                             "render_plain_budget under qmc and the lens")
+    pk, pp = pl.clone(), pl.clone()
+    rk1 = int(mega_step.step_call(scene, cfg, cam, pk, 1234, 1, 1.5, 8))
+    rp1 = int(integrate.render_plain(fs, cfg, cam, pp, 1234, 1, 1, 1.5, 8))
+    bad = unequal_planes(pk, pp)
+    print(f"[spawn] qmc+lens tile-sync kernel 256x144 sample 1: rays {rk1} "
+          f"vs plain {rp1}, unequal planes {bad}")
+    if rk1 != rp1 or bad:
+        raise AssertionError("the tile-sync kernel differs from "
+                             "render_plain under qmc and the lens")
+    for label in ("qmc+lens+shutter", "quality"):
+        cfg_w = tt.RenderConfig(**dict(small, backend="wavefront_fused"),
+                                enable_photons=False, **presets[label])
+        cam_w = cornell_camera(cfg_w, cfg_w.motion_blur)
+        print(f"[spawn] {label} wavefront_fused and wavefront_pallas vs "
+              f"wavefront, 256x144:")
+        pool_pair(scene, cfg_w, cam_w, "wavefront_fused", 2)
+        pool_pair(scene, cfg_w, cam_w, "wavefront_pallas", 2)
+        fused_equals_regen(scene, cfg_w, cam_w, 2)
+        sweep_vs_step("spawn", fs, cfg_w, wavefront.PoolWork(
+            camera=cam_w, base_seed=1234, spp=1, n_valid=cfg_w.n_pixels),
+            dev, "tpurt::Spawn>")
+
+    # 1080p, depth 30: the main path's shapes
+    big = dict(width=1920, height=1080, depth=30, wf_pool=262144)
+    cfg = tt.RenderConfig(backend="pallas", **big, **SPAWN_FLAGS)
+    cam = cornell_camera(cfg, True)
+    rk, _, p_s = regen_vs_plain("qmc+lens+shutter", scene, cfg, cam, 1234,
+                                1, 0, phase="spawn")
+    for label in ("quality", "fast"):
+        c = tt.RenderConfig.preset(label, backend="pallas", **big)
+        regen_vs_plain(label, scene, c, cornell_camera(c), 1234, 1, 0,
+                       phase="spawn")
+    cfg_w = cfg.with_(backend="wavefront_fused", enable_photons=False)
+    fused_equals_regen(scene, cfg_w, cam, 1)
+    work = wavefront.PoolWork(camera=cam, base_seed=1234, spp=1,
+                              n_valid=cfg.n_pixels)
+    report["wf_sweep_spawn"] = sweep_vs_step("spawn", fs, cfg_w, work, dev,
+                                             "tpurt::Spawn>")
+    ref = tt.RenderConfig(backend="pallas", **big)
+    cam0 = cornell_camera(ref)
+    planes = state_to_planes(tt.init_state(ref))
+    pk, pp = planes.clone(), planes.clone()
+    rk1 = int(mega_step.step_call(scene, cfg, cam, pk, 1234, 3, 1.5, 30))
+    t0 = time.perf_counter()
+    rp1 = int(integrate.render_plain(fs, cfg, cam, pp, 1234, 1, 3, 1.5, 30))
+    plain_step = (time.perf_counter() - t0) * 1e3
+    bad = unequal_planes(pk, pp)
+    print(f"[spawn] qmc+lens+shutter tile-sync kernel 1080p sample 3: rays "
+          f"{rk1} vs plain {rp1}, unequal planes {bad}")
+    if rk1 != rp1 or bad:
+        raise AssertionError("the tile-sync kernel differs from "
+                             "render_plain under qmc, the lens and the "
+                             "shutter")
+
+    # each launch at 1080p beside the same launch without the flags
+    ms = {}
+    for label, flags in presets.items():
+        # the same launch without the spawn flags: hero 4 alone (the
+        # sampler instance) for the presets, the reference for the rest
+        c = ref.with_(**flags)
+        base = ref.with_(hero_wavelengths=c.hero_wavelengths)
+        cm = cornell_camera(c, c.motion_blur)
+        print(f"[spawn] regen kernel 1080p 1 spp, {label}:")
+        ms[label] = launch_times(
+            label, lambda: mega_regen.regen_call(
+                scene, c, cm, planes.clone(), 1234, 1, 0, 2.0, 30),
+            "regen_spawn_kernel", lambda: mega_regen.regen_call(
+                scene, base, cam0, planes.clone(), 1234, 1, 0, 2.0, 30),
+            "regen_kernel")
+    report["regen_spawn"] = dict(
+        max_abs_err=0.0, ms=ms["qmc+lens+shutter"], ms_quality=ms["quality"],
+        ms_fast=ms["fast"], plain_ms=p_s * 1e3,
+        **path_bound(cfg.n_pixels, rk))
+    print("[spawn] tile-sync kernel 1080p sample 3, qmc+lens+shutter:")
+    report["tile_sync_spawn"] = dict(
+        max_abs_err=0.0, plain_ms=plain_step,
+        ms=launch_times("qmc+lens+shutter", lambda: mega_step.step_call(
+            scene, cfg, cam, planes.clone(), 1234, 3, 1.5, 30),
+            "regen_spawn_kernel", lambda: mega_step.step_call(
+                scene, ref, cam0, planes.clone(), 1234, 3, 1.5, 30),
+            "step_kernel"), **path_bound(cfg.n_pixels, rp1))
+    st0 = tt.init_state(cfg_w)
+    ref_w = ref.with_(backend="wavefront_fused", enable_photons=False)
+    print("[spawn] fused kernel 1080p 1 spp, qmc+lens+shutter:")
+    f_ms = launch_times("qmc+lens+shutter", lambda: wavefront_fused._launch(
+        scene, cfg_w, cam, st0, 1234, 1), "fused_spawn_kernel",
+        lambda: wavefront_fused._launch(scene, ref_w, cam0, st0, 1234, 1),
+        "fused_kernel")
+    err, rays = pool_pair(scene, cfg_w, cam, "wavefront_fused", 1)
+    report["wf_fused_spawn"] = dict(
+        max_abs_err=err, ms=f_ms,
+        plain_ms=cuda_ms(lambda: wavefront.wavefront_render(
+            scene, cfg_w, cam, st0, 1234, 1), 1),
+        **bound(cfg.n_pixels * 12 * 2, rays * OPS_PER_SEGMENT))
+    print("[spawn] wavefront_pallas render 1080p 1 spp, qmc+lens+shutter:")
+    cfg_p = cfg_w.with_(backend="wavefront_pallas")
+    launch_times(
+        "qmc+lens+shutter", lambda: tt.render(scene, cfg_p, cam,
+                                              tt.init_state(cfg_p), 1234, 1),
+        "tpurt::Spawn>",
+        lambda: tt.render(scene, ref_w.with_(backend="wavefront_pallas"),
+                          cam0, tt.init_state(cfg_p), 1234, 1),
+        "pool_step_kernel")
+
+    # the main paths through the public entry points: tpurt's presets on
+    # the regen kernel (fast traces fewer photon segments than quality) and
+    # the tile-sync kernel, the camera flags on all four kernels
+    launches, segs = {}, {}
+    for label in ("quality", "fast"):
+        c = tt.RenderConfig.preset(label, backend="pallas", **big)
+        got = drive("spawn", scene, c, cam0, 1, ["regen_spawn", "blit"], gpu)
+        segs[label] = int(tt.render(scene, c, cam0, tt.init_state(c), 1234,
+                                    1).rays)
+        launches["regen_spawn"] = min(launches.get("regen_spawn", 1 << 30),
+                                      got["regen_spawn"])
+    print(f"[spawn] 1080p 1 spp segments: quality {segs['quality']}, fast "
+          f"{segs['fast']} ({segs['fast'] / segs['quality'] - 1:+.1%})")
+    if not segs["fast"] < segs["quality"]:
+        raise AssertionError("photon_rr_scale 0.5 did not thin the photon "
+                             "walks")
+    launches["regen_spawn"] = min(launches["regen_spawn"], drive(
+        "spawn", scene, cfg, cam, 1, ["regen_spawn", "blit"],
+        gpu)["regen_spawn"])
+    launches.update(drive("spawn", scene, cfg.with_(pallas_regen=False), cam,
+                          1, ["tile_sync_spawn", "blit"], gpu))
+    launches.update(drive("spawn", scene, cfg_w, cam, 1,
+                          ["wf_fused_spawn", "blit"], gpu))
+    launches.update(drive("spawn", scene, cfg_p, cam, 1,
+                          ["wf_sweep_spawn", "blit"], gpu))
     launches.pop("blit")
     return launches
 

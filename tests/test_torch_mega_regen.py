@@ -300,8 +300,8 @@ def test_mixed_scene_backends_agree():
 
 def test_flags_outside_the_slice_raise():
     cam = tt.make_camera(**CAM, aspect_ratio=2.0)
-    for kw in (dict(qmc=True), dict(light_sample="power"),
-               dict(photon_rr_scale=0.5), dict(count_walk_stats=True)):
+    for kw in (dict(photon_aim=0.5), dict(light_sample="power"),
+               dict(count_iters=True), dict(count_walk_stats=True)):
         cfg = tt.RenderConfig(width=16, height=8, backend="pallas", **kw)
         with pytest.raises(NotImplementedError):
             tt.render(tt.cornell_spheres_scene(device=CPU), cfg, cam,

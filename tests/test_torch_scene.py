@@ -127,12 +127,15 @@ def test_make_camera_equal(args):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(motion_blur=True), dict(photon_aim=0.5), dict(qmc=True),
-    dict(aperture=0.3), dict(light_sample="power"),
-    dict(backend="pallas", focus_dist=2.0), dict(count_walk_stats=True),
+    dict(backend="wavefront", count_iters=True), dict(photon_aim=0.5),
+    dict(backend="xla", photon_aim_widen=4.0),
+    dict(backend="pallas", photon_aim=0.25), dict(light_sample="power"),
+    dict(backend="pallas", light_sample="power"),
+    dict(count_walk_stats=True),
     dict(backend="wavefront_fused", light_sample="spatial"),
     dict(backend="pallas", photon_aim_widen=2.0),
-    dict(count_iters=True), dict(photon_rr_scale=0.5),
+    dict(count_iters=True),
+    dict(backend="wavefront_pallas", count_walk_stats=True),
 ])
 def test_flags_outside_the_slice_raise(kw):
     with pytest.raises(NotImplementedError):
@@ -154,7 +157,9 @@ def test_slice_and_scheduling_flags_accepted():
         photon_strata_dir=4096, photon_strata_shared_k=True,
         photon_strata_bounce=True, photon_strata_window=16,
         camera_strata_bounce=True, sky_gradient=True, sky_intensity=0.2,
-        sky_color=(1.0, 0.5, 0.25), sky_temp=6500.0, radiance_clamp=20.0))
+        sky_color=(1.0, 0.5, 0.25), sky_temp=6500.0, radiance_clamp=20.0,
+        aperture=0.1, focus_dist=12.0, motion_blur=True, qmc=True,
+        photon_rr_scale=0.5))
 
 
 def test_import_leaves_jax_out():

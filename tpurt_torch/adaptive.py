@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from tpurt_torch import wavefront
+from tpurt_torch.camera import check_camera
 from tpurt_torch.config import check_slice
 from tpurt_torch.ops import fdiv
 from tpurt_torch.scene import freeze_scene
@@ -65,6 +66,7 @@ def wavefront_render_budget_slab(scene, cfg, camera, state, base_seed,
     ``pix_offset``. ``step`` as in ``wavefront.wavefront_render_slab``."""
     wavefront.check_sampler(cfg)
     check_slice(cfg)
+    check_camera(cfg, camera)
     wavefront._check_state(state, scene)
     if max_budget < 1:
         raise ValueError(f"max_budget must be >= 1, got {max_budget}")

@@ -84,6 +84,32 @@ class RenderConfig:
     def with_(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
 
+    # tpurt's named flag stacks (tpurt.config.RenderConfig.PRESETS)
+    PRESETS = {
+        # every extension off (== RenderConfig())
+        "reference": {},
+        # hero wavelengths and the Owen-scrambled Sobol camera spawn
+        "quality": dict(hero_wavelengths=4, qmc=True),
+        # quality plus photon-walk roulette thinning
+        "fast": dict(hero_wavelengths=4, qmc=True, photon_rr_scale=0.5),
+        # the walk scenes' stack (meshes, many-sphere instancing): photon
+        # emission and bounce strata, camera bounce strata, hero 4
+        "walk": dict(photon_strata=16, photon_strata_dir=4096,
+                     photon_strata_shared_k=True, photon_strata_bounce=True,
+                     camera_strata_bounce=True, photon_strata_window=1,
+                     pallas_regen_drift=1, hero_wavelengths=4),
+    }
+
+    @classmethod
+    def preset(cls, name: str, **overrides) -> "RenderConfig":
+        """The RenderConfig of a named flag stack, any field overridable:
+        ``RenderConfig.preset("quality", width=1920, height=1080)``.
+        Unknown names raise with the list."""
+        if name not in cls.PRESETS:
+            raise ValueError(f"unknown preset {name!r}; "
+                             f"available: {sorted(cls.PRESETS)}")
+        return cls(**{**cls.PRESETS[name], **overrides})
+
     @property
     def n_pixels(self) -> int:
         return self.width * self.height
@@ -116,6 +142,10 @@ _SLICE_FIELDS = frozenset({
     # (type 3) are a property of the scene
     "sky_gradient", "sky_intensity", "sky_color", "sky_temp",
     "radiance_clamp",
+    # the camera-spawn extensions on every backend (the thin lens, the
+    # shutter with a MotionCamera, the Sobol spawn draws) and the photon
+    # walks' roulette thinning
+    "aperture", "focus_dist", "motion_blur", "qmc", "photon_rr_scale",
 })
 
 # Knobs tpurt documents as scheduling-only (bit-identical results): the
@@ -150,6 +180,11 @@ def check_slice(cfg: RenderConfig) -> None:
         raise NotImplementedError(
             f"RenderConfig.backend={cfg.backend!r} is not ported to "
             f"tpurt_torch yet (ported: {_BACKENDS})")
+    if not 0.0 < cfg.photon_rr_scale <= 1.0:
+        # above 1 the reweight would divide by more than the survival
+        # probability, which u_rr < 1 caps: darker photons, not longer walks
+        raise ValueError(f"cfg.photon_rr_scale must be in (0, 1], got "
+                         f"{cfg.photon_rr_scale!r}")
     if cfg.hero_wavelengths < 1:
         raise ValueError(f"hero_wavelengths must be >= 1, got "
                          f"{cfg.hero_wavelengths}")

@@ -147,6 +147,59 @@ struct Emission {
   float clamp;     // each sample's radiance cap per channel, 0: off
 };
 
+// ----- tpurt's camera-spawn extensions and photon roulette thinning -----
+// (tpurt/camera.py, tpurt/ops/qmc.py, photon_rr_scale)
+
+// The switches of the spawn instances, filled by
+// tpurt_torch/kernels/mega_regen.py:spawn_args: the thin lens, the
+// shutter, the Owen-scrambled Sobol spawn draws and the photon roulette
+// scale. A launch without them passes none and runs an instance that has
+// no code for them.
+struct Spawn {
+  int qmc;          // the spawn draws come from the Sobol stream
+  int motion;       // one shutter-time draw t; the basis is row + t * dcam
+  int lens;         // two lens draws (aperture > 0)
+  float lens_r;     // f32(0.5 * aperture): the lens disc's radius
+  float lens_finv;  // f32(1 / focus_dist)
+  float rr_scale;   // photon lanes survive with min(prob, 1) * rr_scale
+  float dcam[12];   // shutter close minus open: origin, h, v, lower_left
+  const uint32_t* sobol;  // (qmc.N_DIMS, 32) direction numbers, on the device
+};
+
+constexpr uint32_t QMC_SALT = 0x5173B0C1u;
+constexpr uint32_t QMC_DIM_STEP = 0x9E3779B9u;
+
+// The Laine-Karras permutation (tpurt/ops/qmc.py _laine_karras).
+__device__ __forceinline__ uint32_t laine_karras(uint32_t x, uint32_t seed) {
+  x += seed;
+  x ^= x * 0x6C50B47Cu;
+  x ^= x * 0xB82F1E52u;
+  x ^= x * 0xC7AFE638u;
+  x ^= x * 0x8D22F6E6u;
+  return x;
+}
+
+// The per-pixel scramble base of the Sobol stream (qmc.spawn_stream).
+__device__ __forceinline__ uint32_t qmc_pixel(uint32_t base_seed, uint32_t px,
+                                              uint32_t py) {
+  uint32_t s = seed_pixels(base_seed ^ QMC_SALT, px, py);
+  return rand_u32(s);
+}
+
+// Draw `dim` of sample `idx` of a pixel's Sobol stream (QmcStream.next_1f):
+// the Sobol point's bits, Owen-scrambled with the (pixel, dim) seed.
+__device__ __forceinline__ float qmc_1f(const uint32_t* sobol, uint32_t idx,
+                                        uint32_t pix, int dim) {
+  const uint32_t* v = sobol + dim * 32;
+  uint32_t bits = 0u;
+  for (int b = 0; idx != 0u; ++b, idx >>= 1)
+    if (idx & 1u) bits ^= __ldg(v + b);
+  uint32_t s = pix + (uint32_t)dim * QMC_DIM_STEP;
+  const uint32_t sd = rand_u32(s);
+  bits = __brev(laine_karras(__brev(bits), sd));
+  return __uint2float_rn(bits) * 0x1p-32f;
+}
+
 constexpr uint32_t STRATA_OFFSET = 0xA511E9B3u;
 constexpr uint32_t STRATA_K_STEP = 0x632BE5ABu;
 constexpr uint32_t BOUNCE_OFFSET = 0x7F4A7C15u;

@@ -29,7 +29,10 @@
 // Emission (tpurt's sky on a camera miss, emissive materials that end a
 // camera path and absorb a photon, the per-sample radiance clamp) runs in
 // the emission instances of path_emit.cu, which a launch takes when it
-// passes `emission` (not null).
+// passes `emission` (not null); tpurt's camera-spawn extensions (thin
+// lens, shutter, Sobol spawn draws) and the photon roulette scale in the
+// spawn instances of path_spawn.cu, which a launch takes when it passes
+// `spawn`, with or without emission.
 //
 // Uniform mode: every pixel takes `spp` samples from iteration `it0` and
 // radius `radius0`. Budget mode (`aux` not null, tpurt's budget_mode, for
@@ -99,13 +102,17 @@ extern "C" int tpurt_regen_launch(float* planes, long long P, int width,
                                   unsigned long long* counters,
                                   const float* cie,
                                   const tpurt::Emission* emission,
-                                  void* stream) {
+                                  const tpurt::Spawn* spawn, void* stream) {
   using namespace tpurt;
   const SampleConsts c = {P, width, height, depth, k_photons,
                           max_photon_bounces, rr_thresh, photon_rr_thresh,
                           sppm_alpha, seed, spp, it0, radius0, aux,
                           /*lockstep=*/aux == nullptr};
   const int staged = staged_floats(n_sph, n_mat, n_light);
+  if (spawn)
+    return launch_spawn(planes, table, cie, staged, n_sph, n_mat, n_light, c,
+                        *sampler, emission, *spawn, *geom, counters,
+                        static_cast<cudaStream_t>(stream));
   if (emission)
     return launch_emit(planes, table, cie, staged, n_sph, n_mat, n_light, c,
                        *sampler, *emission, *geom, counters,

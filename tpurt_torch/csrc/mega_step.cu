@@ -52,7 +52,7 @@ extern "C" int tpurt_step_launch(float* planes, long long P, int width,
                                  unsigned long long* counters,
                                  const float* cie,
                                  const tpurt::Emission* emission,
-                                 void* stream) {
+                                 const tpurt::Spawn* spawn, void* stream) {
   using namespace tpurt;
   // one sample: the radius step after it is the host's
   const SampleConsts c = {P, width, height, depth, k_photons,
@@ -60,6 +60,10 @@ extern "C" int tpurt_step_launch(float* planes, long long P, int width,
                           0.0f, seed, 1, iteration, radius, nullptr,
                           /*lockstep=*/true};
   const int staged = staged_floats(n_sph, n_mat, n_light);
+  if (spawn)  // the spawn instances of path_spawn.cu, one sample
+    return launch_spawn(planes, table, cie, staged, n_sph, n_mat, n_light, c,
+                        *sampler, emission, *spawn, *geom, counters,
+                        static_cast<cudaStream_t>(stream));
   if (emission)  // the emission instances of path_emit.cu, one sample
     return launch_emit(planes, table, cie, staged, n_sph, n_mat, n_light, c,
                        *sampler, *emission, *geom, counters,

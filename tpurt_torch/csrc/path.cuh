@@ -251,9 +251,10 @@ __device__ __forceinline__ Hit intersect_g(const Params& P, V3 o, V3 d,
   return scene_hit_g(P.sph(), P.n_sph, P.geom, P.stack, o, d, active);
 }
 
-// Camera spawn of one (pixel, sample): 2 jitter draws, the pinhole ray
-// through the jittered pixel, 1 wavelength draw. `table`: the camera rows
-// origin, horizontal, vertical, lower_left.
+// Camera spawn of one (pixel, sample) without tpurt's spawn extensions
+// (spawn_camera_ext has the full draw order): 2 jitter draws, the pinhole
+// ray through the jittered pixel, 1 wavelength draw. `table`: the camera
+// rows origin, horizontal, vertical, lower_left.
 __device__ __forceinline__ void spawn_camera(const float* table, uint32_t px,
                                              uint32_t py, int width,
                                              int height, uint32_t& rng,
@@ -269,6 +270,66 @@ __device__ __forceinline__ void spawn_camera(const float* table, uint32_t px,
          cam_ll.y + u * cam_h.y + v * cam_v.y - cam_o.y,
          cam_ll.z + u * cam_h.z + v * cam_v.z - cam_o.z);
   lam = F(380.0) + rand_1f(rng) * F(400.0);
+}
+
+// Camera spawn of sample `sample` of pixel (px, py) with tpurt's spawn
+// extensions (tpurt/camera.py spawn_camera_rays, lens_perturb_c): the draws
+// in this order, each present only under its switch: 2 jitter draws; the
+// shutter time t (motion), which lerps the basis to row + t * dcam; the 2
+// lens draws (lens), which move the origin by a point `off` of the disc of
+// radius lens_r in the (lerped) basis h, v and the direction by -off /
+// focus_dist; the wavelength. Under qmc every draw comes from the pixel's
+// Owen-scrambled Sobol stream of `sample` (one dimension a draw, in draw
+// order) and `rng`, the path's PCG stream, stays at position 0; else from
+// `rng`, which goes on after them. The lens takes 1/sqrt, as the plain
+// version (tpurt_torch/camera.py) does for tpurt's rsqrt.
+__device__ __forceinline__ void spawn_camera_ext(
+    const float* table, const Spawn& X, uint32_t base_seed, uint32_t sample,
+    uint32_t px, uint32_t py, int width, int height, uint32_t& rng, V3& o,
+    V3& d, float& lam) {
+  const V3 cam_o = load3(table), cam_h = load3(table + 3),
+           cam_v = load3(table + 6), cam_ll = load3(table + 9);
+  const uint32_t qpix = X.qmc ? qmc_pixel(base_seed, px, py) : 0u;
+  int dim = 0;
+  auto draw = [&]() -> float {
+    return X.qmc ? qmc_1f(X.sobol, sample, qpix, dim++) : rand_1f(rng);
+  };
+  const float uj1 = draw();
+  const float uj2 = draw();
+  const float u = ((float)px + uj1) / (float)width;
+  const float v = ((float)py + uj2) / (float)height;
+  V3 ch = cam_h, cv = cam_v;
+  if (X.motion) {
+    const float ut = draw();
+    const float* dc = X.dcam;
+    o = v3(cam_o.x + ut * dc[0], cam_o.y + ut * dc[1], cam_o.z + ut * dc[2]);
+    ch = v3(cam_h.x + ut * dc[3], cam_h.y + ut * dc[4], cam_h.z + ut * dc[5]);
+    cv = v3(cam_v.x + ut * dc[6], cam_v.y + ut * dc[7], cam_v.z + ut * dc[8]);
+    d = v3(cam_ll.x + ut * dc[9] + u * ch.x + v * cv.x - o.x,
+           cam_ll.y + ut * dc[10] + u * ch.y + v * cv.y - o.y,
+           cam_ll.z + ut * dc[11] + u * ch.z + v * cv.z - o.z);
+  } else {
+    o = cam_o;
+    d = v3(cam_ll.x + u * cam_h.x + v * cam_v.x - cam_o.x,
+           cam_ll.y + u * cam_h.y + v * cam_v.y - cam_o.y,
+           cam_ll.z + u * cam_h.z + v * cam_v.z - cam_o.z);
+  }
+  if (X.lens) {
+    const float u1 = draw();
+    const float u2 = draw();
+    const float hinv = 1.0f / sqrtf(ch.x * ch.x + ch.y * ch.y + ch.z * ch.z);
+    const float vinv = 1.0f / sqrtf(cv.x * cv.x + cv.y * cv.y + cv.z * cv.z);
+    const float r = sqrtf(u1) * X.lens_r;
+    const float phi = u2 * kTWO_PI();
+    const float a = r * cosf(phi) * hinv;
+    const float b = r * sinf(phi) * vinv;
+    const V3 off = v3(a * ch.x + b * cv.x, a * ch.y + b * cv.y,
+                      a * ch.z + b * cv.z);
+    o = v3(o.x + off.x, o.y + off.y, o.z + off.z);
+    d = v3(d.x - off.x * X.lens_finv, d.y - off.y * X.lens_finv,
+           d.z - off.z * X.lens_finv);
+  }
+  lam = F(380.0) + draw() * F(400.0);
 }
 
 // Light li's emission as a camera path of wavelength lam sees it. While
@@ -373,11 +434,20 @@ __device__ __forceinline__ V3 add_emitter(const Params& P, const Sampler& S,
             rad.z + tp.z * color.z * em.z);
 }
 
-// The emission switches an EMIT instance passes its body (run_block,
-// run_pixels) as the last argument; the instances without emission pass
-// none, so their bodies are what they were before emission existed.
+// The switches an emission or spawn instance passes its body (run_block,
+// run_pixels) as its last arguments `em`: an Emission, and in the spawn
+// instances a Spawn after it; the instances without them pass none, so
+// their bodies are what they were before the switches existed.
 __device__ __forceinline__ const Emission& emission(const Emission& E) {
   return E;
+}
+__device__ __forceinline__ const Emission& emission(const Emission& E,
+                                                    const Spawn&) {
+  return E;
+}
+__device__ __forceinline__ const Spawn& spawn_of(const Emission&,
+                                                 const Spawn& X) {
+  return X;
 }
 
 // A sample's radiance as it is added to the image: capped channel by
@@ -444,13 +514,19 @@ __device__ __forceinline__ V3 nee_direct(const Params& P, const Sampler& S,
 // scatter uniforms move into the bounce cell of cell_key (the roulette
 // draw never does). Writes the continuation ray and the reweighted
 // throughput; returns false when the path ends (invalid scatter or
-// roulette kill).
+// roulette kill). SCALE (the spawn instances): the roulette thinned
+// by rr_scale (photon_rr_scale on photon lanes, 1 on camera lanes, where
+// it is the reference roulette bit for bit): survive if u_rr <= min(prob,
+// 1) * rr_scale, reweight by 1 / (prob * rr_scale), in tpurt's kernel
+// order (mega_pallas.py scatter_rr_c).
+template <bool SCALE = false>
 __device__ __forceinline__ bool scatter_rr(const Params& P, int mat, V3 wo,
                                            V3 n, V3 loc, float lam_eta_add,
                                            bool camera, float rr_thresh,
                                            uint32_t& rng, V3& o, V3& d,
                                            V3& tp, int cell_ndir = 0,
-                                           uint32_t cell_key = 0) {
+                                           uint32_t cell_key = 0,
+                                           float rr_scale = 1.0f) {
   float u2a = rand_1f(rng);
   float u2b = rand_1f(rng);
   float u_choice = rand_1f(rng);
@@ -471,6 +547,14 @@ __device__ __forceinline__ bool scatter_rr(const Params& P, int mat, V3 wo,
   }
   V3 new_tp = vmul(tp, s.tpm);
   float prob = vmax_comp(new_tp);
+  if constexpr (SCALE) {
+    const bool live =
+        s.ok && prob >= rr_thresh && u_rr <= fminf(prob, 1.0f) * rr_scale;
+    o = vadd(loc, vscale(n, s.off));
+    d = s.wi;
+    tp = vscale(new_tp, 1.0f / fmaxf(prob * rr_scale, F(1e-30)));
+    return live;
+  }
   bool live = s.ok && prob >= rr_thresh && u_rr <= prob;
   o = vadd(loc, vscale(n, s.off));
   d = s.wi;
@@ -613,7 +697,8 @@ inline size_t run_pixels_smem(int staged, const Geom& g, int threads,
 // draw for draw and sum for sum (the plain version is
 // tpurt_torch/integrate.py:render_tile, looped by render_plain and
 // render_plain_budget): per sample the camera spawn (2 jitter draws, 1
-// wavelength draw), the camera path (up to `depth` bounces: nearest hit,
+// wavelength draw; SPAWN: spawn_camera_ext's draws), the camera path (up
+// to `depth` bounces: nearest hit,
 // vispoint at the first diffuse hit, next-event estimation over every
 // light with the hero-averaged emission until a dielectric hit collapses
 // the path to its hero wavelength, scatter + Russian roulette), then, if
@@ -666,13 +751,19 @@ inline size_t run_pixels_smem(int staged, const Geom& g, int threads,
 // CAM: the camera-path instance of the fused wavefront kernel: no
 // vispoint, no photon phase, no radius; `planes` is then the (P, 3)
 // rgb_sum, row p at planes + 3p, budget-mode aux (2, P) budget and count.
-// EMIT: the emission instances, which pass their switches as `em`: a
-// camera path that misses adds the sky (add_sky); a camera path that hits
-// an emissive
-// material (type 3) adds its emission and ends there, with no vispoint
-// and no collapse; a photon that hits one is gathered and absorbed; each
-// sample's radiance is capped by the clamp as it is added (the sample is
-// over: the radiance a path carries is never capped).
+// `em`: the switches the sampler, emission and spawn instances pass: an
+// Emission (read with EMIT), and a Spawn after it in the spawn instances
+// (SPAWN: two switches).
+// EMIT: the emission instances: a camera path that misses adds the sky
+// (add_sky); a camera path that hits an emissive material (type 3) adds
+// its emission and ends there, with no vispoint and no collapse; a photon
+// that hits one is gathered and absorbed; each sample's radiance is capped
+// by the clamp as it is added (the sample is over: the radiance a path
+// carries is never capped). SPAWN: the spawn instances: the spawn takes
+// tpurt's shutter, lens and Sobol draws (spawn_camera_ext; the Sobol index
+// is the sample's iteration `it`, the pixel's base count plus its sample
+// in budget mode); photon lanes thin their roulette by the scale
+// (scatter_rr<true>).
 // Every thread of the block must call it; blockDim.x is a multiple of 32.
 template <bool SAMPLER, bool GLEAF, bool CAM = false, bool EMIT = false,
           class... Em>
@@ -796,12 +887,17 @@ __device__ __forceinline__ void run_pixels(float* planes, const Params& prm,
       }
     }
 
-    // ---- a sample begins: 2 jitter draws, 1 wavelength draw
+    // ---- a sample begins: 2 jitter draws, 1 wavelength draw (SPAWN: the
+    // shutter, lens and Sobol draws too)
     if (spawn) {
       const uint32_t px = (uint32_t)(idx % c.width);
       const uint32_t py = (uint32_t)(idx / c.width);
       rng = seed_pixels(frame_seed(c.base_seed, it), px, py);
-      spawn_camera(prm.cam(), px, py, c.width, c.height, rng, o, d, lam);
+      if constexpr (sizeof...(Em) == 2)  // SPAWN
+        spawn_camera_ext(prm.cam(), spawn_of(em...), c.base_seed, it, px, py,
+                         c.width, c.height, rng, o, d, lam);
+      else
+        spawn_camera(prm.cam(), px, py, c.width, c.height, rng, o, d, lam);
       tp = v3(1.0f, 1.0f, 1.0f);
       rad = v3(0.0f, 0.0f, 0.0f);
       vp_stored = false;
@@ -896,11 +992,19 @@ __device__ __forceinline__ void run_pixels(float* planes, const Params& prm,
                               : (S.shared_k ? 0u : (uint32_t)k),
                        (uint32_t)b);
     }
-    const bool cont = scatter_rr(
-        prm, h.mat, wo, h.n, h.loc,
-        camera ? (SAMPLER && S.disp_cam ? cauchy_add : 0.0f) : cauchy_add,
-        camera, camera ? c.rr_thresh : c.photon_rr_thresh, rng, o, d, tp,
-        cells, key);
+    bool cont;
+    if constexpr (sizeof...(Em) == 2)  // SPAWN
+      cont = scatter_rr<true>(
+          prm, h.mat, wo, h.n, h.loc,
+          camera ? (SAMPLER && S.disp_cam ? cauchy_add : 0.0f) : cauchy_add,
+          camera, camera ? c.rr_thresh : c.photon_rr_thresh, rng, o, d, tp,
+          cells, key, camera ? 1.0f : spawn_of(em...).rr_scale);
+    else
+      cont = scatter_rr(
+          prm, h.mat, wo, h.n, h.loc,
+          camera ? (SAMPLER && S.disp_cam ? cauchy_add : 0.0f) : cauchy_add,
+          camera, camera ? c.rr_thresh : c.photon_rr_thresh, rng, o, d, tp,
+          cells, key);
     if (!(cont && b + 1 < (camera ? c.depth : c.max_photon_bounces)))
       done = true;
     b += 1;
@@ -1033,7 +1137,7 @@ __device__ __forceinline__ void add_block_rays(unsigned long long rays,
 // the tables, run the lanes' pixels, add the block's segments to
 // counters[0]; counters[1] is the work counter. `staged`: the floats of
 // `table` to stage into shared memory, 0 where they do not fit
-// (staged_floats). `em`: the emission instances' switches (EMIT).
+// (staged_floats). `em`: the emission and spawn instances' switches.
 template <bool SAMPLER, bool GLEAF, bool CAM = false, bool EMIT = false,
           class... Em>
 __device__ __forceinline__ void run_block(
@@ -1059,5 +1163,20 @@ int launch_emit(float* planes, const float* table, const float* cie,
                 const SampleConsts& c, const Sampler& S, const Emission& E,
                 const Geom& geom, unsigned long long* counters,
                 cudaStream_t stream);
+
+// One launch of the spawn instances of the regen and tile-sync kernels
+// (path_spawn.cu): with the sampler flags or emission (E not null) the
+// one with both, else the reference sampler's; the G leaf where geom.gmat
+// is set.
+int launch_spawn(float* planes, const float* table, const float* cie,
+                 int staged, int n_sph, int n_mat, int n_light,
+                 const SampleConsts& c, const Sampler& S, const Emission* E,
+                 const Spawn& X, const Geom& geom,
+                 unsigned long long* counters, cudaStream_t stream);
+
+// The emission switches of a spawn launch without emission: all off.
+inline Emission emission_or_off(const Emission* E) {
+  return E ? *E : Emission{};
+}
 
 }  // namespace tpurt

@@ -23,7 +23,9 @@
 //   (next_sample, next_pix) counter pair) or budget (round-major over
 //   per-pixel budgets: round s = the first with cum[s] > w, pixel
 //   order[w - cum[s-1]]), and becomes a camera ray: frame seed, 2 jitter
-//   draws, the pinhole ray, 1 wavelength draw;
+//   draws, the pinhole ray, 1 wavelength draw (in the spawn instances
+//   with the shutter and lens draws between, from the Sobol stream under
+//   qmc: path.cuh spawn_camera_ext);
 // - the bounce of every active slot: nearest hit; on a miss the path ends
 //   (a black sky, or the sky or the legacy ramp with emission); on a hit,
 //   next-event estimation over every light (added at a diffuse hit),
@@ -57,13 +59,18 @@
 // uint32. Control words: int64, wavefront.py CTL_*, then one look-back
 // word a chunk, all zero between launches past C_RAYS.
 //
-// Three instances of pool_step_kernel: pool_step_kernel<> (no template
+// Five instances of pool_step_kernel: pool_step_kernel<> (no template
 // arguments), the reference sampler without emission, as bench config 5
 // ships, whose machine code is what it was before the others existed;
 // <true, false, Sampler, Emission>, with the sampler flags (hero
 // wavelengths, whose averaged emission a dielectric collapses to the
 // hero's under camera-path dispersion, and the Cauchy IOR); <true, true,
-// ...>, with the emission too.
+// Sampler, Emission>, with the emission too; and the spawn instances,
+// with the camera-spawn extensions (thin lens, shutter, Sobol spawn
+// draws): <false, false, Sampler, Emission, Spawn> on the reference
+// bounce, for launches with the spawn flags alone, and <true, true,
+// Sampler, Emission, Spawn> with the sampler flags and the emission
+// (either may be off).
 
 #include <cuda_runtime.h>
 
@@ -154,10 +161,26 @@ __device__ __forceinline__ int budget_round(const long long* cum, int n,
   return lo;
 }
 
-// The emission switches of the sampler instances' (Sampler, Emission).
+// The switches of the sampler instances' `sw` (Sampler, Emission) and of
+// the spawn instances' (Sampler, Emission, Spawn).
 __device__ __forceinline__ const Emission& emission(const Sampler&,
                                                     const Emission& E) {
   return E;
+}
+__device__ __forceinline__ const Sampler& sampler_of(const Sampler& S,
+                                                     const Emission&,
+                                                     const Spawn&) {
+  return S;
+}
+__device__ __forceinline__ const Emission& emission(const Sampler&,
+                                                    const Emission& E,
+                                                    const Spawn&) {
+  return E;
+}
+__device__ __forceinline__ const Spawn& spawn_of(const Sampler&,
+                                                 const Emission&,
+                                                 const Spawn& X) {
+  return X;
 }
 
 // The bounce of an active slot in the sampler instances: on a hit,
@@ -207,7 +230,12 @@ __device__ __forceinline__ bool sampled_bounce(
 // sampler without emission and takes nothing more; the sampler instances
 // (SAMPLER) take the switches `sw`, a Sampler and an Emission (read with
 // EMIT), and run their own copy of the bounce, so that the reference
-// instance's code is what it was before they existed.
+// instance's code is what it was before they existed. The spawn instances
+// take a Spawn after them, read at the spawn (spawn_camera_ext: the Sobol
+// index is the item's sample iteration `it`): <true, true, Sampler,
+// Emission, Spawn> with the sampled bounce, <false, false, Sampler,
+// Emission, Spawn> on the reference bounce (its Sampler and Emission
+// unread).
 template <bool SAMPLER = false, bool EMIT = false, class... Sw>
 __global__ void __launch_bounds__(CHUNK)
     pool_step_kernel(float* __restrict__ pf, int* __restrict__ pi,
@@ -298,7 +326,12 @@ __global__ void __launch_bounds__(CHUNK)
         const uint32_t px = (uint32_t)(gpix % w.width);
         const uint32_t py = (uint32_t)(gpix / w.width);
         rng = seed_pixels(frame_seed(w.base_seed, (uint32_t)it), px, py);
-        spawn_camera(prm.cam(), px, py, w.width, w.height, rng, o, d, lam);
+        if constexpr (sizeof...(Sw) == 3)  // a spawn instance
+          spawn_camera_ext(prm.cam(), spawn_of(sw...), w.base_seed,
+                           (uint32_t)it, px, py, w.width, w.height, rng, o, d,
+                           lam);
+        else
+          spawn_camera(prm.cam(), px, py, w.width, w.height, rng, o, d, lam);
         tp = v3(1.0f, 1.0f, 1.0f);
         rad = v3(0.0f, 0.0f, 0.0f);
         pix = (int)row;
@@ -324,8 +357,13 @@ __global__ void __launch_bounds__(CHUNK)
       bool cont = false;
       const Hit h = intersect(prm, o, d);
       if constexpr (SAMPLER) {
-        cont = sampled_bounce<EMIT>(prm, sw..., h, lam, w, bounce, n_light,
-                                    rng, coll, o, d, tp, rad, rays);
+        if constexpr (sizeof...(Sw) == 3)  // the spawn instance's
+          cont = sampled_bounce<EMIT>(prm, sampler_of(sw...), emission(sw...),
+                                      h, lam, w, bounce, n_light, rng, coll,
+                                      o, d, tp, rad, rays);
+        else
+          cont = sampled_bounce<EMIT>(prm, sw..., h, lam, w, bounce, n_light,
+                                      rng, coll, o, d, tp, rad, rays);
       } else if (h.t < kHIT()) {
         V3 o2 = o, d2 = d, tp2 = tp;
         cont = shade_camera_hit(prm, none, false, h, vneg(d), lam,
@@ -416,8 +454,9 @@ __global__ void __launch_bounds__(CHUNK)
 
 }  // namespace tpurt
 
-// `sampler`: the camera-path sampler flags; `emission`: null, or the
-// emission switches. With neither on, the reference instance runs.
+// `sampler`: the camera-path sampler flags; `emission`, `spawn`: null, or
+// the emission and the spawn switches. With none on, the reference
+// instance runs.
 extern "C" int tpurt_wf_step_launch(float* pf, int* pi, long long* rng,
                                     float* rgb, float* ns, long long* ctl,
                                     const float* table, int n_sph, int n_mat,
@@ -425,17 +464,22 @@ extern "C" int tpurt_wf_step_launch(float* pf, int* pi, long long* rng,
                                     const tpurt::Geom* geom, const float* cie,
                                     const tpurt::Sampler* sampler,
                                     const tpurt::Emission* emission,
+                                    const tpurt::Spawn* spawn,
                                     void* stream) {
   using namespace tpurt;
   const int staged = staged_floats(n_sph, n_mat, n_light);
   const size_t smem = run_pixels_smem(staged, *geom, CHUNK, 0);
   const bool sampled = emission || sampler_on(*sampler);
   const void* kernel =
-      !sampled ? (const void*)pool_step_kernel<>
-               : emission ? (const void*)pool_step_kernel<true, true, Sampler,
-                                                           Emission>
-                          : (const void*)pool_step_kernel<true, false, Sampler,
-                                                           Emission>;
+      spawn ? (sampled ? (const void*)pool_step_kernel<true, true, Sampler,
+                                                       Emission, Spawn>
+                       : (const void*)pool_step_kernel<false, false, Sampler,
+                                                       Emission, Spawn>)
+      : !sampled ? (const void*)pool_step_kernel<>
+      : emission ? (const void*)pool_step_kernel<true, true, Sampler,
+                                                  Emission>
+                 : (const void*)pool_step_kernel<true, false, Sampler,
+                                                  Emission>;
   long long resident = 0;
   const int err = resident_blocks(kernel, smem, CHUNK, &resident);
   if (err) return err;
@@ -443,18 +487,25 @@ extern "C" int tpurt_wf_step_launch(float* pf, int* pi, long long* rng,
   const unsigned int blocks =
       (unsigned int)(n_chunks < resident ? n_chunks : resident);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!sampled) {
+  const Emission off = {};
+  const Emission& E = emission ? *emission : off;
+  if (spawn) {
+    auto k = sampled ? pool_step_kernel<true, true, Sampler, Emission, Spawn>
+                     : pool_step_kernel<false, false, Sampler, Emission,
+                                        Spawn>;
+    k<<<blocks, CHUNK, smem, s>>>(pf, pi, rng, rgb, ns, ctl, table, cie,
+                                  staged, n_sph, n_mat, n_light, *work,
+                                  *geom, *sampler, E, *spawn);
+  } else if (!sampled) {
     pool_step_kernel<><<<blocks, CHUNK, smem, s>>>(
         pf, pi, rng, rgb, ns, ctl, table, cie, staged, n_sph, n_mat, n_light,
         *work, *geom);
   } else {
-    const Emission off = {};
     auto k = emission ? pool_step_kernel<true, true, Sampler, Emission>
                       : pool_step_kernel<true, false, Sampler, Emission>;
     k<<<blocks, CHUNK, smem, s>>>(pf, pi, rng, rgb, ns, ctl, table, cie,
                                   staged, n_sph, n_mat, n_light, *work,
-                                  *geom, *sampler,
-                                  emission ? *emission : off);
+                                  *geom, *sampler, E);
   }
   return (int)cudaGetLastError();
 }

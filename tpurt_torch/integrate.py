@@ -7,8 +7,10 @@ tile-synchronized kernel ``csrc/mega_step.cu``) and the port's
 ``backend="xla"``. It ports ``tpurt/integrate.py`` for sphere and mesh
 scenes with tpurt's sampler flags (hero wavelengths with the collapse bit,
 dispersion on camera paths, photon emission and bounce strata, camera
-bounce strata) and tpurt's emission besides the lights (the sky on a miss,
-emissive materials, the per-sample radiance clamp), in the component form
+bounce strata), tpurt's emission besides the lights (the sky on a miss,
+emissive materials, the per-sample radiance clamp), tpurt's camera-spawn
+extensions (the thin lens, the shutter, the Sobol spawn draws) and the
+photon walks' roulette thinning (photon_rr_scale), in the component form
 and op order of tpurt's kernel device code
 (``tpurt/kernels/mega_pallas.py``: ``nee_direct_c``,
 ``scatter_rr_c``, ``_evaluate_bsdf_c``, ``_single_lambda_em_c``), so that
@@ -43,6 +45,7 @@ from tpurt_torch.ops.bsdf import INV_PI, TWO_PI, fr_dielectric
 from tpurt_torch.ops.intersect import (HIT, bvh_hit, closest_sphere,
                                       closest_triangle, closest_triangle_g,
                                       occluded_triangle, shadow_spheres)
+from tpurt_torch.ops import qmc as qmcmod
 from tpurt_torch.ops import rng as rngmod
 from tpurt_torch.ops.rng import frame_seed, photon_stream, rand_1f, seed_pixels
 from tpurt_torch.ops.spectra import (DISPERSION_B, blackbody,
@@ -489,8 +492,16 @@ def scatter_and_rr(cfg, wo, n, loc, color, rough, eta, is_diffuse, is_metal,
     new_o = s.vadd(loc, s.vscale(n, off))
     prob = s.vmax_comp(new_tp)
     thr = cfg.rr_threshold if camera_path else cfg.photon_rr_threshold
-    rr_live = (prob >= thr) & (u_rr <= prob)
-    new_tp = s.vscale(new_tp, 1.0 / prob.clamp_min(1e-30))
+    scale = 1.0 if camera_path else cfg.photon_rr_scale
+    if scale == 1.0:
+        rr_live = (prob >= thr) & (u_rr <= prob)
+        new_tp = s.vscale(new_tp, 1.0 / prob.clamp_min(1e-30))
+    else:
+        # photon_rr_scale: survive with min(prob, 1) * scale, reweight by
+        # 1 / (prob * scale), in the op order of tpurt's kernels
+        sc = float(np.float32(scale))
+        rr_live = (prob >= thr) & (u_rr <= prob.clamp_max(1.0) * sc)
+        new_tp = s.vscale(new_tp, 1.0 / (prob * sc).clamp_min(1e-30))
     return wi, new_tp, new_o, scat_ok, rr_live, rng
 
 
@@ -683,23 +694,42 @@ def trace_photons(fs, cfg, mats, lam, seed, px, py, vis, radius, valid, rad,
     return rad, rays
 
 
+def spawn_camera(cfg, camera, px, py, seed, qmc_ctx=None):
+    """The camera spawn of a sample for the pixels (px, py): 2 jitter
+    draws, the shutter time under motion_blur, the 2 lens draws when
+    aperture > 0 (``camera.spawn_camera_rays``), the wavelength. Under qmc
+    they come from the Sobol stream of ``qmc_ctx`` = (base_seed, global
+    sample index: an int or one per pixel), and the PCG stream of
+    ``seed`` that the path goes on with starts at position 0; else from
+    that PCG stream, which goes on after them. Returns (o, d, lam, rng)."""
+    rng = seed_pixels(seed, px, py)
+    if cfg.qmc:
+        if qmc_ctx is None:
+            raise ValueError("cfg.qmc=True requires qmc_ctx="
+                             "(base_seed, global_sample_index)")
+        src = qmcmod.spawn_stream(qmc_ctx[0], qmc_ctx[1], px, py)
+    else:
+        src = rng
+    uj1, src = rand_1f(src)
+    uj2, src = rand_1f(src)
+    u = fdiv(px.to(torch.float32) + uj1, float(cfg.width))
+    v = fdiv(py.to(torch.float32) + uj2, float(cfg.height))
+    o, d, src = spawn_camera_rays(cfg, camera, u, v, src)
+    ulam, src = rand_1f(src)
+    return o, d, sample_wavelength(ulam), rng if cfg.qmc else src
+
+
 def render_tile(fs, cfg, mats, camera, px, py, valid, seed, radius,
-                depth: int, vis, strata_seed=None, tri: TriMode = EXACT):
+                depth: int, vis, strata_seed=None, tri: TriMode = EXACT,
+                qmc_ctx=None):
     """One progressive sample for the pixels (px, py): camera spawn
-    (2 jitter draws, 1 wavelength draw), camera path, photon pass.
+    (``spawn_camera``; ``qmc_ctx`` under qmc), camera path, photon pass.
     ``seed`` and ``strata_seed`` (default ``seed``) are ints or one per
     pixel, ``radius`` a float or one per pixel; ``tri`` is the nearest
     hit's triangle test. The color is the sample's radiance under the
     radiance clamp. Returns (color vec3, vis, rays)."""
     strata_seed = seed if strata_seed is None else strata_seed
-    rng = seed_pixels(seed, px, py)
-    uj1, rng = rand_1f(rng)
-    uj2, rng = rand_1f(rng)
-    u = fdiv(px.to(torch.float32) + uj1, float(cfg.width))
-    v = fdiv(py.to(torch.float32) + uj2, float(cfg.height))
-    o, d, rng = spawn_camera_rays(cfg, camera, u, v, rng)
-    ulam, rng = rand_1f(rng)
-    lam = sample_wavelength(ulam)
+    o, d, lam, rng = spawn_camera(cfg, camera, px, py, seed, qmc_ctx)
     em, em_hero, emit = camera_emission(fs, cfg, lam)
     rad, vis, rays = trace_camera_paths(fs, cfg, mats, o, d, lam, rng, depth,
                                         vis, valid, em, em_hero, strata_seed,
@@ -753,7 +783,8 @@ def render_plain(fs, cfg, camera, planes, base_seed: int, spp: int,
         seed = frame_seed(base_seed, iteration + smp)
         rad, vis, srays = render_tile(
             fs, cfg, mats, camera, px, py, valid, seed, r, depth, vis,
-            sample_strata_seed(cfg, base_seed, iteration + smp, seed), tri)
+            sample_strata_seed(cfg, base_seed, iteration + smp, seed), tri,
+            (base_seed, iteration + smp))
         for c in range(3):
             planes[c] += rad[c]
         rays = rays + srays
@@ -801,7 +832,8 @@ def render_plain_budget(fs, cfg, camera, planes, base_seed: int, budgets,
         seed = frame_seed(base_seed, it)
         rad, vis, srays = render_tile(
             fs, cfg, mats, camera, px, py, live, seed, r, cfg.depth, vis,
-            sample_strata_seed(cfg, base_seed, it, seed), tri)
+            sample_strata_seed(cfg, base_seed, it, seed), tri,
+            (base_seed, it))
         for c in range(3):
             planes[c] = torch.where(live, planes[c] + rad[c], planes[c])
         rays = rays + srays

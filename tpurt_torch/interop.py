@@ -12,7 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpurt_torch.camera import Camera
+from tpurt_torch.camera import Camera, MotionCamera
 from tpurt_torch.device import resolve_device
 from tpurt_torch.render import RenderState
 from tpurt_torch.scene import Scene, scene_from_arrays
@@ -42,6 +42,14 @@ def camera_from_numpy(origin, horizontal, vertical, lower_left) -> Camera:
         np.array(a, dtype=np.float32).reshape(3))
     return Camera(origin=t(origin), horizontal=t(horizontal),
                   vertical=t(vertical), lower_left=t(lower_left))
+
+
+def motion_camera_from_numpy(cam0, cam1) -> MotionCamera:
+    """MotionCamera from the two poses of a tpurt MotionCamera, each the
+    four (3,) vectors (origin, horizontal, vertical, lower_left) of its
+    Camera."""
+    return MotionCamera(cam0=camera_from_numpy(*cam0),
+                        cam1=camera_from_numpy(*cam1))
 
 
 def state_from_numpy(fields: dict, device=None) -> RenderState:

@@ -51,6 +51,8 @@ _SIGNATURES = {
         _P,             # CIE table (81, 3) f32 on the device
         _P,             # emission switches: a mega_regen.EmissionArgs, or
                         # NULL (no emission: the instances without it)
+        _P,             # spawn switches: a mega_regen.SpawnArgs, or NULL
+                        # (no spawn extension, reference roulette)
         _P,             # stream
     ],
     "tpurt_step_launch": [
@@ -69,6 +71,8 @@ _SIGNATURES = {
         _P,             # CIE table (81, 3) f32 on the device
         _P,             # emission switches: a mega_regen.EmissionArgs, or
                         # NULL (no emission: the instances without it)
+        _P,             # spawn switches: a mega_regen.SpawnArgs, or NULL
+                        # (no spawn extension, reference roulette)
         _P,             # stream
     ],
     "tpurt_wf_step_launch": [
@@ -84,6 +88,8 @@ _SIGNATURES = {
                         # mega_regen.SamplerArgs (camera_sampler_args)
         _P,             # emission switches: a mega_regen.EmissionArgs, or
                         # NULL (no emission)
+        _P,             # spawn switches: a mega_regen.SpawnArgs, or NULL
+                        # (no spawn extension, reference roulette)
         _P,             # stream
     ],
     "tpurt_wf_fused_launch": [
@@ -104,6 +110,8 @@ _SIGNATURES = {
                         # mega_regen.SamplerArgs (camera_sampler_args)
         _P,             # emission switches: a mega_regen.EmissionArgs, or
                         # NULL (no emission)
+        _P,             # spawn switches: a mega_regen.SpawnArgs, or NULL
+                        # (no spawn extension, reference roulette)
         _P,             # stream
     ],
     "tpurt_bvh_probe_launch": [

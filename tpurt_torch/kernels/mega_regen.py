@@ -11,16 +11,22 @@ the kernel's plain PyTorch version, ``integrate.render_plain`` or
 ``LAUNCHES`` and ``BUDGET_LAUNCHES`` count kernel launches only;
 ``MXU_LAUNCHES`` counts the launches of either mode that ran tpurt's
 G-matrix leaf test (``pallas_mxu_leaf`` where ``bvh.mxu_leaf_engages``),
-whose plain version is ``ops.intersect.closest_triangle_g``, and
-``EMIT_LAUNCHES`` those of either mode that ran an emission instance
-(``emission_args``).
+whose plain version is ``ops.intersect.closest_triangle_g``,
+``EMIT_LAUNCHES`` those of either mode with emission switches
+(``emission_args``) and ``SPAWN_LAUNCHES`` those with spawn switches (the
+camera-spawn extensions or the photon roulette scale, ``spawn_args``),
+which ran a spawn instance; a launch with both counts in both.
 
 The module also builds what every path kernel reads: the parameter table
 (camera, spheres, materials, lights, each light's hero table, then those
 of the sky and of the type-3 emission base), the CIE table on the device
 (``cie_table``, uploaded once per device), the sampler switches
-(``sampler_args``, ``camera_sampler_args``) and the emission switches
-(``emission_args``), which select the kernels' emission instances.
+(``sampler_args``, ``camera_sampler_args``), the emission switches
+(``emission_args``) and the spawn switches (``spawn_args``: the thin lens,
+a MotionCamera's shutter, the Sobol spawn draws with their direction table
+on the device, ``sobol_table``, and the photon roulette scale), which
+select the kernels' emission and spawn instances. ``struct_ref`` passes
+either to a launcher.
 """
 
 from __future__ import annotations
@@ -32,7 +38,9 @@ import numpy as np
 import torch
 
 from tpurt_torch import integrate
+from tpurt_torch.camera import MotionCamera, motion_rows
 from tpurt_torch.kernels import build, bvh
+from tpurt_torch.ops import qmc
 from tpurt_torch.ops import rng as rngmod
 from tpurt_torch.ops.spectra import (CIE_RGB_TABLE, VISIBLE_RANGE,
                                      hero_segments, sky_on)
@@ -42,25 +50,39 @@ LAUNCHES = 0
 BUDGET_LAUNCHES = 0
 MXU_LAUNCHES = 0
 EMIT_LAUNCHES = 0
+SPAWN_LAUNCHES = 0
 
 N_CHANNELS = 16
 CAM_FLOATS = 12
 MAT_STRIDE = 8
 LIGHT_STRIDE = 40
 _CIE = {}     # device -> the (81, 3) float32 CIE table on it
+_SOBOL = {}   # device -> the (N_DIMS, 32) Sobol direction numbers on it
+
+
+def _per_device(cache: dict, device, make) -> torch.Tensor:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    tab = cache.get(device)
+    if tab is None:
+        tab = cache[device] = make().to(device)
+    return tab
 
 
 def cie_table(device) -> torch.Tensor:
     """The CIE table the kernels read, on ``device``: uploaded on the
     first call, then kept."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    tab = _CIE.get(device)
-    if tab is None:
-        tab = _CIE[device] = torch.from_numpy(np.ascontiguousarray(
-            CIE_RGB_TABLE, np.float32)).to(device)
-    return tab
+    return _per_device(_CIE, device, lambda: torch.from_numpy(
+        np.ascontiguousarray(CIE_RGB_TABLE, np.float32)))
+
+
+def sobol_table(device) -> torch.Tensor:
+    """``ops.qmc.DIRECTIONS`` as the kernels read it (int32 bits of the
+    uint32 words), on ``device``: uploaded on the first call, then
+    kept."""
+    return _per_device(_SOBOL, device, lambda: torch.from_numpy(
+        np.ascontiguousarray(qmc.DIRECTIONS).view(np.int32)))
 
 
 class SamplerArgs(ctypes.Structure):
@@ -134,9 +156,53 @@ def emission_args(fs, cfg, wavefront: bool = False):
         clamp=f32(cfg.radiance_clamp))
 
 
-def emission_ref(args):
-    """A launch's pointer argument for ``emission_args``' result."""
+def struct_ref(args):
+    """A launch's pointer argument for a switch struct or None
+    (``emission_args``', ``spawn_args``' result): NULL for None."""
     return None if args is None else ctypes.byref(args)
+
+
+class SpawnArgs(ctypes.Structure):
+    """csrc/device.cuh ``struct Spawn``, passed by address."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "qmc", "motion", "lens")] + [
+        (name, ctypes.c_float) for name in (
+            "lens_r", "lens_finv", "rr_scale")] + [
+        ("dcam", ctypes.c_float * 12), ("sobol", ctypes.c_void_p)]
+
+
+def spawn_on(cfg, photons: bool = True) -> bool:
+    """Whether a launch takes the spawn switches: the Sobol spawn, the
+    shutter, the lens or, where it walks photons, a photon roulette
+    scale."""
+    return bool(cfg.qmc or cfg.motion_blur or cfg.aperture > 0.0
+                or (photons and cfg.photon_rr_scale != 1.0))
+
+
+def spawn_args(cfg, camera, device, photons: bool = True):
+    """The spawn switches of a launch, or None: the launch runs an
+    instance without them. ``photons`` False: a camera-path kernel, which
+    a photon roulette scale alone leaves on its instance without them
+    (the scale is then 1). The lens radius f32(0.5 * aperture) and
+    f32(1 / focus_dist), as ``camera.lens_perturb_c`` rounds them; a
+    MotionCamera's shutter-close deltas (``camera.motion_rows`` rows 4-7;
+    the parameter table holds rows 0-3); the photon roulette scale."""
+    if not spawn_on(cfg, photons):
+        return None
+    f32 = lambda x: float(np.float32(x))  # noqa: E731
+    lens = cfg.aperture > 0.0
+    if lens and cfg.focus_dist <= 0.0:
+        raise ValueError("aperture > 0 requires focus_dist > 0 "
+                         "(the sharp-plane distance; see RenderConfig)")
+    dcam = (motion_rows(camera)[4:].ravel()
+            if isinstance(camera, MotionCamera) else np.zeros(12))
+    return SpawnArgs(
+        qmc=int(cfg.qmc), motion=int(cfg.motion_blur), lens=int(lens),
+        lens_r=f32(0.5 * cfg.aperture),
+        lens_finv=f32(1.0 / cfg.focus_dist) if lens else 0.0,
+        rr_scale=f32(cfg.photon_rr_scale) if photons else 1.0,
+        dcam=(ctypes.c_float * 12)(*(float(x) for x in dcam)),
+        sobol=sobol_table(device).data_ptr())
 
 
 def pack_scene(fs, cfg, camera=None, sph_rows=None) -> np.ndarray:
@@ -239,9 +305,10 @@ def regen_tri_mode(fs, cfg) -> integrate.TriMode:
 def _launch(fs, cfg, camera, planes, base_seed: int, spp: int,
             iteration: int, radius: float, depth: int, aux=None,
             gmat=None):
-    global MXU_LAUNCHES, EMIT_LAUNCHES
+    global MXU_LAUNCHES, EMIT_LAUNCHES, SPAWN_LAUNCHES
     table, geo = scene_table(fs, cfg, camera, planes.device)
     emission = emission_args(fs, cfg)
+    spawn = spawn_args(cfg, camera, planes.device)
     lib = build.library()
     counters = launch_counters(planes.device)
     stream = torch.cuda.current_stream(planes.device).cuda_stream
@@ -254,13 +321,16 @@ def _launch(fs, cfg, camera, planes, base_seed: int, spp: int,
         ctypes.byref(sampler_args(fs, cfg)),
         None if aux is None else aux.data_ptr(),
         ctypes.byref(geo.args(gmat)), counters.data_ptr(),
-        cie_table(planes.device).data_ptr(), emission_ref(emission), stream)
+        cie_table(planes.device).data_ptr(), struct_ref(emission),
+        struct_ref(spawn), stream)
     build.check_launch(lib, err, "tpurt_regen_launch")
     bvh.count_walk(geo)
     if gmat is not None:
         MXU_LAUNCHES += 1
     if emission is not None:
         EMIT_LAUNCHES += 1
+    if spawn is not None:
+        SPAWN_LAUNCHES += 1
     return counters[0]
 
 
@@ -324,7 +394,7 @@ def render_budget_regen(scene, cfg, camera, state, base_seed, budgets,
     ``render`` bit for bit, two chained calls one combined call."""
     from tpurt_torch import adaptive
     from tpurt_torch.render import _check_call, radius_after, state_to_planes
-    _check_call(scene, cfg, state, cfg.depth)
+    _check_call(scene, cfg, camera, state, cfg.depth)
     if budgets.shape != state.n_samples.shape:
         raise ValueError(f"budgets {tuple(budgets.shape)} do not match the "
                          f"state's {tuple(state.n_samples.shape)} rows")

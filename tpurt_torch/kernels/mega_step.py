@@ -9,8 +9,10 @@ and the sample index between launches is ``render._advance``.
 On a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
 the kernel's plain PyTorch version, ``integrate.render_plain`` with one
 sample, which has the same contract. ``LAUNCHES`` counts kernel launches
-only, ``EMIT_LAUNCHES`` those of the emission instance
-(``mega_regen.emission_args``).
+only, ``EMIT_LAUNCHES`` those with emission switches
+(``mega_regen.emission_args``) and ``SPAWN_LAUNCHES`` those with spawn
+switches (``spawn_args``), which ran a spawn instance; under qmc the
+sample's Sobol index is its iteration.
 """
 
 from __future__ import annotations
@@ -22,12 +24,14 @@ import torch
 from tpurt_torch import integrate
 from tpurt_torch.kernels import build, bvh
 from tpurt_torch.kernels.mega_regen import (checked_scene, cie_table,
-                                            emission_args, emission_ref,
+                                            emission_args, struct_ref,
                                             launch_counters, photon_count,
-                                            sampler_args, scene_table)
+                                            sampler_args, scene_table,
+                                            spawn_args)
 
 LAUNCHES = 0
 EMIT_LAUNCHES = 0
+SPAWN_LAUNCHES = 0
 
 
 def step_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
@@ -37,7 +41,7 @@ def step_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
     that sample's strata seed, and gathers photons within ``radius``.
     Returns the traced segments as an int64 scalar on the planes'
     device."""
-    global LAUNCHES, EMIT_LAUNCHES
+    global LAUNCHES, EMIT_LAUNCHES, SPAWN_LAUNCHES
     fs = checked_scene(scene, planes, cfg)
     if planes.device.type == "cpu":
         return integrate.render_plain(fs, cfg, camera, planes, base_seed, 1,
@@ -48,6 +52,7 @@ def step_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
     lib = build.library()
     counters = launch_counters(planes.device)
     emission = emission_args(fs, cfg)
+    spawn = spawn_args(cfg, camera, planes.device)
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     err = lib.tpurt_step_launch(
         planes.data_ptr(), planes.shape[1], cfg.width, cfg.height,
@@ -57,9 +62,12 @@ def step_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
         photon_count(fs, cfg), cfg.max_photon_bounces, cfg.rr_threshold,
         cfg.photon_rr_threshold, ctypes.byref(sampler_args(fs, cfg)),
         ctypes.byref(args), counters.data_ptr(),
-        cie_table(planes.device).data_ptr(), emission_ref(emission), stream)
+        cie_table(planes.device).data_ptr(), struct_ref(emission),
+        struct_ref(spawn), stream)
     build.check_launch(lib, err, "tpurt_step_launch")
     LAUNCHES += 1
+    if spawn is not None:
+        SPAWN_LAUNCHES += 1
     if emission is not None:
         EMIT_LAUNCHES += 1
     bvh.count_walk(geo)

@@ -13,9 +13,14 @@ Uniform launches keep a warp's lanes in lockstep, budget launches let them
 run free (PERF.md has the A/B). A launch with hero wavelengths or
 camera-path dispersion runs the kernel's sampler instance, one with the
 sky, the legacy ramp, an emissive material or the clamp its emission
-instance (``mega_regen.camera_sampler_args``, ``emission_args``).
-``LAUNCHES`` counts kernel launches only, ``SAMPLER_LAUNCHES`` those of
-the sampler instance, ``EMIT_LAUNCHES`` those of the emission instance.
+instance, one with a camera-spawn extension (the thin lens, a
+MotionCamera's shutter, the Sobol spawn draws) a spawn instance: the
+reference sampler's with the spawn flags alone, else the one with the
+sampler flags and emission too (``mega_regen.camera_sampler_args``,
+``emission_args``, ``spawn_args``). ``LAUNCHES`` counts kernel launches
+only, ``SAMPLER_LAUNCHES`` those of the sampler instance,
+``EMIT_LAUNCHES`` those with emission switches, ``SPAWN_LAUNCHES`` those
+with spawn switches (a launch with both counts in both).
 """
 
 from __future__ import annotations
@@ -26,24 +31,26 @@ import dataclasses
 import torch
 
 from tpurt_torch import adaptive, wavefront
+from tpurt_torch.camera import check_camera
 from tpurt_torch.config import check_slice
 from tpurt_torch.kernels import build, bvh
 from tpurt_torch.kernels.mega_regen import (camera_sampler_args, cie_table,
-                                            emission_args, emission_ref,
+                                            emission_args, struct_ref,
                                             launch_counters, sampler_on,
-                                            scene_table)
+                                            scene_table, spawn_args)
 from tpurt_torch.scene import freeze_scene
 
 LAUNCHES = 0
 SAMPLER_LAUNCHES = 0
 EMIT_LAUNCHES = 0
+SPAWN_LAUNCHES = 0
 
 
 def _launch(scene, cfg, camera, state, base_seed, spp: int, aux=None):
     """The kernel on a copy of the state's rgb_sum; ``aux``: the (2, P)
     float32 budgets and counts of budget mode. Returns (rgb_sum, rays
     int64 scalar)."""
-    global LAUNCHES, SAMPLER_LAUNCHES, EMIT_LAUNCHES
+    global LAUNCHES, SAMPLER_LAUNCHES, EMIT_LAUNCHES, SPAWN_LAUNCHES
     dev = state.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -62,6 +69,7 @@ def _launch(scene, cfg, camera, state, base_seed, spp: int, aux=None):
     stream = torch.cuda.current_stream(dev).cuda_stream
     sampler = camera_sampler_args(fs, cfg)
     emission = emission_args(fs, cfg, wavefront=True)
+    spawn = spawn_args(cfg, camera, dev, photons=False)
     err = lib.tpurt_wf_fused_launch(
         rgb.data_ptr(), rgb.shape[0], cfg.width, cfg.height,
         table.data_ptr(), len(geo.flat_rows), len(fs.materials),
@@ -69,20 +77,23 @@ def _launch(scene, cfg, camera, state, base_seed, spp: int, aux=None):
         None if aux is None else aux.data_ptr(), cfg.depth,
         cfg.rr_threshold, ctypes.byref(args), counters.data_ptr(),
         cie_table(dev).data_ptr(), ctypes.byref(sampler),
-        emission_ref(emission), stream)
+        struct_ref(emission), struct_ref(spawn), stream)
     build.check_launch(lib, err, "tpurt_wf_fused_launch")
     LAUNCHES += 1
+    if spawn is not None:
+        SPAWN_LAUNCHES += 1
     if emission is not None:
         EMIT_LAUNCHES += 1
-    elif sampler_on(sampler):
+    elif spawn is None and sampler_on(sampler):
         SAMPLER_LAUNCHES += 1
     bvh.count_walk(geo)
     return rgb, counters[0]
 
 
-def _check(scene, cfg, state) -> None:
+def _check(scene, cfg, camera, state) -> None:
     wavefront.check_sampler(cfg)
     check_slice(cfg)
+    check_camera(cfg, camera)
     wavefront._check_state(state, scene)
 
 
@@ -91,7 +102,7 @@ def wavefront_render_fused(scene, cfg, camera, state, base_seed, spp: int):
     On the card every row's n_samples grows by ``spp``, pad rows too, as
     in tpurt's fused kernel (the plain pool counts image rows only; no
     reader looks past them)."""
-    _check(scene, cfg, state)
+    _check(scene, cfg, camera, state)
     if state.device.type == "cpu":
         return wavefront.wavefront_render(scene, cfg, camera, state,
                                           base_seed, spp)
@@ -108,7 +119,7 @@ def wavefront_render_budget_fused(scene, cfg, camera, state, base_seed,
     """``budgets[p]`` samples for pixel p (clipped to [0, max_budget], pad
     rows 0), continuing at its count n_samples[p]; ``iteration`` grows by
     ``max_budget``."""
-    _check(scene, cfg, state)
+    _check(scene, cfg, camera, state)
     if budgets.shape != state.n_samples.shape:
         raise ValueError(f"budgets {tuple(budgets.shape)} do not match the "
                          f"state's {tuple(state.n_samples.shape)} rows")

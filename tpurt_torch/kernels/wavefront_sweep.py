@@ -12,9 +12,13 @@ table, the geometry tables and the launch constants are built once per
 render, at the first sweep, so a sweep is one launch and no PyTorch op.
 ``LAUNCHES`` counts kernel launches only: one per sweep enqueued,
 including those past the end of the loop, which return at once;
-``SAMPLER_LAUNCHES`` and ``EMIT_LAUNCHES`` count those of the sampler and
-the emission instance (hero wavelengths or camera-path dispersion; the sky,
-the legacy ramp, an emissive material or the clamp).
+``SAMPLER_LAUNCHES`` counts those of the sampler instance (hero
+wavelengths or camera-path dispersion), ``EMIT_LAUNCHES`` those with
+emission switches (the sky, the legacy ramp, an emissive material, the
+clamp), ``SPAWN_LAUNCHES`` those with spawn switches (the camera-spawn
+extensions, ``mega_regen.spawn_args``), which run a spawn instance: the
+reference bounce's with the spawn flags alone, else the one with the
+sampler flags and emission too. A launch with both counts in both.
 ``SWEEP_BATCH`` sweeps are enqueued per read of the loop test: at 1080p,
 1 spp, 16 is within 2-12% of 32 and costs at most 15 empty launches at the
 end of a render (PERF.md has the measurement).
@@ -29,12 +33,14 @@ import torch
 from tpurt_torch import wavefront
 from tpurt_torch.kernels import build, bvh
 from tpurt_torch.kernels.mega_regen import (camera_sampler_args, cie_table,
-                                            emission_args, emission_ref,
-                                            sampler_on, scene_table)
+                                            emission_args, struct_ref,
+                                            sampler_on, scene_table,
+                                            spawn_args)
 
 LAUNCHES = 0
 SAMPLER_LAUNCHES = 0
 EMIT_LAUNCHES = 0
+SPAWN_LAUNCHES = 0
 SWEEP_BATCH = 16
 
 
@@ -96,7 +102,7 @@ def stepper(fs, cfg, work: wavefront.PoolWork,
     launch = {}     # built at the first sweep on the card
 
     def step(pool, rgb, ns, ctl):
-        global LAUNCHES, SAMPLER_LAUNCHES, EMIT_LAUNCHES
+        global LAUNCHES, SAMPLER_LAUNCHES, EMIT_LAUNCHES, SPAWN_LAUNCHES
         dev = pool.pf.device
         if dev.type == "cpu":
             return plain(pool, rgb, ns, ctl)
@@ -115,12 +121,15 @@ def stepper(fs, cfg, work: wavefront.PoolWork,
             *launch["ptrs"], launch["table"], launch["n_sph"],
             launch["n_mat"], launch["n_light"], launch["args_ref"],
             launch["geom_ref"], launch["cie"], launch["sampler_ref"],
-            launch["emission_ref"], torch.cuda.current_stream(dev).cuda_stream)
+            launch["emission_ref"], launch["spawn_ref"],
+            torch.cuda.current_stream(dev).cuda_stream)
         build.check_launch(launch["lib"], err, "tpurt_wf_step_launch")
         LAUNCHES += 1
+        if launch["spawn"] is not None:
+            SPAWN_LAUNCHES += 1
         if launch["emission"] is not None:
             EMIT_LAUNCHES += 1
-        elif sampler_on(launch["sampler"]):
+        elif launch["spawn"] is None and sampler_on(launch["sampler"]):
             SAMPLER_LAUNCHES += 1
         bvh.count_walk(launch["geo"])
         return pool, rgb, ns, ctl
@@ -151,13 +160,15 @@ def _prepare(fs, cfg, work: wavefront.PoolWork, q: int, dev) -> dict:
         **ptrs)
     sampler = camera_sampler_args(fs, cfg)
     emission = emission_args(fs, cfg, wavefront=True)
+    spawn = spawn_args(cfg, work.camera, dev, photons=False)
     return dict(lib=build.library(), table=table.data_ptr(), keep=keep,
                 geo=geo, geom=geom, args=args, geom_ref=ctypes.byref(geom),
                 args_ref=ctypes.byref(args), n_sph=len(geo.flat_rows),
                 n_mat=len(fs.materials), n_light=len(fs.lights),
                 cie=cie_table(dev).data_ptr(), sampler=sampler,
                 emission=emission, sampler_ref=ctypes.byref(sampler),
-                emission_ref=emission_ref(emission))
+                emission_ref=struct_ref(emission), spawn=spawn,
+                spawn_ref=struct_ref(spawn))
 
 
 def wavefront_render_pallas(scene, cfg, camera, state, base_seed, spp: int):

@@ -56,9 +56,21 @@ def u32_to_f32(bits):
 
 
 def rand_1f(state):
-    """Uniform float32 in [0, 1]."""
+    """Uniform float32 in [0, 1]. A state with ``next_1f`` (an
+    ``ops.qmc.QmcStream``) draws from its own sequence instead, so the
+    camera and lens code threads either kind of stream."""
+    nxt = getattr(state, "next_1f", None)
+    if nxt is not None:
+        return nxt()
     bits, state = rand_u32(state)
     return u32_to_f32(bits) * _INV_U32, state
+
+
+def rand_2f(state):
+    """Two uniforms, stacked on a trailing axis of size 2."""
+    u1, state = rand_1f(state)
+    u2, state = rand_1f(state)
+    return torch.stack([u1, u2], dim=-1), state
 
 
 def frame_seed(base_seed: int, iteration):

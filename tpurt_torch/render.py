@@ -33,7 +33,7 @@ import torch
 
 from tpurt_torch import integrate, wavefront
 from tpurt_torch import tonemap as tm
-from tpurt_torch.camera import Camera
+from tpurt_torch.camera import Camera, check_camera
 from tpurt_torch.config import RenderConfig, check_slice
 from tpurt_torch.device import resolve_device
 from tpurt_torch.integrate import sppm_radius_step
@@ -139,11 +139,12 @@ def _wavefront_dispatch(cfg: RenderConfig):
     return wavefront_fused.wavefront_render_fused
 
 
-def _check_call(scene: Scene, cfg: RenderConfig, state: RenderState,
+def _check_call(scene: Scene, cfg: RenderConfig, camera, state: RenderState,
                 depth: int) -> None:
     if cfg.backend in WAVEFRONT_BACKENDS:
         wavefront.check_sampler(cfg)
     check_slice(cfg)
+    check_camera(cfg, camera)
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
     if state.rgb_sum.shape[0] != padded_pixels(cfg):
@@ -189,7 +190,7 @@ def _advance(scene, cfg, camera, state, base_seed, spp, depth):
 def render(scene: Scene, cfg: RenderConfig, camera: Camera,
            state: RenderState, base_seed, spp: int) -> RenderState:
     """Advance every pixel by ``spp`` progressive samples."""
-    _check_call(scene, cfg, state, cfg.depth)
+    _check_call(scene, cfg, camera, state, cfg.depth)
     return _advance(scene, cfg, camera, state, base_seed, int(spp),
                     cfg.depth)
 
@@ -199,7 +200,7 @@ def render_step(scene: Scene, cfg: RenderConfig, camera: Camera,
                 depth: int | None = None) -> RenderState:
     """One progressive sample; ``depth`` overrides cfg.depth (preview)."""
     d = cfg.depth if depth is None else int(depth)
-    _check_call(scene, cfg, state, d)
+    _check_call(scene, cfg, camera, state, d)
     return _advance(scene, cfg, camera, state, base_seed, 1, d)
 
 

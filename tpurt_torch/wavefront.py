@@ -46,19 +46,19 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from tpurt_torch.camera import spawn_camera_rays
+from tpurt_torch.camera import check_camera
 from tpurt_torch.config import check_slice
 from tpurt_torch.integrate import (BVH, EXACT, TriMode, _material_kinds,
                                    add_emitters, add_sky, camera_emission,
                                    clamp_sample, intersect_scene, is_emitter,
                                    material_lookup, material_table,
                                    sample_direct_lighting, scatter_and_rr,
-                                   tracks_collapse)
+                                   spawn_camera, tracks_collapse)
 from tpurt_torch.ops import fdiv
 from tpurt_torch.ops import soa as s
 from tpurt_torch.ops.intersect import HIT
-from tpurt_torch.ops.rng import frame_seed, rand_1f, seed_pixels
-from tpurt_torch.ops.spectra import DISPERSION_B, sample_wavelength
+from tpurt_torch.ops.rng import frame_seed
+from tpurt_torch.ops.spectra import DISPERSION_B
 from tpurt_torch.scene import freeze_scene
 
 # f32 plane bases of the pool (each vec3 takes 3 planes), i32 plane rows
@@ -166,20 +166,16 @@ def _issue(cfg, camera, pool: WavefrontPool, pix, gpix, seed_iter,
     """Turn the claimed work items into fresh camera rays in the dead slots
     ``have_work``: ``pix`` is the state row, ``gpix`` the global pixel (they
     differ only for a slab), ``seed_iter`` the per-slot sample iteration.
-    Draws: 2 jitter, 1 wavelength, from seed_pixels(frame_seed(base_seed,
-    seed_iter), px, py), as every backend draws a camera spawn. A fresh
-    ray's state word is 1: active, not collapsed."""
+    The spawn (``integrate.spawn_camera``) draws from seed_pixels(
+    frame_seed(base_seed, seed_iter), px, py), as every backend draws a
+    camera spawn; under qmc from the Sobol stream of sample ``seed_iter``.
+    A fresh ray's state word is 1: active, not collapsed."""
     px = gpix % cfg.width
     py = gpix // cfg.width
-    rng = seed_pixels(frame_seed(base_seed, seed_iter), px, py)
-    uj1, rng = rand_1f(rng)
-    uj2, rng = rand_1f(rng)
-    u = fdiv(px.to(torch.float32) + uj1, float(cfg.width))
-    v = fdiv(py.to(torch.float32) + uj2, float(cfg.height))
-    o, d, rng = spawn_camera_rays(cfg, camera, u, v, rng)
-    ulam, rng = rand_1f(rng)
-    lam = sample_wavelength(ulam)
-    one, zero = torch.ones_like(u), torch.zeros_like(u)
+    o, d, lam, rng = spawn_camera(cfg, camera, px, py,
+                                  frame_seed(base_seed, seed_iter),
+                                  (base_seed, seed_iter))
+    one, zero = torch.ones_like(lam), torch.zeros_like(lam)
     fresh = (*o, *d, one, one, one, zero, zero, zero, lam)
     pf = torch.stack([torch.where(have_work, new, old)
                       for new, old in zip(fresh, pool.pf)])
@@ -411,6 +407,7 @@ def wavefront_render_slab(scene, cfg, camera, state, base_seed, spp: int,
     ``backend="wavefront_pallas"``."""
     check_sampler(cfg)
     check_slice(cfg)
+    check_camera(cfg, camera)
     _check_state(state, scene)
     fs = freeze_scene(scene)
     spp = int(spp)
