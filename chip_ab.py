@@ -35,7 +35,15 @@ tpurt's "quality" and "fast" presets; the fused kernel with photons off
 the same way, from the reference instance; the three flags on one
 tile-sync sample; the sweeps of a ``wavefront_pallas`` render without and
 with the three flags), "n/a"
-in a checkout that rejects those flags or has no MotionCamera. Between
+in a checkout that rejects those flags or has no MotionCamera; then the
+same for the lights instances at chip_smoke's [lights] and [aim] shapes
+(the regen kernel's lights instance forced to mode "all" on Cornell,
+beside the reference instance; ``many_light_scene`` with 20 and 128
+lights under light_sample "all", "power" and "spatial" on the regen
+kernel, 20 lights on the tile-sync kernel and, photons off, on the fused
+kernel and the sweeps of a ``wavefront_pallas`` render; Cornell with
+photon_aim 0.5 beside 0, uniform and in a budget launch), "n/a" in a
+checkout without them. Between
 the two, the walk probe's device
 milliseconds per launch under torch.profiler with the G leaf and with the
 exact leaf, and the pairs its G leaf tested, on chip_smoke's 65,536 random
@@ -44,7 +52,9 @@ rays through bench config 6's torus alone (binary leaf 64, and width 8), on
 its 1080p pinhole rays. Before that line, a hash of each kernel's
 machine code (``cuobjdump -sass`` of the checkout's library, runs of
 blanks taken as one), so two checkouts show which kernels they compile
-alike. Then the card's name and power limit. Needs one CUDA
+alike; after the runs, the SASS gate: every kernel of the first checkout
+must have its hash in every later run (a new kernel may be added), else
+the script exits 1. Then the card's name and power limit. Needs one CUDA
 device.
 """
 
@@ -352,6 +362,69 @@ cells += [("spawn-tile-sync-all", "regen", lambda: spawn_cell(
               spawn_w.with_(backend="wavefront_pallas", **smoke.SPAWN_FLAGS),
               lambda c, cam: tt.render(cornell, c, cam,
                                        tt.init_state(c, dev), 1234, 1)))]
+# the lights instances (chip_smoke [lights], [aim]), 1080p, depth 30, 1
+# spp: the regen kernel's lights instance forced to mode "all" on Cornell
+# (its body's cost beside spawn-regen-ref's reference instance);
+# many_light_scene with 20 and 128 lights under "all", "power" and
+# "spatial" on the regen kernel (photons on), 20 lights on the tile-sync
+# kernel ("power") and, photons off, on the fused kernel and the sweeps of
+# a wavefront_pallas render ("all", "spatial"); Cornell with photon_aim
+# 0.5 (from iteration 2) beside 0, uniform and in a budget launch.
+# "n/a" in a checkout without the lights instances or that rejects a flag
+
+
+def forced_all(c, cam):
+    """The regen launch of c on the lights instance with mode "all"."""
+    if not hasattr(mega_regen, "lights_args"):
+        raise NotImplementedError   # a checkout without lights instances
+    keep = mega_regen.lights_args
+    mega_regen.lights_args = lambda cfg, photons=True: (
+        mega_regen.LightsArgs(mode=0, q=0.0, widen=0.0))
+    try:
+        return mega_regen.regen_call(cornell, c, cam, planes.clone(), 1234,
+                                     1, 0, 2.0, 30)
+    finally:
+        mega_regen.lights_args = keep
+
+
+cells.append(("lights-regen-forced-all", "regen", lambda: spawn_cell(
+    spawn, forced_all)))
+many = {n: tt.many_light_scene(n).to(dev) for n in (20, 128)}
+for n, sc in many.items():
+    for mode in ("all", "power", "spatial"):
+        cells.append((f"lights-regen-{n}-{mode}", "regen",
+                      lambda c=spawn.with_(light_sample=mode), sc=sc:
+                      spawn_cell(c, lambda c, cam: mega_regen.regen_call(
+                          sc, c, cam, planes.clone(), 1234, 1, 0, 2.0, 30))))
+cells.append(("lights-tile-sync-20-power", "regen", lambda: spawn_cell(
+    spawn.with_(light_sample="power"), lambda c, cam: mega_step.step_call(
+        many[20], c, cam, planes.clone(), 1234, 3, 1.5, 30))))
+for mode in ("all", "spatial"):
+    cells.append((f"lights-fused-20-{mode}", "fused",
+                  lambda c=spawn_w.with_(light_sample=mode): spawn_cell(
+                      c, lambda c, cam: wavefront_fused.wavefront_render_fused(
+                          many[20], c, cam, st0, 1234, 1))))
+    cells.append((f"lights-pallas-20-{mode}-1spp-sweeps", "pool_step",
+                  lambda c=spawn_w.with_(backend="wavefront_pallas",
+                                         light_sample=mode): spawn_cell(
+                      c, lambda c, cam: tt.render(many[20], c, cam,
+                                                  tt.init_state(c, dev), 1234,
+                                                  1))))
+aim_counts = tt.init_state(spawn, dev).n_samples + 1.0
+aim_budgets = torch.from_numpy(np.random.default_rng(7).integers(
+    0, 3, aim_counts.shape[0]) * (np.arange(aim_counts.shape[0])
+                                  < spawn.n_pixels)).to(dev)
+for q in (0.0, 0.5):
+    cells.append((f"aim-regen-{q}", "regen",
+                  lambda c=spawn.with_(photon_aim=q): spawn_cell(
+                      c, lambda c, cam: mega_regen.regen_call(
+                          cornell, c, cam, planes.clone(), 1234, 1, 2, 1.8,
+                          30))))
+    cells.append((f"aim-regen-budget-{q}", "regen",
+                  lambda c=spawn.with_(photon_aim=q): spawn_cell(
+                      c, lambda c, cam: mega_regen.regen_budget_call(
+                          cornell, c, cam, planes.clone(), 1234, aim_budgets,
+                          aim_counts))))
 from tpurt_torch.kernels import mega_step
 for name, part, fn in cells:
     try:
@@ -364,6 +437,26 @@ print(f"AB {sys.argv[1]}: " + " | ".join(out), flush=True)
 '''
 
 
+def sass_gate(lines) -> tuple:
+    """The SASS lines of the runs, in order: (ok, message). ok: every
+    kernel of the first run has the first run's hash in every later run."""
+    runs = []
+    for line in lines:
+        tree, _, rest = line[len("SASS "):].partition(": ")
+        runs.append((tree, dict(kv.split("=", 1) for kv in rest.split())))
+    if not runs:
+        return True, "SASS gate: no SASS line"
+    first_tree, first = runs[0]
+    changed = [(tree, sorted(k for k, v in first.items() if h.get(k) != v))
+               for tree, h in runs[1:]]
+    changed = [(tree, ks) for tree, ks in changed if ks]
+    if not changed:
+        return True, (f"SASS gate: passed, every kernel of {first_tree} "
+                      f"({len(first)}) has its hash in all {len(runs)} runs")
+    return False, "SASS gate: FAILED, changed or missing: " + "; ".join(
+        f"{tree}: {' '.join(ks)}" for tree, ks in changed)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -372,14 +465,24 @@ def main() -> int:
     if len(sys.argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
+    sass = []
     for tree in sys.argv[1:]:
         # one process per checkout: each imports its own tpurt_torch
-        subprocess.run([sys.executable, "-c", SCRIPT, tree], check=True)
+        proc = subprocess.Popen([sys.executable, "-c", SCRIPT, tree],
+                                stdout=subprocess.PIPE, text=True)
+        for line in proc.stdout:
+            print(line, end="", flush=True)
+            if line.startswith("SASS "):
+                sass.append(line.strip())
+        if proc.wait():
+            raise subprocess.CalledProcessError(proc.returncode, tree)
+    ok, message = sass_gate(sass)
+    print(message)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
-    return 0
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

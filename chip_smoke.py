@@ -48,6 +48,15 @@ MotionCamera's shutter on Cornell: the spawn instances of the regen
 (uniform, budget), tile-sync, fused and sweep kernels against their plain
 versions at 256x144 and 1080p, each 1080p launch timed beside the same
 launch without the flags, fast held to fewer segments than quality),
+[lights] (tpurt's many-light NEE, light_sample "power" and "spatial", on
+tpurt's many-light scene with 20 lights, rows staged, and 128, rows in
+global memory: the lights instances of the regen (uniform, budget),
+tile-sync, fused and sweep kernels against their plain versions at
+256x144 and 1080p, each 1080p regen launch's segments and device ms
+beside light_sample "all", then the main paths and render_adaptive),
+[aim] (photon_aim 0.5 on Cornell at 1080p, K 4: the regen kernel's
+lights instance, uniform and budget, against its plain versions, timed
+beside photon_aim 0; the main path and render_adaptive),
 [bvh-walk],
 [mesh-regen], [mesh-wf],
 [mesh] (config 6 with the reference sampler), [config6] (config 6 as
@@ -164,6 +173,10 @@ def counters() -> dict:
             "tile_sync_spawn": (mega_step, "SPAWN_LAUNCHES"),
             "wf_sweep_spawn": (wavefront_sweep, "SPAWN_LAUNCHES"),
             "wf_fused_spawn": (wavefront_fused, "SPAWN_LAUNCHES"),
+            "regen_lights": (mega_regen, "LIGHTS_LAUNCHES"),
+            "tile_sync_lights": (mega_step, "LIGHTS_LAUNCHES"),
+            "wf_sweep_lights": (wavefront_sweep, "LIGHTS_LAUNCHES"),
+            "wf_fused_lights": (wavefront_fused, "LIGHTS_LAUNCHES"),
             "bvh_walk": (bvh, "WALKS"),
             "mxu_leaf": (mega_regen, "MXU_LAUNCHES")}
 
@@ -276,11 +289,13 @@ def ptxas_report(log: str) -> list:
             flags = re.search(r"I((?:Lb[01]E)+)", name)
             for part, short in (("regen_emit", "regen_emit"),
                                 ("regen_spawn", "regen_spawn"),
+                                ("regen_lights", "regen_lights"),
                                 ("regen", "regen"),
                                 ("pool_step", "sweep"),
                                 ("step", "step"),
                                 ("fused_sampler", "fused_sampler"),
                                 ("fused_spawn", "fused_spawn"),
+                                ("fused_lights", "fused_lights"),
                                 ("fused", "fused"), ("probe", "probe"),
                                 ("tonemap", "tonemap")):
                 if part in name:
@@ -291,6 +306,8 @@ def ptxas_report(log: str) -> list:
                                                   flags.group(1))) + ">"
             if name.startswith("sweep") and "5Spawn" in line:
                 name += "+Spawn"  # the sweep's spawn instances
+            if name.startswith("sweep") and "6Lights" in line:
+                name += "+Lights"  # and its lights instances
         elif "bytes stack frame" in line and name:
             frame = line.strip()
         elif "Used" in line and "registers" in line and name:
@@ -548,6 +565,12 @@ def main() -> int:
     launches.update(spawn_phases(dev, report, gpu))
     lap("spawn")
 
+    # 7d. tpurt's many-light NEE (light_sample "power", "spatial") and
+    #     aimed photons (photon_aim) in the lights instances
+    launches.update(lights_phases(dev, report, gpu))
+    launches.update(aim_phases(dev, report, gpu))
+    lap("lights, aim")
+
     # 8. meshes: the BVH walks, bench config 6 (reference sampler and as
     #    shipped), config 4 and the scale paths
     launches.update(mesh_phases(dev, report, gpu))
@@ -592,6 +615,18 @@ def main() -> int:
                               "tpurt/kernels/wavefront_pallas.py:102"),
            "wf_fused_spawn": ("tpurt_torch/csrc/wavefront_fused.cu",
                               "tpurt/kernels/wavefront_pallas.py:572"),
+           "regen_lights": ("tpurt_torch/csrc/path_lights.cu",
+                            "tpurt/kernels/mega_regen.py:84"),
+           "regen_lights_budget": ("tpurt_torch/csrc/path_lights.cu",
+                                   "tpurt/kernels/mega_regen.py:1024"),
+           "regen_aim": ("tpurt_torch/csrc/path_lights.cu",
+                         "tpurt/kernels/mega_regen.py:84"),
+           "tile_sync_lights": ("tpurt_torch/csrc/path_lights.cu",
+                                "tpurt/kernels/mega_pallas.py:1666"),
+           "wf_sweep_lights": ("tpurt_torch/csrc/wavefront_sweep.cu",
+                               "tpurt/kernels/wavefront_pallas.py:102"),
+           "wf_fused_lights": ("tpurt_torch/csrc/wavefront_fused.cu",
+                               "tpurt/kernels/wavefront_pallas.py:572"),
            "bvh_walk": ("tpurt_torch/csrc/bvh.cuh",
                         "tpurt/kernels/bvh_pallas.py:466"),
            "mxu_leaf": ("tpurt_torch/csrc/bvh.cuh",
@@ -846,27 +881,8 @@ def budget_phases(report, gpu) -> dict:
 
     # [adaptive] the main path: pilots through the regen kernel, the rest
     # through its budget mode
-    names = ["regen", "regen_budget", "blit"]
-    zero_counts(names)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st, budgets = tt.render_adaptive(scene, cfg_f, cam_of(cfg_f),
-                                     base_seed=1234, spp=8, pilot_spp=2)
-    img = tt.resolve_image(cfg_f, st)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = read_counts(names)
-    n = cfg_f.n_pixels
-    ok = bool((st.n_samples[:n] == 2 + budgets[:n].float()).all())
-    print(f"[adaptive] render_adaptive pallas 1080p depth 30, spp 8 pilot 2: "
-          f"{secs:.3f} s, rays {int(st.rays)}, "
-          f"{int(st.rays) / secs / 1e6:.1f} Mrays/s, budgets mean "
-          f"{float(budgets[:n].float().mean()):.3f} max "
-          f"{int(budgets[:n].max())}, n_samples = 2 + budget: {ok}, "
-          f"launches {launches} | {gpu}")
-    if not ok or not bool(torch.isfinite(img).all()) \
-            or min(launches.values()) < 1:
-        raise AssertionError("render_adaptive (pallas) failed")
+    launches = adaptive_path("adaptive", scene, cfg_f, cam_of(cfg_f),
+                             ["regen", "regen_budget", "blit"], gpu, spp=8)
     return {"regen_budget": launches["regen_budget"]}
 
 
@@ -1451,7 +1467,7 @@ def emission_phases(dev, report, gpu) -> dict:
     6 as shipped, sky and clamp) at 256x144; each launch timed beside
     config 4's or 5's without the flags; then the main paths."""
     import tpurt_torch as tt
-    from tpurt_torch import integrate, wavefront
+    from tpurt_torch import wavefront
     from tpurt_torch.kernels import mega_regen, mega_step, wavefront_fused
     from tpurt_torch.render import state_to_planes
     from tpurt_torch.scene import freeze_scene
@@ -1477,31 +1493,8 @@ def emission_phases(dev, report, gpu) -> dict:
         "regen_kernel")
     report["regen_emit"] = dict(max_abs_err=0.0, ms=ms, plain_ms=p_s * 1e3,
                                 **path_bound(cfg.n_pixels, rk))
-    st1 = tt.render(scene, cfg, cam, tt.init_state(cfg), 1234, 1)
-    b = budget_map(st1.n_samples.shape[0], cfg.n_pixels, 2, 5, dev)
-    pl = state_to_planes(st1)
-    bk, bp = pl.clone(), pl.clone()
-    rbk = int(mega_regen.regen_budget_call(scene, cfg, cam, bk, 1234, b,
-                                           st1.n_samples))
-    rbp = int(integrate.render_plain_budget(fs, cfg, cam, bp, 1234, b,
-                                            st1.n_samples))
-    bad = unequal_planes(bk, bp)
-    print(f"[emission] regen budget launch, budgets 0-2 after 1 spp: rays "
-          f"{rbk} vs plain {rbp}, unequal planes {bad}")
-    if rbk != rbp or bad:
-        raise AssertionError("the regen kernel's emission instance differs "
-                             "from render_plain_budget")
-    pk, pp = planes.clone(), planes.clone()
-    rk1 = int(mega_step.step_call(scene, cfg, cam, pk, 1234, 3, 1.5, 30))
-    t0 = time.perf_counter()
-    rp1 = int(integrate.render_plain(fs, cfg, cam, pp, 1234, 1, 3, 1.5, 30))
-    plain_step = (time.perf_counter() - t0) * 1e3
-    bad = unequal_planes(pk, pp)
-    print(f"[emission] tile-sync kernel 1080p sample 3: rays {rk1} vs plain "
-          f"{rp1}, unequal planes {bad}")
-    if rk1 != rp1 or bad:
-        raise AssertionError("the tile-sync kernel's emission instance "
-                             "differs from render_plain")
+    budget_vs_plain("emission", scene, cfg, cam, dev)
+    rk1, plain_step = step_vs_plain("emission", scene, cfg, cam, 3, 1.5)
     ms = launch_times("emission", lambda: mega_step.step_call(
         scene, cfg, cam, planes.clone(), 1234, 3, 1.5, 30),
         "regen_emit_kernel", lambda: mega_step.step_call(
@@ -1549,17 +1542,7 @@ def emission_phases(dev, report, gpu) -> dict:
     cam_s = dispersive_camera(ref)
     regen_vs_plain("reference sampler, emission", scene, ref, cam_s, 1234, 2,
                    0, phase="emission")
-    pl = state_to_planes(tt.init_state(ref))
-    pk, pp = pl.clone(), pl.clone()
-    rk1 = int(mega_step.step_call(scene, ref, cam_s, pk, 1234, 0, 2.0, 30))
-    rp1 = int(integrate.render_plain(fs, ref, cam_s, pp, 1234, 1, 0, 2.0,
-                                     30))
-    bad = unequal_planes(pk, pp)
-    print(f"[emission] reference sampler tile-sync 256x144: rays {rk1} vs "
-          f"plain {rp1}, unequal planes {bad}")
-    if rk1 != rp1 or bad:
-        raise AssertionError("tile-sync emission instance differs "
-                             "(reference sampler)")
+    step_vs_plain("emission", scene, ref, cam_s, 0, 2.0)
     for label, c in (("reference sampler, emission",
                       ref.with_(enable_photons=False)),
                      ("sky_gradient alone (legacy ramp)",
@@ -1657,7 +1640,7 @@ def spawn_phases(dev, report, gpu) -> dict:
     each launch timed beside the same launch without the flags; then the
     main paths."""
     import tpurt_torch as tt
-    from tpurt_torch import integrate, wavefront
+    from tpurt_torch import wavefront
     from tpurt_torch.kernels import mega_regen, mega_step, wavefront_fused
     from tpurt_torch.render import state_to_planes
     from tpurt_torch.scene import freeze_scene
@@ -1678,29 +1661,9 @@ def spawn_phases(dev, report, gpu) -> dict:
                        phase="spawn")
     cfg = tt.RenderConfig(**small, **qmc_lens)
     cam = cornell_camera(cfg)
-    st1 = tt.render(scene, cfg, cam, tt.init_state(cfg), 1234, 1)
-    b = budget_map(st1.n_samples.shape[0], cfg.n_pixels, 2, 5, dev)
-    pl = state_to_planes(st1)
-    bk, bp = pl.clone(), pl.clone()
-    rbk = int(mega_regen.regen_budget_call(scene, cfg, cam, bk, 1234, b,
-                                           st1.n_samples))
-    rbp = int(integrate.render_plain_budget(fs, cfg, cam, bp, 1234, b,
-                                            st1.n_samples))
-    bad = unequal_planes(bk, bp)
-    print(f"[spawn] qmc+lens regen budget launch 256x144, budgets 0-2 after "
-          f"1 spp: rays {rbk} vs plain {rbp}, unequal planes {bad}")
-    if rbk != rbp or bad:
-        raise AssertionError("the regen kernel's budget mode differs from "
-                             "render_plain_budget under qmc and the lens")
-    pk, pp = pl.clone(), pl.clone()
-    rk1 = int(mega_step.step_call(scene, cfg, cam, pk, 1234, 1, 1.5, 8))
-    rp1 = int(integrate.render_plain(fs, cfg, cam, pp, 1234, 1, 1, 1.5, 8))
-    bad = unequal_planes(pk, pp)
-    print(f"[spawn] qmc+lens tile-sync kernel 256x144 sample 1: rays {rk1} "
-          f"vs plain {rp1}, unequal planes {bad}")
-    if rk1 != rp1 or bad:
-        raise AssertionError("the tile-sync kernel differs from "
-                             "render_plain under qmc and the lens")
+    budget_vs_plain("spawn", scene, cfg, cam, dev)
+    step_vs_plain("spawn", scene, cfg, cam, 1, 1.5,
+                  tt.render(scene, cfg, cam, tt.init_state(cfg), 1234, 1))
     for label in ("qmc+lens+shutter", "quality"):
         cfg_w = tt.RenderConfig(**dict(small, backend="wavefront_fused"),
                                 enable_photons=False, **presets[label])
@@ -1733,18 +1696,7 @@ def spawn_phases(dev, report, gpu) -> dict:
     ref = tt.RenderConfig(backend="pallas", **big)
     cam0 = cornell_camera(ref)
     planes = state_to_planes(tt.init_state(ref))
-    pk, pp = planes.clone(), planes.clone()
-    rk1 = int(mega_step.step_call(scene, cfg, cam, pk, 1234, 3, 1.5, 30))
-    t0 = time.perf_counter()
-    rp1 = int(integrate.render_plain(fs, cfg, cam, pp, 1234, 1, 3, 1.5, 30))
-    plain_step = (time.perf_counter() - t0) * 1e3
-    bad = unequal_planes(pk, pp)
-    print(f"[spawn] qmc+lens+shutter tile-sync kernel 1080p sample 3: rays "
-          f"{rk1} vs plain {rp1}, unequal planes {bad}")
-    if rk1 != rp1 or bad:
-        raise AssertionError("the tile-sync kernel differs from "
-                             "render_plain under qmc, the lens and the "
-                             "shutter")
+    rk1, plain_step = step_vs_plain("spawn", scene, cfg, cam, 3, 1.5)
 
     # each launch at 1080p beside the same launch without the flags
     ms = {}
@@ -1772,7 +1724,7 @@ def spawn_phases(dev, report, gpu) -> dict:
             scene, cfg, cam, planes.clone(), 1234, 3, 1.5, 30),
             "regen_spawn_kernel", lambda: mega_step.step_call(
                 scene, ref, cam0, planes.clone(), 1234, 3, 1.5, 30),
-            "step_kernel"), **path_bound(cfg.n_pixels, rp1))
+            "step_kernel"), **path_bound(cfg.n_pixels, rk1))
     st0 = tt.init_state(cfg_w)
     ref_w = ref.with_(backend="wavefront_fused", enable_photons=False)
     print("[spawn] fused kernel 1080p 1 spp, qmc+lens+shutter:")
@@ -1822,6 +1774,270 @@ def spawn_phases(dev, report, gpu) -> dict:
     launches.update(drive("spawn", scene, cfg_p, cam, 1,
                           ["wf_sweep_spawn", "blit"], gpu))
     launches.pop("blit")
+    return launches
+
+
+def step_vs_plain(tag, scene, cfg, cam, it: int, radius: float,
+                  state=None):
+    """[tag] one tile-sync launch (sample ``it`` at ``radius``, on the
+    planes of ``state``, a fresh state by default) against render_plain
+    with one sample, every plane bit for bit. Returns (rays, plain ms)."""
+    import tpurt_torch as tt
+    from tpurt_torch import integrate
+    from tpurt_torch.kernels import mega_step
+    from tpurt_torch.render import state_to_planes
+    from tpurt_torch.scene import freeze_scene
+    planes = state_to_planes(tt.init_state(cfg) if state is None else state)
+    pk, pp = planes.clone(), planes.clone()
+    rk = int(mega_step.step_call(scene, cfg, cam, pk, 1234, it, radius,
+                                 cfg.depth))
+    t0 = time.perf_counter()
+    rp = int(integrate.render_plain(freeze_scene(scene), cfg, cam, pp, 1234,
+                                    1, it, radius, cfg.depth))
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bad = unequal_planes(pk, pp)
+    print(f"[{tag}] tile-sync kernel {cfg.width}x{cfg.height} depth "
+          f"{cfg.depth} sample {it}: rays {rk} vs plain {rp}, unequal planes "
+          f"{bad}")
+    if rk != rp or bad:
+        raise AssertionError(f"{tag}: the tile-sync kernel differs from "
+                             f"render_plain")
+    return rk, plain_ms
+
+
+def budget_vs_plain(tag, scene, cfg, cam, dev, hi: int = 2):
+    """[tag] one budget launch of the regen kernel (budgets 0-hi after one
+    uniform sample) against render_plain_budget, every plane bit for bit.
+    Returns (rays, kernel ms by CUDA events, plain ms)."""
+    import tpurt_torch as tt
+    from tpurt_torch import integrate
+    from tpurt_torch.kernels import mega_regen
+    from tpurt_torch.render import state_to_planes
+    from tpurt_torch.scene import freeze_scene
+    st1 = tt.render(scene, cfg, cam, tt.init_state(cfg), 1234, 1)
+    b = budget_map(st1.n_samples.shape[0], cfg.n_pixels, hi, 5, dev)
+    pl = state_to_planes(st1)
+    bk, bp = pl.clone(), pl.clone()
+    rk = int(mega_regen.regen_budget_call(scene, cfg, cam, bk, 1234, b,
+                                          st1.n_samples))
+    t0 = time.perf_counter()
+    rp = int(integrate.render_plain_budget(freeze_scene(scene), cfg, cam, bp,
+                                           1234, b, st1.n_samples))
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bad = unequal_planes(bk, bp)
+    print(f"[{tag}] regen budget launch {cfg.width}x{cfg.height} depth "
+          f"{cfg.depth}, budgets 0-{hi} after 1 spp: rays {rk} vs plain "
+          f"{rp}, unequal planes {bad}")
+    if rk != rp or bad:
+        raise AssertionError(f"{tag}: the regen kernel's budget mode differs "
+                             f"from render_plain_budget")
+    ms = cuda_ms(lambda: mega_regen.regen_budget_call(
+        scene, cfg, cam, pl.clone(), 1234, b, st1.n_samples), 3)
+    return rk, ms, plain_ms
+
+
+def adaptive_path(tag, scene, cfg, cam, kernels, gpu, spp: int = 4) -> dict:
+    """[tag] render_adaptive(backend="pallas") through the public entry
+    points, ``spp`` samples, pilot 2, with the launch counts of ``kernels``
+    set to 0 just before and read just after; checks the sample counts,
+    the image and that each kernel launched. Returns the counts."""
+    import tpurt_torch as tt
+    zero_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, budgets = tt.render_adaptive(scene, cfg, cam, base_seed=1234,
+                                     spp=spp, pilot_spp=2)
+    img = tt.resolve_image(cfg, st)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    n = cfg.n_pixels
+    ok = bool((st.n_samples[:n] == 2 + budgets[:n].float()).all())
+    print(f"[{tag}] render_adaptive pallas {cfg.width}x{cfg.height} depth "
+          f"{cfg.depth}, spp {spp} pilot 2: {secs:.3f} s, rays "
+          f"{int(st.rays)}, {int(st.rays) / secs / 1e6:.1f} Mrays/s, "
+          f"budgets mean {float(budgets[:n].float().mean()):.3f} max "
+          f"{int(budgets[:n].max())}, n_samples = 2 + budget: {ok}, "
+          f"launches {launches} | {gpu}")
+    if not ok or not bool(torch.isfinite(img).all()) \
+            or min(launches.values()) < 1:
+        raise AssertionError(f"{tag}: render_adaptive (pallas) failed")
+    return launches
+
+
+def lights_phases(dev, report, gpu) -> dict:
+    """[lights] the lights instances with tpurt's many-light NEE
+    (light_sample "power" and "spatial": one light a diffuse hit, chosen by
+    power) on tpurt's many-light scene with 20 lights (rows staged in
+    shared memory) and 128 (rows read from global memory), bench config
+    1's photons (K 4). At 256x144, depth 8, for both scenes: the regen
+    kernel under both modes against render_plain, the tile-sync kernel
+    and a budget launch against their plain versions, every plane bit for
+    bit; with photons off the fused kernel against the regen kernel bit
+    for bit and the fused and wavefront_pallas backends against the plain
+    pool, one sweep against wavefront._step bit for bit. At 1080p, depth
+    30 (the main path's shapes): the regen kernel (20 lights "spatial",
+    128 "power"), the tile-sync kernel, a budget launch, the fused kernel
+    and one sweep the same way; every 1080p regen launch's segments and
+    device ms beside the same launch with "all"; then the main paths,
+    render_adaptive among them."""
+    import tpurt_torch as tt
+    from tpurt_torch import wavefront
+    from tpurt_torch.kernels import mega_regen, mega_step, wavefront_fused
+    from tpurt_torch.render import state_to_planes
+    from tpurt_torch.scene import freeze_scene
+    scenes = {n: tt.many_light_scene(n) for n in (20, 128)}
+
+    small = dict(width=256, height=144, depth=8, backend="pallas",
+                 wf_pool=16384)
+    for n, sc in scenes.items():
+        fs = freeze_scene(sc)
+        for mode in ("power", "spatial"):
+            cfg = tt.RenderConfig(**small, light_sample=mode)
+            regen_vs_plain(f"{n} lights {mode}", sc, cfg, cornell_camera(cfg),
+                           1234, 2, 3, phase="lights")
+        cfg = tt.RenderConfig(**small, light_sample="spatial" if n == 20
+                              else "power")
+        cam = cornell_camera(cfg)
+        step_vs_plain("lights", sc, cfg, cam, 3, 1.5)
+        budget_vs_plain("lights", sc, cfg, cam, dev)
+        cfg_w = cfg.with_(backend="wavefront_fused", enable_photons=False)
+        print(f"[lights] {n} lights {cfg.light_sample} wavefront_fused and "
+              f"wavefront_pallas vs wavefront, 256x144:")
+        pool_pair(sc, cfg_w, cam, "wavefront_fused", 2)
+        pool_pair(sc, cfg_w, cam, "wavefront_pallas", 2)
+        fused_equals_regen(sc, cfg_w, cam, 2)
+        sweep_vs_step("lights", fs, cfg_w, wavefront.PoolWork(
+            camera=cam, base_seed=1234, spp=1, n_valid=cfg_w.n_pixels), dev,
+            "tpurt::Lights>")
+
+    # 1080p, depth 30: the main path's shapes
+    big = dict(width=1920, height=1080, depth=30, wf_pool=262144)
+    sc20, sc128 = scenes[20], scenes[128]
+    cfg = tt.RenderConfig(backend="pallas", light_sample="spatial", **big)
+    cam = cornell_camera(cfg)
+    rk, _, p_s = regen_vs_plain("20 lights spatial", sc20, cfg, cam, 1234, 1,
+                                0, phase="lights")
+    regen_vs_plain("128 lights power", sc128, cfg.with_(light_sample="power"),
+                   cam, 1234, 1, 0, phase="lights")
+    c_pow = cfg.with_(light_sample="power")
+    rk1, plain_step = step_vs_plain("lights", sc20, c_pow, cam, 3, 1.5)
+    rb, b_ms, b_plain = budget_vs_plain("lights", sc20, cfg, cam, dev)
+    cfg_w = cfg.with_(backend="wavefront_fused", enable_photons=False)
+    fused_equals_regen(sc20, cfg_w, cam, 1)
+    report["wf_sweep_lights"] = sweep_vs_step(
+        "lights", freeze_scene(sc128), cfg_w, wavefront.PoolWork(
+            camera=cam, base_seed=1234, spp=1, n_valid=cfg.n_pixels), dev,
+        "tpurt::Lights>")
+
+    # each 1080p launch's segments and device ms beside mode "all"
+    planes = state_to_planes(tt.init_state(cfg))
+    regen = lambda sc, c: lambda: mega_regen.regen_call(  # noqa: E731
+        sc, c, cam, planes.clone(), 1234, 1, 0, 2.0, 30)
+    ms = {}
+    for n, sc in scenes.items():
+        segs = {m: int(regen(sc, cfg.with_(light_sample=m))())
+                for m in ("all", "power", "spatial")}
+        print(f"[lights] regen kernel 1080p 1 spp, {n} lights, segments: "
+              + ", ".join(f"{m} {v}" for m, v in segs.items()))
+        for i, mode in enumerate(("spatial", "power")):
+            print(f"[lights] regen kernel 1080p 1 spp, {n} lights {mode}:")
+            ms[n, mode] = launch_times(
+                mode, regen(sc, cfg.with_(light_sample=mode)),
+                "regen_lights_kernel",
+                regen(sc, cfg.with_(light_sample="all")) if i == 0 else None,
+                "regen_kernel")
+    report["regen_lights"] = dict(
+        max_abs_err=0.0, ms=ms[20, "spatial"], ms_power=ms[20, "power"],
+        ms_128_spatial=ms[128, "spatial"], ms_128_power=ms[128, "power"],
+        plain_ms=p_s * 1e3, **path_bound(cfg.n_pixels, rk))
+    report["regen_lights_budget"] = dict(
+        max_abs_err=0.0, ms=b_ms, plain_ms=b_plain,
+        **path_bound(cfg.n_pixels, rb, 3 * 4 * cfg.n_pixels))
+    print("[lights] tile-sync kernel 1080p sample 3, 20 lights power:")
+    report["tile_sync_lights"] = dict(
+        max_abs_err=0.0, plain_ms=plain_step,
+        ms=launch_times("power", lambda: mega_step.step_call(
+            sc20, c_pow, cam, planes.clone(), 1234, 3, 1.5, 30),
+            "regen_lights_kernel", lambda: mega_step.step_call(
+                sc20, c_pow.with_(light_sample="all"), cam, planes.clone(),
+                1234, 3, 1.5, 30), "step_kernel"),
+        **path_bound(cfg.n_pixels, rk1))
+    st0 = tt.init_state(cfg_w)
+    print("[lights] fused kernel 1080p 1 spp, 20 lights spatial:")
+    f_ms = launch_times("spatial", lambda: wavefront_fused._launch(
+        sc20, cfg_w, cam, st0, 1234, 1), "fused_lights_kernel",
+        lambda: wavefront_fused._launch(
+            sc20, cfg_w.with_(light_sample="all"), cam, st0, 1234, 1),
+        "fused_kernel")
+    err, rays = pool_pair(sc20, cfg_w, cam, "wavefront_fused", 1)
+    report["wf_fused_lights"] = dict(
+        max_abs_err=err, ms=f_ms,
+        plain_ms=cuda_ms(lambda: wavefront.wavefront_render(
+            sc20, cfg_w, cam, st0, 1234, 1), 1),
+        **bound(cfg.n_pixels * 12 * 2, rays * OPS_PER_SEGMENT))
+    cfg_p = cfg_w.with_(backend="wavefront_pallas")
+    print("[lights] wavefront_pallas render 1080p 1 spp, 20 lights spatial:")
+    pool_pair(sc20, cfg_w, cam, "wavefront_pallas", 1)
+    launch_times(
+        "spatial", lambda: tt.render(sc20, cfg_p, cam, tt.init_state(cfg_p),
+                                     1234, 1), "tpurt::Lights>",
+        lambda: tt.render(sc20, cfg_p.with_(light_sample="all"), cam,
+                          tt.init_state(cfg_p), 1234, 1), "pool_step_kernel")
+
+    # the main paths through the public entry points
+    launches = {}
+    launches.update(drive("lights", sc20, cfg, cam, 1,
+                          ["regen_lights", "blit"], gpu))
+    launches.update(drive("lights", sc20, c_pow.with_(pallas_regen=False),
+                          cam, 1, ["tile_sync_lights", "blit"], gpu))
+    launches.update(drive("lights", sc20, cfg_w, cam, 1,
+                          ["wf_fused_lights", "blit"], gpu))
+    launches.update(drive("lights", sc128, cfg_p, cam, 1,
+                          ["wf_sweep_lights", "blit"], gpu))
+    got = adaptive_path("lights", sc20, cfg, cam,
+                        ["regen_lights", "regen_budget"], gpu)
+    launches["regen_lights_budget"] = got["regen_budget"]
+    launches.pop("blit")
+    return launches
+
+
+def aim_phases(dev, report, gpu) -> dict:
+    """[aim] tpurt's aimed photon emission (photon_aim 0.5: an area light's
+    photon aims at the pixel's vispoint half the time) in the regen
+    kernel's lights instance, on Cornell at 1080p, depth 30, K 4: a
+    uniform launch from iteration 2 and a budget launch (budgets 0-2)
+    against render_plain and render_plain_budget, every plane bit for
+    bit; the launch's device ms beside photon_aim 0; then the main path
+    and render_adaptive."""
+    import tpurt_torch as tt
+    from tpurt_torch.kernels import mega_regen
+    from tpurt_torch.render import radius_after, state_to_planes
+    scene = tt.cornell_spheres_scene()
+    cfg = tt.RenderConfig(width=1920, height=1080, depth=30, backend="pallas",
+                          photon_aim=0.5)
+    cam = cornell_camera(cfg)
+    rk, _, p_s = regen_vs_plain("photon_aim 0.5", scene, cfg, cam, 1234, 1,
+                                2, phase="aim")
+    rb, b_ms, b_plain = budget_vs_plain("aim", scene, cfg, cam, dev)
+    planes = state_to_planes(tt.init_state(cfg))
+    r2 = radius_after(cfg, 0, cfg.photon_radius_init, 2)
+    regen = lambda c: lambda: mega_regen.regen_call(  # noqa: E731
+        scene, c, cam, planes.clone(), 1234, 1, 2, r2, 30)
+    segs = {q: int(regen(cfg.with_(photon_aim=q))()) for q in (0.0, 0.5)}
+    print(f"[aim] regen kernel 1080p 1 spp from iteration 2, segments: "
+          f"photon_aim 0 {segs[0.0]}, 0.5 {segs[0.5]}")
+    ms = launch_times("photon_aim 0.5", regen(cfg), "regen_lights_kernel",
+                      regen(cfg.with_(photon_aim=0.0)), "regen_kernel")
+    report["regen_aim"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=p_s * 1e3, ms_budget=b_ms,
+        plain_ms_budget=b_plain, **path_bound(cfg.n_pixels, rk))
+    launches = {"regen_aim": drive("aim", scene, cfg, cam, 1,
+                                   ["regen_lights", "blit"],
+                                   gpu)["regen_lights"]}
+    launches["regen_aim"] = min(launches["regen_aim"], adaptive_path(
+        "aim", scene, cfg, cam, ["regen_lights", "regen_budget"],
+        gpu)["regen_lights"])
     return launches
 
 

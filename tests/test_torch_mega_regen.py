@@ -300,7 +300,8 @@ def test_mixed_scene_backends_agree():
 
 def test_flags_outside_the_slice_raise():
     cam = tt.make_camera(**CAM, aspect_ratio=2.0)
-    for kw in (dict(photon_aim=0.5), dict(light_sample="power"),
+    for kw in (dict(pallas_regen=False, photon_aim=0.5),
+               dict(light_sample="power", count_iters=True),
                dict(count_iters=True), dict(count_walk_stats=True)):
         cfg = tt.RenderConfig(width=16, height=8, backend="pallas", **kw)
         with pytest.raises(NotImplementedError):

@@ -127,17 +127,22 @@ def test_make_camera_equal(args):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(backend="wavefront", count_iters=True), dict(photon_aim=0.5),
-    dict(backend="xla", photon_aim_widen=4.0),
-    dict(backend="pallas", photon_aim=0.25), dict(light_sample="power"),
-    dict(backend="pallas", light_sample="power"),
+    dict(backend="wavefront", count_iters=True),
+    dict(backend="wavefront", photon_aim=0.5),
+    dict(backend="wavefront_pallas", photon_aim=0.5, photon_aim_widen=4.0),
+    dict(backend="pallas", pallas_regen=False, photon_aim=0.25),
+    dict(backend="xla", light_sample="power", count_iters=True),
+    dict(backend="pallas", light_sample="power", count_walk_stats=True),
     dict(count_walk_stats=True),
-    dict(backend="wavefront_fused", light_sample="spatial"),
-    dict(backend="pallas", photon_aim_widen=2.0),
+    dict(backend="wavefront_fused", light_sample="spatial", photon_aim=0.1),
+    dict(backend="pallas", photon_aim_widen=2.0, count_iters=True),
     dict(count_iters=True),
     dict(backend="wavefront_pallas", count_walk_stats=True),
 ])
 def test_flags_outside_the_slice_raise(kw):
+    """Knobs the port does not run (the counters), and photon_aim where
+    tpurt has no aim either (the wavefront tracers, the tile-sync
+    kernel)."""
     with pytest.raises(NotImplementedError):
         check_slice(tt.RenderConfig(**kw))
 
@@ -159,7 +164,10 @@ def test_slice_and_scheduling_flags_accepted():
         camera_strata_bounce=True, sky_gradient=True, sky_intensity=0.2,
         sky_color=(1.0, 0.5, 0.25), sky_temp=6500.0, radiance_clamp=20.0,
         aperture=0.1, focus_dist=12.0, motion_blur=True, qmc=True,
-        photon_rr_scale=0.5))
+        photon_rr_scale=0.5, light_sample="spatial", photon_aim_widen=2.0))
+    for backend in ("xla", "pallas"):
+        check_slice(tt.RenderConfig(backend=backend, photon_aim=0.5,
+                                    light_sample="power"))
 
 
 def test_import_leaves_jax_out():

@@ -146,6 +146,9 @@ _SLICE_FIELDS = frozenset({
     # shutter with a MotionCamera, the Sobol spawn draws) and the photon
     # walks' roulette thinning
     "aperture", "focus_dist", "motion_blur", "qmc", "photon_rr_scale",
+    # many-light NEE on every backend; aimed photon emission where tpurt
+    # has it (the XLA twin and the regen kernel, check_slice)
+    "light_sample", "photon_aim", "photon_aim_widen",
 })
 
 # Knobs tpurt documents as scheduling-only (bit-identical results): the
@@ -166,7 +169,11 @@ _BACKENDS = ("xla", "pallas", "wavefront", "wavefront_pallas",
 
 
 def check_slice(cfg: RenderConfig) -> None:
-    """Raise NotImplementedError naming the first knob outside the slice."""
+    """Raise NotImplementedError naming the first knob outside the slice,
+    and tpurt's errors for bad values (``tpurt.render._check_camera_kind``
+    and the checks beside it), with its exception types and messages:
+    photon_aim runs in the XLA twin and the regen kernel only, as in
+    tpurt."""
     default = RenderConfig()
     for f in dataclasses.fields(RenderConfig):
         if f.name in _SLICE_FIELDS or f.name in _SCHEDULING_FIELDS:
@@ -180,6 +187,23 @@ def check_slice(cfg: RenderConfig) -> None:
         raise NotImplementedError(
             f"RenderConfig.backend={cfg.backend!r} is not ported to "
             f"tpurt_torch yet (ported: {_BACKENDS})")
+    if cfg.light_sample not in ("all", "power", "spatial"):
+        raise ValueError(f"cfg.light_sample must be 'all', 'power' or "
+                         f"'spatial', got {cfg.light_sample!r}")
+    if not 0.0 <= cfg.photon_aim < 1.0:
+        # q = 1 would drop the cosine component of the emission mixture
+        raise ValueError(f"cfg.photon_aim must be in [0, 1), got "
+                         f"{cfg.photon_aim!r}")
+    if cfg.photon_aim > 0.0 and not cfg.photon_aim_widen > 0.0:
+        raise ValueError(f"cfg.photon_aim_widen must be > 0 when "
+                         f"photon_aim > 0, got {cfg.photon_aim_widen!r}")
+    if cfg.photon_aim > 0.0 and (
+            cfg.backend.startswith("wavefront")
+            or (cfg.backend == "pallas" and not cfg.pallas_regen)):
+        raise NotImplementedError(
+            "cfg.photon_aim is implemented in the XLA integrator and the "
+            "regenerative megakernel only — use backend='xla' or "
+            "backend='pallas' (pallas_regen=True, the default)")
     if not 0.0 < cfg.photon_rr_scale <= 1.0:
         # above 1 the reweight would divide by more than the survival
         # probability, which u_rr < 1 caps: darker photons, not longer walks

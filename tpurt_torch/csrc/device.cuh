@@ -34,6 +34,10 @@ enum LightField {
   L_AREA_SCALE = 7, L_NORMAL = 8, L_TANGENT = 11, L_BITANGENT = 14,
   L_CONE_AXIS = 17, L_CONE_T = 20, L_CONE_B = 23, L_EM_SCALE = 26,
   L_PH_ORIGIN = 29, L_PH_POWER = 32,
+  // the light's weight in light_sample "power" (the lights instances):
+  // f32 intensity * f32(f32(4 hw) hw) for an area light, the intensity
+  // for a point (tpurt/ops/sampling.py light_powers)
+  L_SEL_POWER = 35,
 };
 
 __device__ __forceinline__ float kEPS() { return F(1e-5); }
@@ -164,6 +168,22 @@ struct Spawn {
   float rr_scale;   // photon lanes survive with min(prob, 1) * rr_scale
   float dcam[12];   // shutter close minus open: origin, h, v, lower_left
   const uint32_t* sobol;  // (qmc.N_DIMS, 32) direction numbers, on the device
+};
+
+// ----- tpurt's many-light NEE and aimed photon emission -----
+// (light_sample, photon_aim, photon_aim_widen)
+
+// The switches of the lights instances, filled by
+// tpurt_torch/kernels/mega_regen.py:lights_args: how next-event estimation
+// picks its lights and whether photons aim. A launch without them passes
+// none and runs an instance that has no code for them.
+struct Lights {
+  int mode;     // 0: every light ("all"); 1 "power", 2 "spatial": one
+                // light a hit, in proportion to L_SEL_POWER (2: over the
+                // squared distance to the light's centre)
+  float q;      // photon_aim: an area light's photon aims at the pixel's
+                // vispoint with probability q (0: off)
+  float widen;  // photon_aim_widen: the aim cone subtends widen * radius
 };
 
 constexpr uint32_t QMC_SALT = 0x5173B0C1u;

@@ -5,7 +5,8 @@
 // Replaces tpurt's TPU kernel tpurt/kernels/mega_regen.py:
 // _make_regen_kernel (launched by regen_call), in both of its modes, with
 // the device functions it inlines from tpurt/kernels/mega_pallas.py for
-// sphere and mesh scenes: the sphere sweeps, nee_direct_c (mode "all"),
+// sphere and mesh scenes: the sphere sweeps, nee_direct_c (mode "all";
+// the others in path_lights.cu),
 // scatter_rr_c, _diffuse_scatter_c, _scatter_dielectric_c,
 // _scatter_metal_c, _evaluate_bsdf_c and _single_lambda_em_c, the hero
 // lookup hero_em_lookup_c, tpurt's strata remaps (tpurt/ops/rng.py), and
@@ -32,7 +33,10 @@
 // passes `emission` (not null); tpurt's camera-spawn extensions (thin
 // lens, shutter, Sobol spawn draws) and the photon roulette scale in the
 // spawn instances of path_spawn.cu, which a launch takes when it passes
-// `spawn`, with or without emission.
+// `spawn`, with or without emission; tpurt's many-light NEE (light_sample
+// "power", "spatial") and aimed photon emission (photon_aim) in the lights
+// instances of path_lights.cu, which a launch takes when it passes
+// `lights`, with or without the others.
 //
 // Uniform mode: every pixel takes `spp` samples from iteration `it0` and
 // radius `radius0`. Budget mode (`aux` not null, tpurt's budget_mode, for
@@ -102,13 +106,18 @@ extern "C" int tpurt_regen_launch(float* planes, long long P, int width,
                                   unsigned long long* counters,
                                   const float* cie,
                                   const tpurt::Emission* emission,
-                                  const tpurt::Spawn* spawn, void* stream) {
+                                  const tpurt::Spawn* spawn,
+                                  const tpurt::Lights* lights, void* stream) {
   using namespace tpurt;
   const SampleConsts c = {P, width, height, depth, k_photons,
                           max_photon_bounces, rr_thresh, photon_rr_thresh,
                           sppm_alpha, seed, spp, it0, radius0, aux,
                           /*lockstep=*/aux == nullptr};
   const int staged = staged_floats(n_sph, n_mat, n_light);
+  if (lights)
+    return launch_lights(planes, table, cie, staged, n_sph, n_mat, n_light,
+                         c, *sampler, emission, spawn, *lights, *geom,
+                         counters, static_cast<cudaStream_t>(stream));
   if (spawn)
     return launch_spawn(planes, table, cie, staged, n_sph, n_mat, n_light, c,
                         *sampler, emission, *spawn, *geom, counters,

@@ -52,7 +52,8 @@ extern "C" int tpurt_step_launch(float* planes, long long P, int width,
                                  unsigned long long* counters,
                                  const float* cie,
                                  const tpurt::Emission* emission,
-                                 const tpurt::Spawn* spawn, void* stream) {
+                                 const tpurt::Spawn* spawn,
+                                 const tpurt::Lights* lights, void* stream) {
   using namespace tpurt;
   // one sample: the radius step after it is the host's
   const SampleConsts c = {P, width, height, depth, k_photons,
@@ -60,6 +61,10 @@ extern "C" int tpurt_step_launch(float* planes, long long P, int width,
                           0.0f, seed, 1, iteration, radius, nullptr,
                           /*lockstep=*/true};
   const int staged = staged_floats(n_sph, n_mat, n_light);
+  if (lights)  // the lights instances of path_lights.cu, one sample
+    return launch_lights(planes, table, cie, staged, n_sph, n_mat, n_light,
+                         c, *sampler, emission, spawn, *lights, *geom,
+                         counters, static_cast<cudaStream_t>(stream));
   if (spawn)  // the spawn instances of path_spawn.cu, one sample
     return launch_spawn(planes, table, cie, staged, n_sph, n_mat, n_light, c,
                         *sampler, emission, *spawn, *geom, counters,

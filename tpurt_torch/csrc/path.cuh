@@ -3,15 +3,17 @@
 // shadow factor (spheres and triangles, flat or through the BVH walks of
 // bvh.cuh), the camera spawn, per-light emission at one wavelength or
 // hero-averaged, the sky's and the emissive materials' emission,
-// next-event estimation over every light, the BSDF scatters with Russian
-// roulette and tpurt's strata cells, the photon-gather BSDF, and the
-// samples of a launch's pixels (run_pixels), the body of the regen,
-// tile-sync and fused wavefront kernels.
+// next-event estimation over every light or over one light chosen by
+// power, the BSDF scatters with Russian roulette and tpurt's strata cells,
+// the photon emission (aimed at the vispoint under photon_aim), the
+// photon-gather BSDF, and the samples of a launch's pixels (run_pixels),
+// the body of the regen, tile-sync and fused wavefront kernels.
 //
 // Ported from tpurt's component-form kernel code in
-// tpurt/kernels/mega_pallas.py (nee_direct_c, scatter_rr_c,
-// _diffuse_scatter_c, _scatter_dielectric_c, _scatter_metal_c,
-// _evaluate_bsdf_c, _single_lambda_em_c), in the op order of their plain
+// tpurt/kernels/mega_pallas.py (nee_direct_c, _nee_direct_power_c,
+// scatter_rr_c, _diffuse_scatter_c, _scatter_dielectric_c,
+// _scatter_metal_c, _evaluate_bsdf_c, _single_lambda_em_c), the aimed
+// emission of tpurt/kernels/mega_regen.py, in the op order of their plain
 // PyTorch twins in tpurt_torch/integrate.py, so that every kernel draws
 // the same PCG streams and takes the same branches as its plain version.
 #pragma once
@@ -449,6 +451,22 @@ __device__ __forceinline__ const Spawn& spawn_of(const Emission&,
                                                  const Spawn& X) {
   return X;
 }
+// The lights instances pass a Lights after the Spawn.
+__device__ __forceinline__ const Emission& emission(const Emission& E,
+                                                    const Spawn&,
+                                                    const Lights&) {
+  return E;
+}
+__device__ __forceinline__ const Spawn& spawn_of(const Emission&,
+                                                 const Spawn& X,
+                                                 const Lights&) {
+  return X;
+}
+__device__ __forceinline__ const Lights& lights_of(const Emission&,
+                                                   const Spawn&,
+                                                   const Lights& Lt) {
+  return Lt;
+}
 
 // A sample's radiance as it is added to the image: capped channel by
 // channel at E.clamp when it is on (a NaN stays NaN).
@@ -597,6 +615,132 @@ __device__ __forceinline__ bool shade_camera_hit(
                     o, d, tp, cell_ndir, cell_key);
 }
 
+// Light row L's weight in the lights instances' selection: L_SEL_POWER,
+// in mode "spatial" over max(d^2, 1e-4), d the distance from loc to the
+// light's centre; floored at 1e-20 (tpurt/ops/sampling.py
+// select_from_powers, the spatial heuristic of _nee_direct_power_c).
+__device__ __forceinline__ float select_power(const float* L, int mode,
+                                              V3 loc) {
+  float p = L[L_SEL_POWER];
+  if (mode == 2) {
+    const float dx = L[L_POS] - loc.x;
+    const float dy = L[L_POS + 1] - loc.y;
+    const float dz = L[L_POS + 2] - loc.z;
+    p = p / fmaxf(dx * dx + dy * dy + dz * dz, F(1e-4));
+  }
+  return fmaxf(p, F(1e-20));
+}
+
+// Next-event estimation with one light a hit (modes "power" and
+// "spatial", tpurt's _nee_direct_power_c): 3 draws whatever the surface,
+// u_sel then the light sample's pair; at a diffuse hit the light whose
+// bucket holds u_sel * total (two passes over the rows: the running
+// total, then the first running total above it, the last bucket open), its
+// sample point, one shadow segment and its emission weighed by 1/pmf =
+// total / p: em * geom * atten * inv_pdf * inv_pmf / dist^2. The plain
+// version is tpurt_torch/integrate.py _nee_select. Needs a light.
+template <bool SAMPLER>
+__device__ __forceinline__ V3 nee_select(const Params& P, const Sampler& S,
+                                         int mode, bool hero, const Hit& h,
+                                         bool diffuse, float lam,
+                                         uint32_t& rng) {
+  const float u_sel = rand_1f(rng);
+  const float u1 = rand_1f(rng);
+  const float u2 = rand_1f(rng);
+  if (!diffuse) return v3(0.0f, 0.0f, 0.0f);
+  const float* rows = P.light();
+  const int n = P.n_light;
+  float tot = 0.0f;
+  for (int li = 0; li < n; ++li)
+    tot += select_power(rows + li * LIGHT_STRIDE, mode, h.loc);
+  const float r = u_sel * tot;
+  int sel = n - 1;
+  float p_sel = 0.0f, cdf = 0.0f;
+  bool found = false;
+  for (int li = 0; li < n - 1; ++li) {
+    const float p = select_power(rows + li * LIGHT_STRIDE, mode, h.loc);
+    cdf += p;
+    if (r < cdf) {
+      sel = li;
+      p_sel = p;
+      found = true;
+      break;
+    }
+  }
+  if (!found) p_sel = select_power(rows + sel * LIGHT_STRIDE, mode, h.loc);
+  const float inv_pmf = tot / p_sel;
+  const float* L = rows + sel * LIGHT_STRIDE;
+  const bool area = (int)L[L_TYPE] == 1;
+  V3 lp = load3(L + L_POS);
+  if (area) {
+    const float su = (u1 - 0.5f) * L[L_TWO_HW];
+    const float sv = (u2 - 0.5f) * L[L_TWO_HW];
+    lp = v3(lp.x + su * L[L_TANGENT] + sv * L[L_BITANGENT],
+            lp.y + su * L[L_TANGENT + 1] + sv * L[L_BITANGENT + 1],
+            lp.z + su * L[L_TANGENT + 2] + sv * L[L_BITANGENT + 2]);
+  }
+  const V3 to_light = vsub(lp, h.loc);
+  const float dist = sqrtf(fmaxf(vdot(to_light, to_light), F(1e-30)));
+  const V3 ldir = vscale(to_light, 1.0f / dist);
+  const float ndotl = vdot(h.n, ldir);
+  const float cos_light =
+      fmaxf(-(L[L_NORMAL] * ldir.x + L[L_NORMAL + 1] * ldir.y +
+              L[L_NORMAL + 2] * ldir.z),
+            0.0f);
+  const float hw = L[L_HW];
+  if (!(dist >= kEPS() && ndotl > 0.0f &&
+        (!area || (cos_light > 0.0f && hw > 0.0f))))
+    return v3(0.0f, 0.0f, 0.0f);
+  const float inv_pdf = area ? fmaxf(4.0f * hw * hw, F(1e-10)) : 1.0f;
+  const float geom = ndotl * (area ? cos_light : 1.0f);
+  const V3 so = vadd(h.loc, vscale(h.n, kEPS()));
+  const float atten = scene_shadow(P.sph(), P.n_sph, P.geom, P.stack, so,
+                                   ldir, dist - kEPS(), lam);
+  const float w = geom * atten * inv_pdf * inv_pmf / (dist * dist);
+  const V3 cie =
+      SAMPLER && hero ? v3(0.0f, 0.0f, 0.0f) : cie_to_rgb(P.cie(), lam);
+  return vscale(light_em<SAMPLER>(P, S, hero, sel, lam, cie), w);
+}
+
+// camera_direct in the lights instances: mode "all" (or no light) as
+// camera_direct; else nee_select, and at a diffuse hit one shadow segment.
+template <bool SAMPLER>
+__device__ __forceinline__ void camera_direct_sel(
+    const Params& P, const Sampler& S, const Lights& Lt, bool hero,
+    const Hit& h, float lam, V3 tp, uint32_t& rng, V3& rad,
+    unsigned long long& rays) {
+  if (Lt.mode == 0 || P.n_light == 0) {
+    camera_direct<SAMPLER>(P, S, hero, h, lam, tp, rng, rad, rays);
+    return;
+  }
+  const float* m = P.mat() + h.mat * MAT_STRIDE;
+  const bool diffuse = (int)m[5] == 0;
+  const V3 direct = nee_select<SAMPLER>(P, S, Lt.mode, hero, h, diffuse, lam,
+                                        rng);
+  if (diffuse) {
+    rad = vadd(rad, vmul(vmul(tp, load3(m)), direct));
+    rays += 1ull;
+  }
+}
+
+// shade_camera_hit in the lights instances.
+template <bool SAMPLER = false>
+__device__ __forceinline__ bool shade_camera_hit_sel(
+    const Params& P, const Sampler& S, const Lights& Lt, bool hero,
+    const Hit& h, V3 wo, float lam, float rr_thresh, uint32_t& rng, V3& o,
+    V3& d, V3& tp, V3& rad, unsigned long long& rays,
+    float eta_add = 0.0f) {
+  camera_direct_sel<SAMPLER>(P, S, Lt, hero, h, lam, tp, rng, rad, rays);
+  return scatter_rr(P, h.mat, wo, h.n, h.loc, eta_add, true, rr_thresh, rng,
+                    o, d, tp);
+}
+
+// The draws of next-event estimation at one camera hit in the lights
+// instances: 2 a light in mode "all", else 3 (none without a light).
+__device__ __forceinline__ int nee_draws(const Lights& Lt, int n_light) {
+  return Lt.mode == 0 ? 2 * n_light : (n_light > 0 ? 3 : 0);
+}
+
 // Photon k's emission from the light row L: the 7 emission draws (uc,
 // up1, one drawn and unused, ue1, ue2, uh1, uh2), the six used ones moved
 // into their stratum cell under photon strata; a point light emits into
@@ -648,6 +792,58 @@ __device__ __forceinline__ void emit_photon(const float* L, const Sampler& S,
                   z_ * L[L_NORMAL + 2]);
   }
   ph_tp = load3(L + L_PH_POWER);
+}
+
+// A direction in the cone of half-angle cosine cos_half about `axis`:
+// polar uc, azimuth u1 (tpurt/ops/soa.py cone_toward_c).
+__device__ __forceinline__ V3 cone_toward(V3 axis, float uc, float u1,
+                                          float cos_half) {
+  const V3 T = tangent_frame(axis);
+  const V3 B = vcross(axis, T);
+  const float ct = 1.0f - uc * (1.0f - cos_half);
+  const float st = sqrtf(fmaxf(1.0f - ct * ct, 0.0f));
+  const float phi = kTWO_PI() * u1;
+  return vadd(vadd(vscale(T, st * cosf(phi)), vscale(B, st * sinf(phi))),
+              vscale(axis, ct));
+}
+
+// p_cos / p_mix of the defensive emission mixture q * U(aim cone) +
+// (1 - q) * cos / pi about the light normal (tpurt/ops/soa.py
+// aim_mixture_weight_c, with its 1e-6 cone tolerance).
+__device__ __forceinline__ float aim_weight(V3 d, V3 lnorm, V3 axis,
+                                            float cos_a, float q) {
+  const float p_cos = fmaxf(vdot(d, lnorm), 0.0f) * kINV_PI();
+  const bool in_cone = vdot(d, axis) >= cos_a - F(1e-6);
+  const float p_aim =
+      in_cone ? 1.0f / (kTWO_PI() * fmaxf(1.0f - cos_a, F(1e-7))) : 0.0f;
+  const float denom = q * p_aim + (1.0f - q) * p_cos;
+  return denom > 0.0f ? p_cos / fmaxf(denom, F(1e-30)) : 0.0f;
+}
+
+// photon_aim after emit_photon (the lights instances, Lt.q > 0): 3 more
+// draws (choice, cone pair) whatever the light; an area light's photon
+// takes, with probability q, a direction of the cone from its origin
+// toward the pixel's vispoint `vpos` that subtends widen * radius
+// (tpurt/ops/soa.py aimed_cone_c, sine clamped to [0.02, 0.7071]), and
+// its throughput is weighed by aim_weight. Run only for a pixel whose
+// vispoint passed the |vpos| > 0.001 gate, so q is the lane's q.
+__device__ __forceinline__ void aim_photon(const float* L, const Lights& Lt,
+                                           V3 vpos, float radius,
+                                           uint32_t& prng, V3 ph_o, V3& ph_d,
+                                           V3& ph_tp) {
+  const float uch = rand_1f(prng);
+  const float ua = rand_1f(prng);
+  const float ub = rand_1f(prng);
+  if ((int)L[L_TYPE] != 1) return;
+  const V3 dv = vsub(vpos, ph_o);
+  const float dist = sqrtf(fmaxf(vdot(dv, dv), F(1e-12)));
+  const V3 axis = vscale(dv, 1.0f / dist);
+  const float sin_a =
+      fminf(fmaxf(Lt.widen * radius / dist, F(0.02)), F(0.7071));
+  const float cos_a = sqrtf(1.0f - sin_a * sin_a);
+  if (uch < Lt.q) ph_d = cone_toward(axis, ua, ub, cos_a);
+  ph_tp = vscale(ph_tp,
+                 aim_weight(ph_d, load3(L + L_NORMAL), axis, cos_a, Lt.q));
 }
 
 // The launch constants of the SPPM samples (run_pixels).
@@ -751,9 +947,10 @@ inline size_t run_pixels_smem(int staged, const Geom& g, int threads,
 // CAM: the camera-path instance of the fused wavefront kernel: no
 // vispoint, no photon phase, no radius; `planes` is then the (P, 3)
 // rgb_sum, row p at planes + 3p, budget-mode aux (2, P) budget and count.
-// `em`: the switches the sampler, emission and spawn instances pass: an
-// Emission (read with EMIT), and a Spawn after it in the spawn instances
-// (SPAWN: two switches).
+// `em`: the switches the sampler, emission, spawn and lights instances
+// pass: an Emission (read with EMIT), a Spawn after it in the spawn and
+// lights instances (SPAWN: two switches or more), and a Lights after that
+// in the lights instances (LIGHTS: three switches).
 // EMIT: the emission instances: a camera path that misses adds the sky
 // (add_sky); a camera path that hits an emissive material (type 3) adds
 // its emission and ends there, with no vispoint and no collapse; a photon
@@ -763,7 +960,10 @@ inline size_t run_pixels_smem(int staged, const Geom& g, int threads,
 // tpurt's shutter, lens and Sobol draws (spawn_camera_ext; the Sobol index
 // is the sample's iteration `it`, the pixel's base count plus its sample
 // in budget mode); photon lanes thin their roulette by the scale
-// (scatter_rr<true>).
+// (scatter_rr<true>). LIGHTS: the lights instances (their spawn switches
+// may be all off): next-event estimation by the Lights' mode
+// (camera_direct_sel: every light, or one light a hit chosen by power)
+// and, under photon_aim, the aimed photon emission (aim_photon).
 // Every thread of the block must call it; blockDim.x is a multiple of 32.
 template <bool SAMPLER, bool GLEAF, bool CAM = false, bool EMIT = false,
           class... Em>
@@ -859,6 +1059,11 @@ __device__ __forceinline__ void run_pixels(float* planes, const Params& prm,
         emit_photon(prm.light() + (k % prm.n_light) * LIGHT_STRIDE, S,
                     SAMPLER && S.n_pos > 0, strata_seed_of<SAMPLER>(c, S, it),
                     (uint32_t)k, rng, o, d, tp);
+        if constexpr (sizeof...(Em) == 3) {  // LIGHTS: photon_aim
+          if (lights_of(em...).q > 0.0f)
+            aim_photon(prm.light() + (k % prm.n_light) * LIGHT_STRIDE,
+                       lights_of(em...), vpos, radius, rng, o, d, tp);
+        }
         b = 0;
       } else if (c.lockstep && k < c.k_photons) {
         done = true;  // no vispoint: it sits out photon k with its warp
@@ -893,7 +1098,7 @@ __device__ __forceinline__ void run_pixels(float* planes, const Params& prm,
       const uint32_t px = (uint32_t)(idx % c.width);
       const uint32_t py = (uint32_t)(idx / c.width);
       rng = seed_pixels(frame_seed(c.base_seed, it), px, py);
-      if constexpr (sizeof...(Em) == 2)  // SPAWN
+      if constexpr (sizeof...(Em) >= 2)  // SPAWN
         spawn_camera_ext(prm.cam(), spawn_of(em...), c.base_seed, it, px, py,
                          c.width, c.height, rng, o, d, lam);
       else
@@ -950,8 +1155,13 @@ __device__ __forceinline__ void run_pixels(float* planes, const Params& prm,
         myvis[9 * vstride] = (float)h.mat;
         vp_stored = true;
       }
-      camera_direct<SAMPLER>(prm, S, SAMPLER && S.hero > 1 && !coll, h, lam,
-                             tp, rng, rad, rays);
+      if constexpr (sizeof...(Em) == 3)  // LIGHTS
+        camera_direct_sel<SAMPLER>(prm, S, lights_of(em...),
+                                   SAMPLER && S.hero > 1 && !coll, h, lam, tp,
+                                   rng, rad, rays);
+      else
+        camera_direct<SAMPLER>(prm, S, SAMPLER && S.hero > 1 && !coll, h,
+                               lam, tp, rng, rad, rays);
       // a dielectric steers the path by eta(lam): only the hero goes on
       if (SAMPLER && S.collapse && mtype == 1) coll = true;
     } else {
@@ -993,7 +1203,7 @@ __device__ __forceinline__ void run_pixels(float* planes, const Params& prm,
                        (uint32_t)b);
     }
     bool cont;
-    if constexpr (sizeof...(Em) == 2)  // SPAWN
+    if constexpr (sizeof...(Em) >= 2)  // SPAWN
       cont = scatter_rr<true>(
           prm, h.mat, wo, h.n, h.loc,
           camera ? (SAMPLER && S.disp_cam ? cauchy_add : 0.0f) : cauchy_add,
@@ -1174,9 +1384,28 @@ int launch_spawn(float* planes, const float* table, const float* cie,
                  const Spawn& X, const Geom& geom,
                  unsigned long long* counters, cudaStream_t stream);
 
+// One launch of the lights instances of the regen and tile-sync kernels
+// (path_lights.cu): with the sampler flags or emission (E not null) the
+// one with both, else the reference sampler's; the spawn switches X, all
+// off where null; the G leaf where geom.gmat is set.
+int launch_lights(float* planes, const float* table, const float* cie,
+                  int staged, int n_sph, int n_mat, int n_light,
+                  const SampleConsts& c, const Sampler& S, const Emission* E,
+                  const Spawn* X, const Lights& Lt, const Geom& geom,
+                  unsigned long long* counters, cudaStream_t stream);
+
 // The emission switches of a spawn launch without emission: all off.
 inline Emission emission_or_off(const Emission* E) {
   return E ? *E : Emission{};
+}
+
+// The spawn switches of a lights launch without them: all off (the
+// pinhole spawn from the PCG stream, the reference roulette).
+inline Spawn spawn_or_off(const Spawn* X) {
+  if (X) return *X;
+  Spawn off = {};
+  off.rr_scale = 1.0f;
+  return off;
 }
 
 }  // namespace tpurt

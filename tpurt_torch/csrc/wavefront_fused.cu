@@ -10,8 +10,9 @@
 // base_counts[p]), for sphere and mesh scenes, with tpurt's camera-path
 // sampler flags (hero wavelengths, camera-path dispersion), emission
 // (the sky or the legacy ramp on a miss, emissive materials, the
-// per-sample radiance clamp) and the camera-spawn extensions (thin lens,
-// shutter, Sobol spawn draws indexed by the sample's iteration). Its
+// per-sample radiance clamp), the camera-spawn extensions (thin lens,
+// shutter, Sobol spawn draws indexed by the sample's iteration) and the
+// many-light NEE modes (light_sample "power", "spatial"). Its
 // plain PyTorch versions are the pool renderers tpurt_torch/wavefront.py:
 // wavefront_render and tpurt_torch/adaptive.py:wavefront_render_budget,
 // which draw the same per-(pixel, sample) PCG streams, so ray counts are
@@ -19,19 +20,24 @@
 // summed (the pool adds them as paths finish).
 //
 // A sample: the frame seed (base_seed, sample iteration), the camera
-// spawn (2 jitter draws, 1 wavelength draw; in the spawn instances
-// path.cuh spawn_camera_ext's order), then up to `depth` bounces
-// (nearest hit, NEE over every light, scatter + Russian roulette). Camera
+// spawn (2 jitter draws, 1 wavelength draw; in the spawn and lights
+// instances path.cuh spawn_camera_ext's order), then up to `depth`
+// bounces (nearest hit, NEE over every light or, in the lights instances,
+// by their mode, scatter + Russian roulette). Camera
 // paths only: no vispoints, no photon pass.
 //
-// Five instances: fused_kernel, the reference sampler without emission
+// Seven instances: fused_kernel, the reference sampler without emission
 // (launches with neither, as bench config 5 ships, keep its machine code);
 // fused_sampler_kernel<EMIT>, with the sampler flags (the hero's averaged
 // emission until a dielectric collapses the path, the Cauchy IOR) and,
 // with EMIT, the emission (run_pixels' EMIT); fused_spawn_kernel<SAMPLER>,
 // with the camera-spawn extensions (run_pixels with a Spawn): <false> the
 // reference sampler's body, for launches with the spawn flags alone,
-// <true> with the sampler flags and the emission too (either may be off).
+// <true> with the sampler flags and the emission too (either may be off);
+// fused_lights_kernel<SAMPLER>, the same pair with tpurt's many-light NEE
+// (light_sample "power", "spatial": one light a diffuse hit, run_pixels
+// with a Lights; the spawn switches may be all off). tpurt has no aimed
+// photons here: the wavefront tracers trace none.
 //
 // The body is path.cuh:run_pixels in its camera-only instance (CAM), the
 // machine of the regen and tile-sync kernels: persistent blocks sized to
@@ -99,18 +105,35 @@ __global__ void TPURT_REGEN_BOUNDS(false)
                                   n_light, c, S, geom, counters, E, X);
 }
 
+template <bool SAMPLER>
+__global__ void TPURT_REGEN_BOUNDS(false)
+    fused_lights_kernel(float* rgb, const float* __restrict__ table,
+                        const float* __restrict__ cie, int staged, int n_sph,
+                        int n_mat, int n_light, SampleConsts c, Sampler S,
+                        Emission E, const __grid_constant__ Spawn X,
+                        Lights Lt, Geom geom,
+                        unsigned long long* __restrict__ counters) {
+  if constexpr (SAMPLER)
+    run_block<true, false, true, true>(rgb, table, cie, staged, n_sph, n_mat,
+                                       n_light, c, S, geom, counters, E, X,
+                                       Lt);
+  else
+    run_block<false, false, true>(rgb, table, cie, staged, n_sph, n_mat,
+                                  n_light, c, S, geom, counters, E, X, Lt);
+}
+
 }  // namespace tpurt
 
-// `sampler`: the camera-path sampler flags; `emission`, `spawn`: null, or
-// the emission and the spawn switches. With none on, the reference
-// instance runs.
+// `sampler`: the camera-path sampler flags; `emission`, `spawn`, `lights`:
+// null, or the emission, the spawn and the lights switches. With none on,
+// the reference instance runs.
 extern "C" int tpurt_wf_fused_launch(
     float* rgb, long long P, int width, int height, const float* table,
     int n_sph, int n_mat, int n_light, unsigned int seed, int spp, int it0,
     const float* aux, int depth, float rr_thresh, const tpurt::Geom* geom,
     unsigned long long* counters, const float* cie,
     const tpurt::Sampler* sampler, const tpurt::Emission* emission,
-    const tpurt::Spawn* spawn, void* stream) {
+    const tpurt::Spawn* spawn, const tpurt::Lights* lights, void* stream) {
   using namespace tpurt;
   const SampleConsts c = {P, width, height, depth, /*k_photons=*/0,
                           /*max_photon_bounces=*/0, rr_thresh,
@@ -120,6 +143,13 @@ extern "C" int tpurt_wf_fused_launch(
   const int staged = staged_floats(n_sph, n_mat, n_light);
   const size_t smem = run_pixels_smem(staged, *geom, 128, 0);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lights)
+    return launch_persistent(
+        emission || sampler_on(*sampler) ? fused_lights_kernel<true>
+                                         : fused_lights_kernel<false>,
+        smem, (long long)width * height, s, rgb, table, cie, staged, n_sph,
+        n_mat, n_light, c, *sampler, emission_or_off(emission),
+        spawn_or_off(spawn), *lights, *geom, counters);
   if (spawn)
     return launch_persistent(
         emission || sampler_on(*sampler) ? fused_spawn_kernel<true>

@@ -70,7 +70,10 @@
 // draws): <false, false, Sampler, Emission, Spawn> on the reference
 // bounce, for launches with the spawn flags alone, and <true, true,
 // Sampler, Emission, Spawn> with the sampler flags and the emission
-// (either may be off).
+// (either may be off); and the lights instances, the same pair with a
+// Lights after the Spawn (whose switches may then be all off), for
+// tpurt's many-light NEE (light_sample "power", "spatial": one light a
+// diffuse hit, 3 draws a bounce where "all" draws 2 a light).
 
 #include <cuda_runtime.h>
 
@@ -182,6 +185,31 @@ __device__ __forceinline__ const Spawn& spawn_of(const Sampler&,
                                                  const Spawn& X) {
   return X;
 }
+// ... and of the lights instances' (Sampler, Emission, Spawn, Lights).
+__device__ __forceinline__ const Sampler& sampler_of(const Sampler& S,
+                                                     const Emission&,
+                                                     const Spawn&,
+                                                     const Lights&) {
+  return S;
+}
+__device__ __forceinline__ const Emission& emission(const Sampler&,
+                                                    const Emission& E,
+                                                    const Spawn&,
+                                                    const Lights&) {
+  return E;
+}
+__device__ __forceinline__ const Spawn& spawn_of(const Sampler&,
+                                                 const Emission&,
+                                                 const Spawn& X,
+                                                 const Lights&) {
+  return X;
+}
+__device__ __forceinline__ const Lights& lights_of(const Sampler&,
+                                                   const Emission&,
+                                                   const Spawn&,
+                                                   const Lights& Lt) {
+  return Lt;
+}
 
 // The bounce of an active slot in the sampler instances: on a hit,
 // next-event estimation with the hero-averaged emission until the slot
@@ -189,12 +217,15 @@ __device__ __forceinline__ const Spawn& spawn_of(const Sampler&,
 // the path by the Cauchy IOR), scatter + Russian roulette and the depth
 // gate; with EMIT, a miss adds the sky (or the legacy ramp) and an
 // emissive hit its emission, and both end the path drawing what a hit
-// would. Returns whether the path goes on, its ray in (o, d, tp).
-template <bool EMIT>
+// would. Returns whether the path goes on, its ray in (o, d, tp). `lt`:
+// the lights instance's Lights (next-event estimation by its mode), or
+// none.
+template <bool EMIT, class... Lt>
 __device__ __forceinline__ bool sampled_bounce(
     const Params& prm, const Sampler& S, const Emission& E, const Hit& h,
     float lam, const PoolWork& w, int bounce, int n_light, uint32_t& rng,
-    bool& coll, V3& o, V3& d, V3& tp, V3& rad, unsigned long long& rays) {
+    bool& coll, V3& o, V3& d, V3& tp, V3& rad, unsigned long long& rays,
+    const Lt&... lt) {
   const bool hero = S.hero > 1 && !coll;
   const int mtype =
       h.t < kHIT() ? (int)prm.mat()[h.mat * MAT_STRIDE + 5] : -1;
@@ -205,10 +236,17 @@ __device__ __forceinline__ bool sampled_bounce(
       const float lam_um = lam * F(1e-3);
       eta_add = F(0.004) / (lam_um * lam_um);
     }
-    const bool cont = shade_camera_hit<true>(prm, S, hero, h, vneg(d), lam,
-                                             w.rr_thresh, rng, o2, d2, tp2,
-                                             rad, rays, eta_add) &&
-                      bounce + 1 < w.depth;
+    bool cont;
+    if constexpr (sizeof...(Lt) == 1)
+      cont = shade_camera_hit_sel<true>(prm, S, lt..., hero, h, vneg(d), lam,
+                                        w.rr_thresh, rng, o2, d2, tp2, rad,
+                                        rays, eta_add) &&
+             bounce + 1 < w.depth;
+    else
+      cont = shade_camera_hit<true>(prm, S, hero, h, vneg(d), lam,
+                                    w.rr_thresh, rng, o2, d2, tp2, rad, rays,
+                                    eta_add) &&
+             bounce + 1 < w.depth;
     // a dielectric steers the path by eta(lam): only the hero goes on
     if (S.collapse && mtype == 1) coll = true;
     if (cont) {
@@ -222,7 +260,11 @@ __device__ __forceinline__ bool sampled_bounce(
     rad = mtype == 3 ? add_emitter<true>(prm, S, hero, h.mat, lam, tp, rad)
                      : add_sky<true>(prm, S, E, hero, lam, d, tp, rad);
   // a miss or an emitter draws what a hit would: NEE and the scatter + RR
-  for (int k = 0; k < 2 * n_light + 4; ++k) rand_u32(rng);
+  if constexpr (sizeof...(Lt) == 1) {
+    for (int k = 0; k < nee_draws(lt..., n_light) + 4; ++k) rand_u32(rng);
+  } else {
+    for (int k = 0; k < 2 * n_light + 4; ++k) rand_u32(rng);
+  }
   return false;
 }
 
@@ -326,7 +368,7 @@ __global__ void __launch_bounds__(CHUNK)
         const uint32_t px = (uint32_t)(gpix % w.width);
         const uint32_t py = (uint32_t)(gpix / w.width);
         rng = seed_pixels(frame_seed(w.base_seed, (uint32_t)it), px, py);
-        if constexpr (sizeof...(Sw) == 3)  // a spawn instance
+        if constexpr (sizeof...(Sw) >= 3)  // a spawn or lights instance
           spawn_camera_ext(prm.cam(), spawn_of(sw...), w.base_seed,
                            (uint32_t)it, px, py, w.width, w.height, rng, o, d,
                            lam);
@@ -357,7 +399,11 @@ __global__ void __launch_bounds__(CHUNK)
       bool cont = false;
       const Hit h = intersect(prm, o, d);
       if constexpr (SAMPLER) {
-        if constexpr (sizeof...(Sw) == 3)  // the spawn instance's
+        if constexpr (sizeof...(Sw) == 4)  // the lights instance's
+          cont = sampled_bounce<EMIT>(prm, sampler_of(sw...), emission(sw...),
+                                      h, lam, w, bounce, n_light, rng, coll,
+                                      o, d, tp, rad, rays, lights_of(sw...));
+        else if constexpr (sizeof...(Sw) == 3)  // the spawn instance's
           cont = sampled_bounce<EMIT>(prm, sampler_of(sw...), emission(sw...),
                                       h, lam, w, bounce, n_light, rng, coll,
                                       o, d, tp, rad, rays);
@@ -366,14 +412,24 @@ __global__ void __launch_bounds__(CHUNK)
                                       rng, coll, o, d, tp, rad, rays);
       } else if (h.t < kHIT()) {
         V3 o2 = o, d2 = d, tp2 = tp;
-        cont = shade_camera_hit(prm, none, false, h, vneg(d), lam,
-                                w.rr_thresh, rng, o2, d2, tp2, rad, rays) &&
-               bounce + 1 < w.depth;
+        if constexpr (sizeof...(Sw) == 4)  // the lights instance
+          cont = shade_camera_hit_sel(prm, none, lights_of(sw...), false, h,
+                                      vneg(d), lam, w.rr_thresh, rng, o2, d2,
+                                      tp2, rad, rays) &&
+                 bounce + 1 < w.depth;
+        else
+          cont = shade_camera_hit(prm, none, false, h, vneg(d), lam,
+                                  w.rr_thresh, rng, o2, d2, tp2, rad, rays) &&
+                 bounce + 1 < w.depth;
         if (cont) {
           o = o2;
           d = d2;
           tp = tp2;
         }
+      } else if constexpr (sizeof...(Sw) == 4) {
+        // a miss draws what a hit would: NEE and the scatter + RR step
+        for (int k = 0; k < nee_draws(lights_of(sw...), n_light) + 4; ++k)
+          rand_u32(rng);
       } else {
         // a miss draws what a hit would: NEE and the scatter + RR step
         for (int k = 0; k < 2 * n_light + 4; ++k) rand_u32(rng);
@@ -454,9 +510,9 @@ __global__ void __launch_bounds__(CHUNK)
 
 }  // namespace tpurt
 
-// `sampler`: the camera-path sampler flags; `emission`, `spawn`: null, or
-// the emission and the spawn switches. With none on, the reference
-// instance runs.
+// `sampler`: the camera-path sampler flags; `emission`, `spawn`, `lights`:
+// null, or the emission, the spawn and the lights switches. With none on,
+// the reference instance runs.
 extern "C" int tpurt_wf_step_launch(float* pf, int* pi, long long* rng,
                                     float* rgb, float* ns, long long* ctl,
                                     const float* table, int n_sph, int n_mat,
@@ -465,16 +521,24 @@ extern "C" int tpurt_wf_step_launch(float* pf, int* pi, long long* rng,
                                     const tpurt::Sampler* sampler,
                                     const tpurt::Emission* emission,
                                     const tpurt::Spawn* spawn,
+                                    const tpurt::Lights* lights,
                                     void* stream) {
   using namespace tpurt;
   const int staged = staged_floats(n_sph, n_mat, n_light);
   const size_t smem = run_pixels_smem(staged, *geom, CHUNK, 0);
   const bool sampled = emission || sampler_on(*sampler);
   const void* kernel =
-      spawn ? (sampled ? (const void*)pool_step_kernel<true, true, Sampler,
-                                                       Emission, Spawn>
-                       : (const void*)pool_step_kernel<false, false, Sampler,
-                                                       Emission, Spawn>)
+      lights ? (sampled ? (const void*)pool_step_kernel<true, true, Sampler,
+                                                        Emission, Spawn,
+                                                        Lights>
+                        : (const void*)pool_step_kernel<false, false, Sampler,
+                                                        Emission, Spawn,
+                                                        Lights>)
+      : spawn ? (sampled ? (const void*)pool_step_kernel<true, true, Sampler,
+                                                         Emission, Spawn>
+                         : (const void*)pool_step_kernel<false, false,
+                                                         Sampler, Emission,
+                                                         Spawn>)
       : !sampled ? (const void*)pool_step_kernel<>
       : emission ? (const void*)pool_step_kernel<true, true, Sampler,
                                                   Emission>
@@ -489,7 +553,16 @@ extern "C" int tpurt_wf_step_launch(float* pf, int* pi, long long* rng,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Emission off = {};
   const Emission& E = emission ? *emission : off;
-  if (spawn) {
+  if (lights) {
+    auto k = sampled ? pool_step_kernel<true, true, Sampler, Emission, Spawn,
+                                        Lights>
+                     : pool_step_kernel<false, false, Sampler, Emission,
+                                        Spawn, Lights>;
+    k<<<blocks, CHUNK, smem, s>>>(pf, pi, rng, rgb, ns, ctl, table, cie,
+                                  staged, n_sph, n_mat, n_light, *work,
+                                  *geom, *sampler, E, spawn_or_off(spawn),
+                                  *lights);
+  } else if (spawn) {
     auto k = sampled ? pool_step_kernel<true, true, Sampler, Emission, Spawn>
                      : pool_step_kernel<false, false, Sampler, Emission,
                                         Spawn>;

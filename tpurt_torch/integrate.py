@@ -9,10 +9,12 @@ scenes with tpurt's sampler flags (hero wavelengths with the collapse bit,
 dispersion on camera paths, photon emission and bounce strata, camera
 bounce strata), tpurt's emission besides the lights (the sky on a miss,
 emissive materials, the per-sample radiance clamp), tpurt's camera-spawn
-extensions (the thin lens, the shutter, the Sobol spawn draws) and the
-photon walks' roulette thinning (photon_rr_scale), in the component form
-and op order of tpurt's kernel device code
-(``tpurt/kernels/mega_pallas.py``: ``nee_direct_c``,
+extensions (the thin lens, the shutter, the Sobol spawn draws), the
+photon walks' roulette thinning (photon_rr_scale), tpurt's many-light NEE
+(light_sample "power" and "spatial", ``_nee_select``) and aimed photon
+emission (photon_aim), in the component form and op order of tpurt's
+kernel device code (``tpurt/kernels/mega_pallas.py``: ``nee_direct_c``,
+``_nee_direct_power_c``,
 ``scatter_rr_c``, ``_evaluate_bsdf_c``, ``_single_lambda_em_c``), so that
 it, tpurt and the CUDA kernels draw the same PCG streams and take the same
 branches. The hero emission comes from the host table
@@ -47,6 +49,7 @@ from tpurt_torch.ops.intersect import (HIT, bvh_hit, closest_sphere,
                                       occluded_triangle, shadow_spheres)
 from tpurt_torch.ops import qmc as qmcmod
 from tpurt_torch.ops import rng as rngmod
+from tpurt_torch.ops import sampling
 from tpurt_torch.ops.rng import frame_seed, photon_stream, rand_1f, seed_pixels
 from tpurt_torch.ops.spectra import (DISPERSION_B, blackbody,
                                      flat_emission, flat_hero_table,
@@ -274,10 +277,14 @@ def clamp_sample(cfg, rad):
     return tuple(torch.clamp_max(r, cl) for r in rad)
 
 
-def sample_direct_lighting(fs, loc, n, lam, rng, em):
-    """Next-event estimation over all lights (``nee_direct_c``, mode
-    "all"): 2 draws and one shadow segment per light. Every lane draws;
-    the caller keeps the result of live diffuse lanes."""
+def sample_direct_lighting(fs, loc, n, lam, rng, em, mode: str = "all"):
+    """Next-event estimation (``nee_direct_c``). Mode "all": every light,
+    2 draws and one shadow segment each. Modes "power" and "spatial"
+    (``_nee_select``): one light per lane, 3 draws. No light: no draw.
+    Every lane draws; the caller keeps the result of live diffuse lanes
+    and counts ``shadow_segments`` per such lane."""
+    if mode != "all" and fs.lights:
+        return _nee_select(fs, mode, loc, n, lam, rng, em)
     zero = torch.zeros_like(loc[0])
     direct = (zero, zero, zero)
     for li, lt in enumerate(fs.lights):
@@ -307,6 +314,85 @@ def sample_direct_lighting(fs, loc, n, lam, rng, em):
         w = torch.where(live, geom * atten / (dist * dist), 0.0)
         direct = s.vadd(direct, s.vscale(em[li], w))
     return direct, rng
+
+
+def shadow_segments(fs, cfg) -> int:
+    """Shadow segments a diffuse camera hit traces: one per light in mode
+    "all", else one (none without a light)."""
+    n = len(fs.lights)
+    return n if cfg.light_sample == "all" else min(1, n)
+
+
+# the light rows _nee_select gathers: pos, normal, tangent, bitangent,
+# two_hw, hw, is_area
+_ROW_POS, _ROW_NORMAL, _ROW_T, _ROW_B = 0, 3, 6, 9
+_ROW_TWO_HW, _ROW_HW, _ROW_AREA = 12, 13, 14
+
+
+def light_rows(fs, device) -> torch.Tensor:
+    """(L, 15) float32 rows of the frozen lights (``_ROW_*``), built once
+    per scene and device."""
+    key = ("light_rows", str(device))
+    if key not in fs.cache:
+        fs.cache[key] = torch.tensor(
+            [[*lt.pos, *lt.normal, *lt.tangent, *lt.bitangent, lt.two_hw,
+              lt.hw, float(lt.ltype == 1)] for lt in fs.lights],
+            dtype=torch.float32, device=device)
+    return fs.cache[key]
+
+
+def _nee_select(fs, mode, loc, n, lam, rng, em):
+    """Next-event estimation with one light per lane (modes "power" and
+    "spatial", tpurt's ``_nee_direct_power_c``): 3 draws, u_sel then the
+    light sample's pair. The lane picks light i in proportion to its power
+    (``ops.sampling.light_power``), divided in mode "spatial" by
+    max(d^2, 1e-4), d the distance to the light's centre, and weighs it by
+    1/pmf: em * geom * atten * inv_pdf * inv_pmf / dist^2."""
+    u_sel, rng = rand_1f(rng)
+    powers = [sampling.light_power(lt) for lt in fs.lights]
+    if mode == "spatial":
+        floor = float(np.float32(1e-4))
+
+        def power_of(i):
+            pos = fs.lights[i].pos
+            dx = pos[0] - loc[0]
+            dy = pos[1] - loc[1]
+            dz = pos[2] - loc[2]
+            return fdiv(powers[i], (dx * dx + dy * dy + dz * dz)
+                        .clamp_min(floor))
+    else:
+        def power_of(i):
+            return powers[i]
+    idx, inv_pmf = sampling.select_light(u_sel, power_of, len(powers))
+    u1, rng = rand_1f(rng)
+    u2, rng = rand_1f(rng)
+    row = light_rows(fs, loc[0].device)[idx]
+    col = lambda j: row[:, j]  # noqa: E731
+    area = col(_ROW_AREA) > 0.5
+    hw = col(_ROW_HW)
+    su = (u1 - 0.5) * col(_ROW_TWO_HW)
+    sv = (u2 - 0.5) * col(_ROW_TWO_HW)
+    pos = tuple(col(_ROW_POS + c) for c in range(3))
+    lp = s.vwhere(area, tuple(pos[c] + su * col(_ROW_T + c)
+                              + sv * col(_ROW_B + c) for c in range(3)), pos)
+    to_light = s.vsub(lp, loc)
+    dist = fsqrt(s.vdot(to_light, to_light).clamp_min(1e-30))
+    ldir = s.vscale(to_light, 1.0 / dist)
+    ndotl = s.vdot(n, ldir)
+    cos_light = (-(col(_ROW_NORMAL) * ldir[0] + col(_ROW_NORMAL + 1) * ldir[1]
+                   + col(_ROW_NORMAL + 2) * ldir[2])).clamp_min(0.0)
+    live = ((dist >= EPS) & (ndotl > 0.0)
+            & (~area | ((cos_light > 0.0) & (hw > 0.0))))
+    inv_pdf = torch.where(area, (4.0 * hw * hw).clamp_min(1e-10), 1.0)
+    geom = ndotl * torch.where(area, cos_light, 1.0)
+    so = s.vadd(loc, s.vscale(n, EPS))
+    atten = _shadow(fs, so, ldir, dist - EPS, lam)
+    w = torch.where(live, geom * atten * inv_pdf * inv_pmf / (dist * dist),
+                    0.0)
+    sels = [idx == i for i in range(len(powers))]
+    emv = tuple(sampling.select_chain(sels, [e[c] for e in em])
+                for c in range(3))
+    return s.vscale(emv, w), rng
 
 
 def _schlick(cos_t, f0):
@@ -532,7 +618,7 @@ def trace_camera_paths(fs, cfg, mats, o, d, lam, rng, depth: int, vis,
     vp_stored = torch.zeros_like(valid)
     coll = torch.zeros_like(valid)
     rays = torch.zeros((), dtype=torch.int64, device=valid.device)
-    n_lights = len(fs.lights)
+    n_shadow = shadow_segments(fs, cfg)
     any_diel, any_metal = _material_kinds(fs)
     cam_strata = bool(cfg.photon_strata and cfg.camera_strata_bounce)
     if cfg.dispersion_in_camera_path:
@@ -560,11 +646,12 @@ def trace_camera_paths(fs, cfg, mats, o, d, lam, rng, depth: int, vis,
 
         em_b = em if em_hero is None else [
             s.vwhere(coll, h, a) for h, a in zip(em_hero, em)]
-        direct, rng = sample_direct_lighting(fs, loc, n, lam, rng, em_b)
+        direct, rng = sample_direct_lighting(fs, loc, n, lam, rng, em_b,
+                                             cfg.light_sample)
         lane_d = active & found & is_diffuse
         nee = s.vmul(s.vmul(tp, color), direct)
         rad = s.vwhere(lane_d, s.vadd(rad, nee), rad)
-        rays = rays + lane_d.sum() * n_lights
+        rays = rays + lane_d.sum() * n_shadow
 
         eta = ior + cauchy_add if cfg.dispersion_in_camera_path else ior
         wi, new_tp, new_o, scat_ok, rr_live, rng = scatter_and_rr(
@@ -620,9 +707,13 @@ def trace_photons(fs, cfg, mats, lam, seed, px, py, vis, radius, valid, rad,
     lane's vispoint. Lanes with no vispoint (|pos| <= 0.001) emit nothing.
     Under photon_strata the emission uniforms (and, with
     photon_strata_bounce, each bounce's scatter uniforms) move into the
-    cells of ``strata_seed`` (default ``seed``). ``seed`` is an int or one
-    seed per lane; ``tri`` is the nearest hit's triangle test. Returns
-    (rad, rays)."""
+    cells of ``strata_seed`` (default ``seed``). Under photon_aim every
+    photon draws 3 more numbers after its 7 emission draws (choice, cone
+    pair), and an area light's photon aims at the lane's vispoint with
+    probability photon_aim, its throughput weighed by the mixture
+    (``ops.soa.aimed_cone_c``, ``aim_mixture_weight_c``). ``seed`` is an
+    int or one seed per lane; ``tri`` is the nearest hit's triangle test.
+    Returns (rad, rays)."""
     rays = torch.zeros((), dtype=torch.int64, device=valid.device)
     L = len(fs.lights)
     K = cfg.k_photons if (cfg.enable_photons and L > 0) else 0
@@ -646,19 +737,36 @@ def trace_photons(fs, cfg, mats, lam, seed, px, py, vis, radius, valid, rad,
             np.float32(np.pi) * r32 * r32, np.float32(1e-10)))
     any_diel, any_metal = _material_kinds(fs)
     strata_seed = seed if strata_seed is None else strata_seed
+    aim = cfg.photon_aim > 0.0
     for k in range(K):
         rng = photon_stream(seed, px, py, k)
         u = []
         for _ in range(7):
             x, rng = rand_1f(rng)
             u.append(x)
+        if aim:
+            uch, rng = rand_1f(rng)
+            ua1, rng = rand_1f(rng)
+            ua2, rng = rand_1f(rng)
         if cfg.photon_strata:
             u[0], u[1], u[3], u[4], u[5], u[6] = \
                 rngmod.apply_emission_strata(
                     strata_seed, rngmod.strata_k(cfg, k),
                     *rngmod.strata_counts(cfg), u[0], u[1], u[3], u[4],
                     u[5], u[6])
-        o, d, tp = _photon_emission(fs.lights[k % L], cfg, u)
+        lt = fs.lights[k % L]
+        o, d, tp = _photon_emission(lt, cfg, u)
+        if aim and lt.ltype == 1:
+            # aim at the lane's own vispoint with probability q, weighed
+            # by the defensive mixture (tpurt's trace_photons)
+            q_lane = torch.where(vp_ok, float(np.float32(cfg.photon_aim)),
+                                 0.0)
+            d_aim, axis, cos_a = s.aimed_cone_c(o, vpos, r,
+                                                cfg.photon_aim_widen, ua1,
+                                                ua2)
+            d = s.vwhere(uch < q_lane, d_aim, d)
+            tp = s.vscale(tp, s.aim_mixture_weight_c(d, lt.normal, axis,
+                                                     cos_a, q_lane))
         active = vp_ok.clone()
         ph_strata = bool(cfg.photon_strata and cfg.photon_strata_bounce)
         for b in range(cfg.max_photon_bounces):

@@ -53,6 +53,8 @@ _SIGNATURES = {
                         # NULL (no emission: the instances without it)
         _P,             # spawn switches: a mega_regen.SpawnArgs, or NULL
                         # (no spawn extension, reference roulette)
+        _P,             # lights switches: a mega_regen.LightsArgs, or NULL
+                        # (NEE over every light, no aimed photons)
         _P,             # stream
     ],
     "tpurt_step_launch": [
@@ -73,6 +75,8 @@ _SIGNATURES = {
                         # NULL (no emission: the instances without it)
         _P,             # spawn switches: a mega_regen.SpawnArgs, or NULL
                         # (no spawn extension, reference roulette)
+        _P,             # lights switches: a mega_regen.LightsArgs, or NULL
+                        # (NEE over every light, no aimed photons)
         _P,             # stream
     ],
     "tpurt_wf_step_launch": [
@@ -90,6 +94,8 @@ _SIGNATURES = {
                         # NULL (no emission)
         _P,             # spawn switches: a mega_regen.SpawnArgs, or NULL
                         # (no spawn extension, reference roulette)
+        _P,             # lights switches: a mega_regen.LightsArgs, or NULL
+                        # (NEE over every light, no aimed photons)
         _P,             # stream
     ],
     "tpurt_wf_fused_launch": [
@@ -112,6 +118,8 @@ _SIGNATURES = {
                         # NULL (no emission)
         _P,             # spawn switches: a mega_regen.SpawnArgs, or NULL
                         # (no spawn extension, reference roulette)
+        _P,             # lights switches: a mega_regen.LightsArgs, or NULL
+                        # (NEE over every light, no aimed photons)
         _P,             # stream
     ],
     "tpurt_bvh_probe_launch": [

@@ -13,20 +13,24 @@ the kernel's plain PyTorch version, ``integrate.render_plain`` or
 G-matrix leaf test (``pallas_mxu_leaf`` where ``bvh.mxu_leaf_engages``),
 whose plain version is ``ops.intersect.closest_triangle_g``,
 ``EMIT_LAUNCHES`` those of either mode with emission switches
-(``emission_args``) and ``SPAWN_LAUNCHES`` those with spawn switches (the
+(``emission_args``), ``SPAWN_LAUNCHES`` those with spawn switches (the
 camera-spawn extensions or the photon roulette scale, ``spawn_args``),
-which ran a spawn instance; a launch with both counts in both.
+which ran a spawn instance unless they had lights switches, and
+``LIGHTS_LAUNCHES`` those with lights switches (light_sample "power" or
+"spatial", photon_aim: ``lights_args``), which ran a lights instance; a
+launch with several counts in each.
 
 The module also builds what every path kernel reads: the parameter table
 (camera, spheres, materials, lights, each light's hero table, then those
 of the sky and of the type-3 emission base), the CIE table on the device
 (``cie_table``, uploaded once per device), the sampler switches
 (``sampler_args``, ``camera_sampler_args``), the emission switches
-(``emission_args``) and the spawn switches (``spawn_args``: the thin lens,
+(``emission_args``), the spawn switches (``spawn_args``: the thin lens,
 a MotionCamera's shutter, the Sobol spawn draws with their direction table
-on the device, ``sobol_table``, and the photon roulette scale), which
-select the kernels' emission and spawn instances. ``struct_ref`` passes
-either to a launcher.
+on the device, ``sobol_table``, and the photon roulette scale) and the
+lights switches (``lights_args``: the NEE mode, the photon aim), which
+select the kernels' emission, spawn and lights instances. ``struct_ref``
+passes any of them to a launcher.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from tpurt_torch.camera import MotionCamera, motion_rows
 from tpurt_torch.kernels import build, bvh
 from tpurt_torch.ops import qmc
 from tpurt_torch.ops import rng as rngmod
+from tpurt_torch.ops import sampling
 from tpurt_torch.ops.spectra import (CIE_RGB_TABLE, VISIBLE_RANGE,
                                      hero_segments, sky_on)
 from tpurt_torch.scene import freeze_scene, photon_power, sphere_rows
@@ -51,6 +56,7 @@ BUDGET_LAUNCHES = 0
 MXU_LAUNCHES = 0
 EMIT_LAUNCHES = 0
 SPAWN_LAUNCHES = 0
+LIGHTS_LAUNCHES = 0
 
 N_CHANNELS = 16
 CAM_FLOATS = 12
@@ -158,8 +164,32 @@ def emission_args(fs, cfg, wavefront: bool = False):
 
 def struct_ref(args):
     """A launch's pointer argument for a switch struct or None
-    (``emission_args``', ``spawn_args``' result): NULL for None."""
+    (``emission_args``', ``spawn_args``', ``lights_args``' result): NULL
+    for None."""
     return None if args is None else ctypes.byref(args)
+
+
+class LightsArgs(ctypes.Structure):
+    """csrc/device.cuh ``struct Lights``, passed by address."""
+    _fields_ = [("mode", ctypes.c_int), ("q", ctypes.c_float),
+                ("widen", ctypes.c_float)]
+
+
+LIGHT_MODES = {"all": 0, "power": 1, "spatial": 2}
+
+
+def lights_args(cfg, photons: bool = True):
+    """The lights switches of a launch, or None: the launch runs an
+    instance without them. The NEE mode of ``light_sample`` and, where
+    photons walk (``photons``), photon_aim's q and f32(photon_aim_widen)
+    (q 0: no aim)."""
+    aim = photons and cfg.photon_aim > 0.0
+    if cfg.light_sample == "all" and not aim:
+        return None
+    f32 = lambda x: float(np.float32(x))  # noqa: E731
+    return LightsArgs(mode=LIGHT_MODES[cfg.light_sample],
+                      q=f32(cfg.photon_aim) if aim else 0.0,
+                      widen=f32(cfg.photon_aim_widen) if aim else 0.0)
 
 
 class SpawnArgs(ctypes.Structure):
@@ -210,7 +240,8 @@ def pack_scene(fs, cfg, camera=None, sph_rows=None) -> np.ndarray:
     camera rows (zeros without a camera), then the spheres of the flat
     sweep (``sph_rows``, all of them by default), materials and lights
     with every derived constant computed on the host as the plain version
-    computes it, then, with hero_wavelengths C > 1, each light's hero
+    computes it (a light's selection power ``ops.sampling.light_power``
+    among them), then, with hero_wavelengths C > 1, each light's hero
     table (``integrate.hero_tables``) and, where the sky is on or the scene
     has an emissive material, the sky's and the emission base's
     (``integrate.emission_tables``)."""
@@ -220,10 +251,11 @@ def pack_scene(fs, cfg, camera=None, sph_rows=None) -> np.ndarray:
         mat[i, :6] = (*m.color, m.rough, m.ior, m.mtype)
     lit = np.zeros((len(fs.lights), LIGHT_STRIDE), np.float32)
     for i, lt in enumerate(fs.lights):
-        lit[i, :35] = (*lt.pos, lt.hw, lt.ltype, lt.temp, lt.two_hw,
+        lit[i, :36] = (*lt.pos, lt.hw, lt.ltype, lt.temp, lt.two_hw,
                        lt.area_scale, *lt.normal, *lt.tangent, *lt.bitangent,
                        *lt.cone_axis, *lt.cone_t, *lt.cone_b, *lt.em_scale,
-                       *lt.ph_origin, *photon_power(lt, cfg.k_photons))
+                       *lt.ph_origin, *photon_power(lt, cfg.k_photons),
+                       sampling.light_power(lt))
     cam = (np.zeros((4, 3), np.float32) if camera is None
            else camera.rows())
     c = integrate.hero_count(cfg)
@@ -305,10 +337,11 @@ def regen_tri_mode(fs, cfg) -> integrate.TriMode:
 def _launch(fs, cfg, camera, planes, base_seed: int, spp: int,
             iteration: int, radius: float, depth: int, aux=None,
             gmat=None):
-    global MXU_LAUNCHES, EMIT_LAUNCHES, SPAWN_LAUNCHES
+    global MXU_LAUNCHES, EMIT_LAUNCHES, SPAWN_LAUNCHES, LIGHTS_LAUNCHES
     table, geo = scene_table(fs, cfg, camera, planes.device)
     emission = emission_args(fs, cfg)
     spawn = spawn_args(cfg, camera, planes.device)
+    lights = lights_args(cfg, photon_count(fs, cfg) > 0)
     lib = build.library()
     counters = launch_counters(planes.device)
     stream = torch.cuda.current_stream(planes.device).cuda_stream
@@ -322,7 +355,7 @@ def _launch(fs, cfg, camera, planes, base_seed: int, spp: int,
         None if aux is None else aux.data_ptr(),
         ctypes.byref(geo.args(gmat)), counters.data_ptr(),
         cie_table(planes.device).data_ptr(), struct_ref(emission),
-        struct_ref(spawn), stream)
+        struct_ref(spawn), struct_ref(lights), stream)
     build.check_launch(lib, err, "tpurt_regen_launch")
     bvh.count_walk(geo)
     if gmat is not None:
@@ -331,6 +364,8 @@ def _launch(fs, cfg, camera, planes, base_seed: int, spp: int,
         EMIT_LAUNCHES += 1
     if spawn is not None:
         SPAWN_LAUNCHES += 1
+    if lights is not None:
+        LIGHTS_LAUNCHES += 1
     return counters[0]
 
 

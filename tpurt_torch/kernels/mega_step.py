@@ -10,9 +10,12 @@ On a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
 the kernel's plain PyTorch version, ``integrate.render_plain`` with one
 sample, which has the same contract. ``LAUNCHES`` counts kernel launches
 only, ``EMIT_LAUNCHES`` those with emission switches
-(``mega_regen.emission_args``) and ``SPAWN_LAUNCHES`` those with spawn
-switches (``spawn_args``), which ran a spawn instance; under qmc the
-sample's Sobol index is its iteration.
+(``mega_regen.emission_args``), ``SPAWN_LAUNCHES`` those with spawn
+switches (``spawn_args``) and ``LIGHTS_LAUNCHES`` those with lights
+switches (``lights_args``: light_sample "power" or "spatial"; tpurt has no
+photon_aim here, and ``config.check_slice`` refuses it), which ran a
+lights instance, else a spawn instance where they had spawn switches;
+under qmc the sample's Sobol index is its iteration.
 """
 
 from __future__ import annotations
@@ -25,13 +28,14 @@ from tpurt_torch import integrate
 from tpurt_torch.kernels import build, bvh
 from tpurt_torch.kernels.mega_regen import (checked_scene, cie_table,
                                             emission_args, struct_ref,
-                                            launch_counters, photon_count,
-                                            sampler_args, scene_table,
-                                            spawn_args)
+                                            launch_counters, lights_args,
+                                            photon_count, sampler_args,
+                                            scene_table, spawn_args)
 
 LAUNCHES = 0
 EMIT_LAUNCHES = 0
 SPAWN_LAUNCHES = 0
+LIGHTS_LAUNCHES = 0
 
 
 def step_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
@@ -41,7 +45,7 @@ def step_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
     that sample's strata seed, and gathers photons within ``radius``.
     Returns the traced segments as an int64 scalar on the planes'
     device."""
-    global LAUNCHES, EMIT_LAUNCHES, SPAWN_LAUNCHES
+    global LAUNCHES, EMIT_LAUNCHES, SPAWN_LAUNCHES, LIGHTS_LAUNCHES
     fs = checked_scene(scene, planes, cfg)
     if planes.device.type == "cpu":
         return integrate.render_plain(fs, cfg, camera, planes, base_seed, 1,
@@ -53,6 +57,7 @@ def step_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
     counters = launch_counters(planes.device)
     emission = emission_args(fs, cfg)
     spawn = spawn_args(cfg, camera, planes.device)
+    lights = lights_args(cfg, photon_count(fs, cfg) > 0)
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     err = lib.tpurt_step_launch(
         planes.data_ptr(), planes.shape[1], cfg.width, cfg.height,
@@ -63,11 +68,13 @@ def step_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
         cfg.photon_rr_threshold, ctypes.byref(sampler_args(fs, cfg)),
         ctypes.byref(args), counters.data_ptr(),
         cie_table(planes.device).data_ptr(), struct_ref(emission),
-        struct_ref(spawn), stream)
+        struct_ref(spawn), struct_ref(lights), stream)
     build.check_launch(lib, err, "tpurt_step_launch")
     LAUNCHES += 1
     if spawn is not None:
         SPAWN_LAUNCHES += 1
+    if lights is not None:
+        LIGHTS_LAUNCHES += 1
     if emission is not None:
         EMIT_LAUNCHES += 1
     bvh.count_walk(geo)

@@ -20,7 +20,12 @@ sampler flags and emission too (``mega_regen.camera_sampler_args``,
 ``emission_args``, ``spawn_args``). ``LAUNCHES`` counts kernel launches
 only, ``SAMPLER_LAUNCHES`` those of the sampler instance,
 ``EMIT_LAUNCHES`` those with emission switches, ``SPAWN_LAUNCHES`` those
-with spawn switches (a launch with both counts in both).
+with spawn switches, ``LIGHTS_LAUNCHES`` those with lights switches (a
+launch with several counts in each). A launch with light_sample "power"
+or "spatial" runs a lights instance (``mega_regen.lights_args``; photons,
+and so photon_aim, have no place here): the reference sampler's with the
+mode alone (or with the spawn flags), else the one with the sampler flags
+and emission too.
 """
 
 from __future__ import annotations
@@ -36,21 +41,24 @@ from tpurt_torch.config import check_slice
 from tpurt_torch.kernels import build, bvh
 from tpurt_torch.kernels.mega_regen import (camera_sampler_args, cie_table,
                                             emission_args, struct_ref,
-                                            launch_counters, sampler_on,
-                                            scene_table, spawn_args)
+                                            launch_counters, lights_args,
+                                            sampler_on, scene_table,
+                                            spawn_args)
 from tpurt_torch.scene import freeze_scene
 
 LAUNCHES = 0
 SAMPLER_LAUNCHES = 0
 EMIT_LAUNCHES = 0
 SPAWN_LAUNCHES = 0
+LIGHTS_LAUNCHES = 0
 
 
 def _launch(scene, cfg, camera, state, base_seed, spp: int, aux=None):
     """The kernel on a copy of the state's rgb_sum; ``aux``: the (2, P)
     float32 budgets and counts of budget mode. Returns (rgb_sum, rays
     int64 scalar)."""
-    global LAUNCHES, SAMPLER_LAUNCHES, EMIT_LAUNCHES, SPAWN_LAUNCHES
+    global LAUNCHES, SAMPLER_LAUNCHES, EMIT_LAUNCHES, SPAWN_LAUNCHES, \
+        LIGHTS_LAUNCHES
     dev = state.device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -70,6 +78,7 @@ def _launch(scene, cfg, camera, state, base_seed, spp: int, aux=None):
     sampler = camera_sampler_args(fs, cfg)
     emission = emission_args(fs, cfg, wavefront=True)
     spawn = spawn_args(cfg, camera, dev, photons=False)
+    lights = lights_args(cfg, photons=False)
     err = lib.tpurt_wf_fused_launch(
         rgb.data_ptr(), rgb.shape[0], cfg.width, cfg.height,
         table.data_ptr(), len(geo.flat_rows), len(fs.materials),
@@ -77,14 +86,16 @@ def _launch(scene, cfg, camera, state, base_seed, spp: int, aux=None):
         None if aux is None else aux.data_ptr(), cfg.depth,
         cfg.rr_threshold, ctypes.byref(args), counters.data_ptr(),
         cie_table(dev).data_ptr(), ctypes.byref(sampler),
-        struct_ref(emission), struct_ref(spawn), stream)
+        struct_ref(emission), struct_ref(spawn), struct_ref(lights), stream)
     build.check_launch(lib, err, "tpurt_wf_fused_launch")
     LAUNCHES += 1
     if spawn is not None:
         SPAWN_LAUNCHES += 1
+    if lights is not None:
+        LIGHTS_LAUNCHES += 1
     if emission is not None:
         EMIT_LAUNCHES += 1
-    elif spawn is None and sampler_on(sampler):
+    elif spawn is None and lights is None and sampler_on(sampler):
         SAMPLER_LAUNCHES += 1
     bvh.count_walk(geo)
     return rgb, counters[0]

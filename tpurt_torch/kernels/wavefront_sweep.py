@@ -18,7 +18,10 @@ emission switches (the sky, the legacy ramp, an emissive material, the
 clamp), ``SPAWN_LAUNCHES`` those with spawn switches (the camera-spawn
 extensions, ``mega_regen.spawn_args``), which run a spawn instance: the
 reference bounce's with the spawn flags alone, else the one with the
-sampler flags and emission too. A launch with both counts in both.
+sampler flags and emission too; ``LIGHTS_LAUNCHES`` those with lights
+switches (light_sample "power" or "spatial", ``mega_regen.lights_args``),
+which run the same pair with the NEE mode. A launch with several counts
+in each.
 ``SWEEP_BATCH`` sweeps are enqueued per read of the loop test: at 1080p,
 1 spp, 16 is within 2-12% of 32 and costs at most 15 empty launches at the
 end of a render (PERF.md has the measurement).
@@ -33,14 +36,15 @@ import torch
 from tpurt_torch import wavefront
 from tpurt_torch.kernels import build, bvh
 from tpurt_torch.kernels.mega_regen import (camera_sampler_args, cie_table,
-                                            emission_args, struct_ref,
+                                            emission_args, lights_args,
                                             sampler_on, scene_table,
-                                            spawn_args)
+                                            spawn_args, struct_ref)
 
 LAUNCHES = 0
 SAMPLER_LAUNCHES = 0
 EMIT_LAUNCHES = 0
 SPAWN_LAUNCHES = 0
+LIGHTS_LAUNCHES = 0
 SWEEP_BATCH = 16
 
 
@@ -102,7 +106,8 @@ def stepper(fs, cfg, work: wavefront.PoolWork,
     launch = {}     # built at the first sweep on the card
 
     def step(pool, rgb, ns, ctl):
-        global LAUNCHES, SAMPLER_LAUNCHES, EMIT_LAUNCHES, SPAWN_LAUNCHES
+        global LAUNCHES, SAMPLER_LAUNCHES, EMIT_LAUNCHES, SPAWN_LAUNCHES, \
+            LIGHTS_LAUNCHES
         dev = pool.pf.device
         if dev.type == "cpu":
             return plain(pool, rgb, ns, ctl)
@@ -122,14 +127,17 @@ def stepper(fs, cfg, work: wavefront.PoolWork,
             launch["n_mat"], launch["n_light"], launch["args_ref"],
             launch["geom_ref"], launch["cie"], launch["sampler_ref"],
             launch["emission_ref"], launch["spawn_ref"],
-            torch.cuda.current_stream(dev).cuda_stream)
+            launch["lights_ref"], torch.cuda.current_stream(dev).cuda_stream)
         build.check_launch(launch["lib"], err, "tpurt_wf_step_launch")
         LAUNCHES += 1
         if launch["spawn"] is not None:
             SPAWN_LAUNCHES += 1
+        if launch["lights"] is not None:
+            LIGHTS_LAUNCHES += 1
         if launch["emission"] is not None:
             EMIT_LAUNCHES += 1
-        elif launch["spawn"] is None and sampler_on(launch["sampler"]):
+        elif launch["spawn"] is None and launch["lights"] is None \
+                and sampler_on(launch["sampler"]):
             SAMPLER_LAUNCHES += 1
         bvh.count_walk(launch["geo"])
         return pool, rgb, ns, ctl
@@ -161,6 +169,7 @@ def _prepare(fs, cfg, work: wavefront.PoolWork, q: int, dev) -> dict:
     sampler = camera_sampler_args(fs, cfg)
     emission = emission_args(fs, cfg, wavefront=True)
     spawn = spawn_args(cfg, work.camera, dev, photons=False)
+    lights = lights_args(cfg, photons=False)
     return dict(lib=build.library(), table=table.data_ptr(), keep=keep,
                 geo=geo, geom=geom, args=args, geom_ref=ctypes.byref(geom),
                 args_ref=ctypes.byref(args), n_sph=len(geo.flat_rows),
@@ -168,7 +177,8 @@ def _prepare(fs, cfg, work: wavefront.PoolWork, q: int, dev) -> dict:
                 cie=cie_table(dev).data_ptr(), sampler=sampler,
                 emission=emission, sampler_ref=ctypes.byref(sampler),
                 emission_ref=struct_ref(emission), spawn=spawn,
-                spawn_ref=struct_ref(spawn))
+                spawn_ref=struct_ref(spawn), lights=lights,
+                lights_ref=struct_ref(lights))
 
 
 def wavefront_render_pallas(scene, cfg, camera, state, base_seed, spp: int):

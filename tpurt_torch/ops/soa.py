@@ -9,7 +9,9 @@ from __future__ import annotations
 
 import torch
 
-from tpurt_torch.ops import fsqrt
+import numpy as np
+
+from tpurt_torch.ops import fdiv, fsqrt
 
 from tpurt_torch.ops.bsdf import INV_PI, PI, TWO_PI
 from tpurt_torch.ops.spectra import cie_to_rgb
@@ -203,6 +205,56 @@ def refract_c(wo, n, eta):
     zero = torch.zeros_like(wi[0])
     wi = vwhere(tir, (zero, zero, zero), wi)
     return wi, ~tir
+
+
+def cone_toward_c(axis, uc, u1, cos_half):
+    """Direction in the cone of half-angle cosine ``cos_half`` (a scalar
+    or one per lane) about ``axis``: polar uc, azimuth u1."""
+    T = build_tangent_frame_c(axis)
+    B = vcross(axis, T)
+    ct = 1.0 - uc * (1.0 - cos_half)
+    st = fsqrt((1.0 - ct * ct).clamp_min(0.0))
+    phi = TWO_PI * u1
+    return vadd(vadd(vscale(T, st * torch.cos(phi)),
+                     vscale(B, st * torch.sin(phi))), vscale(axis, ct))
+
+
+# ----- aimed photon emission (photon_aim) -----
+
+# The aim cone's half-angle sine: never tighter than ~1.1 degrees (bounds
+# the aimed pdf), never wider than 45 degrees.
+AIM_SIN_MIN = 0.02
+AIM_SIN_MAX = 0.7071
+
+
+def aimed_cone_c(o, aim, radius, widen, ua, ub):
+    """A uniform direction in the cone from ``o`` toward ``aim`` whose
+    half-angle subtends ``widen * radius`` at the aim's distance (radius a
+    float32 scalar or one per lane; widen a float32 scalar). Returns (dir,
+    axis, cos_a) for ``aim_mixture_weight_c``."""
+    dv = vsub(aim, o)
+    dist = fsqrt(vdot(dv, dv).clamp_min(1e-12))
+    axis = vscale(dv, 1.0 / dist)
+    if isinstance(radius, torch.Tensor):
+        reach = float(np.float32(widen)) * radius
+    else:
+        reach = np.float32(widen) * np.float32(radius)
+    sin_a = fdiv(reach, dist).clamp(AIM_SIN_MIN, AIM_SIN_MAX)
+    cos_a = fsqrt(1.0 - sin_a * sin_a)
+    return cone_toward_c(axis, ua, ub, cos_a), axis, cos_a
+
+
+def aim_mixture_weight_c(d, lnorm, axis, cos_a, q):
+    """p_cos / p_mix of the defensive emission mixture q * U(aim cone) +
+    (1 - q) * cos(theta_n) / pi about the light normal ``lnorm``: 1 where
+    q is 0, at most 1 / (1 - q) outside the cone. The cone test allows
+    1e-6 below cos_a, for aimed directions that round just outside it."""
+    p_cos = vdot(d, lnorm).clamp_min(0.0) * INV_PI
+    in_cone = vdot(d, axis) >= cos_a - float(np.float32(1e-6))
+    p_aim = torch.where(in_cone, fdiv(1.0, TWO_PI * (1.0 - cos_a)
+                                      .clamp_min(1e-7)), 0.0)
+    denom = q * p_aim + (1.0 - q) * p_cos
+    return torch.where(denom > 0.0, fdiv(p_cos, denom.clamp_min(1e-30)), 0.0)
 
 
 def cie_to_rgb_c(lambda_nm):

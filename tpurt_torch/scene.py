@@ -413,9 +413,10 @@ def many_light_scene(n_lights: int = 16, seed: int = 11,
                      device=None) -> Scene:
     """Cornell-style room lit by a grid of ``n_lights`` small area lights
     of very unequal power, with two sphere props (tpurt's many-light
-    stress scene). Next-event estimation goes over every light, so its cost
-    grows with ``n_lights``; past the kernels' shared-memory budget the
-    light rows are read from global memory."""
+    stress scene). Under light_sample "all" next-event estimation goes
+    over every light, so its cost grows with ``n_lights`` ("power" and
+    "spatial" trace one shadow segment a hit); past the kernels'
+    shared-memory budget the light rows are read from global memory."""
     rng = np.random.default_rng(seed)
     materials = [
         Material.diffuse((0.73, 0.73, 0.73)),

@@ -5,7 +5,8 @@ Each sweep (``_step``): dead slots claim the next pending work items and
 become fresh camera rays (``_claim``: ``_regen`` for the uniform
 (pixel, sample) enumeration, ``_regen_budget`` for adaptive sampling's
 round-major one); every active slot takes one bounce (``_sweep``: nearest
-hit, NEE over every light, scatter + Russian roulette, the depth gate);
+hit, NEE over every light or, under light_sample "power" or "spatial",
+one light the slot selects, scatter + Russian roulette, the depth gate);
 slots whose paths ended add their radiance into the image (the splat);
 then the loop's control words advance and the loop test of the next sweep
 is evaluated, all on the device. The loop ends when no work is pending and
@@ -53,7 +54,8 @@ from tpurt_torch.integrate import (BVH, EXACT, TriMode, _material_kinds,
                                    clamp_sample, intersect_scene, is_emitter,
                                    material_lookup, material_table,
                                    sample_direct_lighting, scatter_and_rr,
-                                   spawn_camera, tracks_collapse)
+                                   shadow_segments, spawn_camera,
+                                   tracks_collapse)
 from tpurt_torch.ops import fdiv
 from tpurt_torch.ops import soa as s
 from tpurt_torch.ops.intersect import HIT
@@ -234,11 +236,12 @@ def _sweep(fs, cfg, pool: WavefrontPool, tri: TriMode = EXACT):
     rad = add_emitters(emit, rad, tp, color, active & found & is_em, coll)
     if em_hero is not None:
         em = [s.vwhere(coll, h, a) for h, a in zip(em_hero, em)]
-    direct, rng = sample_direct_lighting(fs, loc, n, lam, pool.rng, em)
+    direct, rng = sample_direct_lighting(fs, loc, n, lam, pool.rng, em,
+                                         cfg.light_sample)
     lane_d = active & found & is_diffuse
     nee = s.vmul(s.vmul(tp, color), direct)
     rad = s.vwhere(lane_d, s.vadd(rad, nee), rad)
-    rays = rays + lane_d.sum() * len(fs.lights)
+    rays = rays + lane_d.sum() * shadow_segments(fs, cfg)
 
     any_diel, any_metal = _material_kinds(fs)
     eta = ior
