@@ -68,7 +68,19 @@ torus at leaf 64 held to the one-thread leaf's 6,432,004), [mesh-mxu] (the regen
 with the G leaf against ``render_plain``, both samplers, both modes, and
 one depth-30 sample of config 6 as shipped at 1080p and of the reference
 sampler at 512x288), [config6-mxu] (config 6 with the flag, both samplers,
-timed against the exact leaf). The plain renders of the torus sweep all
+timed against the exact leaf); then the API past render, on Cornell at
+1920x1080: [blit-routes] (resolve_state_pallas on a wavefront state
+stopped mid-drain and at 1080p, image_from_planes with scalar and
+per-pixel counts and the tonemap knobs, against the plain resolve +
+tonemap), [query] (trace_rays, occlusion, light_probe "all" and "spatial"
+on the card against the CPU at 256x144, then timed at full size),
+[denoise] (the AOVs, the à-trous filter, denoise_image, reproject and
+temporal_blend, the same way), [animate] (the twin of tools/animate.py in
+this process: 3 orbit frames of 4 spp, plain, resumed and with --denoise
+--temporal 0.8, each stage timed, launches counted), [until]
+(render_until to 0.02 in 4-spp batches, the share of its wall time outside
+the regen kernel) and [bake-ao] (the twin of examples/bake_ao.py at its
+defaults). The plain renders of the torus sweep all
 4050 triangles for every pixel at every bounce, and set the run's length:
 config 6 as shipped keeps 1080p with both leaf tests (the exact leaf at
 depth 15 in [sampler], the G leaf at depth 30, 69 s), the reference
@@ -580,6 +592,12 @@ def main() -> int:
     #    kernel in both modes, config 6 with the flag
     launches.update(mxu_phases(dev, report, gpu))
     lap("G leaf")
+
+    # 10. the rest of tpurt's API past render: the blit's two other
+    #     routes, ray queries, the denoiser, temporal reuse, render_until
+    #     and the twins of tools/animate.py and examples/bake_ao.py; the
+    #     blit's routes and the animation's frames add to its launches
+    launches["blit"] += api_phases(dev, gpu)
 
     src = {"regen": ("tpurt_torch/csrc/mega_regen.cu",
                      "tpurt/kernels/mega_regen.py:84"),
@@ -2579,6 +2597,393 @@ def g_leaf_vs_plain(name, scene, cfg, rays, timed=False):
             f"{bad.tolist()}: t {got[0][bad].tolist()} vs "
             f"{want[0][bad].tolist()}")
     return err, ms, plain_ms, int(pairs)
+
+
+
+# ----- the rest of tpurt's API past render: the blit's routes, ray
+#       queries, the denoiser, temporal reuse, render_until, the twins of
+#       tools/animate.py and examples/bake_ao.py -----
+
+# the shape of the API phases' full-size runs (tpurt's bench shape) and the
+# bake's grid (examples/bake_ao.py's defaults)
+FULL = (1920, 1080)
+BAKE = (128, 64)
+
+
+def report_close(tag, got, want, rtol: float, exact: bool = False) -> int:
+    """Elements of ``got`` (card) off ``want`` (CPU) by more than rtol
+    times |want| plus rtol times want's largest |value| (the second term
+    for values near 0 where single-wavelength RGB cancels); exact: any
+    difference. Prints and returns the count."""
+    a, b = got.detach().cpu(), want.detach().cpu()
+    if exact or a.dtype in (torch.bool, torch.int32, torch.int64):
+        bad = int((a != b).sum())
+        err = 0.0 if bad == 0 else float((a.double() - b.double()).abs().max())
+    else:
+        diff = (a - b).abs()
+        bad = int((diff > rtol * (b.abs() + float(b.abs().max()))).sum())
+        err = float(diff.max())
+    print(f"  {tag}: {bad} of {b.numel()} off (max |diff| {err:.3g})")
+    return bad
+
+
+def sync_ms(fn):
+    """(result, wall ms) of fn(), the device synchronized at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def blit_route_phases(dev, gpu) -> int:
+    """[blit-routes] resolve_state_pallas on a wavefront state stopped
+    mid-drain (64x32, tests/test_tonemap_pallas.py's shape; per-pixel
+    counts) and on a 1080p Cornell state, image_from_planes with a scalar
+    and a per-pixel count and with key/saturation overrides, each against
+    the plain resolve + tonemap, atol 1e-5 (the [blit] phase's). The
+    routes' calls are this phase's paths: their blit launches are counted
+    (zeroed before, read after) and returned."""
+    import dataclasses
+    import tpurt_torch as tt
+    from tpurt_torch import tonemap as tm
+    from tpurt_torch.kernels import tonemap as blit
+    from tpurt_torch.render import state_to_planes
+
+    def plain(cfg, rgb, ns, key=0.8, sat=1.0):
+        n = cfg.n_pixels
+        return tm.tonemap(tm.resolve(rgb[:n], ns[:n]), key, sat).reshape(
+            cfg.height, cfg.width, 3)
+
+    cfg_w = tt.RenderConfig(width=64, height=32, depth=4, tile_size=2048,
+                            enable_photons=False, wf_pool=256,
+                            backend="wavefront")
+    st_w = tt.wavefront_render(tt.cornell_spheres_scene(), cfg_w,
+                               cornell_camera(cfg_w),
+                               tt.init_state(cfg_w), 11, 3)
+    ns = st_w.n_samples.clone()
+    ns[::3] = (ns[::3] - 1.0).clamp_min(0.0)
+    st_w = dataclasses.replace(st_w, n_samples=ns)
+    W, H = FULL
+    cfg = tt.RenderConfig(width=W, height=H, depth=30, backend="pallas")
+    st = tt.render(tt.cornell_spheres_scene(), cfg, cornell_camera(cfg),
+                   tt.init_state(cfg), 1234, 4)
+    planes = state_to_planes(st)
+    four = torch.full_like(st.n_samples, 4.0)
+    cases = [
+        ("resolve_state_pallas 64x32 mid-drain", cfg_w,
+         lambda: blit.resolve_state_pallas(cfg_w, st_w),
+         plain(cfg_w, st_w.rgb_sum, st_w.n_samples)),
+        (f"resolve_state_pallas {W}x{H}", cfg,
+         lambda: blit.resolve_state_pallas(cfg, st),
+         plain(cfg, st.rgb_sum, st.n_samples)),
+        (f"image_from_planes {W}x{H} n=4", cfg,
+         lambda: blit.image_from_planes(cfg, planes, 4.0),
+         plain(cfg, st.rgb_sum, four)),
+        (f"image_from_planes {W}x{H} per-pixel n", cfg,
+         lambda: blit.image_from_planes(cfg, planes, st.n_samples),
+         plain(cfg, st.rgb_sum, st.n_samples)),
+        (f"image_from_planes {W}x{H} key 0.05 sat 1.3", cfg,
+         lambda: blit.image_from_planes(cfg, planes, 4.0, key=0.05,
+                                        saturation=1.3),
+         plain(cfg, st.rgb_sum, four, 0.05, 1.3)),
+    ]
+    print(f"[blit-routes] the wavefront state's counts: "
+          f"{sorted(set(st_w.n_samples[:cfg_w.n_pixels].tolist()))}")
+    launches = 0
+    for tag, c, route, want in cases:
+        zero_counts(["blit"])
+        got = route()
+        torch.cuda.synchronize()
+        launches += read_counts(["blit"])["blit"]
+        err = float((got - want).abs().max())
+        print(f"[blit-routes] {tag}: max |diff| {err:.3g}, equal "
+              f"{torch.equal(got, want)}")
+        if got.shape != (c.height, c.width, 3) or not err <= 1e-5:
+            raise AssertionError(f"{tag}: the route differs from the plain "
+                                 f"resolve + tonemap")
+    if launches != len(cases):
+        raise AssertionError(f"the routes launched the blit {launches} "
+                             f"times, not {len(cases)}")
+    ms_state = cuda_ms(lambda: blit.resolve_state_pallas(cfg, st), 20)
+    ms_planes = cuda_ms(lambda: blit.image_from_planes(cfg, planes, 4.0), 20)
+    print(f"[blit-routes] {W}x{H}: resolve_state_pallas {ms_state:.4f} ms, "
+          f"image_from_planes {ms_planes:.4f} ms (the (16, P) planes' rows "
+          f"0-2 copied to (P, 3) first) by CUDA events | {gpu}")
+    return launches
+
+
+def query_phases(dev, gpu) -> None:
+    """[query] trace_rays on the 2,073,600 center rays of Cornell's 1080p
+    camera, occlusion on the bake's 1,048,576 probes, light_probe at 16
+    samples on 16,384 receivers (the bake's finder hits on
+    many_light_scene(20)) in modes "all" and "spatial": each held at
+    256x144 (and on the bake's res-32 grid) against the same call on the
+    CPU (hit, mat_id, mtype exact; t, position, normal, albedo and the
+    probe within 1e-5 relative, ``report_close``), then timed at full
+    size."""
+    import tpurt_torch as tt
+    from tpurt_torch.camera import generate_rays
+    from tpurt_torch.denoise import pixel_centers
+    from tpurt_torch.tools import bake_ao
+
+    def center_rays(cfg, device):
+        u, v = pixel_centers(cfg.width, cfg.height, device)
+        o, d = generate_rays(cornell_camera(cfg), u.reshape(-1),
+                             v.reshape(-1))
+        return torch.stack(o, -1), torch.stack(d, -1)
+
+    def receivers(scene, res):
+        h = tt.trace_rays(scene, *bake_ao.finders(res))
+        return h.position, h.normal
+
+    small = tt.RenderConfig(width=256, height=144)
+    bad = 0
+    out = []
+    for device in (dev, torch.device("cpu")):
+        scene = tt.cornell_spheres_scene(device=device)
+        many = tt.many_light_scene(20, device=device)
+        o, d = center_rays(small, device)
+        h = tt.trace_rays(scene, o, d)
+        _, org, dirs = bake_ao.probes(scene, 32, 36)
+        occ = tt.occlusion(scene, org, dirs, 4.0)
+        pos, nrm = receivers(many, 32)
+        probe = {m: tt.light_probe(many, pos, nrm, 16,
+                                   tt.RenderConfig(light_sample=m))
+                 for m in ("all", "spatial")}
+        out.append((h, occ, probe))
+    (hg, occ_g, pr_g), (hc, occ_c, pr_c) = out
+    print(f"[query] 256x144 center rays ({float(hc.hit.float().mean()):.3f} "
+          f"hit), the card against the CPU:")
+    for f in ("hit", "mat_id", "mtype"):
+        bad += report_close(f, getattr(hg, f), getattr(hc, f), 0, True)
+    hit = hc.hit
+    bad += report_close("t (hits)", hg.t.cpu()[hit], hc.t[hit], 1e-5)
+    for f in ("position", "normal", "albedo"):
+        bad += report_close(f, getattr(hg, f), getattr(hc, f), 1e-5)
+    bad += report_close("occlusion (36,864 probes)", occ_g, occ_c, 1e-5)
+    for m in ("all", "spatial"):
+        bad += report_close(f"light_probe {m} (1024 receivers, 16 samples)",
+                            pr_g[m], pr_c[m], 1e-5)
+    if bad:
+        raise AssertionError(f"[query]: {bad} values differ between the "
+                             f"card and the CPU")
+    cfg = tt.RenderConfig(width=FULL[0], height=FULL[1])
+    scene = tt.cornell_spheres_scene()
+    many = tt.many_light_scene(20)
+    o, d = center_rays(cfg, dev)
+    _, org, dirs = bake_ao.probes(scene, *BAKE)
+    org_t = torch.from_numpy(org).to(dev)
+    dirs_t = torch.from_numpy(dirs).to(dev)
+    pos, nrm = receivers(many, BAKE[0])
+    h = tt.trace_rays(scene, o, d)
+    ms = {"trace_rays": cuda_ms(lambda: tt.trace_rays(scene, o, d), 3),
+          "occlusion": cuda_ms(lambda: tt.occlusion(scene, org_t, dirs_t,
+                                                    4.0), 3)}
+    for m in ("all", "spatial"):
+        c = tt.RenderConfig(light_sample=m)
+        ms[f"light_probe {m}"] = cuda_ms(
+            lambda: tt.light_probe(many, pos, nrm, 16, c), 2)
+    print(f"[query] full size, device ms by CUDA events: trace_rays "
+          f"{o.shape[0]} rays ({float(h.hit.float().mean()):.3f} hit) "
+          f"{ms['trace_rays']:.2f}; occlusion {org.shape[0]} probes "
+          f"{ms['occlusion']:.2f}; light_probe {pos.shape[0]} receivers x 16 "
+          f"samples, 20 lights: all {ms['light_probe all']:.2f}, spatial "
+          f"{ms['light_probe spatial']:.2f} | {gpu}")
+
+
+def denoise_phases(dev, gpu) -> None:
+    """[denoise] render_aovs, atrous_denoise (5 iterations, sigma_color
+    None) and denoise_image on a 4-spp Cornell state, reproject and
+    temporal_blend between two orbit cameras one frame apart: at 256x144
+    on the card against the CPU on the same state (AOV albedo, depth and
+    reproject's valid exact; the rest within 1e-4 relative,
+    ``report_close``: the card's exp and the auto sigma's mean differ from
+    PyTorch's CPU ones in the last bits), then each timed at 1080p."""
+    import dataclasses
+    import tpurt_torch as tt
+    from tpurt_torch.temporal import reproject, temporal_blend
+    from tpurt_torch.tools.animate import orbit_camera
+
+    def run(device, cfg, st):
+        scene = tt.cornell_spheres_scene(device=device)
+        st = dataclasses.replace(st, rgb_sum=st.rgb_sum.to(device),
+                                 n_samples=st.n_samples.to(device))
+        cams = [orbit_camera(f, 24, CAM["look_from"], CAM["look_at"],
+                             CAM["vfov"], cfg.width / cfg.height)
+                for f in (0, 1)]
+        a0, a1 = (tt.render_aovs(scene, cfg, c) for c in cams)
+        lin = tt.resolve_radiance(cfg, st)
+        den = tt.atrous_denoise(lin, a1.albedo, a1.normal, a1.depth)
+        img = tt.denoise_image(scene, cfg, cams[1], st, aovs=a1)
+        _, hist = temporal_blend(None, cams[0], a0, lin)
+        warped, valid = reproject(hist, cams[1], a1.depth)
+        blend, _ = temporal_blend(hist, cams[1], a1, den)
+        return dict(scene=scene, st=st, cams=cams, a0=a0, a1=a1, lin=lin,
+                    den=den, img=img, hist=hist, warped=warped, valid=valid,
+                    blend=blend)
+
+    small = tt.RenderConfig(width=256, height=144, depth=30,
+                            backend="pallas")
+    st_s = tt.render(tt.cornell_spheres_scene(), small, cornell_camera(small),
+                     tt.init_state(small), 1234, 4)
+    g, c = run(dev, small, st_s), run(torch.device("cpu"), small, st_s)
+    print("[denoise] 256x144, 4 spp, the card against the CPU:")
+    bad = sum(report_close(f"aov {f}", getattr(g["a1"], f),
+                           getattr(c["a1"], f), 0, True)
+              for f in ("albedo", "depth"))
+    bad += report_close("aov normal", g["a1"].normal, c["a1"].normal, 1e-5)
+    bad += report_close("reproject valid", g["valid"], c["valid"], 0, True)
+    for f in ("den", "img", "warped", "blend"):
+        bad += report_close(f, g[f], c[f], 1e-4)
+    if bad:
+        raise AssertionError(f"[denoise]: {bad} values differ between the "
+                             f"card and the CPU")
+    print(f"  valid share {float(c['valid'].float().mean()):.4f}")
+    cfg = tt.RenderConfig(width=FULL[0], height=FULL[1], depth=30,
+                          backend="pallas")
+    st = tt.render(tt.cornell_spheres_scene(), cfg, cornell_camera(cfg),
+                   tt.init_state(cfg), 1234, 4)
+    r = run(dev, cfg, st)
+    ms = {
+        "render_aovs": cuda_ms(lambda: tt.render_aovs(
+            r["scene"], cfg, r["cams"][1]), 3),
+        "atrous_denoise": cuda_ms(lambda: tt.atrous_denoise(
+            r["lin"], r["a1"].albedo, r["a1"].normal, r["a1"].depth), 3),
+        "denoise_image": cuda_ms(lambda: tt.denoise_image(
+            r["scene"], cfg, r["cams"][1], r["st"]), 3),
+        "reproject": cuda_ms(lambda: reproject(r["hist"], r["cams"][1],
+                                               r["a1"].depth), 3),
+        "temporal_blend": cuda_ms(lambda: temporal_blend(
+            r["hist"], r["cams"][1], r["a1"], r["den"]), 3)}
+    if not bool(torch.isfinite(r["img"]).all()):
+        raise AssertionError("[denoise]: the full-size image is not finite")
+    print(f"[denoise] {cfg.width}x{cfg.height}, device ms by CUDA events: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+          + f"; valid share {float(r['valid'].float().mean()):.4f} | {gpu}")
+
+
+def animate_phases(dev, gpu) -> int:
+    """[animate] the twin of tools/animate.py in this process on Cornell
+    at 1920x1080, depth 30, --orbit --frames 3 --spp 4: once plain (a
+    regen and a blit launch a frame), again to see the resume skip every
+    frame, once --denoise --temporal 0.8 (a regen launch a frame, no
+    blit). Each run is a path: the counts are zeroed before it and read
+    after. Returns the blit launches."""
+    import tempfile
+    from tpurt_torch.tools import animate
+    argv = ["--scene", "cornell", "--width", str(FULL[0]), "--height",
+            str(FULL[1]), "--depth", "30", "--orbit", "--frames", "3",
+            "--spp", "4"]
+    blit_launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, extra, want in (("plain", [], {"regen": 3, "blit": 3}),
+                                 ("resume", [], {"regen": 0, "blit": 0}),
+                                 ("--denoise --temporal 0.8",
+                                  ["--denoise", "--temporal", "0.8"],
+                                  {"regen": 3, "blit": 0})):
+            out_dir = f"{tmp}/{'t' if extra else 'p'}"
+            zero_counts(["regen", "blit"])
+            stats, wall = sync_ms(lambda: animate.main(
+                argv + extra + ["--out-dir", out_dir]))
+            got = read_counts(["regen", "blit"])
+            blit_launches += got["blit"]
+            print(f"[animate] {tag}: {stats['frames_rendered']} frames in "
+                  f"{wall / 1e3:.2f} s, launches {got} | {gpu}")
+            for fr in stats["frames"]:
+                m = fr["ms"]
+                print(f"  frame {fr['frame']}: render {m['render']:.1f} aov "
+                      f"{m['aov']:.1f} denoise {m['denoise']:.1f} temporal "
+                      f"{m['temporal']:.1f} png {m['png']:.1f} total "
+                      f"{m['total']:.1f} ms, {fr['rays']} rays, "
+                      f"{fr['rays'] / m['total'] / 1e3:.1f} Mrays/s")
+            frames = [f"{out_dir}/frame_{i:04d}.png" for i in range(3)]
+            if got != want or stats["frames_rendered"] != want["regen"] \
+                    or not all(pathlib.Path(f).stat().st_size > 0
+                               for f in frames):
+                raise AssertionError(f"[animate] {tag}: launches {got}, "
+                                     f"{stats['frames_rendered']} frames "
+                                     f"(want {want})")
+    return blit_launches
+
+
+def until_phases(dev, gpu) -> None:
+    """[until] render_until on Cornell at 1080p, depth 30, batch_spp 4,
+    target_rel_err 0.02, max_spp 32: info, wall time, and the share of it
+    outside the regen kernel (each regen_call bracketed by CUDA events)."""
+    import tpurt_torch as tt
+    from tpurt_torch.kernels import mega_regen
+    cfg = tt.RenderConfig(width=FULL[0], height=FULL[1], depth=30,
+                          backend="pallas")
+    scene = tt.cornell_spheres_scene()
+    cam = cornell_camera(cfg)
+    orig = mega_regen.regen_call
+    spans = []
+
+    def timed(*a, **k):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = orig(*a, **k)
+        e.record()
+        spans.append((s, e))
+        return out
+
+    mega_regen.regen_call = timed
+    try:
+        zero_counts(["regen"])
+        (st, info), wall = sync_ms(lambda: tt.render_until(
+            scene, cfg, cam, tt.init_state(cfg), 1234, target_rel_err=0.02,
+            batch_spp=4, max_spp=32))
+    finally:
+        mega_regen.regen_call = orig
+    kernel = sum(s.elapsed_time(e) for s, e in spans)
+    launches = read_counts(["regen"])["regen"]
+    print(f"[until] Cornell {cfg.width}x{cfg.height} depth 30, batch 4, "
+          f"target 0.02, max 32: "
+          f"info {info}, {wall / 1e3:.3f} s wall, {launches} regen launches "
+          f"({kernel:.1f} ms in the kernel), share outside the kernel "
+          f"{1.0 - kernel / wall:.3f}, rays {int(st.rays)} | {gpu}")
+    if launches != info["batches"] or st.iteration != info["spp"] \
+            or not np.isfinite(info["rel_err"]):
+        raise AssertionError(f"[until]: {launches} launches for {info}")
+
+
+def bake_phases(dev, gpu) -> None:
+    """[bake-ao] the twin of examples/bake_ao.py at its defaults (res 128,
+    64 probes a texel: 1,064,960 rays) on the card, after its res-16,
+    8-probe map on the card against the CPU's (exact)."""
+    from tpurt_torch.tools import bake_ao
+    g = bake_ao.bake(None, 16, 8, device=dev)
+    c = bake_ao.bake(None, 16, 8, device="cpu")
+    print(f"[bake-ao] res 16, 8 probes: the card against the CPU, max "
+          f"|diff| {float(np.abs(g - c).max()):.3g}")
+    if not np.array_equal(g, c):
+        raise AssertionError("[bake-ao]: the card's AO map is not the CPU's")
+    res, rays = BAKE
+    ao, wall = sync_ms(lambda: bake_ao.bake(None, res, rays, device=dev))
+    print(f"[bake-ao] res {res}, {rays} probes ({res * res * (rays + 1)} "
+          f"rays): {wall / 1e3:.3f} s wall, mean AO {ao.mean():.4f} | {gpu}")
+    if ao.shape != (res, res) or not (0.0 < ao.mean() < 1.0):
+        raise AssertionError(f"[bake-ao]: AO map {ao.shape}, mean "
+                             f"{ao.mean()}")
+
+
+def api_phases(dev, gpu) -> int:
+    """The phases of the API past render, in order; returns the blit
+    launches of their paths. Alone: python3 -c "import torch, chip_smoke
+    as cs; cs.api_phases(torch.device('cuda'), cs.gpu_line())"."""
+    t0 = time.perf_counter()
+    launches = blit_route_phases(dev, gpu)
+    query_phases(dev, gpu)
+    denoise_phases(dev, gpu)
+    launches += animate_phases(dev, gpu)
+    until_phases(dev, gpu)
+    bake_phases(dev, gpu)
+    torch.cuda.synchronize()
+    print(f"[time] blit-routes, query, denoise, animate, until, bake-ao: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 if __name__ == "__main__":

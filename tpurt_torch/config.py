@@ -110,6 +110,27 @@ class RenderConfig:
                              f"available: {sorted(cls.PRESETS)}")
         return cls(**{**cls.PRESETS[name], **overrides})
 
+    @staticmethod
+    def parse_overrides(pairs) -> dict:
+        """CLI ``--set KEY=VAL`` pairs -> a kwargs dict: values through
+        ast.literal_eval, a bare string where that fails
+        (``backend=pallas``); an unknown field name exits with a
+        message."""
+        import ast
+        fields = {f.name for f in dataclasses.fields(RenderConfig)}
+        out = {}
+        for kv in pairs or ():
+            k, _, v = kv.partition("=")
+            if k not in fields:
+                raise SystemExit(
+                    f"--set {k}: not a RenderConfig field "
+                    f"(see tpurt_torch/config.py for the list)")
+            try:
+                out[k] = ast.literal_eval(v)
+            except (ValueError, SyntaxError):
+                out[k] = v
+        return out
+
     @property
     def n_pixels(self) -> int:
         return self.width * self.height

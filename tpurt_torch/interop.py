@@ -13,9 +13,12 @@ import numpy as np
 import torch
 
 from tpurt_torch.camera import Camera, MotionCamera
+from tpurt_torch.denoise import AOVs
 from tpurt_torch.device import resolve_device
+from tpurt_torch.query import RayHits
 from tpurt_torch.render import RenderState
 from tpurt_torch.scene import Scene, scene_from_arrays
+from tpurt_torch.temporal import TemporalState
 
 _STATE_DTYPES = {
     "rgb_sum": np.float32, "n_samples": np.float32, "vis_pos": np.float32,
@@ -74,3 +77,40 @@ def state_to_numpy(state: RenderState) -> dict:
     out["photon_radius"] = np.asarray(state.photon_radius, np.float32)
     out["rays"] = np.asarray(float(state.rays), np.float64)
     return out
+
+
+def _tensor(a, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+
+
+def aovs_from_numpy(albedo, normal, depth, device=None) -> AOVs:
+    """AOVs on ``device`` (the CUDA card by default) from the three planes
+    of a tpurt AOVs."""
+    device = resolve_device(device)
+    return AOVs(albedo=_tensor(albedo, np.float32, device),
+                normal=_tensor(normal, np.float32, device),
+                depth=_tensor(depth, np.float32, device))
+
+
+def temporal_state_from_numpy(img, depth, camera: Camera,
+                              device=None) -> TemporalState:
+    """TemporalState on ``device`` (the CUDA card by default) from a tpurt
+    TemporalState's image and depth and the port's Camera of its camera
+    (``camera_from_numpy``)."""
+    device = resolve_device(device)
+    return TemporalState(img=_tensor(img, np.float32, device),
+                         depth=_tensor(depth, np.float32, device),
+                         camera=camera)
+
+
+_HIT_DTYPES = {"hit": np.bool_, "t": np.float32, "position": np.float32,
+               "normal": np.float32, "mat_id": np.int32,
+               "albedo": np.float32, "mtype": np.int32}
+
+
+def ray_hits_from_numpy(fields: dict, device=None) -> RayHits:
+    """RayHits on ``device`` (the CUDA card by default) from the fields of
+    a tpurt RayHits."""
+    device = resolve_device(device)
+    return RayHits(**{name: _tensor(fields[name], dt, device)
+                      for name, dt in _HIT_DTYPES.items()})

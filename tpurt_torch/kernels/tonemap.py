@@ -1,9 +1,13 @@
 """Wrapper of the blit kernel (``csrc/tonemap.cu``): resolve + tonemap
-of the first ``n_pixels`` of a state into a (n, 3) image.
+of the first ``n_pixels`` of a state into a (n, 3) image, and tpurt's two
+other routes to its blit (``tpurt/kernels/tonemap_pallas.py``):
+``resolve_state_pallas`` (a RenderState, per-pixel sample counts) and
+``image_from_planes`` (the (16, P) planes of ``render.state_to_planes``,
+a scalar or per-pixel count).
 
-On a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
-the plain version (``tpurt_torch/tonemap.py``). ``LAUNCHES`` counts kernel
-launches only.
+On a CUDA tensor each launches the kernel or raises; on a CPU tensor it
+runs the plain version (``tpurt_torch/tonemap.py``). ``LAUNCHES`` counts
+kernel launches only, of every route.
 """
 
 from __future__ import annotations
@@ -48,3 +52,37 @@ def tonemap_pixels(rgb_sum: torch.Tensor, n_samples: torch.Tensor,
     build.check_launch(lib, err, "tpurt_tonemap_launch")
     LAUNCHES += 1
     return out
+
+
+def resolve_state_pallas(cfg, state, key=None, saturation=None
+                         ) -> torch.Tensor:
+    """(H, W, 3) image of a RenderState through the blit
+    (``tonemap_pallas.py:104``): each pixel divided by its own sample
+    count, so a wavefront state stopped mid-drain resolves correctly."""
+    img = tonemap_pixels(
+        state.rgb_sum, state.n_samples, cfg.n_pixels,
+        cfg.tonemap_key if key is None else key,
+        cfg.tonemap_saturation if saturation is None else saturation)
+    return img.reshape(cfg.height, cfg.width, 3)
+
+
+def image_from_planes(cfg, planes: torch.Tensor, n_samples, key=None,
+                      saturation=None) -> torch.Tensor:
+    """(H, W, 3) image of (C, P) planes (rows 0-2 the radiance sums, in
+    linear pixel order) through the blit (``tonemap_pallas.py:89``).
+    ``n_samples`` is a scalar (a uniform count) or (P,) per pixel. The
+    port's planes are in linear order, so tpurt's ``planes_pixel_order``
+    is the identity here; rows 0-2 are copied to the (P, 3) layout the
+    kernel reads."""
+    if planes.dim() != 2 or planes.shape[0] < 3:
+        raise ValueError(f"need (C >= 3, P) planes, got "
+                         f"{tuple(planes.shape)}")
+    P = planes.shape[1]
+    ns = torch.as_tensor(n_samples, dtype=torch.float32,
+                         device=planes.device)
+    ns = ns.expand(P) if ns.dim() == 0 else ns.reshape(P)
+    img = tonemap_pixels(
+        planes[0:3].T.contiguous(), ns.contiguous(), cfg.n_pixels,
+        cfg.tonemap_key if key is None else key,
+        cfg.tonemap_saturation if saturation is None else saturation)
+    return img.reshape(cfg.height, cfg.width, 3)

@@ -204,15 +204,62 @@ def render_step(scene: Scene, cfg: RenderConfig, camera: Camera,
     return _advance(scene, cfg, camera, state, base_seed, 1, d)
 
 
+def render_until(scene: Scene, cfg: RenderConfig, camera: Camera,
+                 state: RenderState, base_seed, *,
+                 target_rel_err: float = 0.02, batch_spp: int = 8,
+                 max_spp: int = 1024, min_batches: int = 2):
+    """Render ``batch_spp``-sample batches through ``render`` until the
+    image reaches a noise target (``tpurt.render.render_until``).
+
+    After each batch the host reads the accumulated ``rgb_sum`` in float64
+    and updates a spp-weighted Welford over the batch means; the error is
+    mean(standard error of the accumulated mean) / mean(|mean|). Stops when
+    it is at most ``target_rel_err`` (after ``min_batches`` batches) or
+    when ``max_spp`` new samples have been added. The render itself is
+    untouched: the final state equals one ``render`` of the same spp.
+
+    Returns ``(state, info)``, info holding spp (new samples), batches,
+    rel_err and converged.
+    """
+    if batch_spp < 1 or min_batches < 2:
+        raise ValueError("batch_spp >= 1 and min_batches >= 2 required "
+                         "(the batch variance divides by B-1)")
+    n = cfg.n_pixels
+
+    def host_sum(st):
+        return st.rgb_sum[:n].double().cpu().numpy()
+
+    prev = host_sum(state)
+    mean = np.zeros_like(prev)
+    m2 = np.zeros_like(prev)
+    done_spp, batches, rel_err = 0, 0, float("inf")
+    while done_spp < max_spp:
+        spp = min(batch_spp, max_spp - done_spp)
+        state = render(scene, cfg, camera, state, base_seed, spp)
+        done_spp += spp
+        batches += 1
+        cur = host_sum(state)
+        batch_mean = (cur - prev) / spp
+        prev = cur
+        delta = batch_mean - mean
+        mean += delta * (spp / done_spp)
+        m2 += spp * delta * (batch_mean - mean)
+        if batches >= min_batches:
+            sigma2 = m2 / (batches - 1)         # per-sample variance
+            se = np.sqrt(sigma2 / done_spp)     # std error of accum mean
+            rel_err = float(se.mean() / max(np.abs(mean).mean(), 1e-12))
+            if rel_err <= target_rel_err:
+                break
+    return state, {"spp": done_spp, "batches": batches,
+                   "rel_err": rel_err,
+                   "converged": rel_err <= target_rel_err}
+
+
 def resolve_image(cfg: RenderConfig, state: RenderState, key=None,
                   saturation=None) -> torch.Tensor:
     """Resolve + tonemap to an (H, W, 3) image on the state's device, by
     the blit kernel on the card and its plain version on the CPU."""
-    key = cfg.tonemap_key if key is None else key
-    saturation = cfg.tonemap_saturation if saturation is None else saturation
-    img = tonemap_kernel.tonemap_pixels(state.rgb_sum, state.n_samples,
-                                        cfg.n_pixels, key, saturation)
-    return img.reshape(cfg.height, cfg.width, 3)
+    return tonemap_kernel.resolve_state_pallas(cfg, state, key, saturation)
 
 
 def resolve_radiance(cfg: RenderConfig, state: RenderState) -> torch.Tensor:
