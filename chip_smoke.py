@@ -227,6 +227,8 @@ def profiled(fn, reps: int = 1):
     the launches of each kernel the session recorded."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from tpurt_torch import tracing
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -240,8 +242,10 @@ def profiled(fn, reps: int = 1):
     RECORDED.clear()
     for e in prof.key_averages():
         # device-side entries only (kernels, copies): a CPU op's own
-        # device time repeats its kernels'
-        if e.device_type != DeviceType.CUDA:
+        # device time repeats its kernels', as a span's range on the
+        # device (tpurt_torch.tracing) repeats what it launched
+        if e.device_type != DeviceType.CUDA \
+                or e.key.startswith(tracing.PREFIX):
             continue
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))

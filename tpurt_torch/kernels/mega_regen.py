@@ -41,7 +41,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpurt_torch import integrate
+from tpurt_torch import integrate, tracing
 from tpurt_torch.camera import MotionCamera, motion_rows
 from tpurt_torch.kernels import build, bvh
 from tpurt_torch.ops import qmc
@@ -338,24 +338,27 @@ def _launch(fs, cfg, camera, planes, base_seed: int, spp: int,
             iteration: int, radius: float, depth: int, aux=None,
             gmat=None):
     global MXU_LAUNCHES, EMIT_LAUNCHES, SPAWN_LAUNCHES, LIGHTS_LAUNCHES
-    table, geo = scene_table(fs, cfg, camera, planes.device)
-    emission = emission_args(fs, cfg)
-    spawn = spawn_args(cfg, camera, planes.device)
-    lights = lights_args(cfg, photon_count(fs, cfg) > 0)
-    lib = build.library()
-    counters = launch_counters(planes.device)
-    stream = torch.cuda.current_stream(planes.device).cuda_stream
-    err = lib.tpurt_regen_launch(
-        planes.data_ptr(), planes.shape[1], cfg.width, cfg.height,
-        table.data_ptr(), len(geo.flat_rows), len(fs.materials),
-        len(fs.lights), int(base_seed) & 0xFFFFFFFF, spp, iteration, depth,
-        radius, photon_count(fs, cfg), cfg.max_photon_bounces,
-        cfg.rr_threshold, cfg.photon_rr_threshold, cfg.sppm_alpha,
-        ctypes.byref(sampler_args(fs, cfg)),
-        None if aux is None else aux.data_ptr(),
-        ctypes.byref(geo.args(gmat)), counters.data_ptr(),
-        cie_table(planes.device).data_ptr(), struct_ref(emission),
-        struct_ref(spawn), struct_ref(lights), stream)
+    with tracing.span("path.prepare"):
+        table, geo = scene_table(fs, cfg, camera, planes.device)
+        emission = emission_args(fs, cfg)
+        spawn = spawn_args(cfg, camera, planes.device)
+        lights = lights_args(cfg, photon_count(fs, cfg) > 0)
+        lib = build.library()
+        counters = launch_counters(planes.device)
+        stream = torch.cuda.current_stream(planes.device).cuda_stream
+        args = (
+            planes.data_ptr(), planes.shape[1], cfg.width, cfg.height,
+            table.data_ptr(), len(geo.flat_rows), len(fs.materials),
+            len(fs.lights), int(base_seed) & 0xFFFFFFFF, spp, iteration,
+            depth, radius, photon_count(fs, cfg), cfg.max_photon_bounces,
+            cfg.rr_threshold, cfg.photon_rr_threshold, cfg.sppm_alpha,
+            ctypes.byref(sampler_args(fs, cfg)),
+            None if aux is None else aux.data_ptr(),
+            ctypes.byref(geo.args(gmat)), counters.data_ptr(),
+            cie_table(planes.device).data_ptr(), struct_ref(emission),
+            struct_ref(spawn), struct_ref(lights), stream)
+    with tracing.span("path.launch", planes.device):
+        err = lib.tpurt_regen_launch(*args)
     build.check_launch(lib, err, "tpurt_regen_launch")
     bvh.count_walk(geo)
     if gmat is not None:
@@ -377,11 +380,14 @@ def regen_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
     Sample s draws from frame seed (base_seed, iteration + s) and gathers
     photons within ``radius`` after s radius steps."""
     global LAUNCHES
-    fs = checked_scene(scene, planes, cfg)
-    tri = regen_tri_mode(fs, cfg)
+    with tracing.span("path.prepare"):
+        fs = checked_scene(scene, planes, cfg)
+        tri = regen_tri_mode(fs, cfg)
     if planes.device.type == "cpu":
-        return integrate.render_plain(fs, cfg, camera, planes, base_seed,
-                                      spp, iteration, radius, depth, tri)
+        with tracing.span("path.launch"):
+            return integrate.render_plain(fs, cfg, camera, planes,
+                                          base_seed, spp, iteration, radius,
+                                          depth, tri)
     rays = _launch(fs, cfg, camera, planes, base_seed, spp, iteration,
                    radius, depth, gmat=tri.gmat)
     LAUNCHES += 1
@@ -397,21 +403,25 @@ def regen_budget_call(scene, cfg, camera, planes: torch.Tensor,
     strata epochs and SPPM radius (``integrate.render_plain_budget``).
     Returns the traced segments as an int64 scalar."""
     global BUDGET_LAUNCHES
-    fs = checked_scene(scene, planes, cfg)
-    P = planes.shape[1]
-    if budgets.shape != (P,) or counts.shape != (P,):
-        raise ValueError(f"budgets {tuple(budgets.shape)} and counts "
-                         f"{tuple(counts.shape)} must be ({P},)")
-    tri = regen_tri_mode(fs, cfg)
+    with tracing.span("path.prepare"):
+        fs = checked_scene(scene, planes, cfg)
+        P = planes.shape[1]
+        if budgets.shape != (P,) or counts.shape != (P,):
+            raise ValueError(f"budgets {tuple(budgets.shape)} and counts "
+                             f"{tuple(counts.shape)} must be ({P},)")
+        tri = regen_tri_mode(fs, cfg)
+        if planes.device.type != "cpu":
+            cnt = counts.to(planes.device).long()
+            radii = torch.from_numpy(integrate.radius_table(
+                cfg, int(cnt.max()) if P else 0)).to(planes.device)[cnt]
+            aux = torch.stack([budgets.to(planes.device).to(torch.float32),
+                               counts.to(planes.device).to(torch.float32),
+                               radii]).contiguous()
     if planes.device.type == "cpu":
-        return integrate.render_plain_budget(fs, cfg, camera, planes,
-                                             base_seed, budgets, counts, tri)
-    cnt = counts.to(planes.device).long()
-    radii = torch.from_numpy(integrate.radius_table(
-        cfg, int(cnt.max()) if P else 0)).to(planes.device)[cnt]
-    aux = torch.stack([budgets.to(planes.device).to(torch.float32),
-                       counts.to(planes.device).to(torch.float32),
-                       radii]).contiguous()
+        with tracing.span("path.launch"):
+            return integrate.render_plain_budget(fs, cfg, camera, planes,
+                                                 base_seed, budgets, counts,
+                                                 tri)
     rays = _launch(fs, cfg, camera, planes, base_seed, 0, 0, 0.0, cfg.depth,
                    aux, tri.gmat)
     BUDGET_LAUNCHES += 1

@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from tpurt_torch import integrate
+from tpurt_torch import integrate, tracing
 from tpurt_torch.kernels import build, bvh
 from tpurt_torch.kernels.mega_regen import (checked_scene, cie_table,
                                             emission_args, struct_ref,
@@ -46,30 +46,35 @@ def step_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
     Returns the traced segments as an int64 scalar on the planes'
     device."""
     global LAUNCHES, EMIT_LAUNCHES, SPAWN_LAUNCHES, LIGHTS_LAUNCHES
-    fs = checked_scene(scene, planes, cfg)
-    if planes.device.type == "cpu":
-        return integrate.render_plain(fs, cfg, camera, planes, base_seed, 1,
-                                      iteration, radius, depth)
-    table, geo = scene_table(fs, cfg, camera, planes.device)
-    args = geo.args()
-    assert args.gmat is None    # tpurt never runs its G leaf here
-    lib = build.library()
-    counters = launch_counters(planes.device)
-    emission = emission_args(fs, cfg)
-    spawn = spawn_args(cfg, camera, planes.device)
-    lights = lights_args(cfg, photon_count(fs, cfg) > 0)
-    stream = torch.cuda.current_stream(planes.device).cuda_stream
-    err = lib.tpurt_step_launch(
-        planes.data_ptr(), planes.shape[1], cfg.width, cfg.height,
-        table.data_ptr(), len(geo.flat_rows), len(fs.materials),
-        len(fs.lights), int(base_seed) & 0xFFFFFFFF, iteration, depth,
-        radius,
-        photon_count(fs, cfg), cfg.max_photon_bounces, cfg.rr_threshold,
-        cfg.photon_rr_threshold, ctypes.byref(sampler_args(fs, cfg)),
-        ctypes.byref(args), counters.data_ptr(),
-        cie_table(planes.device).data_ptr(), struct_ref(emission),
-        struct_ref(spawn), struct_ref(lights), stream)
-    build.check_launch(lib, err, "tpurt_step_launch")
+    with tracing.span("path.prepare"):
+        fs = checked_scene(scene, planes, cfg)
+        cpu = planes.device.type == "cpu"
+        if not cpu:
+            table, geo = scene_table(fs, cfg, camera, planes.device)
+            args = geo.args()
+            assert args.gmat is None    # tpurt never runs its G leaf here
+            lib = build.library()
+            counters = launch_counters(planes.device)
+            emission = emission_args(fs, cfg)
+            spawn = spawn_args(cfg, camera, planes.device)
+            lights = lights_args(cfg, photon_count(fs, cfg) > 0)
+            sampler = sampler_args(fs, cfg)
+            stream = torch.cuda.current_stream(planes.device).cuda_stream
+    with tracing.span("path.launch", planes.device):
+        if cpu:
+            return integrate.render_plain(fs, cfg, camera, planes, base_seed,
+                                          1, iteration, radius, depth)
+        err = lib.tpurt_step_launch(
+            planes.data_ptr(), planes.shape[1], cfg.width, cfg.height,
+            table.data_ptr(), len(geo.flat_rows), len(fs.materials),
+            len(fs.lights), int(base_seed) & 0xFFFFFFFF, iteration, depth,
+            radius,
+            photon_count(fs, cfg), cfg.max_photon_bounces, cfg.rr_threshold,
+            cfg.photon_rr_threshold, ctypes.byref(sampler),
+            ctypes.byref(args), counters.data_ptr(),
+            cie_table(planes.device).data_ptr(), struct_ref(emission),
+            struct_ref(spawn), struct_ref(lights), stream)
+        build.check_launch(lib, err, "tpurt_step_launch")
     LAUNCHES += 1
     if spawn is not None:
         SPAWN_LAUNCHES += 1

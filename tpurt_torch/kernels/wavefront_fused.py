@@ -35,7 +35,7 @@ import dataclasses
 
 import torch
 
-from tpurt_torch import adaptive, wavefront
+from tpurt_torch import adaptive, tracing, wavefront
 from tpurt_torch.camera import check_camera
 from tpurt_torch.config import check_slice
 from tpurt_torch.kernels import build, bvh
@@ -60,34 +60,38 @@ def _launch(scene, cfg, camera, state, base_seed, spp: int, aux=None):
     global LAUNCHES, SAMPLER_LAUNCHES, EMIT_LAUNCHES, SPAWN_LAUNCHES, \
         LIGHTS_LAUNCHES
     dev = state.device
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    rgb = state.rgb_sum
-    if rgb.dtype != torch.float32 or rgb.dim() != 2 or rgb.shape[1] != 3 \
-            or rgb.shape[0] < cfg.n_pixels:
-        raise ValueError(f"rgb_sum must be float32 (P, 3) with P >= "
-                         f"{cfg.n_pixels}, got {tuple(rgb.shape)} {rgb.dtype}")
-    rgb = rgb.contiguous().clone()
-    fs = freeze_scene(scene)
-    table, geo = scene_table(fs, cfg, camera, dev)
-    args = geo.args()
-    assert args.gmat is None    # tpurt never runs its G leaf here
-    lib = build.library()
-    counters = launch_counters(dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    sampler = camera_sampler_args(fs, cfg)
-    emission = emission_args(fs, cfg, wavefront=True)
-    spawn = spawn_args(cfg, camera, dev, photons=False)
-    lights = lights_args(cfg, photons=False)
-    err = lib.tpurt_wf_fused_launch(
-        rgb.data_ptr(), rgb.shape[0], cfg.width, cfg.height,
-        table.data_ptr(), len(geo.flat_rows), len(fs.materials),
-        len(fs.lights), int(base_seed) & 0xFFFFFFFF, spp, state.iteration,
-        None if aux is None else aux.data_ptr(), cfg.depth,
-        cfg.rr_threshold, ctypes.byref(args), counters.data_ptr(),
-        cie_table(dev).data_ptr(), ctypes.byref(sampler),
-        struct_ref(emission), struct_ref(spawn), struct_ref(lights), stream)
-    build.check_launch(lib, err, "tpurt_wf_fused_launch")
+    with tracing.span("path.prepare"):
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        rgb = state.rgb_sum
+        if rgb.dtype != torch.float32 or rgb.dim() != 2 \
+                or rgb.shape[1] != 3 or rgb.shape[0] < cfg.n_pixels:
+            raise ValueError(f"rgb_sum must be float32 (P, 3) with P >= "
+                             f"{cfg.n_pixels}, got {tuple(rgb.shape)} "
+                             f"{rgb.dtype}")
+        rgb = rgb.contiguous().clone()
+        fs = freeze_scene(scene)
+        table, geo = scene_table(fs, cfg, camera, dev)
+        args = geo.args()
+        assert args.gmat is None    # tpurt never runs its G leaf here
+        lib = build.library()
+        counters = launch_counters(dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        sampler = camera_sampler_args(fs, cfg)
+        emission = emission_args(fs, cfg, wavefront=True)
+        spawn = spawn_args(cfg, camera, dev, photons=False)
+        lights = lights_args(cfg, photons=False)
+    with tracing.span("path.launch", dev):
+        err = lib.tpurt_wf_fused_launch(
+            rgb.data_ptr(), rgb.shape[0], cfg.width, cfg.height,
+            table.data_ptr(), len(geo.flat_rows), len(fs.materials),
+            len(fs.lights), int(base_seed) & 0xFFFFFFFF, spp,
+            state.iteration, None if aux is None else aux.data_ptr(),
+            cfg.depth, cfg.rr_threshold, ctypes.byref(args),
+            counters.data_ptr(), cie_table(dev).data_ptr(),
+            ctypes.byref(sampler), struct_ref(emission), struct_ref(spawn),
+            struct_ref(lights), stream)
+        build.check_launch(lib, err, "tpurt_wf_fused_launch")
     LAUNCHES += 1
     if spawn is not None:
         SPAWN_LAUNCHES += 1
@@ -115,8 +119,9 @@ def wavefront_render_fused(scene, cfg, camera, state, base_seed, spp: int):
     reader looks past them)."""
     _check(scene, cfg, camera, state)
     if state.device.type == "cpu":
-        return wavefront.wavefront_render(scene, cfg, camera, state,
-                                          base_seed, spp)
+        with tracing.span("path.launch"):
+            return wavefront.wavefront_render(scene, cfg, camera, state,
+                                              base_seed, spp)
     spp = int(spp)
     rgb, rays = _launch(scene, cfg, camera, state, base_seed, spp)
     return dataclasses.replace(
@@ -137,9 +142,10 @@ def wavefront_render_budget_fused(scene, cfg, camera, state, base_seed,
     budgets = adaptive.clip_budgets(cfg, budgets.to(state.device),
                                     max_budget)
     if state.device.type == "cpu":
-        return adaptive.wavefront_render_budget(scene, cfg, camera, state,
-                                                base_seed, budgets,
-                                                max_budget)
+        with tracing.span("path.launch"):
+            return adaptive.wavefront_render_budget(scene, cfg, camera,
+                                                    state, base_seed,
+                                                    budgets, max_budget)
     aux = torch.stack([budgets.to(torch.float32),
                        state.n_samples.to(torch.float32)]).contiguous()
     rgb, rays = _launch(scene, cfg, camera, state, base_seed, 0, aux)

@@ -33,7 +33,7 @@ import ctypes
 
 import torch
 
-from tpurt_torch import wavefront
+from tpurt_torch import tracing, wavefront
 from tpurt_torch.kernels import build, bvh
 from tpurt_torch.kernels.mega_regen import (camera_sampler_args, cie_table,
                                             emission_args, lights_args,
@@ -110,25 +110,31 @@ def stepper(fs, cfg, work: wavefront.PoolWork,
             LIGHTS_LAUNCHES
         dev = pool.pf.device
         if dev.type == "cpu":
-            return plain(pool, rgb, ns, ctl)
-        if dev.type != "cuda":
-            raise ValueError(f"unsupported device {dev}")
-        if not launch:
-            launch.update(_prepare(fs, cfg, work, pool.rng.shape[0], dev))
-        # a loop passes back what the last sweep returned: checked once
-        tensors = (pool.pf, pool.pi, pool.rng, rgb, ns, ctl)
-        last = launch.get("last")
-        if last is None or any(a is not b for a, b in zip(tensors, last)):
-            _check_step(pool, rgb, ns, ctl)
-            launch["last"] = tensors
-            launch["ptrs"] = tuple(t.data_ptr() for t in tensors)
-        err = launch["lib"].tpurt_wf_step_launch(
-            *launch["ptrs"], launch["table"], launch["n_sph"],
-            launch["n_mat"], launch["n_light"], launch["args_ref"],
-            launch["geom_ref"], launch["cie"], launch["sampler_ref"],
-            launch["emission_ref"], launch["spawn_ref"],
-            launch["lights_ref"], torch.cuda.current_stream(dev).cuda_stream)
-        build.check_launch(launch["lib"], err, "tpurt_wf_step_launch")
+            with tracing.span("path.launch"):
+                return plain(pool, rgb, ns, ctl)
+        with tracing.span("path.prepare"):
+            if dev.type != "cuda":
+                raise ValueError(f"unsupported device {dev}")
+            if not launch:
+                launch.update(_prepare(fs, cfg, work, pool.rng.shape[0],
+                                       dev))
+            # a loop passes back what the last sweep returned: checked once
+            tensors = (pool.pf, pool.pi, pool.rng, rgb, ns, ctl)
+            last = launch.get("last")
+            if last is None or any(a is not b for a, b in zip(tensors,
+                                                              last)):
+                _check_step(pool, rgb, ns, ctl)
+                launch["last"] = tensors
+                launch["ptrs"] = tuple(t.data_ptr() for t in tensors)
+            stream = torch.cuda.current_stream(dev).cuda_stream
+        with tracing.span("path.launch", dev):
+            err = launch["lib"].tpurt_wf_step_launch(
+                *launch["ptrs"], launch["table"], launch["n_sph"],
+                launch["n_mat"], launch["n_light"], launch["args_ref"],
+                launch["geom_ref"], launch["cie"], launch["sampler_ref"],
+                launch["emission_ref"], launch["spawn_ref"],
+                launch["lights_ref"], stream)
+            build.check_launch(launch["lib"], err, "tpurt_wf_step_launch")
         LAUNCHES += 1
         if launch["spawn"] is not None:
             SPAWN_LAUNCHES += 1

@@ -31,7 +31,7 @@ import os
 import numpy as np
 import torch
 
-from tpurt_torch import integrate, wavefront
+from tpurt_torch import integrate, tracing, wavefront
 from tpurt_torch import tonemap as tm
 from tpurt_torch.camera import Camera, check_camera
 from tpurt_torch.config import RenderConfig, check_slice
@@ -162,7 +162,8 @@ def _advance(scene, cfg, camera, state, base_seed, spp, depth):
         cfg = cfg if depth == cfg.depth else cfg.with_(depth=depth)
         return _wavefront_dispatch(cfg)(scene, cfg, camera, state,
                                         base_seed, spp)
-    planes = state_to_planes(state)
+    with tracing.span("render.to_planes"):
+        planes = state_to_planes(state)
     if cfg.backend == "pallas" and cfg.pallas_regen:
         rays = mega_regen.regen_call(scene, cfg, camera, planes,
                                      int(base_seed), spp, state.iteration,
@@ -183,16 +184,23 @@ def _advance(scene, cfg, camera, state, base_seed, spp, depth):
                                       planes, int(base_seed), spp,
                                       state.iteration, state.photon_radius,
                                       depth, tri)
-    radius = radius_after(cfg, state.iteration, state.photon_radius, spp)
-    return planes_to_state(state, planes, spp, radius, rays, cfg)
+    with tracing.span("render.from_planes"):
+        radius = radius_after(cfg, state.iteration, state.photon_radius, spp)
+        return planes_to_state(state, planes, spp, radius, rays, cfg)
+
+
+def _render(scene, cfg, camera, state, base_seed, spp, depth):
+    with tracing.span("render"):
+        with tracing.span("render.check"):
+            _check_call(scene, cfg, camera, state, depth)
+        return _advance(scene, cfg, camera, state, base_seed, spp, depth)
 
 
 def render(scene: Scene, cfg: RenderConfig, camera: Camera,
            state: RenderState, base_seed, spp: int) -> RenderState:
     """Advance every pixel by ``spp`` progressive samples."""
-    _check_call(scene, cfg, camera, state, cfg.depth)
-    return _advance(scene, cfg, camera, state, base_seed, int(spp),
-                    cfg.depth)
+    return _render(scene, cfg, camera, state, base_seed, int(spp),
+                   cfg.depth)
 
 
 def render_step(scene: Scene, cfg: RenderConfig, camera: Camera,
@@ -200,8 +208,7 @@ def render_step(scene: Scene, cfg: RenderConfig, camera: Camera,
                 depth: int | None = None) -> RenderState:
     """One progressive sample; ``depth`` overrides cfg.depth (preview)."""
     d = cfg.depth if depth is None else int(depth)
-    _check_call(scene, cfg, camera, state, d)
-    return _advance(scene, cfg, camera, state, base_seed, 1, d)
+    return _render(scene, cfg, camera, state, base_seed, 1, d)
 
 
 def render_until(scene: Scene, cfg: RenderConfig, camera: Camera,
@@ -238,18 +245,19 @@ def render_until(scene: Scene, cfg: RenderConfig, camera: Camera,
         state = render(scene, cfg, camera, state, base_seed, spp)
         done_spp += spp
         batches += 1
-        cur = host_sum(state)
-        batch_mean = (cur - prev) / spp
-        prev = cur
-        delta = batch_mean - mean
-        mean += delta * (spp / done_spp)
-        m2 += spp * delta * (batch_mean - mean)
-        if batches >= min_batches:
-            sigma2 = m2 / (batches - 1)         # per-sample variance
-            se = np.sqrt(sigma2 / done_spp)     # std error of accum mean
-            rel_err = float(se.mean() / max(np.abs(mean).mean(), 1e-12))
-            if rel_err <= target_rel_err:
-                break
+        with tracing.span("until.welford"):
+            cur = host_sum(state)
+            batch_mean = (cur - prev) / spp
+            prev = cur
+            delta = batch_mean - mean
+            mean += delta * (spp / done_spp)
+            m2 += spp * delta * (batch_mean - mean)
+            if batches >= min_batches:
+                sigma2 = m2 / (batches - 1)         # per-sample variance
+                se = np.sqrt(sigma2 / done_spp)     # std error of accum mean
+                rel_err = float(se.mean() / max(np.abs(mean).mean(), 1e-12))
+                if rel_err <= target_rel_err:
+                    break
     return state, {"spp": done_spp, "batches": batches,
                    "rel_err": rel_err,
                    "converged": rel_err <= target_rel_err}
