@@ -374,17 +374,24 @@ cells += [("spawn-tile-sync-all", "regen", lambda: spawn_cell(
 
 
 def forced_all(c, cam):
-    """The regen launch of c on the lights instance with mode "all"."""
+    """The regen launch of c on the lights instance with mode "all". The
+    launch plans kept on the scene (a checkout that keeps them) are
+    dropped before and after, so neither this launch nor a later cell's
+    meets a plan built with the other lights switches."""
     if not hasattr(mega_regen, "lights_args"):
         raise NotImplementedError   # a checkout without lights instances
+    from tpurt_torch.scene import freeze_scene
+    plans = freeze_scene(cornell).cache
     keep = mega_regen.lights_args
     mega_regen.lights_args = lambda cfg, photons=True: (
         mega_regen.LightsArgs(mode=0, q=0.0, widen=0.0))
+    plans.pop("plans", None)
     try:
         return mega_regen.regen_call(cornell, c, cam, planes.clone(), 1234,
                                      1, 0, 2.0, 30)
     finally:
         mega_regen.lights_args = keep
+        plans.pop("plans", None)
 
 
 cells.append(("lights-regen-forced-all", "regen", lambda: spawn_cell(

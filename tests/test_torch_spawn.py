@@ -652,9 +652,12 @@ def test_unit_roulette_scale_is_the_reference(cuda, monkeypatch):
     """The spawn instances' scaled roulette at photon_rr_scale 1 is the
     reference roulette bit for bit: a launch given spawn switches that are
     all off (scale 1) equals the launch without them, on the reference
-    sampler's spawn instance and on the one with the sampler flags."""
+    sampler's spawn instance and on the one with the sampler flags. The
+    launch plans kept on the scene are dropped around the patch, so the
+    reference launch builds its own switches (no spawn launch)."""
     off = mega_regen.SpawnArgs(rr_scale=1.0)
     scene = tt.cornell_spheres_scene(device=cuda)
+    fs = freeze_scene(scene)
     cam = _camera(tt, False)
     for kw in ({}, dict(hero_wavelengths=4)):
         cfg = tt.RenderConfig(width=W, height=H, depth=8, backend="pallas",
@@ -663,11 +666,15 @@ def test_unit_roulette_scale_is_the_reference(cuda, monkeypatch):
         pa, pb = planes.clone(), planes.clone()
         with monkeypatch.context() as m:
             m.setattr(mega_regen, "spawn_args", lambda *a, **k: off)
+            fs.cache.pop("plans", None)
             before = mega_regen.SPAWN_LAUNCHES
             ra = int(mega_regen.regen_call(scene, cfg, cam, pa, 3, 2, 0, 2.0,
                                            8))
             assert mega_regen.SPAWN_LAUNCHES == before + 1
+        fs.cache.pop("plans", None)
+        before = mega_regen.SPAWN_LAUNCHES
         rb = int(mega_regen.regen_call(scene, cfg, cam, pb, 3, 2, 0, 2.0, 8))
+        assert mega_regen.SPAWN_LAUNCHES == before
         assert ra == rb > 0 and torch.equal(pa, pb)
 
 

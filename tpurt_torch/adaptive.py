@@ -221,7 +221,8 @@ def render_adaptive(scene, cfg, camera, base_seed=0, spp: int = 64,
 
     state = init_state(cfg, scene.device)
     state = uniform_fn(scene, cfg, camera, state, base_seed, h)
-    sum_a, n_a = state.rgb_sum, state.n_samples
+    # contiguous: a view of the render's planes would keep all 16 rows
+    sum_a, n_a = state.rgb_sum.contiguous(), state.n_samples
     state = uniform_fn(scene, cfg, camera, state, base_seed, h)
     sum_b = state.rgb_sum - sum_a
     n_b = state.n_samples - n_a

@@ -201,8 +201,8 @@ def denoise_image(scene, cfg: RenderConfig, camera, state, *,
     feature terms relaxed by ``defocus_relax``), then tonemap, or return
     the linear image with ``tonemap=False`` (for ``temporal``)."""
     n = cfg.n_pixels
-    avg = tm.resolve(state.rgb_sum[:n], state.n_samples[:n]).reshape(
-        cfg.height, cfg.width, 3)
+    avg = tm.resolve(state.rgb_sum[:n].contiguous(),
+                     state.n_samples[:n]).reshape(cfg.height, cfg.width, 3)
     if aovs is None:
         aovs = render_aovs(scene, cfg, camera)
     relax = (defocus_relax(cfg, aovs.depth, clamp_px=defocus_clamp_px)

@@ -71,8 +71,8 @@ def state_from_numpy(fields: dict, device=None) -> RenderState:
 def state_to_numpy(state: RenderState) -> dict:
     """The 10 RenderState fields as NumPy, in tpurt's dtypes, except
     ``rays``: float64, exact to 2**53 where tpurt's float32 is not."""
-    out = {name: getattr(state, name).detach().cpu().numpy().astype(dt)
-           for name, dt in _STATE_DTYPES.items()}
+    out = {name: getattr(state, name).detach().cpu().numpy().astype(
+        dt, order="C") for name, dt in _STATE_DTYPES.items()}
     out["iteration"] = np.asarray(state.iteration, np.int32)
     out["photon_radius"] = np.asarray(state.photon_radius, np.float32)
     out["rays"] = np.asarray(float(state.rays), np.float64)

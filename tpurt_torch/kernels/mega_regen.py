@@ -30,11 +30,16 @@ a MotionCamera's shutter, the Sobol spawn draws with their direction table
 on the device, ``sobol_table``, and the photon roulette scale) and the
 lights switches (``lights_args``: the NEE mode, the photon aim), which
 select the kernels' emission, spawn and lights instances. ``struct_ref``
-passes any of them to a launcher.
+passes any of them to a launcher. ``launch_plan`` keeps all of these for
+a launch on the planes (this kernel's and the tile-synchronized one's),
+per frozen scene, config, camera rows and device, so that a call builds
+only its seed, counts, radius, planes and counters (``PLAN_HITS``,
+``PLAN_BUILDS``).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 
@@ -57,7 +62,10 @@ MXU_LAUNCHES = 0
 EMIT_LAUNCHES = 0
 SPAWN_LAUNCHES = 0
 LIGHTS_LAUNCHES = 0
+PLAN_HITS = 0      # launch_plan calls that found their plan kept
+PLAN_BUILDS = 0    # launch_plan calls that built one
 
+PLAN_LIMIT = 4     # plans kept per frozen scene, the least recent leaving
 N_CHANNELS = 16
 CAM_FLOATS = 12
 MAT_STRIDE = 8
@@ -334,40 +342,110 @@ def regen_tri_mode(fs, cfg) -> integrate.TriMode:
     return integrate.TriMode("gleaf", bvh.gmat(fs, cfg))
 
 
-def _launch(fs, cfg, camera, planes, base_seed: int, spp: int,
-            iteration: int, radius: float, depth: int, aux=None,
-            gmat=None):
+@dataclasses.dataclass(frozen=True, eq=False)
+class LaunchPlan:
+    """What a launch on the (16, P) planes (the regen kernel in either
+    mode, the tile-synchronized kernel) takes that depends only on the
+    frozen scene, the config, the camera's rows and the device: built by
+    ``launch_plan``, read by every launch that matches it."""
+    table: torch.Tensor             # parameter table, camera rows first
+    geo: bvh.Geometry               # geometry tables
+    tri: integrate.TriMode          # closest-hit triangle test
+    geo_args: bvh.GeomArgs          # geo.args(tri.gmat)
+    sampler: SamplerArgs
+    emission: EmissionArgs | None
+    spawn: SpawnArgs | None
+    lights: LightsArgs | None
+    photons: int                    # photon_count
+    cie: int                        # address of cie_table on the device
+    lib: ctypes.CDLL | None         # the kernel library; None on the CPU
+
+
+def camera_key(camera) -> bytes:
+    """The bytes of the camera rows a plan depends on: a MotionCamera's
+    both poses (the table holds the shutter-open rows, the spawn switches
+    the deltas to shutter close), a Camera's four rows, none without a
+    camera."""
+    if camera is None:
+        return b""
+    poses = ((camera.cam0, camera.cam1) if isinstance(camera, MotionCamera)
+             else (camera,))
+    return b"".join(t.numpy(force=True).tobytes() for c in poses
+                    for t in (c.origin, c.horizontal, c.vertical,
+                              c.lower_left))
+
+
+def build_plan(fs, cfg, camera, device) -> LaunchPlan:
+    """A fresh ``LaunchPlan``, on any device (the library only on the
+    card). Raises what the triangle test and the spawn switches raise."""
+    device = torch.device(device)
+    tri = regen_tri_mode(fs, cfg)
+    table, geo = scene_table(fs, cfg, camera, device)
+    k = photon_count(fs, cfg)
+    return LaunchPlan(
+        table=table, geo=geo, tri=tri, geo_args=geo.args(tri.gmat),
+        sampler=sampler_args(fs, cfg), emission=emission_args(fs, cfg),
+        spawn=spawn_args(cfg, camera, device), lights=lights_args(cfg, k > 0),
+        photons=k, cie=cie_table(device).data_ptr(),
+        lib=build.library() if device.type == "cuda" else None)
+
+
+def launch_plan(fs, cfg, camera, device) -> LaunchPlan:
+    """The ``LaunchPlan`` of a launch: built on the first call for this
+    frozen scene, config, camera rows and device (``PLAN_BUILDS``), then
+    kept on the frozen scene, which holds the ``PLAN_LIMIT`` plans used
+    last (``PLAN_HITS``). A moving camera builds anew on the cached body
+    of the table (``scene_table``). The key holds the inputs, not the
+    functions that build the plan from them: code that replaces one of
+    them (a test's patch, an A/B's forced switch) drops the kept plans,
+    ``fs.cache.pop("plans", None)``, before and after."""
+    global PLAN_HITS, PLAN_BUILDS
+    device = torch.device(device)
+    plans = fs.cache.get("plans")
+    if plans is None:
+        plans = fs.cache["plans"] = collections.OrderedDict()
+    key = (cfg, device, camera_key(camera))
+    plan = plans.get(key)
+    if plan is not None:
+        plans.move_to_end(key)
+        PLAN_HITS += 1
+        return plan
+    plan = plans[key] = build_plan(fs, cfg, camera, device)
+    if len(plans) > PLAN_LIMIT:
+        plans.popitem(last=False)
+    PLAN_BUILDS += 1
+    return plan
+
+
+def _launch(plan: LaunchPlan, fs, cfg, planes, base_seed: int, spp: int,
+            iteration: int, radius: float, depth: int, aux=None):
     global MXU_LAUNCHES, EMIT_LAUNCHES, SPAWN_LAUNCHES, LIGHTS_LAUNCHES
     with tracing.span("path.prepare"):
-        table, geo = scene_table(fs, cfg, camera, planes.device)
-        emission = emission_args(fs, cfg)
-        spawn = spawn_args(cfg, camera, planes.device)
-        lights = lights_args(cfg, photon_count(fs, cfg) > 0)
-        lib = build.library()
         counters = launch_counters(planes.device)
         stream = torch.cuda.current_stream(planes.device).cuda_stream
         args = (
             planes.data_ptr(), planes.shape[1], cfg.width, cfg.height,
-            table.data_ptr(), len(geo.flat_rows), len(fs.materials),
-            len(fs.lights), int(base_seed) & 0xFFFFFFFF, spp, iteration,
-            depth, radius, photon_count(fs, cfg), cfg.max_photon_bounces,
-            cfg.rr_threshold, cfg.photon_rr_threshold, cfg.sppm_alpha,
-            ctypes.byref(sampler_args(fs, cfg)),
+            plan.table.data_ptr(), len(plan.geo.flat_rows),
+            len(fs.materials), len(fs.lights), int(base_seed) & 0xFFFFFFFF,
+            spp, iteration, depth, radius, plan.photons,
+            cfg.max_photon_bounces, cfg.rr_threshold,
+            cfg.photon_rr_threshold, cfg.sppm_alpha,
+            ctypes.byref(plan.sampler),
             None if aux is None else aux.data_ptr(),
-            ctypes.byref(geo.args(gmat)), counters.data_ptr(),
-            cie_table(planes.device).data_ptr(), struct_ref(emission),
-            struct_ref(spawn), struct_ref(lights), stream)
+            ctypes.byref(plan.geo_args), counters.data_ptr(), plan.cie,
+            struct_ref(plan.emission), struct_ref(plan.spawn),
+            struct_ref(plan.lights), stream)
     with tracing.span("path.launch", planes.device):
-        err = lib.tpurt_regen_launch(*args)
-    build.check_launch(lib, err, "tpurt_regen_launch")
-    bvh.count_walk(geo)
-    if gmat is not None:
+        err = plan.lib.tpurt_regen_launch(*args)
+    build.check_launch(plan.lib, err, "tpurt_regen_launch")
+    bvh.count_walk(plan.geo)
+    if plan.tri.gmat is not None:
         MXU_LAUNCHES += 1
-    if emission is not None:
+    if plan.emission is not None:
         EMIT_LAUNCHES += 1
-    if spawn is not None:
+    if plan.spawn is not None:
         SPAWN_LAUNCHES += 1
-    if lights is not None:
+    if plan.lights is not None:
         LIGHTS_LAUNCHES += 1
     return counters[0]
 
@@ -380,16 +458,20 @@ def regen_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
     Sample s draws from frame seed (base_seed, iteration + s) and gathers
     photons within ``radius`` after s radius steps."""
     global LAUNCHES
+    cpu = planes.device.type == "cpu"
     with tracing.span("path.prepare"):
         fs = checked_scene(scene, planes, cfg)
-        tri = regen_tri_mode(fs, cfg)
-    if planes.device.type == "cpu":
+        if cpu:
+            tri = regen_tri_mode(fs, cfg)
+        else:
+            plan = launch_plan(fs, cfg, camera, planes.device)
+    if cpu:
         with tracing.span("path.launch"):
             return integrate.render_plain(fs, cfg, camera, planes,
                                           base_seed, spp, iteration, radius,
                                           depth, tri)
-    rays = _launch(fs, cfg, camera, planes, base_seed, spp, iteration,
-                   radius, depth, gmat=tri.gmat)
+    rays = _launch(plan, fs, cfg, planes, base_seed, spp, iteration, radius,
+                   depth)
     LAUNCHES += 1
     return rays
 
@@ -403,27 +485,30 @@ def regen_budget_call(scene, cfg, camera, planes: torch.Tensor,
     strata epochs and SPPM radius (``integrate.render_plain_budget``).
     Returns the traced segments as an int64 scalar."""
     global BUDGET_LAUNCHES
+    cpu = planes.device.type == "cpu"
     with tracing.span("path.prepare"):
         fs = checked_scene(scene, planes, cfg)
         P = planes.shape[1]
         if budgets.shape != (P,) or counts.shape != (P,):
             raise ValueError(f"budgets {tuple(budgets.shape)} and counts "
                              f"{tuple(counts.shape)} must be ({P},)")
-        tri = regen_tri_mode(fs, cfg)
-        if planes.device.type != "cpu":
+        if cpu:
+            tri = regen_tri_mode(fs, cfg)
+        else:
+            plan = launch_plan(fs, cfg, camera, planes.device)
             cnt = counts.to(planes.device).long()
             radii = torch.from_numpy(integrate.radius_table(
                 cfg, int(cnt.max()) if P else 0)).to(planes.device)[cnt]
             aux = torch.stack([budgets.to(planes.device).to(torch.float32),
                                counts.to(planes.device).to(torch.float32),
                                radii]).contiguous()
-    if planes.device.type == "cpu":
+    if cpu:
         with tracing.span("path.launch"):
             return integrate.render_plain_budget(fs, cfg, camera, planes,
                                                  base_seed, budgets, counts,
                                                  tri)
-    rays = _launch(fs, cfg, camera, planes, base_seed, 0, 0, 0.0, cfg.depth,
-                   aux, tri.gmat)
+    rays = _launch(plan, fs, cfg, planes, base_seed, 0, 0, 0.0, cfg.depth,
+                   aux)
     BUDGET_LAUNCHES += 1
     return rays
 
@@ -438,7 +523,8 @@ def render_budget_regen(scene, cfg, camera, state, base_seed, budgets,
     n_samples, so chained calls stay exact). A uniform budget equals
     ``render`` bit for bit, two chained calls one combined call."""
     from tpurt_torch import adaptive
-    from tpurt_torch.render import _check_call, radius_after, state_to_planes
+    from tpurt_torch.render import (_check_call, plane_fields, radius_after,
+                                    state_to_planes)
     _check_call(scene, cfg, camera, state, cfg.depth)
     if budgets.shape != state.n_samples.shape:
         raise ValueError(f"budgets {tuple(budgets.shape)} do not match the "
@@ -449,11 +535,9 @@ def render_budget_regen(scene, cfg, camera, state, base_seed, budgets,
     planes = state_to_planes(state)
     rays = regen_budget_call(scene, cfg, camera, planes, int(base_seed),
                              budgets, state.n_samples)
-    t3 = lambda a: planes[a:a + 3].T.contiguous()  # noqa: E731
     return dataclasses.replace(
-        state, rgb_sum=t3(0), n_samples=state.n_samples + budgets.float(),
-        vis_pos=t3(3), vis_norm=t3(6), vis_wo=t3(9), vis_tp=t3(12),
-        vis_mat=planes[15].to(torch.int32),
+        state, **plane_fields(planes),
+        n_samples=state.n_samples + budgets.float(),
         iteration=state.iteration + max_budget,
         photon_radius=radius_after(cfg, state.iteration, state.photon_radius,
                                    max_budget),

@@ -26,11 +26,8 @@ import torch
 
 from tpurt_torch import integrate, tracing
 from tpurt_torch.kernels import build, bvh
-from tpurt_torch.kernels.mega_regen import (checked_scene, cie_table,
-                                            emission_args, struct_ref,
-                                            launch_counters, lights_args,
-                                            photon_count, sampler_args,
-                                            scene_table, spawn_args)
+from tpurt_torch.kernels.mega_regen import (checked_scene, launch_counters,
+                                            launch_plan, struct_ref)
 
 LAUNCHES = 0
 EMIT_LAUNCHES = 0
@@ -50,37 +47,31 @@ def step_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
         fs = checked_scene(scene, planes, cfg)
         cpu = planes.device.type == "cpu"
         if not cpu:
-            table, geo = scene_table(fs, cfg, camera, planes.device)
-            args = geo.args()
-            assert args.gmat is None    # tpurt never runs its G leaf here
-            lib = build.library()
+            plan = launch_plan(fs, cfg, camera, planes.device)
+            # tpurt never runs its G leaf here
+            assert plan.geo_args.gmat is None
             counters = launch_counters(planes.device)
-            emission = emission_args(fs, cfg)
-            spawn = spawn_args(cfg, camera, planes.device)
-            lights = lights_args(cfg, photon_count(fs, cfg) > 0)
-            sampler = sampler_args(fs, cfg)
             stream = torch.cuda.current_stream(planes.device).cuda_stream
     with tracing.span("path.launch", planes.device):
         if cpu:
             return integrate.render_plain(fs, cfg, camera, planes, base_seed,
                                           1, iteration, radius, depth)
-        err = lib.tpurt_step_launch(
+        err = plan.lib.tpurt_step_launch(
             planes.data_ptr(), planes.shape[1], cfg.width, cfg.height,
-            table.data_ptr(), len(geo.flat_rows), len(fs.materials),
-            len(fs.lights), int(base_seed) & 0xFFFFFFFF, iteration, depth,
-            radius,
-            photon_count(fs, cfg), cfg.max_photon_bounces, cfg.rr_threshold,
-            cfg.photon_rr_threshold, ctypes.byref(sampler),
-            ctypes.byref(args), counters.data_ptr(),
-            cie_table(planes.device).data_ptr(), struct_ref(emission),
-            struct_ref(spawn), struct_ref(lights), stream)
-        build.check_launch(lib, err, "tpurt_step_launch")
+            plan.table.data_ptr(), len(plan.geo.flat_rows),
+            len(fs.materials), len(fs.lights), int(base_seed) & 0xFFFFFFFF,
+            iteration, depth, radius, plan.photons, cfg.max_photon_bounces,
+            cfg.rr_threshold, cfg.photon_rr_threshold,
+            ctypes.byref(plan.sampler), ctypes.byref(plan.geo_args),
+            counters.data_ptr(), plan.cie, struct_ref(plan.emission),
+            struct_ref(plan.spawn), struct_ref(plan.lights), stream)
+        build.check_launch(plan.lib, err, "tpurt_step_launch")
     LAUNCHES += 1
-    if spawn is not None:
+    if plan.spawn is not None:
         SPAWN_LAUNCHES += 1
-    if lights is not None:
+    if plan.lights is not None:
         LIGHTS_LAUNCHES += 1
-    if emission is not None:
+    if plan.emission is not None:
         EMIT_LAUNCHES += 1
-    bvh.count_walk(geo)
+    bvh.count_walk(plan.geo)
     return counters[0]

@@ -58,9 +58,11 @@ def resolve_state_pallas(cfg, state, key=None, saturation=None
                          ) -> torch.Tensor:
     """(H, W, 3) image of a RenderState through the blit
     (``tonemap_pallas.py:104``): each pixel divided by its own sample
-    count, so a wavefront state stopped mid-drain resolves correctly."""
+    count, so a wavefront state stopped mid-drain resolves correctly.
+    The kernel reads (P, 3) rows: a state left in planes has its rgb_sum
+    copied to them first."""
     img = tonemap_pixels(
-        state.rgb_sum, state.n_samples, cfg.n_pixels,
+        state.rgb_sum.contiguous(), state.n_samples, cfg.n_pixels,
         cfg.tonemap_key if key is None else key,
         cfg.tonemap_saturation if saturation is None else saturation)
     return img.reshape(cfg.height, cfg.width, 3)

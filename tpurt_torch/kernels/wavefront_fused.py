@@ -69,7 +69,7 @@ def _launch(scene, cfg, camera, state, base_seed, spp: int, aux=None):
             raise ValueError(f"rgb_sum must be float32 (P, 3) with P >= "
                              f"{cfg.n_pixels}, got {tuple(rgb.shape)} "
                              f"{rgb.dtype}")
-        rgb = rgb.contiguous().clone()
+        rgb = rgb.clone(memory_format=torch.contiguous_format)
         fs = freeze_scene(scene)
         table, geo = scene_table(fs, cfg, camera, dev)
         args = geo.args()

@@ -27,6 +27,7 @@ import ast
 import dataclasses
 import functools
 import os
+import weakref
 
 import numpy as np
 import torch
@@ -45,13 +46,34 @@ from tpurt_torch.scene import Scene, freeze_scene
 
 WAVEFRONT_BACKENDS = ("wavefront", "wavefront_pallas", "wavefront_fused")
 
+PLANE_REUSES = 0   # state_to_planes calls that copied a state's own planes
+PLANE_PACKS = 0    # state_to_planes calls that packed the fields
+
+# the (P, 3) fields that view the planes, and their first rows
+_VIEW_ROWS = (("rgb_sum", 0), ("vis_pos", 3), ("vis_norm", 6),
+              ("vis_wo", 9), ("vis_tp", 12))
+# the planes' attribute naming the vis_mat made from their row 15 and its
+# version counter then
+_ROW15 = "_tpurt_row15"
+
 
 @dataclasses.dataclass(frozen=True)
 class RenderState:
     """Everything that evolves across samples; the fields of
     ``tpurt.render.RenderState``. Arrays are (P, ...) in linear pixel
     order, P = padded_pixels(cfg); the scalars live on the host, except
-    the ray count, which accumulates on the device without a sync."""
+    the ray count, which accumulates on the device without a sync.
+
+    Contiguity is not promised: a state that a render call returned
+    through the (16, P) planes (``state_to_planes``) holds rgb_sum and
+    the four vispoint fields as strided (P, 3) views of the planes the
+    kernel wrote, and vis_mat as the int32 copy of their row 15, so the
+    next call copies the planes whole instead of packing them. A reader
+    that needs contiguous rows calls ``.contiguous()``, and so does one
+    that keeps a field alone: a view holds all 16 rows of the planes.
+    Under ``torch.inference_mode()`` every call packs (an inference
+    tensor has no version counter to show ``vis_mat`` unwritten). A
+    render call never writes its input state."""
     rgb_sum: torch.Tensor     # (P, 3) f32, radiance sum
     n_samples: torch.Tensor   # (P,)   f32, sample count
     vis_pos: torch.Tensor     # (P, 3) f32, persistent vispoints
@@ -109,22 +131,62 @@ def radius_after(cfg: RenderConfig, iteration: int, radius: float,
     return float(r)
 
 
+def resident_planes(state: RenderState) -> torch.Tensor | None:
+    """The (16, P) planes that hold every plane field of ``state`` as
+    ``plane_fields`` left them: rgb_sum and the vispoints (P, 3) views of
+    rows 0-14 with strides (1, P), and vis_mat the int32 copy of row 15
+    made with them and not written since. None for any other state (a
+    fresh one, one whose fields ``dataclasses.replace`` swapped, a
+    wavefront or loaded one)."""
+    planes = state.rgb_sum._base
+    tag = getattr(planes, _ROW15, None)
+    if tag is None or tag[0]() is not state.vis_mat \
+            or state.vis_mat._version != tag[1]:
+        return None
+    P = planes.shape[1]
+    for name, row in _VIEW_ROWS:
+        t = getattr(state, name)
+        if t._base is not planes or t.shape != (P, 3) \
+                or t.stride() != (1, P) \
+                or t.storage_offset() != planes.storage_offset() + row * P:
+            return None
+    return planes
+
+
 def state_to_planes(state: RenderState) -> torch.Tensor:
     """(16, P) float32 planes: rgb_sum, vis_pos, vis_norm, vis_wo, vis_tp,
-    vis_mat (as float)."""
+    vis_mat (as float); new planes, never the state's own. A state that
+    a render call left in planes (``resident_planes``) is copied in one
+    pass (``PLANE_REUSES``), any other packed field by field
+    (``PLANE_PACKS``)."""
+    global PLANE_REUSES, PLANE_PACKS
+    planes = resident_planes(state)
+    if planes is not None:
+        PLANE_REUSES += 1
+        return planes.clone()
+    PLANE_PACKS += 1
     return torch.cat([state.rgb_sum.T, state.vis_pos.T, state.vis_norm.T,
                       state.vis_wo.T, state.vis_tp.T,
                       state.vis_mat.to(torch.float32)[None]]).contiguous()
 
 
+def plane_fields(planes: torch.Tensor) -> dict:
+    """The RenderState fields the (16, P) planes hold, as ``state_to_planes``
+    lays them out: views of the planes (vis_mat an int32 copy of row 15),
+    which the next call recognises (``resident_planes``)."""
+    fields = {name: planes[row:row + 3].T for name, row in _VIEW_ROWS}
+    vis_mat = planes[15].to(torch.int32)
+    if not vis_mat.is_inference():
+        # an inference tensor has no version counter to show a later write
+        setattr(planes, _ROW15, (weakref.ref(vis_mat), vis_mat._version))
+    return dict(fields, vis_mat=vis_mat)
+
+
 def planes_to_state(state: RenderState, planes: torch.Tensor, spp: int,
                     radius: float, rays: torch.Tensor,
                     cfg: RenderConfig) -> RenderState:
-    t3 = lambda a: planes[a:a + 3].T.contiguous()  # noqa: E731
     return RenderState(
-        rgb_sum=t3(0), n_samples=state.n_samples + float(spp),
-        vis_pos=t3(3), vis_norm=t3(6), vis_wo=t3(9), vis_tp=t3(12),
-        vis_mat=planes[15].to(torch.int32),
+        **plane_fields(planes), n_samples=state.n_samples + float(spp),
         iteration=state.iteration + spp, photon_radius=radius,
         rays=state.rays + rays if cfg.count_rays else state.rays)
 
@@ -234,7 +296,7 @@ def render_until(scene: Scene, cfg: RenderConfig, camera: Camera,
     n = cfg.n_pixels
 
     def host_sum(st):
-        return st.rgb_sum[:n].double().cpu().numpy()
+        return st.rgb_sum[:n].contiguous().double().cpu().numpy()
 
     prev = host_sum(state)
     mean = np.zeros_like(prev)
@@ -273,8 +335,8 @@ def resolve_image(cfg: RenderConfig, state: RenderState, key=None,
 def resolve_radiance(cfg: RenderConfig, state: RenderState) -> torch.Tensor:
     """(H, W, 3) mean radiance, untonemapped."""
     n = cfg.n_pixels
-    return tm.resolve(state.rgb_sum[:n], state.n_samples[:n]).reshape(
-        cfg.height, cfg.width, 3)
+    return tm.resolve(state.rgb_sum[:n].contiguous(),
+                      state.n_samples[:n]).reshape(cfg.height, cfg.width, 3)
 
 
 # ----- checkpoints, interchangeable with tpurt's .npz -----

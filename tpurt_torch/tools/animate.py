@@ -132,7 +132,8 @@ def main(argv=None) -> dict:
     from tpurt_torch import tonemap as tm
     from tpurt_torch.camera import MotionCamera, base_camera
     from tpurt_torch.denoise import denoise_image, render_aovs
-    from tpurt_torch.render import init_state, render, resolve_image
+    from tpurt_torch.render import (init_state, render, resolve_image,
+                                    resolve_radiance)
     from tpurt_torch.temporal import temporal_blend
     from tpurt_torch.tools import scenes
     from tpurt_torch.utils.image import write_png
@@ -193,9 +194,7 @@ def main(argv=None) -> dict:
                 lin = denoise_image(scene, cfg, cam, st, aovs=aovs,
                                     tonemap=False)
             else:
-                n = cfg.n_pixels
-                lin = tm.resolve(st.rgb_sum[:n], st.n_samples[:n]).reshape(
-                    cfg.height, cfg.width, 3)
+                lin = resolve_radiance(cfg, st)
             ms["denoise"] = lap()
             if args.temporal:
                 lin, tstate = temporal_blend(tstate, base_camera(cam), aovs,

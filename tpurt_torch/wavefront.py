@@ -382,7 +382,7 @@ def _drain(fs, cfg, state, work: PoolWork, step):
     sweep, batch = step(fs, cfg, work)
     dev = state.device
     pool = new_pool(cfg.wf_pool, dev)
-    rgb = state.rgb_sum.clone()
+    rgb = state.rgb_sum.clone(memory_format=torch.contiguous_format)
     ns = state.n_samples.clone()
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     ctl = new_ctl(cfg.wf_pool, work.pending(zero) & (cfg.wf_max_sweeps > 0),
