@@ -11,13 +11,44 @@ order, so a leaf is the contiguous range [first, first + count) of the
 permuted arrays. ``collapse_wide`` makes up-to-8-ary trees with the same
 leaves; ``wide_max_stack`` is the exact worst-case stack occupancy of a
 walk over one.
+
+Every tree build is counted: ``TREE_BUILDS`` binary trees, and in
+``BUILD_NS`` the host nanoseconds of tree and table builds
+(``building``: this module's ``build_bvh`` and ``kernels/bvh.py``'s
+geometry builds; a build inside another counts once, in the outer one).
+Under a profiler each build is a span of ``tracing``: ``scene.bvh`` here.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 
 import numpy as np
+
+from tpurt_torch import tracing
+
+TREE_BUILDS = 0   # binary trees built by build_bvh
+BUILD_NS = 0      # host ns in tree and table builds, outermost only
+_open_builds = 0  # builds open now
+
+
+@contextlib.contextmanager
+def building(name: str):
+    """Times one tree or table build: the span ``name`` under a profiler,
+    and its host nanoseconds added to ``BUILD_NS`` unless a build open
+    around it counts them already."""
+    global BUILD_NS, _open_builds
+    t0 = time.perf_counter_ns()
+    _open_builds += 1
+    try:
+        with tracing.span(name):
+            yield
+    finally:
+        _open_builds -= 1
+        if _open_builds == 0:
+            BUILD_NS += time.perf_counter_ns() - t0
 
 
 @dataclasses.dataclass
@@ -43,8 +74,16 @@ def build_bvh(tri_min: np.ndarray, tri_max: np.ndarray, max_prims: int = 2,
     more than 2*ceil(T/K) nodes is replaced by the median tree, as tpurt
     does. tpurt's optional native builder gives the same output
     (tests/test_native.py); the port carries only this NumPy path.
+    Counted in ``TREE_BUILDS`` and ``BUILD_NS``, span ``scene.bvh``.
     """
-    max_prims = max(int(max_prims), 1)
+    global TREE_BUILDS
+    with building("scene.bvh"):
+        bvh = _build_bvh(tri_min, tri_max, max(int(max_prims), 1), sah)
+    TREE_BUILDS += 1
+    return bvh
+
+
+def _build_bvh(tri_min, tri_max, max_prims: int, sah: bool) -> BVH:
     T = int(tri_min.shape[0])
     if sah and T > 0:
         bvh = _build_bvh_py(np.asarray(tri_min, np.float32),

@@ -34,7 +34,10 @@ triangles are walked when ``cfg.pallas_bvh`` and there are more than
 when ``cfg.pallas_sphere_bvh`` and more than 16 are left after the
 scene-spanning ones, which stay in the flat sweep. ``geometry`` builds the
 tables once per frozen scene (so once per Scene) and knob set, and caches
-them on it.
+them on it: ``accel.BUILD_NS`` counts their host time, ``accel.TREE_BUILDS``
+their trees, and under a profiler each is a ``scene.geometry`` span of
+``tracing`` around the ``scene.bvh`` spans of its trees. A ``Geometry``
+keeps what its triangle tree holds (``TreeStats``).
 
 ``cfg.pallas_mxu_leaf`` swaps the closest-hit leaf test of the regen
 kernel's triangle walk for tpurt's G-matrix form
@@ -365,6 +368,39 @@ def use_sph_walk(fs: FrozenScene, cfg) -> bool:
 
 
 @dataclasses.dataclass(frozen=True)
+class TreeStats:
+    """What a walk's tree holds: its primitives, inner nodes and leaves,
+    the most children of an inner node (2 binary, up to 8 wide), the stack
+    entries proved for its walk, and the bytes of its records and node
+    table."""
+    prims: int
+    inner: int
+    leaves: int
+    width: int
+    stack: int
+    table_bytes: int
+
+
+def tree_stats(records: np.ndarray, nodes: np.ndarray,
+               stack: int) -> TreeStats:
+    """The ``TreeStats`` of a tree's leaf-ordered records and its node
+    table (``pack_tree``'s layout): a row pair with aux >= 0 is a child
+    slot, one with aux < 0 a leaf record; a slot's ref < 0 is a packed
+    leaf, else the pair of a node or of a leaf record."""
+    bits = nodes.view(np.int32)
+    ref, aux = bits[0::2, 3], bits[1::2, 3]
+    slot = aux >= 0
+    into = ref[slot & (ref >= 0)]
+    inner = int((aux[into] >= 0).sum()) + int(aux[0] >= 0)
+    leaves = (int((ref[slot] < 0).sum()) + int((aux[into] < 0).sum())
+              + int(aux[0] < 0))
+    return TreeStats(prims=int(records.shape[0]), inner=inner,
+                     leaves=leaves, width=int(aux.max(initial=0)),
+                     stack=int(stack),
+                     table_bytes=int(records.nbytes + nodes.nbytes))
+
+
+@dataclasses.dataclass(frozen=True)
 class Geometry:
     """A scene's geometry tables on one device for one knob set: the rows
     of the spheres swept flat (they go into the kernels' scene table), and
@@ -376,6 +412,7 @@ class Geometry:
     sph: torch.Tensor | None             # (S_tree, 8) rows, leaf order
     sph_nodes: torch.Tensor | None
     stack: int = 0                       # stack entries a walk may hold
+    tri_tree: TreeStats | None = None    # the triangle walk's tree
 
     @property
     def walks(self) -> bool:
@@ -401,11 +438,14 @@ def knobs(cfg) -> tuple:
 
 def geometry(fs: FrozenScene, cfg) -> Geometry:
     """The geometry tables of the frozen scene ``fs`` for ``cfg``'s tree
-    knobs, on its device: built on the first call, then cached on it."""
+    knobs, on its device: built on the first call (``accel.building``,
+    span ``scene.geometry``: trees, collapse, stack proof, packing and
+    upload), then cached on it."""
     key = ("geometry", knobs(cfg))
     geo = fs.cache.get(key)
     if geo is None:
-        geo = fs.cache[key] = _build_geometry(fs, cfg)
+        with accel.building("scene.geometry"):
+            geo = fs.cache[key] = _build_geometry(fs, cfg)
     return geo
 
 
@@ -427,7 +467,7 @@ def _build_geometry(fs: FrozenScene, cfg) -> Geometry:
     to_dev = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
     rows = sphere_rows(fs.spheres)
     flat = np.arange(len(fs.spheres))
-    sph = sph_nodes = None
+    sph = sph_nodes = tri_tree = None
     stack = 0
     if use_sph_walk(fs, cfg):
         flat, tree = split_huge_spheres(fs.spheres)
@@ -445,13 +485,15 @@ def _build_geometry(fs: FrozenScene, cfg) -> Geometry:
                 host["a"], host["e1"], host["e2"], host["n"], host["mat"],
                 cfg.pallas_bvh_leaf, cfg.pallas_bvh_sah, cfg.pallas_bvh_width)
             tri_nodes, stack = to_dev(nodes), max(stack, need)
+            tri_tree = tree_stats(rec, nodes, need)
         else:
             _check_exact(host["a"].shape[0])
             rec = tri_records(host["a"], host["e1"], host["e2"], host["n"],
                               host["mat"], np.arange(host["a"].shape[0]))
         tri = to_dev(rec)
     return Geometry(flat_rows=rows[flat], tri=tri, tri_nodes=tri_nodes,
-                    sph=sph, sph_nodes=sph_nodes, stack=stack)
+                    sph=sph, sph_nodes=sph_nodes, stack=stack,
+                    tri_tree=tri_tree)
 
 
 # ----- the walk probe -----
