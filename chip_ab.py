@@ -10,7 +10,12 @@ and on the torus with config 6's sampler flags (a checkout whose kernel
 takes no flags ignores them: its wrapper is called directly); then one
 budget launch on Cornell (seeded budgets 0-2, as many samples as one
 uniform sample), and both torus cells again with ``pallas_mxu_leaf`` (the
-G leaf). Each of these six cells gives three milliseconds:
+G leaf). On Cornell also the pool cell: the uniform launch's kernel (the
+pool instance, ``csrc/path_pool.cu``, where the checkout has it, else
+``regen_kernel<false, false>``) with its ptxas registers, spills and static
+shared memory, its launch's shared memory, blocks per SM and grid from the
+profiler's record, its median device ms over 5 launches and the lane share
+(``mega_regen.lane_share``). Each of these six cells gives three milliseconds:
 CUDA events around the calls, the kernel's device time under
 torch.profiler, and the host's time to issue the calls (no wait for the
 card), so a cell whose events time the host shows it. Then bench config 5
@@ -162,9 +167,53 @@ def host_ms(fn, reps=3):
 
 
 def three(fn):
-    """CUDA-event, regen-kernel device and host-issue ms of fn."""
-    return (f"{ms(fn):.3f} (device {device_ms(fn, 'regen_kernel'):.3f}, "
+    """CUDA-event, regen-kernel device and host-issue ms of fn (any regen
+    instance: a checkout with the pool instance runs the uniform Cornell
+    launch there)."""
+    return (f"{ms(fn):.3f} (device {device_ms(fn, 'regen'):.3f}, "
             f"host {host_ms(fn):.3f})")
+
+
+def launch_shape(fn, part, reps=5):
+    """The median device ms of one launch of the kernel whose name holds
+    part, over reps launches under torch.profiler, and the trace's record
+    of its first launch (grid, registers, shared memory, blocks per SM)."""
+    import json
+    import os
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    path = os.path.join(tempfile.mkdtemp(), "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        ev = [e for e in json.load(f)["traceEvents"]
+              if e.get("cat") == "kernel" and part in e.get("name", "")]
+    durs = sorted(e["dur"] / 1e3 for e in ev)
+    return (durs[len(durs) // 2] if durs else float("nan"),
+            ev[0].get("args", {}) if ev else {})
+
+
+def ptxas(mangled_part):
+    """ptxas's registers, spill stores and loads and static shared memory
+    of the kernel whose mangled name holds mangled_part, from this
+    checkout's build log."""
+    import re
+    log = build.library_path().with_suffix(".log").read_text()
+    at = log.find(mangled_part)
+    if at < 0:
+        return "ptxas n/a"
+    text = log[at:at + 2000]
+    spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      text)
+    regs = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", text)
+    return (f"{regs.group(1)} registers, spill {spill.group(1)}/"
+            f"{spill.group(2)} B, static smem {regs.group(2)} B"
+            if spill and regs else "ptxas n/a")
 
 
 torus_cam = ((0, 3, -6), (0, 1.5, 0), 55.0)
@@ -195,6 +244,22 @@ for name, make, kw, cam in cases:
             scene, g_cfg, camera, planes.clone(), 1234, 1, 0, 2.0, 30)
         out.append(f"{name}-g {three(fn)}")
     if name == "cornell":
+        # the pool cell: the uniform Cornell launch's kernel (the pool
+        # instance where the checkout has it, else regen_kernel<false,
+        # false>): ptxas, its launch shape, its median device ms
+        pool = hasattr(mega_regen, "pool_engages")
+        part = "regen_pool_kernel" if pool else "regen_kernel<false, false>"
+        med, args = launch_shape(fn, part)
+        share = mega_regen.lane_share() if pool else None
+        out.append(
+            f"pool-cell {part} median {med:.4f} ms; "
+            + ptxas("17regen_pool_kernel" if pool
+                    else "12regen_kernelILb0ELb0E")
+            + f"; shared memory a block {args.get('shared memory')} B, "
+            f"{args.get('blocks per SM')} blocks per SM, grid "
+            f"{args.get('grid')}, {args.get('registers per thread')} "
+            f"registers; lane share "
+            + ("n/a" if share is None else f"{share:.4f}"))
         import numpy as np
         counts = tt.init_state(cfg, dev).n_samples
         vals = np.random.default_rng(7).integers(0, 3, counts.shape[0])

@@ -1512,7 +1512,7 @@ def emission_phases(dev, report, gpu) -> dict:
         scene, cfg, cam, planes.clone(), 1234, 1, 0, 2.0, 30),
         "regen_emit_kernel", lambda: mega_regen.regen_call(
             disp, cfg4, cam, planes.clone(), 1234, 1, 0, 2.0, 30),
-        "regen_kernel")
+        "regen_")
     report["regen_emit"] = dict(max_abs_err=0.0, ms=ms, plain_ms=p_s * 1e3,
                                 **path_bound(cfg.n_pixels, rk))
     budget_vs_plain("emission", scene, cfg, cam, dev)
@@ -1602,7 +1602,7 @@ def emission_phases(dev, report, gpu) -> dict:
         torus, g_main, cam6, pl6.clone(), 1234, 1, 0, 2.0, 30),
         "regen_emit_kernel", lambda: mega_regen.regen_call(
             torus, g_main.with_(sky_intensity=0.0, radiance_clamp=0.0), cam6,
-            pl6.clone(), 1234, 1, 0, 2.0, 30), "regen_kernel")
+            pl6.clone(), 1234, 1, 0, 2.0, 30), "regen_")
     # held against the plain G sweep at 256x144 (whose 1080p render takes
     # ~70 s): ms, plain_ms and the bound there, the 1080p device ms beside
     report["regen_emit_gleaf"] = dict(
@@ -1734,7 +1734,7 @@ def spawn_phases(dev, report, gpu) -> dict:
                 scene, c, cm, planes.clone(), 1234, 1, 0, 2.0, 30),
             "regen_spawn_kernel", lambda: mega_regen.regen_call(
                 scene, base, cam0, planes.clone(), 1234, 1, 0, 2.0, 30),
-            "regen_kernel")
+            "regen_")
     report["regen_spawn"] = dict(
         max_abs_err=0.0, ms=ms["qmc+lens+shutter"], ms_quality=ms["quality"],
         ms_fast=ms["fast"], plain_ms=p_s * 1e3,
@@ -1968,7 +1968,7 @@ def lights_phases(dev, report, gpu) -> dict:
                 mode, regen(sc, cfg.with_(light_sample=mode)),
                 "regen_lights_kernel",
                 regen(sc, cfg.with_(light_sample="all")) if i == 0 else None,
-                "regen_kernel")
+                "regen_")
     report["regen_lights"] = dict(
         max_abs_err=0.0, ms=ms[20, "spatial"], ms_power=ms[20, "power"],
         ms_128_spatial=ms[128, "spatial"], ms_128_power=ms[128, "power"],
@@ -2050,7 +2050,7 @@ def aim_phases(dev, report, gpu) -> dict:
     print(f"[aim] regen kernel 1080p 1 spp from iteration 2, segments: "
           f"photon_aim 0 {segs[0.0]}, 0.5 {segs[0.5]}")
     ms = launch_times("photon_aim 0.5", regen(cfg), "regen_lights_kernel",
-                      regen(cfg.with_(photon_aim=0.0)), "regen_kernel")
+                      regen(cfg.with_(photon_aim=0.0)), "regen_")
     report["regen_aim"] = dict(
         max_abs_err=0.0, ms=ms, plain_ms=p_s * 1e3, ms_budget=b_ms,
         plain_ms_budget=b_plain, **path_bound(cfg.n_pixels, rk))
@@ -2383,8 +2383,8 @@ def mesh_profile(name, scene, cfg, cam, spp) -> None:
 def kernel_share(wall: float, by_name: dict, busy: float) -> str:
     """The regen kernel's profiled device ms, device busy ms and idle
     share; "not measured" where the profiler saw no regen kernel."""
-    kernel = named_ms(by_name, "regen_kernel")
-    n = recorded("regen_kernel")
+    kernel = named_ms(by_name, "regen_")
+    n = recorded("regen_")
     if kernel <= 0:
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
         return ("regen kernel not in the profile: device time not measured"

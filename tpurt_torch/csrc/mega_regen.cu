@@ -67,14 +67,19 @@
 // warp's lanes drift apart is a launch constant (`lockstep`, run_pixels):
 // uniform launches keep warps in lockstep, which measured faster than free-running lanes on the H100 wherever rays
 // walk a tree or the sampler makes them coherent; budget launches, whose
-// pixels differ in sample count, never wait (PERF.md has the sweep). What
-// remains: a lockstep warp waits for its longest path in each phase, and
-// free-running lanes pay for it with incoherent rays and mixed shading;
-// no ray sorting or compaction between trips.
+// pixels differ in sample count, never wait (PERF.md has the sweep). A
+// lockstep warp waits for its longest path in each phase, and free-running
+// lanes pay for it with incoherent rays and mixed shading: uniform launches
+// on scenes without triangles, under the reference sampler and without
+// emission, spawn or lights switches, run the pool instance instead
+// (path_pool.cu: paths move between a block's warps through lists in
+// shared memory, each trip one kind of step), and count its warp trips and
+// busy lanes into `lanes` (two uint64 on the device, added to). What
+// remains: no ray sorting.
 
 #include <cuda_runtime.h>
 
-#include "path.cuh"
+#include "path_pool.cuh"
 
 namespace tpurt {
 
@@ -107,7 +112,8 @@ extern "C" int tpurt_regen_launch(float* planes, long long P, int width,
                                   const float* cie,
                                   const tpurt::Emission* emission,
                                   const tpurt::Spawn* spawn,
-                                  const tpurt::Lights* lights, void* stream) {
+                                  const tpurt::Lights* lights,
+                                  unsigned long long* lanes, void* stream) {
   using namespace tpurt;
   const SampleConsts c = {P, width, height, depth, k_photons,
                           max_photon_bounces, rr_thresh, photon_rr_thresh,
@@ -127,6 +133,10 @@ extern "C" int tpurt_regen_launch(float* planes, long long P, int width,
                        *sampler, *emission, *geom, counters,
                        static_cast<cudaStream_t>(stream));
   const bool on = sampler_on(*sampler);
+  if (!aux && !on && geom->n_tri == 0)
+    return launch_pool(planes, table, cie, staged, n_sph, n_mat, n_light, c,
+                       *sampler, *geom, counters, lanes,
+                       static_cast<cudaStream_t>(stream));
   auto kernel = geom->gmat ? (on ? regen_kernel<true, true>
                                  : regen_kernel<false, true>)
                            : (on ? regen_kernel<true, false>

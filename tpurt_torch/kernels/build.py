@@ -55,6 +55,8 @@ _SIGNATURES = {
                         # (no spawn extension, reference roulette)
         _P,             # lights switches: a mega_regen.LightsArgs, or NULL
                         # (NEE over every light, no aimed photons)
+        _P,             # two uint64 on the device: the pool instance's warp
+                        # trips and busy lanes, added to
         _P,             # stream
     ],
     "tpurt_step_launch": [

@@ -18,7 +18,11 @@ camera-spawn extensions or the photon roulette scale, ``spawn_args``),
 which ran a spawn instance unless they had lights switches, and
 ``LIGHTS_LAUNCHES`` those with lights switches (light_sample "power" or
 "spatial", photon_aim: ``lights_args``), which ran a lights instance; a
-launch with several counts in each.
+launch with several counts in each. ``POOL_LAUNCHES`` counts the uniform
+launches that ran the pool instance (``pool_engages``: a scene without
+triangles, the reference sampler, no emission, spawn or lights switches),
+which moves paths between a block's warps (``csrc/path_pool.cuh``);
+``lane_share`` reads the share of its warp trips' lanes that held a path.
 
 The module also builds what every path kernel reads: the parameter table
 (camera, spheres, materials, lights, each light's hero table, then those
@@ -62,6 +66,7 @@ MXU_LAUNCHES = 0
 EMIT_LAUNCHES = 0
 SPAWN_LAUNCHES = 0
 LIGHTS_LAUNCHES = 0
+POOL_LAUNCHES = 0
 PLAN_HITS = 0      # launch_plan calls that found their plan kept
 PLAN_BUILDS = 0    # launch_plan calls that built one
 
@@ -72,6 +77,8 @@ MAT_STRIDE = 8
 LIGHT_STRIDE = 40
 _CIE = {}     # device -> the (81, 3) float32 CIE table on it
 _SOBOL = {}   # device -> the (N_DIMS, 32) Sobol direction numbers on it
+_LANES = {}   # device -> int64 (warp trips, lanes that held a path) of the
+              # pool launches on it, added to by every such launch
 
 
 def _per_device(cache: dict, device, make) -> torch.Tensor:
@@ -97,6 +104,23 @@ def sobol_table(device) -> torch.Tensor:
     kept."""
     return _per_device(_SOBOL, device, lambda: torch.from_numpy(
         np.ascontiguousarray(qmc.DIRECTIONS).view(np.int32)))
+
+
+def lane_counts(device) -> torch.Tensor:
+    """The pool instance's (trips, lanes) accumulator on ``device``: made
+    on the first call, then kept; every pool launch adds to it."""
+    return _per_device(_LANES, device, lambda: torch.zeros(
+        (2,), dtype=torch.int64))
+
+
+def lane_share():
+    """The lanes that held a path over 32 times the warp trips, summed
+    over every pool launch of the process (a fraction; reads the device,
+    so it waits for the launches), or None if none ran."""
+    if not POOL_LAUNCHES:
+        return None
+    trips, lanes = (int(x) for x in sum(t.cpu() for t in _LANES.values()))
+    return lanes / (32 * trips) if trips else None
 
 
 class SamplerArgs(ctypes.Structure):
@@ -330,6 +354,18 @@ def launch_counters(device) -> torch.Tensor:
     return torch.zeros((2,), dtype=torch.int64, device=device)
 
 
+def pool_engages(fs, cfg, uniform: bool = True) -> bool:
+    """Whether a regen launch runs the pool instance (the rule of
+    ``csrc/mega_regen.cu tpurt_regen_launch``): a uniform launch
+    (``uniform``; budget launches never) on a scene without triangles,
+    under the reference sampler, without emission, spawn or lights
+    switches."""
+    return (uniform and (fs.triangles is None or fs.triangles.count == 0)
+            and emission_args(fs, cfg) is None and not spawn_on(cfg)
+            and lights_args(cfg, photon_count(fs, cfg) > 0) is None
+            and not sampler_on(sampler_args(fs, cfg)))
+
+
 def regen_tri_mode(fs, cfg) -> integrate.TriMode:
     """The regen kernel's closest-hit triangle test: tpurt's G-matrix leaf
     over ``bvh.gmat`` where ``bvh.mxu_leaf_engages``, else the exact one.
@@ -359,6 +395,8 @@ class LaunchPlan:
     photons: int                    # photon_count
     cie: int                        # address of cie_table on the device
     lib: ctypes.CDLL | None         # the kernel library; None on the CPU
+    pool: bool                      # pool_engages for a uniform launch
+    lanes: int                      # address of lane_counts on the device
 
 
 def camera_key(camera) -> bytes:
@@ -387,7 +425,8 @@ def build_plan(fs, cfg, camera, device) -> LaunchPlan:
         sampler=sampler_args(fs, cfg), emission=emission_args(fs, cfg),
         spawn=spawn_args(cfg, camera, device), lights=lights_args(cfg, k > 0),
         photons=k, cie=cie_table(device).data_ptr(),
-        lib=build.library() if device.type == "cuda" else None)
+        lib=build.library() if device.type == "cuda" else None,
+        pool=pool_engages(fs, cfg), lanes=lane_counts(device).data_ptr())
 
 
 def launch_plan(fs, cfg, camera, device) -> LaunchPlan:
@@ -419,7 +458,8 @@ def launch_plan(fs, cfg, camera, device) -> LaunchPlan:
 
 def _launch(plan: LaunchPlan, fs, cfg, planes, base_seed: int, spp: int,
             iteration: int, radius: float, depth: int, aux=None):
-    global MXU_LAUNCHES, EMIT_LAUNCHES, SPAWN_LAUNCHES, LIGHTS_LAUNCHES
+    global MXU_LAUNCHES, EMIT_LAUNCHES, SPAWN_LAUNCHES, LIGHTS_LAUNCHES, \
+        POOL_LAUNCHES
     with tracing.span("path.prepare"):
         counters = launch_counters(planes.device)
         stream = torch.cuda.current_stream(planes.device).cuda_stream
@@ -434,7 +474,7 @@ def _launch(plan: LaunchPlan, fs, cfg, planes, base_seed: int, spp: int,
             None if aux is None else aux.data_ptr(),
             ctypes.byref(plan.geo_args), counters.data_ptr(), plan.cie,
             struct_ref(plan.emission), struct_ref(plan.spawn),
-            struct_ref(plan.lights), stream)
+            struct_ref(plan.lights), plan.lanes, stream)
     with tracing.span("path.launch", planes.device):
         err = plan.lib.tpurt_regen_launch(*args)
     build.check_launch(plan.lib, err, "tpurt_regen_launch")
@@ -447,6 +487,8 @@ def _launch(plan: LaunchPlan, fs, cfg, planes, base_seed: int, spp: int,
         SPAWN_LAUNCHES += 1
     if plan.lights is not None:
         LIGHTS_LAUNCHES += 1
+    if plan.pool and aux is None:
+        POOL_LAUNCHES += 1
     return counters[0]
 
 
