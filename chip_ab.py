@@ -440,9 +440,10 @@ cells += [("spawn-tile-sync-all", "regen", lambda: spawn_cell(
 
 def forced_all(c, cam):
     """The regen launch of c on the lights instance with mode "all". The
-    launch plans kept on the scene (a checkout that keeps them) are
-    dropped before and after, so neither this launch nor a later cell's
-    meets a plan built with the other lights switches."""
+    launch plans kept on the scene (of every kind, in a checkout that
+    keeps them: the fused and sweep launchers read plans too) are dropped
+    before and after, so neither this launch nor a later cell's meets a
+    plan built with the other lights switches."""
     if not hasattr(mega_regen, "lights_args"):
         raise NotImplementedError   # a checkout without lights instances
     from tpurt_torch.scene import freeze_scene

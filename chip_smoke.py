@@ -112,6 +112,11 @@ import time
 import numpy as np
 import torch
 
+# the least time the card could take for a kernel's work, and the work a
+# path kernel's segment is counted as: the benchmark's yardstick
+from bench_torch.roofline import (OPS_PER_BLIT_PIXEL, OPS_PER_SEGMENT,
+                                  bound, path_bound)
+
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "cornell_64x32_s1234_8spp.npz"
 CAM = dict(look_from=(0.0, 5.0, -12.0), look_at=(0.0, 5.0, 0.0), vfov=60.0)
@@ -133,39 +138,34 @@ TORUS_CAM = ((0.0, 3.0, -6.0), (0.0, 1.5, 0.0))
 DISP_CAM = ((0.0, 3.0, -4.0), (0.0, 1.0, 5.0))
 INST_CAM = ((0.0, 10.0, -14.0), (0.0, 1.0, 8.0))
 
-# The least time the card could take for a kernel's work: the
-# larger of the bytes the function must move over 3.35 TB/s and its float32
-# operations over 67 TFLOP/s (H100 SXM data sheet, float32 outside the
-# tensor cores). A path kernel's work depends on the data: it is counted
-# as segments x OPS_PER_SEGMENT, a floor read off csrc/device.cuh and
-# path.cuh: the nearest-hit test of one sphere is 17 operations before its
-# root (oc 3, half_b 5, c 6, disc 3) and ~6 after, a Cornell segment tests
-# 8 spheres (~180), and the shading behind it (4 draws and the scatter with
-# roulette, or a shadow test of 8 spheres with its Fresnel terms, or the
-# density estimate with the gather BSDF) is over 120 more. A mesh segment
-# costs more than this floor, so its bound is looser.
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
-OPS_PER_SEGMENT = 300
-OPS_PER_BLIT_PIXEL = 30   # 3 divides, luma, Reinhard, saturation lerp
-
-
-def bound(nbytes: float, ops: float) -> dict:
-    """bound_ms and bound_by of a call moving nbytes and doing ops."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
-
-
-def path_bound(pixels: int, segments: int, extra_bytes: int = 0) -> dict:
-    """A path kernel's bound: the (16, P) float32 planes read and written
-    once (plus extra_bytes), and OPS_PER_SEGMENT per traced segment."""
-    return bound(16 * 4 * 2 * pixels + extra_bytes,
-                 segments * OPS_PER_SEGMENT)
+# the instances each per-instance count sums (mega_regen.INSTANCE_LAUNCHES,
+# keyed by launcher and mega_regen.kernel_instance): the launchers and a
+# part of the kernel's name. GLEAF, the last flag of the regen kernel's
+# instances, makes the G-leaf ones end in "true>".
+REGEN_MODES = ("regen", "regen_budget")
+INSTANCES = {
+    "regen_emit": (REGEN_MODES, "regen_emit_kernel"),
+    "tile_sync_emit": (("tile_sync",), "regen_emit_kernel"),
+    "wf_sweep_sampler": (("wf_sweep",), "pool_step_kernel<true, false"),
+    "wf_sweep_emit": (("wf_sweep",),
+                      "pool_step_kernel<true, true, Sampler, Emission>"),
+    "wf_fused_sampler": (("wf_fused",), "fused_sampler_kernel<false>"),
+    "wf_fused_emit": (("wf_fused",), "fused_sampler_kernel<true>"),
+    "regen_spawn": (REGEN_MODES, "regen_spawn_kernel"),
+    "tile_sync_spawn": (("tile_sync",), "regen_spawn_kernel"),
+    "wf_sweep_spawn": (("wf_sweep",), "Spawn>"),
+    "wf_fused_spawn": (("wf_fused",), "fused_spawn_kernel"),
+    "regen_lights": (REGEN_MODES, "regen_lights_kernel"),
+    "tile_sync_lights": (("tile_sync",), "regen_lights_kernel"),
+    "wf_sweep_lights": (("wf_sweep",), "Lights>"),
+    "wf_fused_lights": (("wf_fused",), "fused_lights_kernel"),
+    "mxu_leaf": (REGEN_MODES, "true>"),
+}
 
 
 def counters() -> dict:
-    """Each kernel's launch count: (module, attribute)."""
+    """Each kernel's total launch count: (module, attribute); the counts
+    by instance are ``INSTANCES``'."""
     from tpurt_torch.kernels import bvh, mega_regen, mega_step
     from tpurt_torch.kernels import tonemap as blit
     from tpurt_torch.kernels import wavefront_fused, wavefront_sweep
@@ -175,22 +175,7 @@ def counters() -> dict:
             "blit": (blit, "LAUNCHES"),
             "wf_sweep": (wavefront_sweep, "LAUNCHES"),
             "wf_fused": (wavefront_fused, "LAUNCHES"),
-            "regen_emit": (mega_regen, "EMIT_LAUNCHES"),
-            "tile_sync_emit": (mega_step, "EMIT_LAUNCHES"),
-            "wf_sweep_sampler": (wavefront_sweep, "SAMPLER_LAUNCHES"),
-            "wf_sweep_emit": (wavefront_sweep, "EMIT_LAUNCHES"),
-            "wf_fused_sampler": (wavefront_fused, "SAMPLER_LAUNCHES"),
-            "wf_fused_emit": (wavefront_fused, "EMIT_LAUNCHES"),
-            "regen_spawn": (mega_regen, "SPAWN_LAUNCHES"),
-            "tile_sync_spawn": (mega_step, "SPAWN_LAUNCHES"),
-            "wf_sweep_spawn": (wavefront_sweep, "SPAWN_LAUNCHES"),
-            "wf_fused_spawn": (wavefront_fused, "SPAWN_LAUNCHES"),
-            "regen_lights": (mega_regen, "LIGHTS_LAUNCHES"),
-            "tile_sync_lights": (mega_step, "LIGHTS_LAUNCHES"),
-            "wf_sweep_lights": (wavefront_sweep, "LIGHTS_LAUNCHES"),
-            "wf_fused_lights": (wavefront_fused, "LIGHTS_LAUNCHES"),
-            "bvh_walk": (bvh, "WALKS"),
-            "mxu_leaf": (mega_regen, "MXU_LAUNCHES")}
+            "bvh_walk": (bvh, "WALKS")}
 
 
 def gpu_line() -> str:
@@ -664,14 +649,29 @@ def main() -> int:
     return 0
 
 
+def _instance_keys(name) -> list:
+    from tpurt_torch.kernels import mega_regen
+    launchers, part = INSTANCES[name]
+    return [key for key in mega_regen.INSTANCE_LAUNCHES
+            if key[0] in launchers and part in key[1]]
+
+
 def zero_counts(names) -> None:
+    from tpurt_torch.kernels import mega_regen
     for k in names:
-        mod, attr = counters()[k]
-        setattr(mod, attr, 0)
+        if k in INSTANCES:
+            for key in _instance_keys(k):
+                del mega_regen.INSTANCE_LAUNCHES[key]
+        else:
+            mod, attr = counters()[k]
+            setattr(mod, attr, 0)
 
 
 def read_counts(names) -> dict:
-    return {k: getattr(*counters()[k]) for k in names}
+    from tpurt_torch.kernels import mega_regen
+    return {k: (sum(mega_regen.INSTANCE_LAUNCHES[key]
+                    for key in _instance_keys(k)) if k in INSTANCES
+                else getattr(*counters()[k])) for k in names}
 
 
 def drive(name, scene, cfg, cam, spp, kernels, gpu) -> dict:
@@ -899,7 +899,7 @@ def budget_phases(report, gpu) -> dict:
     report["regen_budget"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3,
         # the aux planes (budget, count, radius) in beside the state
-        **path_bound(cfg_f.n_pixels, rk, 3 * 4 * cfg_f.n_pixels))
+        **bound((16 * 2 + 3) * 4 * cfg_f.n_pixels, rk * OPS_PER_SEGMENT))
 
     # [adaptive] the main path: pilots through the regen kernel, the rest
     # through its budget mode
@@ -1583,12 +1583,12 @@ def emission_phases(dev, report, gpu) -> dict:
                    sky_temp=6500.0, radiance_clamp=20.0)
     g_cfg = tt.RenderConfig(backend="pallas", **{**small, **g_flags})
     cam_g = tt.make_camera(*TORUS_CAM, vfov=55.0, aspect_ratio=256 / 144)
-    before = mega_regen.MXU_LAUNCHES, mega_regen.EMIT_LAUNCHES
+    g_emit = ("regen", "regen_emit_kernel<true>")
+    before = mega_regen.INSTANCE_LAUNCHES[g_emit]
     rg, _, g_p = regen_vs_plain("config 6 as shipped, G leaf, sky, clamp",
                                 torus, g_cfg, cam_g, 1234, 1, 0,
                                 phase="emission")
-    if (mega_regen.MXU_LAUNCHES, mega_regen.EMIT_LAUNCHES) != (
-            before[0] + 1, before[1] + 1):
+    if mega_regen.INSTANCE_LAUNCHES[g_emit] != before + 1:
         raise AssertionError("the G-leaf emission instance did not run")
     pl_g = state_to_planes(tt.init_state(g_cfg))
     g_ms = cuda_ms(lambda: mega_regen.regen_call(
@@ -1975,7 +1975,7 @@ def lights_phases(dev, report, gpu) -> dict:
         plain_ms=p_s * 1e3, **path_bound(cfg.n_pixels, rk))
     report["regen_lights_budget"] = dict(
         max_abs_err=0.0, ms=b_ms, plain_ms=b_plain,
-        **path_bound(cfg.n_pixels, rb, 3 * 4 * cfg.n_pixels))
+        **bound((16 * 2 + 3) * 4 * cfg.n_pixels, rb * OPS_PER_SEGMENT))
     print("[lights] tile-sync kernel 1080p sample 3, 20 lights power:")
     report["tile_sync_lights"] = dict(
         max_abs_err=0.0, plain_ms=plain_step,
@@ -2481,7 +2481,7 @@ def mxu_phases(dev, report, gpu) -> dict:
         st = tt.init_state(cfg)
         planes = state_to_planes(st)
         pk, pp = planes.clone(), planes.clone()
-        before = mega_regen.MXU_LAUNCHES
+        before = read_counts(["mxu_leaf"])["mxu_leaf"]
         rk = int(mega_regen.regen_call(torus, cfg, cam, pk, 1234, 2, 0, 2.0,
                                        8))
         rp = int(integrate.render_plain(fs, cfg, cam, pp, 1234, 2, 0, 2.0, 8,
@@ -2496,7 +2496,7 @@ def mxu_phases(dev, report, gpu) -> dict:
         rbp = int(integrate.render_plain_budget(fs, cfg, cam, bp, 1234, b,
                                                 st1.n_samples, tri))
         bad_b = unequal_planes(bk, bp)
-        runs = mega_regen.MXU_LAUNCHES - before
+        runs = read_counts(["mxu_leaf"])["mxu_leaf"] - before
         print(f"[mesh-mxu] {label} {w}x{h} depth 8, uniform 2 spp: rays "
               f"{rk} vs plain {rp}, unequal planes {bad}; budgets 0-3 after "
               f"1 spp: rays {rbk} vs plain {rbp}, unequal planes {bad_b}; "
@@ -2550,9 +2550,9 @@ def mxu_phases(dev, report, gpu) -> dict:
         cfg = tt.RenderConfig(width=w, height=h, depth=30, backend="pallas",
                               pallas_mxu_leaf=True, **flags)
         cam = tt.make_camera(*TORUS_CAM, vfov=55.0, aspect_ratio=w / h)
-        before = mega_regen.MXU_LAUNCHES
+        before = read_counts(["mxu_leaf"])["mxu_leaf"]
         regen_vs_plain(label, torus, cfg, cam, 1234, 1, 0, phase="mesh-mxu")
-        if mega_regen.MXU_LAUNCHES != before + 1:
+        if read_counts(["mxu_leaf"])["mxu_leaf"] != before + 1:
             raise AssertionError("the depth-30 comparison ran no G leaf")
     return {"mxu_leaf": launches["mxu_leaf"]}
 

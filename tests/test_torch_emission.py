@@ -550,10 +550,11 @@ def test_regen_gleaf_emission_instance_matches_plain(cuda):
     assert tri.kind == "gleaf"
     planes = state_to_planes(tt.init_state(cfg, device=cuda))
     pk, pp = planes.clone(), planes.clone()
-    before = mega_regen.MXU_LAUNCHES
+    emit = ("regen", "regen_emit_kernel<true>")   # the G-leaf instance
+    before = mega_regen.INSTANCE_LAUNCHES[emit]
     rk = int(mega_regen.regen_call(scene, cfg, cam, pk, 5, 2, 0, 2.0, 8))
     rp = int(integrate.render_plain(fs, cfg, cam, pp, 5, 2, 0, 2.0, 8, tri))
-    assert mega_regen.MXU_LAUNCHES == before + 1
+    assert mega_regen.INSTANCE_LAUNCHES[emit] == before + 1
     assert rk == rp > 0 and torch.equal(pk, pp)
 
 

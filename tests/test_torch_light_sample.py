@@ -390,12 +390,13 @@ def test_lights_kernels_match_plain(cuda, mode, n_lights):
     cam = tt.make_camera((0.0, 5.0, -12.0), (0.0, 5.0, 0.0), vfov=60.0,
                          aspect_ratio=128 / 72)
     planes = state_to_planes(tt.init_state(cfg, cuda))
-    n0 = mega_regen.LIGHTS_LAUNCHES
+    lights = ("regen", "regen_lights_kernel<false, false>")
+    n0 = mega_regen.INSTANCE_LAUNCHES[lights]
     pk, pp = planes.clone(), planes.clone()
     rk = mega_regen.regen_call(scene, cfg, cam, pk, 5, 2, 0, 2.0, 6)
     rp = integrate.render_plain(fs, cfg, cam, pp, 5, 2, 0, 2.0, 6)
     assert int(rk) == int(rp) > 0 and torch.equal(pk, pp)
-    assert mega_regen.LIGHTS_LAUNCHES == n0 + 1
+    assert mega_regen.INSTANCE_LAUNCHES[lights] == n0 + 1
     pk, pp = planes.clone(), planes.clone()
     rk = mega_step.step_call(scene, cfg, cam, pk, 5, 1, 1.5, 6)
     rp = integrate.render_plain(fs, cfg, cam, pp, 5, 1, 1, 1.5, 6)

@@ -277,7 +277,10 @@ def test_render_matches_tpurt_regen_interpret(tp):
     assert int(st.rays) == int(float(st_j.rays)) == 117899
     _image_rule(tt.resolve_image(cfg, st).numpy(),
                 np.asarray(tp.tpurt.resolve_image(cfg_j, st_j)))
-    assert mega_regen.MXU_LAUNCHES == 0        # the CPU runs the plain
+    # the CPU runs the plain version: no G-leaf instance (GLEAF, the last
+    # flag of the regen kernel's instances, true) ever launched
+    assert not any(launcher.startswith("regen") and name.endswith("true>")
+                   for launcher, name in mega_regen.INSTANCE_LAUNCHES)
 
 
 def test_budget_mode_matches_tpurt_interpret(tp):
@@ -404,7 +407,10 @@ def test_g_regen_kernel_matches_plain_on_cuda(cuda, mode, sampler):
     cam = _torus_cam(2.0)
     st = tt.init_state(cfg, cuda)
     tri = mega_regen.regen_tri_mode(fs, cfg)
-    before = mega_regen.MXU_LAUNCHES
+    gleaf = ("regen" if mode == "uniform" else "regen_budget",
+             "regen_kernel<true, true>" if flags else
+             "regen_kernel<false, true>")
+    before = mega_regen.INSTANCE_LAUNCHES[gleaf]
     if mode == "uniform":
         planes = state_to_planes(st)
         pk, pp = planes.clone(), planes.clone()
@@ -422,6 +428,6 @@ def test_g_regen_kernel_matches_plain_on_cuda(cuda, mode, sampler):
                                               st.n_samples))
         rp = int(integrate.render_plain_budget(fs, cfg, cam, pp, 42, b,
                                                st.n_samples, tri))
-    assert mega_regen.MXU_LAUNCHES == before + 1
+    assert mega_regen.INSTANCE_LAUNCHES[gleaf] == before + 1
     assert rk == rp > 0
     assert torch.equal(pk, pp)

@@ -222,10 +222,11 @@ def test_fused_kernel_ignores_the_scale(cuda):
                           backend="wavefront_fused")
     scene = _photon_scene(tt, device=cuda)
     st = tt.init_state(cfg, device=cuda)
-    before = wavefront_fused.SPAWN_LAUNCHES
+    ref = ("wf_fused", "fused_kernel")
+    before = mega_regen.INSTANCE_LAUNCHES[ref]
     a = wavefront_fused.wavefront_render_fused(
         scene, cfg.with_(photon_rr_scale=0.5), _cam(tt), st, 7, 2)
-    assert wavefront_fused.SPAWN_LAUNCHES == before
+    assert mega_regen.INSTANCE_LAUNCHES[ref] == before + 1
     b = wavefront_fused.wavefront_render_fused(scene, cfg, _cam(tt), st, 7, 2)
     assert int(a.rays) == int(b.rays) > 0
     assert torch.equal(a.rgb_sum, b.rgb_sum)
@@ -244,11 +245,12 @@ def test_kernels_match_plain_with_the_scale(cuda, scale):
     fs = freeze_scene(scene)
     planes = state_to_planes(tt.init_state(cfg, device=cuda))
     pk, pp = planes.clone(), planes.clone()
-    before = mega_regen.SPAWN_LAUNCHES
+    spawn = ("regen", "regen_spawn_kernel<false, false>")
+    before = mega_regen.INSTANCE_LAUNCHES[spawn]
     rk = int(mega_regen.regen_call(scene, cfg, _cam(tt), pk, 77, 3, 0, 2.0,
                                    4))
     rp = int(integrate.render_plain(fs, cfg, _cam(tt), pp, 77, 3, 0, 2.0, 4))
-    assert mega_regen.SPAWN_LAUNCHES == before + 1
+    assert mega_regen.INSTANCE_LAUNCHES[spawn] == before + 1
     assert rk == rp > 0 and torch.equal(pk, pp)
     budgets = torch.from_numpy(np.random.default_rng(1).integers(
         0, 4, planes.shape[1])).to(cuda)

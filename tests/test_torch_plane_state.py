@@ -221,7 +221,8 @@ def test_consumers_accept_plane_resident_states(consumer, tmp_path):
 # ----- the launch plan -----
 
 def _plan(scene, cfg, cam):
-    return mega_regen.launch_plan(freeze_scene(scene), cfg, cam, CPU)
+    return mega_regen.launch_plan(freeze_scene(scene), cfg, cam, CPU,
+                                  mega_regen.PHOTON)
 
 
 def test_plan_repeat_call_hits():
@@ -280,7 +281,7 @@ def test_plan_keeps_a_bounded_number():
         a = 0.3 * i
         mega_regen.launch_plan(fs, cfg, tt.make_camera(
             (12.0 * np.sin(a), 5.0, -12.0 * np.cos(a)), CAM["look_at"],
-            vfov=60.0, aspect_ratio=2.0), CPU)
+            vfov=60.0, aspect_ratio=2.0), CPU, mega_regen.PHOTON)
     assert len(fs.cache["plans"]) == mega_regen.PLAN_LIMIT
 
 
@@ -301,7 +302,8 @@ def _plan_fields(plan):
             "sampler": _struct(plan.sampler),
             "emission": _struct(plan.emission),
             "spawn": _struct(plan.spawn), "lights": _struct(plan.lights),
-            "photons": plan.photons, "cie": plan.cie, "lib": plan.lib}
+            "photons": plan.photons, "cie": plan.cie, "lib": plan.lib,
+            "instances": plan.instances}
 
 
 PLAN_CASES = {
@@ -322,13 +324,50 @@ def test_plan_hit_equals_fresh_build(case):
         cam = MotionCamera(cam, tt.make_camera(
             (0.5, 5.0, -12.0), CAM["look_at"], vfov=60.0, aspect_ratio=2.0))
     fs = freeze_scene(sc)
-    mega_regen.launch_plan(fs, cfg, cam, CPU)
-    hit = mega_regen.launch_plan(fs, cfg, cam, CPU)
+    mega_regen.launch_plan(fs, cfg, cam, CPU, mega_regen.PHOTON)
+    hit = mega_regen.launch_plan(fs, cfg, cam, CPU, mega_regen.PHOTON)
     _assert_equal(_plan_fields(hit), _plan_fields(
-        mega_regen.build_plan(fs, cfg, cam, CPU)))
+        mega_regen.build_plan(fs, cfg, cam, CPU, mega_regen.PHOTON)))
     if case != "default":
         assert any(s is not None
                    for s in (hit.emission, hit.spawn, hit.lights))
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_camera_plan_holds_what_the_wavefront_launchers_built(case):
+    """A CAMERA plan holds, field for field, the table, geometry and
+    switches the fused and sweep launchers built for themselves on every
+    call or render: the camera-path sampler, the wavefront emission, spawn
+    switches without photons, the NEE mode alone, the exact triangle test.
+    A second launch_plan call is a hit."""
+    cfg, sc, cam = _setup(enable_photons=False, **PLAN_CASES[case])
+    if cfg.motion_blur:
+        cam = MotionCamera(cam, tt.make_camera(
+            (0.5, 5.0, -12.0), CAM["look_at"], vfov=60.0, aspect_ratio=2.0))
+    fs = freeze_scene(sc)
+    plan = mega_regen.launch_plan(fs, cfg, cam, CPU, mega_regen.CAMERA)
+    table, geo = mega_regen.scene_table(fs, cfg, cam, CPU)
+    _assert_equal({k: v for k, v in _plan_fields(plan).items()
+                   if k not in ("tri", "instances")}, {
+        "table": table, "geo": id(geo),
+        "geo_args": _struct(geo.args()),
+        "sampler": _struct(mega_regen.camera_sampler_args(fs, cfg)),
+        "emission": _struct(mega_regen.emission_args(fs, cfg,
+                                                     wavefront=True)),
+        "spawn": _struct(mega_regen.spawn_args(cfg, cam, CPU,
+                                               photons=False)),
+        "lights": _struct(mega_regen.lights_args(cfg, photons=False)),
+        "photons": 0, "cie": mega_regen.cie_table(CPU).data_ptr(),
+        "lib": None})
+    assert plan.tri.gmat is None and plan.geo_args.gmat is None
+    assert set(plan.instances) == {"wf_fused", "wf_sweep"}
+    hits, builds = mega_regen.PLAN_HITS, mega_regen.PLAN_BUILDS
+    assert mega_regen.launch_plan(fs, cfg, cam, CPU,
+                                  mega_regen.CAMERA) is plan
+    assert (mega_regen.PLAN_HITS - hits,
+            mega_regen.PLAN_BUILDS - builds) == (1, 0)
+    photon = mega_regen.launch_plan(fs, cfg, cam, CPU, mega_regen.PHOTON)
+    assert photon is not plan and mega_regen.PLAN_BUILDS == builds + 1
 
 
 def _bad_calls():

@@ -1,22 +1,27 @@
 """The regen kernel's pool instance (``csrc/path_pool.cuh``,
-``csrc/path_pool.cu regen_pool_kernel``): which launches take it
-(``mega_regen.pool_engages``, the launcher's rule), its launch count and
-lane counter on the CPU; and, on a CUDA device, the instance against the
-plain version (``integrate.render_plain``), all 16 state planes and the
-ray count bit for bit.
+``csrc/path_pool.cu regen_pool_kernel``) and the instance rule of the four
+path launchers (``mega_regen.kernel_instance``): which kernel each
+launcher's plan names for each flag set, which launches take the pool
+(``mega_regen.pool_engages``), its launch count and lane counter on the
+CPU; and, on a CUDA device, the kernel the profiler sees each launcher run
+against its plan's name, and the pool instance against the plain version
+(``integrate.render_plain``), all 16 state planes and the ray count bit
+for bit.
 
 No JAX here: the GPU cases run where it is not installed,
 ``python -m pytest tests/test_torch_regen_pool.py -m gpu --noconftest``.
 """
 
 import pathlib
+import re
 
 import pytest
 import torch
 
 import tpurt_torch as tt
-from tpurt_torch import integrate
-from tpurt_torch.kernels import mega_regen
+from tpurt_torch import integrate, wavefront
+from tpurt_torch.kernels import (mega_regen, mega_step, wavefront_fused,
+                                 wavefront_sweep)
 from tpurt_torch.render import state_to_planes
 from tpurt_torch.scene import freeze_scene
 
@@ -76,30 +81,144 @@ def test_pool_does_not_engage_on_meshes_or_in_budget_mode():
         assert not mega_regen.pool_engages(mesh, _cornell_cfg(**kw))
 
 
-@pytest.mark.parametrize("scene", ["cornell", "dispersive", "lights20",
-                                   "torus"])
-@pytest.mark.parametrize("flags", [{}, dict(hero_wavelengths=4),
-                                   dict(qmc=True), dict(light_sample="power"),
-                                   dict(sky_intensity=0.2)],
-                         ids=["ref", "hero", "qmc", "power", "sky"])
-def test_pool_engages_is_the_launchers_rule(scene, flags):
-    """pool_engages is what the launcher sees in its input: no emission,
-    spawn or lights struct, the sampler switches off, no triangle rows;
-    the launch plan carries it."""
-    make = {"cornell": tt.cornell_spheres_scene,
-            "dispersive": tt.dispersive_scene,
-            "lights20": lambda device: tt.many_light_scene(20, device=device),
-            "torus": lambda device: tt.torus_mesh_scene(8, 6, device=device)}
-    fs = freeze_scene(make[scene](device=CPU))
-    cfg = _cornell_cfg(**flags)
+SCENES = {"cornell": tt.cornell_spheres_scene,
+          "dispersive": tt.dispersive_scene,
+          "lights20": lambda device: tt.many_light_scene(20, device=device),
+          "torus": lambda device: tt.torus_mesh_scene(8, 6, device=device)}
+HERO, SKY, QMC = (dict(hero_wavelengths=4), dict(sky_intensity=0.2),
+                  dict(qmc=True))
+POWER = dict(light_sample="power")
+GLEAF = dict(pallas_bvh_leaf=64, pallas_mxu_leaf=True)
+POOL = mega_regen.POOL_KERNEL
+# the kernel instance each launcher runs (mega_regen.kernel_instance),
+# written out by hand from the C launchers: (scene, flags) -> names
+PHOTON_INSTANCES = {   # regen, regen_budget, tile_sync (pallas_regen off)
+    ("cornell", "ref"): ({}, POOL, "regen_kernel<false, false>",
+                         "step_kernel<false>"),
+    ("dispersive", "ref"): ({}, POOL, "regen_kernel<false, false>",
+                            "step_kernel<false>"),
+    ("lights20", "ref"): ({}, POOL, "regen_kernel<false, false>",
+                          "step_kernel<false>"),
+    ("cornell", "hero"): (HERO, "regen_kernel<true, false>",
+                          "regen_kernel<true, false>", "step_kernel<true>"),
+    ("cornell", "strata"): (dict(photon_strata=16),
+                            "regen_kernel<true, false>",
+                            "regen_kernel<true, false>", "step_kernel<true>"),
+    ("cornell", "sky"): (SKY, *["regen_emit_kernel<false>"] * 3),
+    ("cornell", "qmc"): (QMC, *["regen_spawn_kernel<false, false>"] * 3),
+    ("cornell", "rr-scale"): (dict(photon_rr_scale=0.5),
+                              *["regen_spawn_kernel<false, false>"] * 3),
+    ("cornell", "hero-qmc"): ({**HERO, **QMC},
+                              *["regen_spawn_kernel<true, false>"] * 3),
+    ("cornell", "sky-qmc"): ({**SKY, **QMC},
+                             *["regen_spawn_kernel<true, false>"] * 3),
+    ("cornell", "power"): (POWER, *["regen_lights_kernel<false, false>"] * 3),
+    ("lights20", "spatial"): (dict(light_sample="spatial"),
+                              *["regen_lights_kernel<false, false>"] * 3),
+    ("cornell", "power-qmc"): ({**POWER, **QMC},
+                               *["regen_lights_kernel<false, false>"] * 3),
+    ("cornell", "power-hero"): ({**POWER, **HERO},
+                                *["regen_lights_kernel<true, false>"] * 3),
+    ("torus", "ref"): ({}, "regen_kernel<false, false>",
+                       "regen_kernel<false, false>", "step_kernel<false>"),
+    ("torus", "gleaf"): (GLEAF, "regen_kernel<false, true>",
+                         "regen_kernel<false, true>", "step_kernel<false>"),
+    ("torus", "gleaf-hero"): ({**GLEAF, **HERO}, "regen_kernel<true, true>",
+                              "regen_kernel<true, true>", "step_kernel<true>"),
+    ("torus", "gleaf-sky"): ({**GLEAF, **SKY}, "regen_emit_kernel<true>",
+                             "regen_emit_kernel<true>",
+                             "regen_emit_kernel<false>"),
+    ("torus", "gleaf-qmc"): ({**GLEAF, **QMC},
+                             "regen_spawn_kernel<false, true>",
+                             "regen_spawn_kernel<false, true>",
+                             "regen_spawn_kernel<false, false>"),
+    ("torus", "gleaf-power"): ({**GLEAF, **POWER},
+                               "regen_lights_kernel<false, true>",
+                               "regen_lights_kernel<false, true>",
+                               "regen_lights_kernel<false, false>"),
+}
+for scene in ("dispersive", "lights20", "torus"):   # each switch alone
+    PHOTON_INSTANCES.update({
+        (scene, "hero"): (HERO, "regen_kernel<true, false>",
+                          "regen_kernel<true, false>", "step_kernel<true>"),
+        (scene, "sky"): (SKY, *["regen_emit_kernel<false>"] * 3),
+        (scene, "qmc"): (QMC, *["regen_spawn_kernel<false, false>"] * 3),
+        (scene, "power"): (POWER,
+                           *["regen_lights_kernel<false, false>"] * 3)})
+SWEEP = "pool_step_kernel<{}, {}, Sampler, Emission{}>"
+CAMERA_INSTANCES = {   # wf_fused, wf_sweep
+    ("cornell", "ref"): ({}, "fused_kernel", "pool_step_kernel<false, false>"),
+    ("cornell", "hero"): (HERO, "fused_sampler_kernel<false>",
+                          SWEEP.format("true", "false", "")),
+    ("dispersive", "disp-cam"): (dict(dispersion_in_camera_path=True),
+                                 "fused_sampler_kernel<false>",
+                                 SWEEP.format("true", "false", "")),
+    ("cornell", "sky"): (SKY, "fused_sampler_kernel<true>",
+                         SWEEP.format("true", "true", "")),
+    ("cornell", "ramp"): (dict(sky_gradient=True),
+                          "fused_sampler_kernel<true>",
+                          SWEEP.format("true", "true", "")),
+    ("cornell", "qmc"): (QMC, "fused_spawn_kernel<false>",
+                         SWEEP.format("false", "false", ", Spawn")),
+    ("cornell", "rr-scale"): (dict(photon_rr_scale=0.5), "fused_kernel",
+                              "pool_step_kernel<false, false>"),
+    ("cornell", "hero-qmc"): ({**HERO, **QMC}, "fused_spawn_kernel<true>",
+                              SWEEP.format("true", "true", ", Spawn")),
+    ("cornell", "power"): (POWER, "fused_lights_kernel<false>",
+                           SWEEP.format("false", "false", ", Spawn, Lights")),
+    ("cornell", "power-sky"): ({**POWER, **SKY}, "fused_lights_kernel<true>",
+                               SWEEP.format("true", "true",
+                                            ", Spawn, Lights")),
+    ("torus", "ref"): ({}, "fused_kernel", "pool_step_kernel<false, false>"),
+    ("torus", "gleaf"): (GLEAF, "fused_kernel",
+                         "pool_step_kernel<false, false>"),
+}
+PHOTON_LAUNCHERS = ("regen", "regen_budget", "tile_sync")
+CAMERA_LAUNCHERS = ("wf_fused", "wf_sweep")
+INSTANCE_CASES = [
+    pytest.param(launcher, case, id=f"{launcher}-{case[0]}-{case[1]}")
+    for table, launchers in ((PHOTON_INSTANCES, PHOTON_LAUNCHERS),
+                             (CAMERA_INSTANCES, CAMERA_LAUNCHERS))
+    for case in table for launcher in launchers]
+
+
+def _instance_case(launcher, case, device):
+    """The scene, config and expected kernel of a launcher in a case of
+    the tables above; the tile-sync kernel runs with pallas_regen off, the
+    camera-path kernels with photons off."""
+    scene, _ = case
+    if launcher in PHOTON_LAUNCHERS:
+        flags, *names = PHOTON_INSTANCES[case]
+        kw = dict(pallas_regen=False) if launcher == "tile_sync" else {}
+        want = names[PHOTON_LAUNCHERS.index(launcher)]
+    else:
+        flags, *names = CAMERA_INSTANCES[case]
+        kw = dict(enable_photons=False, backend=(
+            "wavefront_fused" if launcher == "wf_fused"
+            else "wavefront_pallas"))
+        want = names[CAMERA_LAUNCHERS.index(launcher)]
+    return SCENES[scene](device), _cornell_cfg(**{**flags, **kw}), want
+
+
+@pytest.mark.parametrize("launcher, case", INSTANCE_CASES)
+def test_pool_engages_is_the_launchers_rule(launcher, case):
+    """The plan records the kernel each launcher of its kind runs, as the C
+    launchers choose it from their input (lights, spawn, emission, the
+    pool on a uniform regen launch without triangle rows, the sampler or
+    the reference instance; full bodies with emission or the sampler; the
+    G leaf); pool_engages is the rule's pool."""
+    scene, cfg, want = _instance_case(launcher, case, CPU)
+    fs = freeze_scene(scene)
+    kind = (mega_regen.PHOTON if launcher in PHOTON_LAUNCHERS
+            else mega_regen.CAMERA)
     plan = mega_regen.build_plan(fs, cfg, tt.make_camera(
-        **CAM, aspect_ratio=2.0), CPU)
-    rule = (plan.emission is None and plan.spawn is None
-            and plan.lights is None
-            and not mega_regen.sampler_on(plan.sampler)
-            and plan.geo_args.n_tri == 0)
-    assert plan.pool == rule == mega_regen.pool_engages(fs, cfg)
-    assert plan.pool == (scene != "torus" and not flags)
+        **CAM, aspect_ratio=2.0), CPU, kind)
+    assert plan.instances[launcher] == want
+    assert set(plan.instances) == set(
+        PHOTON_LAUNCHERS if kind == mega_regen.PHOTON else CAMERA_LAUNCHERS)
+    if launcher in ("regen", "regen_budget"):
+        assert mega_regen.pool_engages(
+            fs, cfg, launcher == "regen") == (want == POOL)
 
 
 def test_lane_share_is_none_before_a_pool_launch(monkeypatch):
@@ -137,6 +256,96 @@ def test_source_notes():
     loop = (CSRC / "path_pool.cuh").read_text().split("#pragma once")[0]
     assert "lockstep" in loop and "shared memory" in loop
     assert "launch_pool" in (CSRC / "mega_regen.cu").read_text()
+
+
+# ----- the rule against the kernels the profiler sees (GPU only) -----
+
+def _kernels_run(fn) -> set:
+    """The port's kernels the profiler saw ``fn`` launch, named as
+    ``kernel_instance`` names them (no return type, namespace or
+    arguments)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {re.sub(r"^void |tpurt::|\(.*", "", e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "tpurt::" in e.key}
+
+
+def _of(launchers):
+    return [p for p in INSTANCE_CASES if p.values[0] in launchers]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("launcher, case", _of(PHOTON_LAUNCHERS))
+def test_photon_instances_are_the_profilers(cuda, launcher, case):
+    """One launch of the regen kernel (uniform or budget) or of the
+    tile-sync kernel runs the kernel its plan names, and counts it."""
+    scene, cfg, want = _instance_case(launcher, case, cuda)
+    cam = tt.make_camera(**CAM, aspect_ratio=2.0)
+    planes = state_to_planes(tt.init_state(cfg, cuda))
+    P = planes.shape[1]
+    if launcher == "regen":
+        def call():
+            mega_regen.regen_call(scene, cfg, cam, planes, 7, 1, 0, 2.0,
+                                  cfg.depth)
+    elif launcher == "regen_budget":
+        budgets = (torch.arange(P, device=cuda) < cfg.n_pixels).long()
+        counts = torch.zeros((P,), device=cuda)
+
+        def call():
+            mega_regen.regen_budget_call(scene, cfg, cam, planes, 7, budgets,
+                                         counts)
+    else:
+        def call():
+            mega_step.step_call(scene, cfg, cam, planes, 7, 0, 2.0,
+                                cfg.depth)
+    before = mega_regen.INSTANCE_LAUNCHES[launcher, want]
+    ran = _kernels_run(call)
+    plan = mega_regen.launch_plan(freeze_scene(scene), cfg, cam, cuda,
+                                  mega_regen.PHOTON)
+    assert ran == {plan.instances[launcher]} == {want}
+    assert mega_regen.INSTANCE_LAUNCHES[launcher, want] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("launcher, case", _of(CAMERA_LAUNCHERS))
+def test_camera_instances_are_the_profilers(cuda, launcher, case):
+    """One launch of the fused kernel or one sweep of the sweep kernel
+    runs the kernel its plan names, and counts it; a second fused launch
+    with the same scene, config and camera finds its plan kept."""
+    scene, cfg, want = _instance_case(launcher, case, cuda)
+    cfg = cfg.with_(wf_pool=2048)
+    fs = freeze_scene(scene)
+    cam = tt.make_camera(**CAM, aspect_ratio=2.0)
+    st = tt.init_state(cfg, cuda)
+    if launcher == "wf_fused":
+        def call():
+            wavefront_fused.wavefront_render_fused(scene, cfg, cam, st, 7, 1)
+    else:
+        work = wavefront.PoolWork(camera=cam, base_seed=7, spp=1,
+                                  n_valid=cfg.n_pixels)
+        sweep = wavefront_sweep.stepper(fs, cfg, work).sweep
+        pool = (wavefront.new_pool(cfg.wf_pool, cuda),
+                torch.zeros((cfg.n_pixels, 3), device=cuda),
+                torch.zeros((cfg.n_pixels,), device=cuda),
+                wavefront.new_ctl(cfg.wf_pool, True, cuda))
+
+        def call():
+            sweep(*pool)
+    before = mega_regen.INSTANCE_LAUNCHES[launcher, want]
+    ran = _kernels_run(call)
+    plan = mega_regen.launch_plan(fs, cfg, cam, cuda, mega_regen.CAMERA)
+    assert ran == {plan.instances[launcher]} == {want}
+    assert mega_regen.INSTANCE_LAUNCHES[launcher, want] == before + 1
+    if launcher == "wf_fused":
+        hits, builds = mega_regen.PLAN_HITS, mega_regen.PLAN_BUILDS
+        call()
+        assert (mega_regen.PLAN_HITS - hits,
+                mega_regen.PLAN_BUILDS - builds) == (1, 0)
 
 
 # ----- the instance against the plain version (GPU only) -----
@@ -232,7 +441,7 @@ def test_pool_other_sphere_scenes_match_plain(cuda, scene):
            if scene == "dispersive" else
            tt.make_camera(**CAM, aspect_ratio=cfg.width / cfg.height))
     fs = freeze_scene(sc)
-    plan = mega_regen.launch_plan(fs, cfg, cam, cuda)
+    plan = mega_regen.launch_plan(fs, cfg, cam, cuda, mega_regen.PHOTON)
     # the floats path.cuh staged_floats stages (up to 4096) or leaves
     rows = (mega_regen.CAM_FLOATS + 8 * len(plan.geo.flat_rows)
             + mega_regen.MAT_STRIDE * len(fs.materials)

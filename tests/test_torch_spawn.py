@@ -623,10 +623,14 @@ def test_regen_and_step_spawn_instances_match_plain(cuda, flags):
     planes = state_to_planes(tt.init_state(cfg, device=cuda))
     r0 = radius_after(cfg, 0, 2.0, 3)
     pk, pp = planes.clone(), planes.clone()
-    before = mega_regen.SPAWN_LAUNCHES
+    # the reference sampler's spawn instance, or the one with the sampler
+    spawn = ("regen_spawn_kernel<true, false>" if "hero_wavelengths" in kw
+             else "regen_spawn_kernel<false, false>")
+    ran = mega_regen.INSTANCE_LAUNCHES
+    before = ran["regen", spawn]
     rk = int(mega_regen.regen_call(scene, cfg, cam, pk, 77, 2, 3, r0, 8))
     rp = int(integrate.render_plain(fs, cfg, cam, pp, 77, 2, 3, r0, 8))
-    assert mega_regen.SPAWN_LAUNCHES == before + 1
+    assert ran["regen", spawn] == before + 1
     assert rk == rp > 0 and torch.equal(pk, pp)
     counts = torch.from_numpy(np.random.default_rng(2).integers(
         0, 5, planes.shape[1]).astype(np.float32)).to(cuda)
@@ -640,10 +644,10 @@ def test_regen_and_step_spawn_instances_match_plain(cuda, flags):
                                            counts))
     assert rk == rp > 0 and torch.equal(pk, pp)
     pk, pp = planes.clone(), planes.clone()
-    before = mega_step.SPAWN_LAUNCHES
+    before = ran["tile_sync", spawn]
     rk = int(mega_step.step_call(scene, cfg, cam, pk, 77, 5, r0, 8))
     rp = int(integrate.render_plain(fs, cfg, cam, pp, 77, 1, 5, r0, 8))
-    assert mega_step.SPAWN_LAUNCHES == before + 1
+    assert ran["tile_sync", spawn] == before + 1
     assert rk == rp > 0 and torch.equal(pk, pp)
 
 
@@ -654,12 +658,17 @@ def test_unit_roulette_scale_is_the_reference(cuda, monkeypatch):
     all off (scale 1) equals the launch without them, on the reference
     sampler's spawn instance and on the one with the sampler flags. The
     launch plans kept on the scene are dropped around the patch, so the
-    reference launch builds its own switches (no spawn launch)."""
+    reference launch builds its own switches (the pool instance on the
+    reference sampler, the sampler instance with hero 4)."""
     off = mega_regen.SpawnArgs(rr_scale=1.0)
     scene = tt.cornell_spheres_scene(device=cuda)
     fs = freeze_scene(scene)
     cam = _camera(tt, False)
-    for kw in ({}, dict(hero_wavelengths=4)):
+    ran = mega_regen.INSTANCE_LAUNCHES
+    for kw, spawn, ref in (
+            ({}, "regen_spawn_kernel<false, false>", "regen_pool_kernel"),
+            (dict(hero_wavelengths=4), "regen_spawn_kernel<true, false>",
+             "regen_kernel<true, false>")):
         cfg = tt.RenderConfig(width=W, height=H, depth=8, backend="pallas",
                               k_photons=2, **kw)
         planes = state_to_planes(tt.init_state(cfg, device=cuda))
@@ -667,14 +676,15 @@ def test_unit_roulette_scale_is_the_reference(cuda, monkeypatch):
         with monkeypatch.context() as m:
             m.setattr(mega_regen, "spawn_args", lambda *a, **k: off)
             fs.cache.pop("plans", None)
-            before = mega_regen.SPAWN_LAUNCHES
+            before = ran["regen", spawn]
             ra = int(mega_regen.regen_call(scene, cfg, cam, pa, 3, 2, 0, 2.0,
                                            8))
-            assert mega_regen.SPAWN_LAUNCHES == before + 1
+            assert ran["regen", spawn] == before + 1
         fs.cache.pop("plans", None)
-        before = mega_regen.SPAWN_LAUNCHES
+        before = ran["regen", spawn], ran["regen", ref]
         rb = int(mega_regen.regen_call(scene, cfg, cam, pb, 3, 2, 0, 2.0, 8))
-        assert mega_regen.SPAWN_LAUNCHES == before
+        assert (ran["regen", spawn], ran["regen", ref]) == (before[0],
+                                                             before[1] + 1)
         assert ra == rb > 0 and torch.equal(pa, pb)
 
 
@@ -696,12 +706,12 @@ def test_regen_gleaf_spawn_instances_match_plain(cuda):
         assert tri.kind == "gleaf"
         planes = state_to_planes(tt.init_state(cfg, device=cuda))
         pk, pp = planes.clone(), planes.clone()
-        before = mega_regen.MXU_LAUNCHES, mega_regen.SPAWN_LAUNCHES
+        spawn = f"regen_spawn_kernel<{'true' if hero > 1 else 'false'}, true>"
+        before = mega_regen.INSTANCE_LAUNCHES["regen", spawn]
         rk = int(mega_regen.regen_call(scene, cfg, cam, pk, 5, 2, 0, 2.0, 8))
         rp = int(integrate.render_plain(fs, cfg, cam, pp, 5, 2, 0, 2.0, 8,
                                         tri))
-        assert (mega_regen.MXU_LAUNCHES, mega_regen.SPAWN_LAUNCHES) == (
-            before[0] + 1, before[1] + 1)
+        assert mega_regen.INSTANCE_LAUNCHES["regen", spawn] == before + 1
         assert rk == rp > 0 and torch.equal(pk, pp)
 
 
@@ -719,9 +729,11 @@ def test_fused_spawn_instances_match_regen(cuda, flags):
                           wf_pool=2048, backend="wavefront_fused", **kw)
     cam = _camera(tt, cfg.motion_blur)
     st = tt.init_state(cfg, device=cuda)
-    before = wavefront_fused.SPAWN_LAUNCHES
+    spawn = ("wf_fused", "fused_spawn_kernel<true>" if flags == "quality"
+             else "fused_spawn_kernel<false>")
+    before = mega_regen.INSTANCE_LAUNCHES[spawn]
     got = wavefront_fused.wavefront_render_fused(scene, cfg, cam, st, 9, 3)
-    assert wavefront_fused.SPAWN_LAUNCHES == before + 1
+    assert mega_regen.INSTANCE_LAUNCHES[spawn] == before + 1
     planes = state_to_planes(st)
     rays = mega_regen.regen_call(scene, cfg.with_(backend="pallas"), cam,
                                  planes, 9, 3, 0, 2.0, cfg.depth)
@@ -772,7 +784,10 @@ def test_sweep_spawn_instances_match_step(cuda, flags):
     want, got = fresh(), fresh()
     plain = wavefront.plain_stepper(fs, cfg, work).sweep
     kernel = wavefront_sweep.stepper(fs, cfg, work).sweep
-    before = wavefront_sweep.SPAWN_LAUNCHES
+    full = "true" if flags == "quality" else "false"
+    spawn = ("wf_sweep", f"pool_step_kernel<{full}, {full}, Sampler, "
+                         f"Emission, Spawn>")
+    before = mega_regen.INSTANCE_LAUNCHES[spawn]
     for _ in range(3):
         want = plain(*want)
         got = kernel(*got)
@@ -782,4 +797,4 @@ def test_sweep_spawn_instances_match_step(cuda, flags):
                          want[3])):
             assert torch.equal(x, y)
         torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=1e-6)
-    assert wavefront_sweep.SPAWN_LAUNCHES == before + 3
+    assert mega_regen.INSTANCE_LAUNCHES[spawn] == before + 3

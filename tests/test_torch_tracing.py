@@ -213,5 +213,5 @@ def test_cuda_launch_spans_carry_events(cuda):
     s = tracing.summary(spans)
     assert s["path.launch"]["device_ms"] == pytest.approx(
         timed[0].device_ms())
-    assert s["path.prepare"]["count"] == 2      # checks, then arguments
+    assert s["path.prepare"]["count"] == 1  # checks, plan and arguments
     assert s["render.to_planes"]["device_ms"] is None

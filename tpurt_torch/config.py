@@ -185,6 +185,8 @@ _SCHEDULING_FIELDS = frozenset({
     "tri_chunk", "sphere_chunk", "pallas_phase_split_votes",
 })
 
+_DEFAULT = RenderConfig()   # frozen: check_slice compares against it
+
 _BACKENDS = ("xla", "pallas", "wavefront", "wavefront_pallas",
              "wavefront_fused")
 
@@ -195,15 +197,14 @@ def check_slice(cfg: RenderConfig) -> None:
     and the checks beside it), with its exception types and messages:
     photon_aim runs in the XLA twin and the regen kernel only, as in
     tpurt."""
-    default = RenderConfig()
     for f in dataclasses.fields(RenderConfig):
         if f.name in _SLICE_FIELDS or f.name in _SCHEDULING_FIELDS:
             continue
-        if getattr(cfg, f.name) != getattr(default, f.name):
+        if getattr(cfg, f.name) != getattr(_DEFAULT, f.name):
             raise NotImplementedError(
                 f"RenderConfig.{f.name}={getattr(cfg, f.name)!r} is not "
                 f"ported to tpurt_torch yet (default "
-                f"{getattr(default, f.name)!r})")
+                f"{getattr(_DEFAULT, f.name)!r})")
     if cfg.backend not in _BACKENDS:
         raise NotImplementedError(
             f"RenderConfig.backend={cfg.backend!r} is not ported to "

@@ -9,20 +9,13 @@ CUDA tensor each launches the kernel or raises; on a CPU tensor each runs
 the kernel's plain PyTorch version, ``integrate.render_plain`` or
 ``integrate.render_plain_budget``, which have the same contracts.
 ``LAUNCHES`` and ``BUDGET_LAUNCHES`` count kernel launches only;
-``MXU_LAUNCHES`` counts the launches of either mode that ran tpurt's
-G-matrix leaf test (``pallas_mxu_leaf`` where ``bvh.mxu_leaf_engages``),
-whose plain version is ``ops.intersect.closest_triangle_g``,
-``EMIT_LAUNCHES`` those of either mode with emission switches
-(``emission_args``), ``SPAWN_LAUNCHES`` those with spawn switches (the
-camera-spawn extensions or the photon roulette scale, ``spawn_args``),
-which ran a spawn instance unless they had lights switches, and
-``LIGHTS_LAUNCHES`` those with lights switches (light_sample "power" or
-"spatial", photon_aim: ``lights_args``), which ran a lights instance; a
-launch with several counts in each. ``POOL_LAUNCHES`` counts the uniform
-launches that ran the pool instance (``pool_engages``: a scene without
-triangles, the reference sampler, no emission, spawn or lights switches),
-which moves paths between a block's warps (``csrc/path_pool.cuh``);
-``lane_share`` reads the share of its warp trips' lanes that held a path.
+``POOL_LAUNCHES`` counts the uniform launches that ran the pool instance
+(``pool_engages``: a scene without triangles, the reference sampler, no
+emission, spawn or lights switches), which moves paths between a block's
+warps (``csrc/path_pool.cuh``); ``lane_share`` reads the share of its warp
+trips' lanes that held a path. ``INSTANCE_LAUNCHES`` counts the launches
+of every path launcher by the kernel instance they ran
+(``kernel_instance``).
 
 The module also builds what every path kernel reads: the parameter table
 (camera, spheres, materials, lights, each light's hero table, then those
@@ -35,10 +28,12 @@ on the device, ``sobol_table``, and the photon roulette scale) and the
 lights switches (``lights_args``: the NEE mode, the photon aim), which
 select the kernels' emission, spawn and lights instances. ``struct_ref``
 passes any of them to a launcher. ``launch_plan`` keeps all of these for
-a launch on the planes (this kernel's and the tile-synchronized one's),
-per frozen scene, config, camera rows and device, so that a call builds
-only its seed, counts, radius, planes and counters (``PLAN_HITS``,
-``PLAN_BUILDS``).
+a launch of one kind (``PHOTON``: this kernel and the tile-synchronized
+one, on the planes; ``CAMERA``: the fused wavefront kernel and the sweep
+kernel), per frozen scene, config, camera rows and device, so that a call
+builds only its seed, counts, radius, planes and counters (``PLAN_HITS``,
+``PLAN_BUILDS``); ``launch`` runs and counts a launch of any of the four
+launchers.
 """
 
 from __future__ import annotations
@@ -46,6 +41,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
+import sys
 
 import numpy as np
 import torch
@@ -62,15 +58,28 @@ from tpurt_torch.scene import freeze_scene, photon_power, sphere_rows
 
 LAUNCHES = 0
 BUDGET_LAUNCHES = 0
-MXU_LAUNCHES = 0
-EMIT_LAUNCHES = 0
-SPAWN_LAUNCHES = 0
-LIGHTS_LAUNCHES = 0
 POOL_LAUNCHES = 0
+# (launcher, kernel_instance) -> launches; the launchers are LAUNCHERS'
+INSTANCE_LAUNCHES = collections.Counter()
 PLAN_HITS = 0      # launch_plan calls that found their plan kept
 PLAN_BUILDS = 0    # launch_plan calls that built one
 
 PLAN_LIMIT = 4     # plans kept per frozen scene, the least recent leaving
+PHOTON = "photon"  # plan kinds: the regen and tile-synchronized kernels,
+CAMERA = "camera"  # the fused wavefront and sweep kernels
+# launcher -> its plan kind, its C function and its total launch count
+# (module of tpurt_torch.kernels, attribute)
+LAUNCHERS = {
+    "regen": (PHOTON, "tpurt_regen_launch", "mega_regen", "LAUNCHES"),
+    "regen_budget": (PHOTON, "tpurt_regen_launch", "mega_regen",
+                     "BUDGET_LAUNCHES"),
+    "tile_sync": (PHOTON, "tpurt_step_launch", "mega_step", "LAUNCHES"),
+    "wf_fused": (CAMERA, "tpurt_wf_fused_launch", "wavefront_fused",
+                 "LAUNCHES"),
+    "wf_sweep": (CAMERA, "tpurt_wf_step_launch", "wavefront_sweep",
+                 "LAUNCHES"),
+}
+POOL_KERNEL = "regen_pool_kernel"
 N_CHANNELS = 16
 CAM_FLOATS = 12
 MAT_STRIDE = 8
@@ -354,16 +363,67 @@ def launch_counters(device) -> torch.Tensor:
     return torch.zeros((2,), dtype=torch.int64, device=device)
 
 
+def kernel_instance(launcher: str, *, sampled: bool, emission: bool,
+                    spawn: bool, lights: bool, gleaf: bool,
+                    triangles: bool) -> str:
+    """The kernel a launch of ``launcher`` (a key of ``LAUNCHERS``) runs,
+    named as the profiler shows it less its namespace and arguments. The
+    rule of the C launchers, in their order: csrc/mega_regen.cu
+    ``tpurt_regen_launch`` and csrc/mega_step.cu ``tpurt_step_launch``
+    with the ``launch_lights``, ``launch_spawn`` and ``launch_emit`` they
+    call (csrc/path_lights.cu, path_spawn.cu, path_emit.cu),
+    csrc/wavefront_fused.cu ``tpurt_wf_fused_launch`` and
+    csrc/wavefront_sweep.cu ``tpurt_wf_step_launch``: lights switches,
+    then spawn switches, then emission switches, then the pool (a uniform
+    regen launch without triangle rows), then the sampler or the reference
+    instance. ``sampled``: ``sampler_on``; the lights and spawn instances
+    take their full body where emission or the sampler is on; ``gleaf``:
+    the G-matrix leaf test of the photon kernels."""
+    b = lambda x: "true" if x else "false"  # noqa: E731
+    full = b(emission or sampled)
+    if launcher == "wf_fused":
+        if lights:
+            return f"fused_lights_kernel<{full}>"
+        if spawn:
+            return f"fused_spawn_kernel<{full}>"
+        if emission or sampled:
+            return f"fused_sampler_kernel<{b(emission)}>"
+        return "fused_kernel"
+    if launcher == "wf_sweep":
+        if lights or spawn:
+            pack = "Spawn, Lights" if lights else "Spawn"
+            return (f"pool_step_kernel<{full}, {full}, Sampler, Emission, "
+                    f"{pack}>")
+        if not (emission or sampled):
+            return "pool_step_kernel<false, false>"
+        return f"pool_step_kernel<true, {b(emission)}, Sampler, Emission>"
+    if lights:
+        return f"regen_lights_kernel<{full}, {b(gleaf)}>"
+    if spawn:
+        return f"regen_spawn_kernel<{full}, {b(gleaf)}>"
+    if emission:
+        return f"regen_emit_kernel<{b(gleaf)}>"
+    if launcher == "tile_sync":
+        return f"step_kernel<{b(sampled)}>"
+    if launcher == "regen" and not sampled and not triangles:
+        return POOL_KERNEL
+    return f"regen_kernel<{b(sampled)}, {b(gleaf)}>"
+
+
 def pool_engages(fs, cfg, uniform: bool = True) -> bool:
-    """Whether a regen launch runs the pool instance (the rule of
-    ``csrc/mega_regen.cu tpurt_regen_launch``): a uniform launch
+    """Whether a regen launch runs the pool instance (``kernel_instance``
+    on the switches ``build_plan`` gives it): a uniform launch
     (``uniform``; budget launches never) on a scene without triangles,
     under the reference sampler, without emission, spawn or lights
     switches."""
-    return (uniform and (fs.triangles is None or fs.triangles.count == 0)
-            and emission_args(fs, cfg) is None and not spawn_on(cfg)
-            and lights_args(cfg, photon_count(fs, cfg) > 0) is None
-            and not sampler_on(sampler_args(fs, cfg)))
+    return kernel_instance(
+        "regen" if uniform else "regen_budget",
+        sampled=sampler_on(sampler_args(fs, cfg)),
+        emission=emission_args(fs, cfg) is not None, spawn=spawn_on(cfg),
+        lights=lights_args(cfg, photon_count(fs, cfg) > 0) is not None,
+        gleaf=bvh.mxu_leaf_engages(fs, cfg),
+        triangles=fs.triangles is not None and fs.triangles.count > 0,
+    ) == POOL_KERNEL
 
 
 def regen_tri_mode(fs, cfg) -> integrate.TriMode:
@@ -380,10 +440,12 @@ def regen_tri_mode(fs, cfg) -> integrate.TriMode:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class LaunchPlan:
-    """What a launch on the (16, P) planes (the regen kernel in either
-    mode, the tile-synchronized kernel) takes that depends only on the
-    frozen scene, the config, the camera's rows and the device: built by
-    ``launch_plan``, read by every launch that matches it."""
+    """What a launch of one kind (``PHOTON``: the regen kernel in either
+    mode and the tile-synchronized kernel, on the (16, P) planes;
+    ``CAMERA``: the fused wavefront and the sweep kernels) takes that
+    depends only on the frozen scene, the config, the camera's rows and
+    the device: built by ``launch_plan``, read by every launch that
+    matches it."""
     table: torch.Tensor             # parameter table, camera rows first
     geo: bvh.Geometry               # geometry tables
     tri: integrate.TriMode          # closest-hit triangle test
@@ -392,11 +454,12 @@ class LaunchPlan:
     emission: EmissionArgs | None
     spawn: SpawnArgs | None
     lights: LightsArgs | None
-    photons: int                    # photon_count
+    photons: int                    # photon_count; 0 for CAMERA
     cie: int                        # address of cie_table on the device
     lib: ctypes.CDLL | None         # the kernel library; None on the CPU
-    pool: bool                      # pool_engages for a uniform launch
     lanes: int                      # address of lane_counts on the device
+    instances: dict                 # launcher of the kind -> its kernel
+                                    # (kernel_instance)
 
 
 def camera_key(camera) -> bytes:
@@ -413,83 +476,109 @@ def camera_key(camera) -> bytes:
                               c.lower_left))
 
 
-def build_plan(fs, cfg, camera, device) -> LaunchPlan:
-    """A fresh ``LaunchPlan``, on any device (the library only on the
-    card). Raises what the triangle test and the spawn switches raise."""
+def build_plan(fs, cfg, camera, device, kind: str) -> LaunchPlan:
+    """A fresh ``LaunchPlan`` of ``kind`` (``PHOTON`` or ``CAMERA``), on
+    any device (the library only on the card). Raises what the triangle
+    test and the spawn switches raise."""
     device = torch.device(device)
-    tri = regen_tri_mode(fs, cfg)
+    if kind == PHOTON:
+        tri = regen_tri_mode(fs, cfg)
+        k = photon_count(fs, cfg)
+        sampler, emission = sampler_args(fs, cfg), emission_args(fs, cfg)
+        spawn, lights = spawn_args(cfg, camera, device), lights_args(cfg,
+                                                                      k > 0)
+    else:
+        # no photons, and tpurt never runs its G leaf on camera paths
+        tri, k = integrate.EXACT, 0
+        sampler = camera_sampler_args(fs, cfg)
+        emission = emission_args(fs, cfg, wavefront=True)
+        spawn = spawn_args(cfg, camera, device, photons=False)
+        lights = lights_args(cfg, photons=False)
     table, geo = scene_table(fs, cfg, camera, device)
-    k = photon_count(fs, cfg)
+    geo_args = geo.args(tri.gmat)
+    instances = {launcher: kernel_instance(
+        launcher, sampled=sampler_on(sampler), emission=emission is not None,
+        spawn=spawn is not None, lights=lights is not None,
+        gleaf=tri.gmat is not None, triangles=geo_args.n_tri > 0)
+        for launcher, (of, *_) in LAUNCHERS.items() if of == kind}
     return LaunchPlan(
-        table=table, geo=geo, tri=tri, geo_args=geo.args(tri.gmat),
-        sampler=sampler_args(fs, cfg), emission=emission_args(fs, cfg),
-        spawn=spawn_args(cfg, camera, device), lights=lights_args(cfg, k > 0),
-        photons=k, cie=cie_table(device).data_ptr(),
+        table=table, geo=geo, tri=tri, geo_args=geo_args, sampler=sampler,
+        emission=emission, spawn=spawn, lights=lights, photons=k,
+        cie=cie_table(device).data_ptr(),
         lib=build.library() if device.type == "cuda" else None,
-        pool=pool_engages(fs, cfg), lanes=lane_counts(device).data_ptr())
+        lanes=lane_counts(device).data_ptr(), instances=instances)
 
 
-def launch_plan(fs, cfg, camera, device) -> LaunchPlan:
-    """The ``LaunchPlan`` of a launch: built on the first call for this
-    frozen scene, config, camera rows and device (``PLAN_BUILDS``), then
-    kept on the frozen scene, which holds the ``PLAN_LIMIT`` plans used
-    last (``PLAN_HITS``). A moving camera builds anew on the cached body
-    of the table (``scene_table``). The key holds the inputs, not the
-    functions that build the plan from them: code that replaces one of
-    them (a test's patch, an A/B's forced switch) drops the kept plans,
-    ``fs.cache.pop("plans", None)``, before and after."""
+def launch_plan(fs, cfg, camera, device, kind: str) -> LaunchPlan:
+    """The ``LaunchPlan`` of a launch of ``kind``: built on the first call
+    for this kind, frozen scene, config, camera rows and device
+    (``PLAN_BUILDS``), then kept on the frozen scene, which holds the
+    ``PLAN_LIMIT`` plans used last (``PLAN_HITS``). A moving camera builds
+    anew on the cached body of the table (``scene_table``). The key holds
+    the inputs, not the functions that build the plan from them: code that
+    replaces one of them (a test's patch, an A/B's forced switch) drops
+    the kept plans, ``fs.cache.pop("plans", None)``, before and after."""
     global PLAN_HITS, PLAN_BUILDS
     device = torch.device(device)
     plans = fs.cache.get("plans")
     if plans is None:
         plans = fs.cache["plans"] = collections.OrderedDict()
-    key = (cfg, device, camera_key(camera))
+    key = (kind, cfg, device, camera_key(camera))
     plan = plans.get(key)
     if plan is not None:
         plans.move_to_end(key)
         PLAN_HITS += 1
         return plan
-    plan = plans[key] = build_plan(fs, cfg, camera, device)
+    plan = plans[key] = build_plan(fs, cfg, camera, device, kind)
     if len(plans) > PLAN_LIMIT:
         plans.popitem(last=False)
     PLAN_BUILDS += 1
     return plan
 
 
-def _launch(plan: LaunchPlan, fs, cfg, planes, base_seed: int, spp: int,
-            iteration: int, radius: float, depth: int, aux=None):
-    global MXU_LAUNCHES, EMIT_LAUNCHES, SPAWN_LAUNCHES, LIGHTS_LAUNCHES, \
-        POOL_LAUNCHES
-    with tracing.span("path.prepare"):
-        counters = launch_counters(planes.device)
-        stream = torch.cuda.current_stream(planes.device).cuda_stream
-        args = (
-            planes.data_ptr(), planes.shape[1], cfg.width, cfg.height,
+def photon_args(plan: LaunchPlan, launcher: str, fs, cfg, planes,
+                base_seed: int, spp: int, iteration: int, radius: float,
+                depth: int, aux) -> tuple:
+    """The counters (``launch_counters``) and the argument list of a
+    ``PHOTON`` launch on the planes: ``tpurt_regen_launch``'s, or for
+    ``launcher`` "tile_sync" ``tpurt_step_launch``'s (one sample, so no
+    ``spp``, SPPM alpha, budget rows or lane counter). ``aux``: None or
+    the (3, P) budget rows of budget mode."""
+    counters = launch_counters(planes.device)
+    head = (planes.data_ptr(), planes.shape[1], cfg.width, cfg.height,
             plan.table.data_ptr(), len(plan.geo.flat_rows),
-            len(fs.materials), len(fs.lights), int(base_seed) & 0xFFFFFFFF,
-            spp, iteration, depth, radius, plan.photons,
-            cfg.max_photon_bounces, cfg.rr_threshold,
-            cfg.photon_rr_threshold, cfg.sppm_alpha,
-            ctypes.byref(plan.sampler),
-            None if aux is None else aux.data_ptr(),
-            ctypes.byref(plan.geo_args), counters.data_ptr(), plan.cie,
-            struct_ref(plan.emission), struct_ref(plan.spawn),
-            struct_ref(plan.lights), plan.lanes, stream)
-    with tracing.span("path.launch", planes.device):
-        err = plan.lib.tpurt_regen_launch(*args)
-    build.check_launch(plan.lib, err, "tpurt_regen_launch")
-    bvh.count_walk(plan.geo)
-    if plan.tri.gmat is not None:
-        MXU_LAUNCHES += 1
-    if plan.emission is not None:
-        EMIT_LAUNCHES += 1
-    if plan.spawn is not None:
-        SPAWN_LAUNCHES += 1
-    if plan.lights is not None:
-        LIGHTS_LAUNCHES += 1
-    if plan.pool and aux is None:
+            len(fs.materials), len(fs.lights), int(base_seed) & 0xFFFFFFFF)
+    walk = (depth, radius, plan.photons, cfg.max_photon_bounces,
+            cfg.rr_threshold, cfg.photon_rr_threshold)
+    tail = (counters.data_ptr(), plan.cie, struct_ref(plan.emission),
+            struct_ref(plan.spawn), struct_ref(plan.lights))
+    sampler, geom = ctypes.byref(plan.sampler), ctypes.byref(plan.geo_args)
+    stream = torch.cuda.current_stream(planes.device).cuda_stream
+    if launcher == "tile_sync":
+        return counters, (*head, iteration, *walk, sampler, geom, *tail,
+                          stream)
+    return counters, (*head, spp, iteration, *walk, cfg.sppm_alpha, sampler,
+                      None if aux is None else aux.data_ptr(), geom, *tail,
+                      plan.lanes, stream)
+
+
+def launch(plan: LaunchPlan, launcher: str, args: tuple, device) -> None:
+    """Run ``launcher``'s C function on ``args`` in the ``path.launch``
+    span, raise its error, and count the launch: its instance in
+    ``INSTANCE_LAUNCHES`` (and ``POOL_LAUNCHES``), ``bvh.count_walk`` and
+    the launcher's total."""
+    global POOL_LAUNCHES
+    _, fn, module, total = LAUNCHERS[launcher]
+    with tracing.span("path.launch", device):
+        err = getattr(plan.lib, fn)(*args)
+    build.check_launch(plan.lib, err, fn)
+    instance = plan.instances[launcher]
+    INSTANCE_LAUNCHES[launcher, instance] += 1
+    if instance == POOL_KERNEL:
         POOL_LAUNCHES += 1
-    return counters[0]
+    bvh.count_walk(plan.geo)
+    mod = sys.modules[f"tpurt_torch.kernels.{module}"]
+    setattr(mod, total, getattr(mod, total) + 1)
 
 
 def regen_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
@@ -499,23 +588,23 @@ def regen_call(scene, cfg, camera, planes: torch.Tensor, base_seed: int,
     returns the traced segments as an int64 scalar on the planes' device.
     Sample s draws from frame seed (base_seed, iteration + s) and gathers
     photons within ``radius`` after s radius steps."""
-    global LAUNCHES
     cpu = planes.device.type == "cpu"
     with tracing.span("path.prepare"):
         fs = checked_scene(scene, planes, cfg)
         if cpu:
             tri = regen_tri_mode(fs, cfg)
         else:
-            plan = launch_plan(fs, cfg, camera, planes.device)
+            plan = launch_plan(fs, cfg, camera, planes.device, PHOTON)
+            counters, args = photon_args(plan, "regen", fs, cfg, planes,
+                                         base_seed, spp, iteration, radius,
+                                         depth, None)
     if cpu:
         with tracing.span("path.launch"):
             return integrate.render_plain(fs, cfg, camera, planes,
                                           base_seed, spp, iteration, radius,
                                           depth, tri)
-    rays = _launch(plan, fs, cfg, planes, base_seed, spp, iteration, radius,
-                   depth)
-    LAUNCHES += 1
-    return rays
+    launch(plan, "regen", args, planes.device)
+    return counters[0]
 
 
 def regen_budget_call(scene, cfg, camera, planes: torch.Tensor,
@@ -526,7 +615,6 @@ def regen_budget_call(scene, cfg, camera, planes: torch.Tensor,
     count ``counts[p]`` (the state's n_samples), with its own frame seeds,
     strata epochs and SPPM radius (``integrate.render_plain_budget``).
     Returns the traced segments as an int64 scalar."""
-    global BUDGET_LAUNCHES
     cpu = planes.device.type == "cpu"
     with tracing.span("path.prepare"):
         fs = checked_scene(scene, planes, cfg)
@@ -537,22 +625,23 @@ def regen_budget_call(scene, cfg, camera, planes: torch.Tensor,
         if cpu:
             tri = regen_tri_mode(fs, cfg)
         else:
-            plan = launch_plan(fs, cfg, camera, planes.device)
+            plan = launch_plan(fs, cfg, camera, planes.device, PHOTON)
             cnt = counts.to(planes.device).long()
             radii = torch.from_numpy(integrate.radius_table(
                 cfg, int(cnt.max()) if P else 0)).to(planes.device)[cnt]
             aux = torch.stack([budgets.to(planes.device).to(torch.float32),
                                counts.to(planes.device).to(torch.float32),
                                radii]).contiguous()
+            counters, args = photon_args(plan, "regen_budget", fs, cfg,
+                                         planes, base_seed, 0, 0, 0.0,
+                                         cfg.depth, aux)
     if cpu:
         with tracing.span("path.launch"):
             return integrate.render_plain_budget(fs, cfg, camera, planes,
                                                  base_seed, budgets, counts,
                                                  tri)
-    rays = _launch(plan, fs, cfg, planes, base_seed, 0, 0, 0.0, cfg.depth,
-                   aux)
-    BUDGET_LAUNCHES += 1
-    return rays
+    launch(plan, "regen_budget", args, planes.device)
+    return counters[0]
 
 
 def render_budget_regen(scene, cfg, camera, state, base_seed, budgets,

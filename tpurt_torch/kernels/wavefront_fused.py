@@ -10,22 +10,16 @@ raises; on a CPU state each runs the kernel's plain version, the pool
 renderer ``wavefront.wavefront_render`` or
 ``adaptive.wavefront_render_budget``, which draws the same streams.
 Uniform launches keep a warp's lanes in lockstep, budget launches let them
-run free (PERF.md has the A/B). A launch with hero wavelengths or
-camera-path dispersion runs the kernel's sampler instance, one with the
-sky, the legacy ramp, an emissive material or the clamp its emission
-instance, one with a camera-spawn extension (the thin lens, a
-MotionCamera's shutter, the Sobol spawn draws) a spawn instance: the
-reference sampler's with the spawn flags alone, else the one with the
-sampler flags and emission too (``mega_regen.camera_sampler_args``,
-``emission_args``, ``spawn_args``). ``LAUNCHES`` counts kernel launches
-only, ``SAMPLER_LAUNCHES`` those of the sampler instance,
-``EMIT_LAUNCHES`` those with emission switches, ``SPAWN_LAUNCHES`` those
-with spawn switches, ``LIGHTS_LAUNCHES`` those with lights switches (a
-launch with several counts in each). A launch with light_sample "power"
-or "spatial" runs a lights instance (``mega_regen.lights_args``; photons,
-and so photon_aim, have no place here): the reference sampler's with the
-mode alone (or with the spawn flags), else the one with the sampler flags
-and emission too.
+run free (PERF.md has the A/B). Hero wavelengths or camera-path
+dispersion, emission (the sky, the legacy ramp, an emissive material, the
+clamp), the camera-spawn extensions (the thin lens, a MotionCamera's
+shutter, the Sobol spawn draws) and light_sample "power" or "spatial"
+select the kernel's sampler, emission, spawn and lights instances
+(``mega_regen.kernel_instance``; photons, and so photon_aim, have no
+place here). The launch reads its tables and switches from a
+``mega_regen.launch_plan`` of kind ``CAMERA``. ``LAUNCHES`` counts kernel
+launches only, ``mega_regen.INSTANCE_LAUNCHES`` them by the instance they
+ran.
 """
 
 from __future__ import annotations
@@ -38,27 +32,17 @@ import torch
 from tpurt_torch import adaptive, tracing, wavefront
 from tpurt_torch.camera import check_camera
 from tpurt_torch.config import check_slice
-from tpurt_torch.kernels import build, bvh
-from tpurt_torch.kernels.mega_regen import (camera_sampler_args, cie_table,
-                                            emission_args, struct_ref,
-                                            launch_counters, lights_args,
-                                            sampler_on, scene_table,
-                                            spawn_args)
+from tpurt_torch.kernels.mega_regen import (CAMERA, launch, launch_counters,
+                                            launch_plan, struct_ref)
 from tpurt_torch.scene import freeze_scene
 
 LAUNCHES = 0
-SAMPLER_LAUNCHES = 0
-EMIT_LAUNCHES = 0
-SPAWN_LAUNCHES = 0
-LIGHTS_LAUNCHES = 0
 
 
 def _launch(scene, cfg, camera, state, base_seed, spp: int, aux=None):
     """The kernel on a copy of the state's rgb_sum; ``aux``: the (2, P)
     float32 budgets and counts of budget mode. Returns (rgb_sum, rays
     int64 scalar)."""
-    global LAUNCHES, SAMPLER_LAUNCHES, EMIT_LAUNCHES, SPAWN_LAUNCHES, \
-        LIGHTS_LAUNCHES
     dev = state.device
     with tracing.span("path.prepare"):
         if dev.type != "cuda":
@@ -71,37 +55,19 @@ def _launch(scene, cfg, camera, state, base_seed, spp: int, aux=None):
                              f"{rgb.dtype}")
         rgb = rgb.clone(memory_format=torch.contiguous_format)
         fs = freeze_scene(scene)
-        table, geo = scene_table(fs, cfg, camera, dev)
-        args = geo.args()
-        assert args.gmat is None    # tpurt never runs its G leaf here
-        lib = build.library()
+        plan = launch_plan(fs, cfg, camera, dev, CAMERA)
         counters = launch_counters(dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        sampler = camera_sampler_args(fs, cfg)
-        emission = emission_args(fs, cfg, wavefront=True)
-        spawn = spawn_args(cfg, camera, dev, photons=False)
-        lights = lights_args(cfg, photons=False)
-    with tracing.span("path.launch", dev):
-        err = lib.tpurt_wf_fused_launch(
-            rgb.data_ptr(), rgb.shape[0], cfg.width, cfg.height,
-            table.data_ptr(), len(geo.flat_rows), len(fs.materials),
-            len(fs.lights), int(base_seed) & 0xFFFFFFFF, spp,
-            state.iteration, None if aux is None else aux.data_ptr(),
-            cfg.depth, cfg.rr_threshold, ctypes.byref(args),
-            counters.data_ptr(), cie_table(dev).data_ptr(),
-            ctypes.byref(sampler), struct_ref(emission), struct_ref(spawn),
-            struct_ref(lights), stream)
-        build.check_launch(lib, err, "tpurt_wf_fused_launch")
-    LAUNCHES += 1
-    if spawn is not None:
-        SPAWN_LAUNCHES += 1
-    if lights is not None:
-        LIGHTS_LAUNCHES += 1
-    if emission is not None:
-        EMIT_LAUNCHES += 1
-    elif spawn is None and lights is None and sampler_on(sampler):
-        SAMPLER_LAUNCHES += 1
-    bvh.count_walk(geo)
+        args = (rgb.data_ptr(), rgb.shape[0], cfg.width, cfg.height,
+                plan.table.data_ptr(), len(plan.geo.flat_rows),
+                len(fs.materials), len(fs.lights),
+                int(base_seed) & 0xFFFFFFFF, spp, state.iteration,
+                None if aux is None else aux.data_ptr(), cfg.depth,
+                cfg.rr_threshold, ctypes.byref(plan.geo_args),
+                counters.data_ptr(), plan.cie, ctypes.byref(plan.sampler),
+                struct_ref(plan.emission), struct_ref(plan.spawn),
+                struct_ref(plan.lights),
+                torch.cuda.current_stream(dev).cuda_stream)
+    launch(plan, "wf_fused", args, dev)
     return rgb, counters[0]
 
 

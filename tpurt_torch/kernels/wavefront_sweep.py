@@ -7,21 +7,14 @@ pool with it.
 ``stepper`` is the step hook of ``wavefront.wavefront_render_slab`` and
 ``adaptive.wavefront_render_budget_slab``: on a CUDA pool each sweep
 launches the kernel or raises; on a CPU pool it runs the kernel's plain
-version, ``wavefront._step``, which has the same contract. The scene
-table, the geometry tables and the launch constants are built once per
-render, at the first sweep, so a sweep is one launch and no PyTorch op.
-``LAUNCHES`` counts kernel launches only: one per sweep enqueued,
-including those past the end of the loop, which return at once;
-``SAMPLER_LAUNCHES`` counts those of the sampler instance (hero
-wavelengths or camera-path dispersion), ``EMIT_LAUNCHES`` those with
-emission switches (the sky, the legacy ramp, an emissive material, the
-clamp), ``SPAWN_LAUNCHES`` those with spawn switches (the camera-spawn
-extensions, ``mega_regen.spawn_args``), which run a spawn instance: the
-reference bounce's with the spawn flags alone, else the one with the
-sampler flags and emission too; ``LIGHTS_LAUNCHES`` those with lights
-switches (light_sample "power" or "spatial", ``mega_regen.lights_args``),
-which run the same pair with the NEE mode. A launch with several counts
-in each.
+version, ``wavefront._step``, which has the same contract. A render
+takes its tables and switches from a ``mega_regen.launch_plan`` of kind
+``CAMERA`` and builds its launch constants at its first sweep, so a sweep
+is one launch and no PyTorch op. ``LAUNCHES`` counts kernel launches only:
+one per sweep enqueued, including those past the end of the loop, which
+return at once; ``mega_regen.INSTANCE_LAUNCHES`` counts them by the
+instance they ran (``mega_regen.kernel_instance``: the sampler, emission,
+spawn and lights switches of the fused kernel select the sweep's).
 ``SWEEP_BATCH`` sweeps are enqueued per read of the loop test: at 1080p,
 1 spp, 16 is within 2-12% of 32 and costs at most 15 empty launches at the
 end of a render (PERF.md has the measurement).
@@ -34,17 +27,9 @@ import ctypes
 import torch
 
 from tpurt_torch import tracing, wavefront
-from tpurt_torch.kernels import build, bvh
-from tpurt_torch.kernels.mega_regen import (camera_sampler_args, cie_table,
-                                            emission_args, lights_args,
-                                            sampler_on, scene_table,
-                                            spawn_args, struct_ref)
+from tpurt_torch.kernels import mega_regen
 
 LAUNCHES = 0
-SAMPLER_LAUNCHES = 0
-EMIT_LAUNCHES = 0
-SPAWN_LAUNCHES = 0
-LIGHTS_LAUNCHES = 0
 SWEEP_BATCH = 16
 
 
@@ -106,8 +91,6 @@ def stepper(fs, cfg, work: wavefront.PoolWork,
     launch = {}     # built at the first sweep on the card
 
     def step(pool, rgb, ns, ctl):
-        global LAUNCHES, SAMPLER_LAUNCHES, EMIT_LAUNCHES, SPAWN_LAUNCHES, \
-            LIGHTS_LAUNCHES
         dev = pool.pf.device
         if dev.type == "cpu":
             with tracing.span("path.launch"):
@@ -127,38 +110,20 @@ def stepper(fs, cfg, work: wavefront.PoolWork,
                 launch["last"] = tensors
                 launch["ptrs"] = tuple(t.data_ptr() for t in tensors)
             stream = torch.cuda.current_stream(dev).cuda_stream
-        with tracing.span("path.launch", dev):
-            err = launch["lib"].tpurt_wf_step_launch(
-                *launch["ptrs"], launch["table"], launch["n_sph"],
-                launch["n_mat"], launch["n_light"], launch["args_ref"],
-                launch["geom_ref"], launch["cie"], launch["sampler_ref"],
-                launch["emission_ref"], launch["spawn_ref"],
-                launch["lights_ref"], stream)
-            build.check_launch(launch["lib"], err, "tpurt_wf_step_launch")
-        LAUNCHES += 1
-        if launch["spawn"] is not None:
-            SPAWN_LAUNCHES += 1
-        if launch["lights"] is not None:
-            LIGHTS_LAUNCHES += 1
-        if launch["emission"] is not None:
-            EMIT_LAUNCHES += 1
-        elif launch["spawn"] is None and launch["lights"] is None \
-                and sampler_on(launch["sampler"]):
-            SAMPLER_LAUNCHES += 1
-        bvh.count_walk(launch["geo"])
+        mega_regen.launch(launch["plan"], "wf_sweep",
+                          (*launch["ptrs"], *launch["consts"], stream), dev)
         return pool, rgb, ns, ctl
 
     return wavefront.PoolStep(step, batch)
 
 
 def _prepare(fs, cfg, work: wavefront.PoolWork, q: int, dev) -> dict:
-    """What every sweep of one render launches with: the tables on the
-    device, kept alive here, and the launch constants."""
-    table, geo = scene_table(fs, cfg, work.camera, dev)
-    geom = geo.args()
-    assert geom.gmat is None    # tpurt never runs its G leaf here
-    keep = [table]
-    ptrs = {}
+    """What every sweep of one render launches with: its plan, the work's
+    index tensors on the device, kept alive here, and the launch
+    constants that follow the pool's tensors."""
+    plan = mega_regen.launch_plan(fs, cfg, work.camera, dev,
+                                  mega_regen.CAMERA)
+    keep, ptrs = [], {}
     for name in ("order", "cum", "base_counts"):
         t = getattr(work, name)
         if t is not None:
@@ -172,19 +137,14 @@ def _prepare(fs, cfg, work: wavefront.PoolWork, q: int, dev) -> dict:
         width=cfg.width, height=cfg.height, depth=cfg.depth,
         rr_thresh=cfg.rr_threshold, base_seed=work.base_seed & 0xFFFFFFFF,
         **ptrs)
-    sampler = camera_sampler_args(fs, cfg)
-    emission = emission_args(fs, cfg, wavefront=True)
-    spawn = spawn_args(cfg, work.camera, dev, photons=False)
-    lights = lights_args(cfg, photons=False)
-    return dict(lib=build.library(), table=table.data_ptr(), keep=keep,
-                geo=geo, geom=geom, args=args, geom_ref=ctypes.byref(geom),
-                args_ref=ctypes.byref(args), n_sph=len(geo.flat_rows),
-                n_mat=len(fs.materials), n_light=len(fs.lights),
-                cie=cie_table(dev).data_ptr(), sampler=sampler,
-                emission=emission, sampler_ref=ctypes.byref(sampler),
-                emission_ref=struct_ref(emission), spawn=spawn,
-                spawn_ref=struct_ref(spawn), lights=lights,
-                lights_ref=struct_ref(lights))
+    consts = (plan.table.data_ptr(), len(plan.geo.flat_rows),
+              len(fs.materials), len(fs.lights), ctypes.byref(args),
+              ctypes.byref(plan.geo_args), plan.cie,
+              ctypes.byref(plan.sampler),
+              mega_regen.struct_ref(plan.emission),
+              mega_regen.struct_ref(plan.spawn),
+              mega_regen.struct_ref(plan.lights))
+    return dict(plan=plan, keep=keep, args=args, consts=consts)
 
 
 def wavefront_render_pallas(scene, cfg, camera, state, base_seed, spp: int):
