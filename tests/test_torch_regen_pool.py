@@ -50,9 +50,14 @@ def _cornell_cfg(**kw):
 
 @pytest.mark.parametrize("flags", [
     {}, dict(depth=30, k_photons=4), dict(enable_photons=False),
-    dict(rr_threshold=0.05), dict(pallas_sphere_bvh=True)],
-    ids=["default", "k4", "no-photons", "rr", "sphere-bvh"])
+    dict(rr_threshold=0.05), dict(pallas_sphere_bvh=True),
+    dict(width=8, height=4), dict(width=13, height=11),
+    dict(width=1, height=1)],
+    ids=["default", "k4", "no-photons", "rr", "sphere-bvh", "8x4", "13x11",
+         "1x1"])
 def test_pool_engages_on_spheres_under_the_reference_sampler(flags):
+    """Images with fewer pixels than a block's slots take the pool too
+    (the GPU cases below run such launches)."""
     fs = freeze_scene(tt.cornell_spheres_scene(device=CPU))
     assert mega_regen.pool_engages(fs, _cornell_cfg(**flags))
 
@@ -245,6 +250,20 @@ def test_lane_share_reads_the_accumulators(monkeypatch):
     assert mega_regen.lane_share() is None     # launches without a trip
 
 
+def test_lane_counts_is_one_kept_pair(monkeypatch):
+    """The accumulator a pool launch adds its (trips, lanes) to: two int64
+    zeros made on the first call, then the same tensor; lane_share reads
+    what the launches added."""
+    monkeypatch.setattr(mega_regen, "_LANES", {})
+    monkeypatch.setattr(mega_regen, "POOL_LAUNCHES", 1)
+    acc = mega_regen.lane_counts(CPU)
+    assert acc.dtype == torch.int64 and acc.tolist() == [0, 0]
+    assert mega_regen.lane_counts(CPU) is acc
+    assert mega_regen.lane_share() is None     # no trip yet
+    acc += torch.tensor([3, 70])
+    assert mega_regen.lane_share() == 70 / (32 * 3)
+
+
 def test_source_notes():
     """The instance's module says which TPU kernel it replaces, what
     bounds it and what its design does about that; the launcher names
@@ -375,18 +394,32 @@ def _assert_equal(rk, rp, pk, pp):
     assert torch.equal(pk, pp)
 
 
+def _counts_since(before):
+    """The pool accumulators' growth since ``before`` (a clone of them):
+    (trips, lanes) on the one card."""
+    return [int(x) for x in mega_regen.lane_counts("cuda") - before]
+
+
+def _assert_counts(trips, lanes):
+    """A launch's counters: every trip ran a lane, no more than 32."""
+    assert 0 < trips <= lanes <= 32 * trips
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("spp", [1, 4])
 def test_pool_cornell_1080p_matches_plain(cuda, spp):
     """The benchmark's Cornell launch (1080p, depth 30, K=4): rays and all
-    16 planes bit for bit; the lane counter reads a share in (0, 1]."""
+    16 planes bit for bit; the lane counter reads a share in (0, 1] and
+    the launch's trips and lanes hold their bounds."""
     cfg = tt.RenderConfig(width=1920, height=1080, depth=30, k_photons=4,
                           backend="pallas")
     cam = tt.make_camera(**CAM, aspect_ratio=16 / 9)
+    before = mega_regen.lane_counts(cuda).clone()
     _assert_equal(*_pool_and_plain(cuda, tt.cornell_spheres_scene(
         device=cuda), cfg, cam, 1234 + spp, spp))
     share = mega_regen.lane_share()
     assert share is not None and 0.0 < share <= 1.0
+    _assert_counts(*_counts_since(before))
 
 
 @pytest.mark.gpu
@@ -423,6 +456,28 @@ def test_pool_launches_back_to_back(cuda):
     assert mega_regen.POOL_LAUNCHES == before + 2
     assert (int(r1), int(r2)) == (want, want2) and want2 > 0
     assert torch.equal(pk, pp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spp", [1, 64])
+@pytest.mark.parametrize("scene", ["cornell", "lights20"])
+@pytest.mark.parametrize("size", [(8, 4), (13, 11), (1, 1)],
+                         ids=["8x4", "13x11", "1x1"])
+def test_pool_small_images_match_plain(cuda, scene, spp, size):
+    """Fewer pixels than a block's slots: most slots retire at once, the
+    lists run dry, warps claim short lists and wait for the few live
+    slots; Cornell and many_light_scene(20) (NEE over every light). Rays
+    and planes bit for bit, and the launch's counters within their bounds:
+    trips <= lanes <= 32 trips."""
+    sc = (tt.cornell_spheres_scene(device=cuda) if scene == "cornell"
+          else tt.many_light_scene(20, device=cuda))
+    cfg = tt.RenderConfig(width=size[0], height=size[1], depth=30,
+                          k_photons=4, backend="pallas")
+    cam = tt.make_camera(**CAM, aspect_ratio=cfg.width / cfg.height)
+    before = mega_regen.lane_counts(cuda).clone()
+    _assert_equal(*_pool_and_plain(cuda, sc, cfg, cam, 2**31 + 17 * spp,
+                                   spp))
+    _assert_counts(*_counts_since(before))
 
 
 @pytest.mark.gpu

@@ -27,7 +27,11 @@
 // with its gather and scatter; or the transition), stores them back and
 // pushes each onto the list of its next step. So every trip of a warp is
 // one kind of shading and, while the lists hold 32 slots, every lane of it
-// is busy: a path that ended gives its lane to another slot at once. The
+// is busy: a path that ended gives its lane to another slot at once. Every
+// slot a warp held goes back through the lists after each trip: a warp
+// that kept the paths going on with its kind (in registers, or only their
+// slots) and refilled just its ended lanes ran 5-15% slower on the H100 at
+// the same lane share and spills (PERF.md). The
 // two segment kinds share one code path (one call site for the nearest hit
 // and one for scatter + roulette, as in run_pixels): two copies of it ran
 // the kernel 1.55 times slower on the H100, the instruction cache's doing
@@ -46,8 +50,12 @@
 // and the same float operations.
 //
 // A block also counts its warp trips and the lanes that held a slot in
-// them; the launch adds both to a (trips, lanes) pair in global memory,
-// one atomicAdd each per block.
+// them, each warp's pair in shared memory (in registers they added to the
+// loop's spills, as a 64-bit segment count did: PERF.md); the launch adds
+// both to a (trips, lanes) pair in global memory, one atomicAdd each per
+// block. Each busy lane but the S a block retires pushes its slot after
+// its trip, so the slots moved through the lists are the lanes less S,
+// and one critical section precedes each trip: neither needs a counter.
 #pragma once
 
 #include "path.cuh"
@@ -90,6 +98,8 @@ struct PoolLists {
   int live;    // slots not retired
   int more;    // the work counter may still hold pixels
   unsigned long long trips, lanes;
+  // each warp's (trips, lanes), added to by its lane 0
+  unsigned long long warp_tally[POOL_THREADS / 32][2];
   unsigned char q[3][S];
 };
 
@@ -154,13 +164,14 @@ __device__ __forceinline__ void pool_spawn(const Params& prm,
 // one call site for the nearest hit and one for scatter + roulette, as
 // there. A camera hit stores the sample's vispoint at its first diffuse
 // hit and adds next-event estimation; a photon hit is gathered at the
-// slot's own vispoint. Returns the slot's next list.
+// slot's own vispoint. `rays`: the lane's segments, added to (a launch
+// traces fewer than 2^32 a lane). Returns the slot's next list.
 template <int S>
 __device__ __forceinline__ int pool_segment(const Params& prm,
                                             const Sampler& Sm,
                                             const SampleConsts& c,
                                             const Slot<S>& sl, bool camera,
-                                            unsigned long long& rays) {
+                                            unsigned& rays) {
   const V3 d = sl.ld3(PF_D);
   rays += 1;
   const Hit h = intersect(prm, sl.ld3(PF_O), d);
@@ -187,7 +198,9 @@ __device__ __forceinline__ int pool_segment(const Params& prm,
       vp_bit = (int)0x80000000u;
     }
     V3 rad = sl.ld3(PF_RAD);
-    camera_direct<false>(prm, Sm, false, h, lam, tp, rng, rad, rays);
+    unsigned long long shadow = 0;  // its shadow segments
+    camera_direct<false>(prm, Sm, false, h, lam, tp, rng, rad, shadow);
+    rays += (unsigned)shadow;
     sl.st3(PF_RAD, rad);
   } else {
     // ---- photon k, bounce b: gathered at this pixel's vispoint
@@ -389,7 +402,9 @@ __device__ __forceinline__ void run_pool(float* planes, const Params& prm,
   const unsigned lt = (1u << lane) - 1u;
   int my = -1;           // the slot this lane holds
   int next = POOL_DONE;  // where it goes after the trip
-  unsigned long long trips = 0, lanes = 0;
+  unsigned long long* tally = L.warp_tally[threadIdx.x >> 5];
+  if (lane == 0) tally[0] = tally[1] = 0;
+  unsigned seg_rays = 0;  // the lane's segments
   unsigned waits = 0;  // claims in a row that found every list empty
   for (;;) {
     // ---- push the trip's slots and claim the next trip's, under the lock,
@@ -438,19 +453,22 @@ __device__ __forceinline__ void run_pool(float* planes, const Params& prm,
       continue;
     }
     waits = 0;
-    trips += 1;
-    lanes += (unsigned long long)take;
+    if (lane == 0) {
+      tally[0] += 1;
+      tally[1] += (unsigned long long)take;
+    }
 
     // ---- the trip: one kind of step on the claimed slots
     const Slot<S> sl = {slots, my};
     if (kind == POOL_TRANS)
       next = pool_transition(planes, prm, Sm, c, L, sl, my >= 0, work);
     else if (my >= 0)
-      next = pool_segment(prm, Sm, c, sl, kind == POOL_CAM, rays);
+      next = pool_segment(prm, Sm, c, sl, kind == POOL_CAM, seg_rays);
   }
+  rays += seg_rays;
   if (lane == 0) {
-    atomicAdd(&L.trips, trips);
-    atomicAdd(&L.lanes, lanes);
+    atomicAdd(&L.trips, tally[0]);
+    atomicAdd(&L.lanes, tally[1]);
   }
   __syncthreads();
   if (threadIdx.x == 0 && lanes_out) {
