@@ -11,8 +11,12 @@ in the configuration, a view window's first frame is also traced whole by
 the reference, and its exact ray count compared. The pixels' lanes are
 capped by the configuration's ``reference_lanes``.
 
-Every number compared has its limit in ``limits/<workload>.json``; a
-number at or under its limit passes.
+The reference renders the configuration's scene from its twin, the file
+``reference/scenes/<builder>.py`` found by the name of the
+configuration's ``scene.builder``, with the one integrator and the one
+knob check (``reference/integrate.py check_cfg``) that every
+configuration shares. Every number compared has its limit in
+``limits/<workload>.json``; a number at or under its limit passes.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from bench_torch.reference import fmath
 from bench_torch.reference import integrate as ref
 from bench_torch.reference import scene as ref_scene
 from bench_torch.reference import tonemap as ref_tm
+from bench_torch.reference.scenes import twin
 
 MIN_PIXELS = 16
 
@@ -102,8 +107,7 @@ def reference_outputs(config: dict, prog: dict, device,
     jobs, computed in ``dtype`` (float32; bfloat16 for the control)."""
     r = config["render"]
     rcfg = ref.check_cfg(r)
-    desc = ref_scene.BUILDERS[config["scene"]["builder"]](
-        **config["scene"]["args"])
+    desc = twin(config["scene"]["builder"]).build(**config["scene"]["args"])
     cam_rows = camera_rows(config, rcfg)
     pixels = prog["pixels"].to(device)
     out = {"pixels": prog["pixels"], "jobs": []}

@@ -6,7 +6,10 @@ Everything that belongs to one configuration, traffic mix or metric is a
 file found by its name in ``BENCHMARK.json``: ``configs/<config>.json``,
 ``traffic/<traffic>.json``, ``limits/<workload>.json``, and a reader
 ``e2e/<metric>.py`` or ``metrics/<metric>.py`` with ``read(record)``,
-which returns None where it finds nothing to read.
+which returns None where it finds nothing to read. Inside them, names
+find more files: a mix's ``call`` its job ``jobs/<call>.py``
+(``loop.py``), a configuration's ``scene.builder`` the reference's scene
+twin ``reference/scenes/<builder>.py`` (``check.py``).
 """
 
 from __future__ import annotations

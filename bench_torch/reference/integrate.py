@@ -1,13 +1,20 @@
 """The plain reference's integrator: a copy of the port's eager PyTorch
 integrator (``tpurt_torch/integrate.py``, the plain version of its path
 kernels) for what the benchmark's configurations use: sphere and mesh
-scenes with square area lights, diffuse and dielectric materials, NEE over
-every light, hero wavelengths, photon emission and bounce strata and camera
-bounce strata, the exact triangle sweep, the reference roulette. Every
-other knob is refused (``check_cfg``). Spectral path tracing with
-next-event estimation plus the per-pixel SPPM photon pass, in the op order
-of the kernels' device code, so that it draws the same PCG streams and
-takes the same branches.
+scenes with point and square area lights, diffuse, dielectric and metal
+materials, NEE over every light, hero wavelengths, photon emission and
+bounce strata and camera bounce strata, the exact triangle sweep, the
+reference roulette. Every other knob is refused (``check_cfg``).
+Spectral path tracing with next-event estimation plus the per-pixel SPPM
+photon pass, in the op order of the kernels' device code, so that it draws
+the same PCG streams and takes the same branches.
+
+Two estimators, as the configuration's ``backend`` and ``enable_photons``
+select: the progressive one (every backend but the wavefront tracers),
+whose camera paths store vispoints, then the photon pass unless photons
+are off; and the wavefront tracers' (a ``backend`` starting with
+``wavefront``), camera paths only: no vispoint is stored, no photon
+traced, and the state keeps its vispoints.
 
 ``render_lanes`` traces one lane per (sample, pixel) of a fresh state at
 once: the camera paths of every lane, then each lane's vispoint as the
@@ -34,7 +41,7 @@ from bench_torch.reference.intersect import (HIT, closest_sphere,
                                              shadow_spheres)
 from bench_torch.reference.rng import (frame_seed, photon_stream, rand_1f,
                                        seed_pixels)
-from bench_torch.reference.scene import EPS, photon_power
+from bench_torch.reference.scene import EPS, PHOTON_CONE_COS, photon_power
 from bench_torch.reference.spectra import (DISPERSION_B, blackbody,
                                            hero_emission_lookup,
                                            hero_emission_table,
@@ -48,7 +55,9 @@ _DEFAULTS = dict(
     light_sample="all", qmc=False, motion_blur=False, use_bvh=False,
     pallas_mxu_leaf=False, sky_gradient=False, sky_intensity=0.0,
     radiance_clamp=0.0, count_rays=True, tonemap_key=0.8,
-    tonemap_saturation=1.0, enable_photons=True)
+    tonemap_saturation=1.0, wf_max_sweeps=100000)
+# schedules of the same per-(pixel, sample) streams, at any value
+_SCHEDULES = ("wf_pool",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,20 +81,27 @@ class Cfg:
     hero_wavelengths: int = 1
     tonemap_key: float = 0.8
     tonemap_saturation: float = 1.0
+    enable_photons: bool = True
+    camera_only: bool = False   # the wavefront tracers' estimator
 
 
 def check_cfg(render_kwargs: dict) -> Cfg:
     """The reference's settings from a configuration's RenderConfig
-    keywords; raises on a knob it does not implement."""
-    fields = {f.name for f in dataclasses.fields(Cfg)}
+    keywords; raises on a knob it does not implement. ``backend`` selects
+    the estimator and nothing else: camera paths only on the wavefront
+    tracers."""
+    fields = {f.name for f in dataclasses.fields(Cfg)} - {"camera_only"}
     kw = {}
     for k, v in render_kwargs.items():
         if k in fields:
             kw[k] = v
+        elif k == "backend":
+            kw["camera_only"] = str(v).startswith("wavefront")
         elif k in _DEFAULTS:
             if v != _DEFAULTS[k]:
                 raise NotImplementedError(f"the reference has no {k}={v!r}")
-        elif not k.startswith(("pallas_", "backend", "tile_size")):
+        elif k not in _SCHEDULES and not k.startswith(("pallas_",
+                                                         "tile_size")):
             raise NotImplementedError(f"the reference has no {k}")
     cfg = Cfg(**kw)
     if cfg.photon_strata_window != 1:
@@ -162,25 +178,32 @@ def hero_emission_rgb(fs, cfg, lam):
 
 def sample_direct_lighting(fs, loc, n, lam, rng, em):
     """Next-event estimation over every light: 2 draws and one shadow
-    segment each."""
+    segment each; a square light sampled on its area, a point light at its
+    position with the geometry term n.l."""
     zero = torch.zeros_like(loc[0])
     direct = (zero, zero, zero)
     for li, lt in enumerate(fs.lights):
         u1, rng = rand_1f(rng)
         u2, rng = rand_1f(rng)
-        su = (u1 - 0.5) * lt.two_hw
-        sv = (u2 - 0.5) * lt.two_hw
-        lp = tuple(lt.pos[c] + su * lt.tangent[c] + sv * lt.bitangent[c]
-                   for c in range(3))
+        if lt.ltype == 1:
+            su = (u1 - 0.5) * lt.two_hw
+            sv = (u2 - 0.5) * lt.two_hw
+            lp = tuple(lt.pos[c] + su * lt.tangent[c] + sv * lt.bitangent[c]
+                       for c in range(3))
+        else:
+            lp = s.vbroadcast(lt.pos, u1)
         to_light = s.vsub(lp, loc)
         dist = fsqrt(s.vdot(to_light, to_light).clamp_min(1e-30))
         ldir = s.vscale(to_light, 1.0 / dist)
         ndotl = s.vdot(n, ldir)
         live = (dist >= EPS) & (ndotl > 0.0)
-        cos_light = (-(lt.normal[0] * ldir[0] + lt.normal[1] * ldir[1]
-                       + lt.normal[2] * ldir[2])).clamp_min(0.0)
-        live = live & (cos_light > 0.0) & (lt.hw > 0.0)
-        geom = ndotl * cos_light * lt.area_scale
+        if lt.ltype == 1:
+            cos_light = (-(lt.normal[0] * ldir[0] + lt.normal[1] * ldir[1]
+                           + lt.normal[2] * ldir[2])).clamp_min(0.0)
+            live = live & (cos_light > 0.0) & (lt.hw > 0.0)
+            geom = ndotl * cos_light * lt.area_scale
+        else:
+            geom = ndotl
         so = s.vadd(loc, s.vscale(n, EPS))
         atten = _shadow(fs, so, ldir, dist - EPS, lam)
         w = torch.where(live, geom * atten / (dist * dist), 0.0)
@@ -204,6 +227,31 @@ def _diffuse_scatter(wo, n, color, rough, u2a, u2b):
     f_diff = s.oren_nayar_c(s.vnormalize(wo, eps=1e-30), wi_d, n, color,
                             rough)
     return wi_d, s.vscale(f_diff, cosw / pdf_d.clamp_min(1e-10))
+
+
+def _scatter_metal(wo, normal, f0, alpha, u2a, u2b):
+    """GGX conductor: mirror + Schlick when smooth, VNDF sample with
+    weight F * G2/G1 when rough. Returns (wi, tp vec3, valid)."""
+    cos_t = s.vdot(wo, normal)
+    wi_sm = s.reflect_c(wo, normal)
+    tp_sm = _schlick(cos_t, f0)
+    valid_sm = s.vdot(wi_sm, normal) * cos_t > 0.0
+
+    T = s.build_tangent_frame_c(normal)
+    B = s.vcross(normal, T)
+    wo_l = s.to_local_c(wo, normal, T, B)
+    wm = s.tr_sample_wm_c(wo_l, u2a, u2b, alpha)
+    wi_l = s.reflect_c(wo_l, wm)
+    valid_r = wo_l[2] * wi_l[2] > 0.0
+    F = _schlick(s.vdot(wo_l, wm), f0)
+    G2 = s.tr_g_c(wo_l[2], wi_l[2], alpha)
+    G1 = s.tr_g1_c(wo_l[2], alpha)
+    tp_r = s.vscale(F, G2 / G1.clamp_min(1e-10))
+    wi_rough = s.to_world_c(wi_l, normal, T, B)
+
+    smooth = alpha < 1e-3
+    return (s.vwhere(smooth, wi_sm, wi_rough), s.vwhere(smooth, tp_sm, tp_r),
+            (smooth & valid_sm) | (~smooth & valid_r))
 
 
 def _scatter_dielectric(wo, normal, eta, alpha, u2a, u2b, u_choice,
@@ -305,7 +353,7 @@ def evaluate_bsdf(wo, wi, n, color, rough, eta, is_diff, is_metal):
 
 def scatter_and_rr(cfg, wo, n, loc, color, rough, eta, is_diffuse, is_metal,
                    tp, rng, camera_path: bool, any_dielectric: bool,
-                   bounce_strata=None):
+                   any_metal: bool, bounce_strata=None):
     """The scatter + Russian roulette step: 4 draws (u2a, u2b, u_choice,
     u_rr); ``bounce_strata`` (strata seed, k, bounce) moves the first
     three into that bounce cell. Returns (wi, new_tp, new_o, scat_ok,
@@ -332,6 +380,11 @@ def scatter_and_rr(cfg, wo, n, loc, color, rough, eta, is_diffuse, is_metal,
         tpm = s.vwhere(is_diel, (tpm_s, tpm_s, tpm_s), tpm)
         off = torch.where(is_diel, off_s, off)
         scat_ok = (is_diel & valid_s) | (~is_diel & scat_ok)
+    if any_metal:
+        wi_m, tpm_m, valid_m = _scatter_metal(wo, n, color, alpha, u2a, u2b)
+        wi = s.vwhere(is_metal, wi_m, wi)
+        tpm = s.vwhere(is_metal, tpm_m, tpm)
+        scat_ok = (is_metal & valid_m) | (~is_metal & scat_ok)
 
     new_tp = s.vmul(tp, tpm)
     new_o = s.vadd(loc, s.vscale(n, off))
@@ -340,6 +393,12 @@ def scatter_and_rr(cfg, wo, n, loc, color, rough, eta, is_diffuse, is_metal,
     rr_live = (prob >= thr) & (u_rr <= prob)
     new_tp = s.vscale(new_tp, 1.0 / prob.clamp_min(1e-30))
     return wi, new_tp, new_o, scat_ok, rr_live, rng
+
+
+def material_kinds(fs):
+    """(any dielectric, any metal) among the scene's materials."""
+    return (any(m.mtype == 1 for m in fs.materials),
+            any(m.mtype == 2 for m in fs.materials))
 
 
 def trace_camera_paths(fs, cfg, mats, o, d, lam, rng, depth: int, valid, em,
@@ -357,7 +416,7 @@ def trace_camera_paths(fs, cfg, mats, o, d, lam, rng, depth: int, valid, em,
     vp_stored = torch.zeros_like(valid)
     rays = torch.zeros_like(valid, dtype=torch.int64)
     n_shadow = len(fs.lights)
-    any_diel = any(m.mtype == 1 for m in fs.materials)
+    any_diel, any_metal = material_kinds(fs)
     cam_strata = bool(cfg.photon_strata and cfg.camera_strata_bounce)
     for b in range(depth):
         if not bool(active.any()):
@@ -383,7 +442,8 @@ def trace_camera_paths(fs, cfg, mats, o, d, lam, rng, depth: int, valid, em,
 
         wi, new_tp, new_o, scat_ok, rr_live, rng = scatter_and_rr(
             cfg, wo, n, loc, color, rough, ior, is_diffuse, is_metal, tp,
-            rng, camera_path=True, any_dielectric=any_diel, bounce_strata=(
+            rng, camera_path=True, any_dielectric=any_diel,
+            any_metal=any_metal, bounce_strata=(
                 (strata_seed, rngmod.CAMERA_STRATA_K, b) if cam_strata
                 else None))
         cont = active & found & scat_ok & rr_live
@@ -395,20 +455,31 @@ def trace_camera_paths(fs, cfg, mats, o, d, lam, rng, depth: int, valid, em,
 
 
 def _photon_emission(lt, cfg, u):
-    """An area light's photon origin, direction and throughput from the 7
-    emission draws (uc, up1, unused, ue1, ue2, uh1, uh2)."""
+    """Photon origin, direction and throughput from the 7 emission draws
+    (uc, up1, unused, ue1, ue2, uh1, uh2): a point light's photon in its
+    cone about ``cone_axis``, an area light's cosine-distributed from a
+    point of its square."""
     uc, up1, _, ue1, ue2, uh1, uh2 = u
-    su = (ue1 - 0.5) * lt.two_hw
-    sv = (ue2 - 0.5) * lt.two_hw
-    ko = tuple(lt.ph_origin[c] + su * lt.tangent[c] + sv * lt.bitangent[c]
-               for c in range(3))
-    theta = TWO_PI * uh1
-    r_ = fsqrt(uh2)
-    x_ = r_ * torch.cos(theta)
-    y_ = r_ * torch.sin(theta)
-    z_ = fsqrt((1.0 - r_ * r_).clamp_min(0.0))
-    kd = tuple(x_ * lt.tangent[c] + y_ * lt.bitangent[c]
-               + z_ * lt.normal[c] for c in range(3))
+    if lt.ltype == 0:
+        ct = 1.0 - uc * float(np.float32(1.0 - PHOTON_CONE_COS))
+        stn = fsqrt((1.0 - ct * ct).clamp_min(0.0))
+        phi = TWO_PI * up1
+        cphi, sphi = torch.cos(phi), torch.sin(phi)
+        kd = tuple(stn * cphi * lt.cone_t[c] + stn * sphi * lt.cone_b[c]
+                   + ct * lt.cone_axis[c] for c in range(3))
+        ko = s.vbroadcast(lt.pos, uc)
+    else:
+        su = (ue1 - 0.5) * lt.two_hw
+        sv = (ue2 - 0.5) * lt.two_hw
+        ko = tuple(lt.ph_origin[c] + su * lt.tangent[c]
+                   + sv * lt.bitangent[c] for c in range(3))
+        theta = TWO_PI * uh1
+        r_ = fsqrt(uh2)
+        x_ = r_ * torch.cos(theta)
+        y_ = r_ * torch.sin(theta)
+        z_ = fsqrt((1.0 - r_ * r_).clamp_min(0.0))
+        kd = tuple(x_ * lt.tangent[c] + y_ * lt.bitangent[c]
+                   + z_ * lt.normal[c] for c in range(3))
     kt = s.vbroadcast(photon_power(lt, cfg.k_photons), uc)
     return ko, kd, kt
 
@@ -435,7 +506,7 @@ def trace_photons(fs, cfg, mats, lam, seed, px, py, vis, radius, valid, rad,
     r = radius
     inv_pi_r2 = fdiv(1.0, (float(np.float32(np.pi)) * r * r)
                      .clamp_min(1e-10))
-    any_diel = any(m.mtype == 1 for m in fs.materials)
+    any_diel, any_metal = material_kinds(fs)
     ph_strata = bool(cfg.photon_strata and cfg.photon_strata_bounce)
     for k in range(K):
         rng = photon_stream(seed, px, py, k)
@@ -473,7 +544,7 @@ def trace_photons(fs, cfg, mats, lam, seed, px, py, vis, radius, valid, rad,
             wi, new_tp, new_o, scat_ok, rr_live, rng = scatter_and_rr(
                 cfg, s.vneg(d), n, loc, color, rough, ior + cauchy_add,
                 is_diffuse, is_metal, tp, rng, camera_path=False,
-                any_dielectric=any_diel,
+                any_dielectric=any_diel, any_metal=any_metal,
                 bounce_strata=((strata_seed, rngmod.strata_k(cfg, k), b)
                                if ph_strata else None))
             cont = active & found & scat_ok & rr_live
@@ -517,11 +588,14 @@ def render_lanes(fs, cfg, cam_rows, pixels: torch.Tensor, base_seed: int,
     ``pixels`` (S,), one lane per (sample, pixel). Returns a dict of
     per-pixel results: rgb_sum (S, 3) summed in sample order, n_samples
     (S,), vis (S, 13) as the state holds it after the last sample, and
-    rays (S,) int64, the segments each pixel traced."""
-    if any(m.mtype not in (0, 1) for m in fs.materials) or any(
-            lt.ltype != 1 for lt in fs.lights):
-        raise NotImplementedError("the reference renders diffuse and "
-                                  "dielectric materials under area lights")
+    rays (S,) int64, the segments each pixel traced. With ``camera_only``
+    the camera paths alone add to the state: its vispoints stay the fresh
+    state's zeros."""
+    if any(m.mtype not in (0, 1, 2) for m in fs.materials) or any(
+            lt.ltype not in (0, 1) for lt in fs.lights):
+        raise NotImplementedError("the reference renders diffuse, "
+                                  "dielectric and metal materials under "
+                                  "point and square area lights")
     dev = pixels.device
     S = pixels.shape[0]
     mats = material_table(fs, dev)
@@ -545,6 +619,8 @@ def render_lanes(fs, cfg, cam_rows, pixels: torch.Tensor, base_seed: int,
     rad, vis, stored, rays = trace_camera_paths(
         fs, cfg, mats, o, d, lam, rng, cfg.depth, valid, em, seed)
 
+    if cfg.camera_only:
+        stored = torch.zeros_like(stored)
     # the state's vispoint after each lane's camera path: its own, else the
     # pixel's latest earlier stored one, else the fresh state's zeros
     last = torch.where(stored, smp, -1).reshape(spp, S).cummax(dim=0).values
@@ -553,8 +629,10 @@ def render_lanes(fs, cfg, cam_rows, pixels: torch.Tensor, base_seed: int,
     have = (last >= 0).reshape(-1)
     vis = [torch.where(have, p[src], torch.zeros_like(p)) for p in vis]
 
-    rad, prays = trace_photons(fs, cfg, mats, lam, seed, px, py, vis, radius,
-                               valid, rad, seed)
+    prays = torch.zeros_like(rays)
+    if cfg.enable_photons and not cfg.camera_only:
+        rad, prays = trace_photons(fs, cfg, mats, lam, seed, px, py, vis,
+                                   radius, valid, rad, seed)
     rad = torch.stack(rad).reshape(3, spp, S)
     acc = torch.zeros((3, S), dtype=rad.dtype, device=dev)
     for i in range(spp):

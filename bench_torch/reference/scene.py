@@ -1,23 +1,26 @@
 """The benchmark's scenes as the plain reference builds them, apart from
-the program: descriptions copied from the port's presets
-(``tpurt_torch/scene.py`` ``cornell_spheres_scene``, ``torus_mesh_scene``),
-packed into float32 arrays as its ``build_scene`` packs them (triangles in
-the leaf order of its median-split BVH, which decides ties between equally
-near triangles) and frozen into host constants as its ``freeze_scene``
-does. ``BUILDERS`` maps a configuration's builder name to its twin here.
+the program: the constructors of a scene's description (materials, lights,
+``Desc``), in which each twin under ``scenes/`` copies a preset of the
+port's (``tpurt_torch/scene.py``); the description packed into float32
+arrays as the port's ``build_scene`` packs it (triangles in the leaf order
+of its median-split BVH, which decides ties between equally near
+triangles) and frozen into host constants as its ``freeze_scene`` does.
+``scenes.twin`` finds a configuration's twin by its builder's name;
+``BUILDERS`` is each twin's ``build`` by that name.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
 
 from bench_torch.reference import fmath
+from bench_torch.reference.scenes import Builders
 
 EPS = 1e-5
+PHOTON_CONE_COS = 0.707     # a point light emits photons in this cone
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,15 +39,26 @@ def dielectric(ior: float, roughness: float) -> Material:
     return Material((0.0, 0.0, 0.0), roughness, ior, 1)
 
 
+def metal(f0_color, roughness: float = 0.0) -> Material:
+    """A GGX conductor whose color is its F0."""
+    return Material(tuple(f0_color), roughness, 1.0, 2)
+
+
 @dataclasses.dataclass(frozen=True)
 class Light:
     position: tuple
     color: tuple
     intensity: float
     color_temp: float
-    ltype: int
+    ltype: int      # 0 point, 1 square area
     half_width: float
     normal: tuple
+
+
+def point(position, color, intensity, color_temp=0.0) -> Light:
+    """A point light (half width 0, the port's default normal)."""
+    return Light(tuple(position), tuple(color), intensity, color_temp, 0,
+                 0.0, (0.0, -1.0, 0.0))
 
 
 def square_area(center, normal, half_width, color, intensity,
@@ -71,71 +85,14 @@ class Desc:
     tri_mat: np.ndarray     # (T,) i32
 
 
-def _no_tris() -> dict:
+def no_triangles() -> dict:
+    """The triangle fields of a ``Desc`` of spheres only."""
     z = np.zeros((0, 3), np.float32)
     return dict(tri_a=z, tri_b=z, tri_c=z,
                 tri_mat=np.zeros((0,), np.int32))
 
 
-def cornell_spheres() -> Desc:
-    """Cornell box of radius-1000 sphere walls, a glass, a frosted and a
-    white ball, one square area light."""
-    materials = (diffuse((0.73, 0.73, 0.73)), diffuse((0.65, 0.05, 0.05)),
-                 diffuse((0.12, 0.45, 0.15)), dielectric(1.5, 0.0),
-                 dielectric(1.5, 0.04))
-    R, box = 1000.0, 5.0
-    spheres = ((0, R, (0.0, -R, 0.0)), (0, R, (0.0, R + 2 * box, 0.0)),
-               (0, R, (0.0, box, R + box)), (1, R, (-R - box, box, 0.0)),
-               (2, R, (R + box, box, 0.0)), (3, 1.5, (-1.8, 1.5, 1.0)),
-               (4, 1.5, (1.8, 1.5, -0.5)), (0, 1.0, (0.3, 1.0, 2.8)))
-    lights = (square_area([0.0, 2 * box - 0.01, 0.0], [0.0, -1.0, 0.0], 1.5,
-                          [1.0, 1.0, 1.0], 6.0, 5500.0),)
-    return Desc(materials, spheres, lights, **_no_tris())
-
-
-def _torus(nu: int, nv: int):
-    """Vertices (nu*nv, 3) and outward-wound faces (2*nu*nv, 3)."""
-    R0, r0 = 1.6, 0.55
-    verts = np.empty((nu * nv, 3), np.float32)
-    for i in range(nu):
-        for j in range(nv):
-            u = 2.0 * math.pi * i / nu
-            v = 2.0 * math.pi * j / nv
-            verts[i * nv + j] = ((R0 + r0 * math.cos(v)) * math.cos(u),
-                                 r0 * math.sin(v) + r0 + 1.0,
-                                 (R0 + r0 * math.cos(v)) * math.sin(u))
-    faces = []
-    for i in range(nu):
-        for j in range(nv):
-            a = i * nv + j
-            b = ((i + 1) % nu) * nv + j
-            c = ((i + 1) % nu) * nv + (j + 1) % nv
-            d = i * nv + (j + 1) % nv
-            faces.append((a, c, b))
-            faces.append((a, d, c))
-    return verts, np.asarray(faces, np.int32)
-
-
-def torus_mesh(nu: int = 16, nv: int = 8) -> Desc:
-    """A 2*nu*nv-triangle torus (material 2, moved to z = 6) and two glass
-    spheres on a ground sphere under one 5000 K square light."""
-    verts, faces = _torus(nu, nv)
-    # the mesh's baked transform: scale 1, no rotation, translation (0, 0, 6)
-    rot = np.eye(3, dtype=np.float32)
-    pts = verts * 1.0 @ rot.T + np.asarray((0.0, 0.0, 6.0), np.float32)
-    materials = (diffuse((0.75, 0.75, 0.75)), dielectric(1.5, 0.0),
-                 diffuse((0.85, 0.25, 0.2)))
-    spheres = ((0, 1000.0, (0.0, -1000.0, 0.0)), (1, 0.9, (-2.6, 0.9, 4.2)),
-               (1, 0.9, (2.6, 0.9, 4.2)))
-    lights = (square_area([3, 8, 2], [-0.4, -1.0, 0.3], 2.5,
-                          [1.0, 1.0, 1.0], 6.0, 5000.0),)
-    return Desc(materials, spheres, lights, tri_a=pts[faces[:, 0]],
-                tri_b=pts[faces[:, 1]], tri_c=pts[faces[:, 2]],
-                tri_mat=np.full((faces.shape[0],), 2, np.int32))
-
-
-BUILDERS = {"cornell_spheres_scene": cornell_spheres,
-            "torus_mesh_scene": torus_mesh}
+BUILDERS = Builders()
 
 
 def leaf_order(tri_min: np.ndarray, tri_max: np.ndarray,
@@ -201,6 +158,9 @@ class FLight:
     normal: tuple
     tangent: tuple
     bitangent: tuple
+    cone_axis: tuple    # normalize(origin - pos): a point light's cone
+    cone_t: tuple
+    cone_b: tuple
     two_hw: float       # f32(2 hw)
     area_scale: float   # f32(max(4 hw^2, 1e-10))
     em_scale: tuple     # f32(color * intensity * range)
@@ -262,6 +222,9 @@ def freeze(desc: Desc, device) -> FrozenScene:
         normal = tup(lt.normal)
         tangent, bitangent = _tangent_frame_np(normal)
         pos = tup(lt.position)
+        axis = -np.asarray(pos, np.float32)
+        axis = axis / np.sqrt(max(float(axis @ axis), 1e-30))
+        cone_t, cone_b = _tangent_frame_np(axis)
         hw = float(np.float32(lt.half_width))
         color = tup(lt.color)
         intensity = float(np.float32(lt.intensity))
@@ -269,7 +232,9 @@ def freeze(desc: Desc, device) -> FrozenScene:
             pos=pos, hw=hw, color=color, intensity=intensity,
             temp=float(np.float32(lt.color_temp)), ltype=lt.ltype,
             normal=normal, tangent=tangent, bitangent=bitangent,
-            two_hw=_f32(2.0 * hw), area_scale=_f32(max(4.0 * hw * hw, 1e-10)),
+            cone_axis=tuple(float(x) for x in axis), cone_t=cone_t,
+            cone_b=cone_b, two_hw=_f32(2.0 * hw),
+            area_scale=_f32(max(4.0 * hw * hw, 1e-10)),
             em_scale=tuple(_f32(color[c] * intensity * 400.0)
                            for c in range(3)),
             ph_origin=tuple(_f32(pos[c] + normal[c] * EPS) for c in range(3))))
@@ -291,9 +256,12 @@ def freeze(desc: Desc, device) -> FrozenScene:
 
 
 def photon_power(light: FLight, k_photons: int) -> tuple:
-    """Initial photon throughput: the light's power over K (an area
-    light; a point light's cone fraction is not needed here)."""
-    if light.ltype != 1:
-        raise NotImplementedError("the reference emits from area lights")
+    """Initial photon throughput: the light's power over K, times the
+    cone's solid-angle fraction for a point light (f32 of the double
+    expression)."""
+    cf = (1.0 - PHOTON_CONE_COS) * 0.5
+    if light.ltype == 0:
+        return tuple(_f32(light.color[c] * light.intensity / k_photons * cf)
+                     for c in range(3))
     return tuple(_f32(light.color[c] * light.intensity / k_photons)
                  for c in range(3))

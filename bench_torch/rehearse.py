@@ -4,8 +4,8 @@
 
 Each cell's job loop, its traced slice with the span recording, each
 metric's reader and the check against the plain reference run at 64x32
-(depth 4; the torus with 256 triangles) through the port's plain
-PyTorch paths. Every device number is
+(depth 4; each scene at its twin's ``SMALL_ARGS``: the torus with 256
+triangles) through the port's plain PyTorch paths. Every device number is
 printed as "not measured": a CPU run measures no device. The measured
 command, ``run.py``, refuses to run without a card.
 """
@@ -22,17 +22,17 @@ import sys  # noqa: E402
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 from bench_torch import harness  # noqa: E402
+from bench_torch.reference.scenes import twin  # noqa: E402
 
-# 64x32 at depth 4, the torus at 16x8 segments (256 triangles: the plain
-# sweep pads a frame to 4096 lanes), traced slices of two jobs
+# 64x32 at depth 4, each scene at its twin's SMALL_ARGS, traced slices of
+# two jobs
 SHRINK = {"size": (64, 32, 4), "mix": {"trace": {"skip_jobs": 1, "jobs": 2}}}
-SCENE = {"torus_mesh_scene": {"nu": 16, "nv": 8}}
 SEED = 3000000019
 
 
 def shrink(workload: str) -> dict:
     _, _, config, _, _ = harness.load(workload)
-    return dict(SHRINK, args=SCENE.get(config["scene"]["builder"], {}))
+    return dict(SHRINK, args=twin(config["scene"]["builder"]).SMALL_ARGS)
 
 
 def main(argv=None) -> int:
