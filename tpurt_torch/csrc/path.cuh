@@ -846,6 +846,18 @@ __device__ __forceinline__ void aim_photon(const float* L, const Lights& Lt,
                  aim_weight(ph_d, load3(L + L_NORMAL), axis, cos_a, Lt.q));
 }
 
+// The calling warp's tally in run_pixels' CAM instances: its trips of the
+// loop in the high word, the lanes that traced a segment in them in the
+// low word (a launch gives a warp fewer than 2^32 of each), in static
+// shared memory, written by the warp's lane 0 alone. Two words, or two
+// registers a lane, cost the loop more (PERF.md). WARPS: the most warps a
+// block has; a template, so that only the CAM instances hold the array.
+template <int WARPS = 32>
+__device__ __forceinline__ unsigned long long* cam_tally() {
+  __shared__ unsigned long long tally[WARPS];
+  return &tally[threadIdx.x >> 5];
+}
+
 // The launch constants of the SPPM samples (run_pixels).
 struct SampleConsts {
   long long P;    // pixel stride of the planes
@@ -946,7 +958,9 @@ inline size_t run_pixels_smem(int staged, const Geom& g, int threads,
 // in every trip's trace, a lane without a segment only to help.
 // CAM: the camera-path instance of the fused wavefront kernel: no
 // vispoint, no photon phase, no radius; `planes` is then the (P, 3)
-// rgb_sum, row p at planes + 3p, budget-mode aux (2, P) budget and count.
+// rgb_sum, row p at planes + 3p, budget-mode aux (2, P) budget and count;
+// each warp counts its trips and the lanes that traced a segment in them
+// (cam_tally; shadow segments aside) and adds them to work[1] and work[2].
 // `em`: the switches the sampler, emission, spawn and lights instances
 // pass: an Emission (read with EMIT), a Spawn after it in the spawn and
 // lights instances (SPAWN: two switches or more), and a Lights after that
@@ -990,6 +1004,9 @@ __device__ __forceinline__ void run_pixels(float* planes, const Params& prm,
   uint32_t rng = 0;
   float lam = 0.0f;
   V3 o = v3(0.0f, 0.0f, 0.0f), d = o, tp = o, rad = o, vpos = o;
+  if constexpr (CAM) {
+    if ((threadIdx.x & 31) == 0) *cam_tally<>() = 0ull;
+  }
 
   for (;;) {
     // ---- fetch: the waiting lanes take consecutive pixels
@@ -1116,6 +1133,11 @@ __device__ __forceinline__ void run_pixels(float* planes, const Params& prm,
     // traces, those without a segment this trip only to help
     Hit hg;
     if constexpr (GLEAF) hg = intersect_g(prm, o, d, live && !done);
+    if constexpr (CAM) {  // the trip, and its lanes with a segment
+      const unsigned busy = __ballot_sync(FULL, live && !done);
+      if ((threadIdx.x & 31) == 0)
+        *cam_tally<>() += (1ull << 32) | (unsigned long long)__popc(busy);
+    }
     if (!live || done) continue;
 
     // ---- one segment, whatever the phase
@@ -1218,6 +1240,13 @@ __device__ __forceinline__ void run_pixels(float* planes, const Params& prm,
     if (!(cont && b + 1 < (camera ? c.depth : c.max_photon_bounces)))
       done = true;
     b += 1;
+  }
+  if constexpr (CAM) {
+    if ((threadIdx.x & 31) == 0) {
+      const unsigned long long t = *cam_tally<>();
+      atomicAdd(work + 1, t >> 32);
+      atomicAdd(work + 2, t & 0xffffffffull);
+    }
   }
 }
 

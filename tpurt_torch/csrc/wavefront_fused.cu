@@ -60,8 +60,13 @@
 //
 // Modes: uniform (aux null: `spp` samples from iteration `it0`) and budget
 // (aux (2, P) float32: pixel p takes aux[p] samples from its count
-// aux[P + p]). `counters`: two uint64 on the device, [0] the traced
-// segments (added to), [1] the work counter, zero before the launch.
+// aux[P + p]). `counters`: four uint64 on the device, zero before the
+// launch: [0] the traced segments, [1] the work counter, [2] the warps'
+// trips of the loop and [3] the lanes that traced a segment in them
+// (shadow segments aside), so that [3] / (32 [2]) is the share of lanes at
+// work, which lockstep lowers. Each warp keeps both in one word of shared
+// memory (path.cuh cam_tally) and adds them once; no other instance of
+// run_pixels counts them.
 
 #include <cuda_runtime.h>
 

@@ -90,7 +90,9 @@ _LANES = {}   # device -> int64 (warp trips, lanes that held a path) of the
               # pool launches on it, added to by every such launch
 
 
-def _per_device(cache: dict, device, make) -> torch.Tensor:
+def per_device(cache: dict, device, make) -> torch.Tensor:
+    """``cache``'s tensor on ``device`` (a bare "cuda" is the current
+    card): ``make()`` moved there on the first call, then kept."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -103,7 +105,7 @@ def _per_device(cache: dict, device, make) -> torch.Tensor:
 def cie_table(device) -> torch.Tensor:
     """The CIE table the kernels read, on ``device``: uploaded on the
     first call, then kept."""
-    return _per_device(_CIE, device, lambda: torch.from_numpy(
+    return per_device(_CIE, device, lambda: torch.from_numpy(
         np.ascontiguousarray(CIE_RGB_TABLE, np.float32)))
 
 
@@ -111,14 +113,14 @@ def sobol_table(device) -> torch.Tensor:
     """``ops.qmc.DIRECTIONS`` as the kernels read it (int32 bits of the
     uint32 words), on ``device``: uploaded on the first call, then
     kept."""
-    return _per_device(_SOBOL, device, lambda: torch.from_numpy(
+    return per_device(_SOBOL, device, lambda: torch.from_numpy(
         np.ascontiguousarray(qmc.DIRECTIONS).view(np.int32)))
 
 
 def lane_counts(device) -> torch.Tensor:
     """The pool instance's (trips, lanes) accumulator on ``device``: made
     on the first call, then kept; every pool launch adds to it."""
-    return _per_device(_LANES, device, lambda: torch.zeros(
+    return per_device(_LANES, device, lambda: torch.zeros(
         (2,), dtype=torch.int64))
 
 
@@ -355,12 +357,13 @@ def checked_scene(scene, planes: torch.Tensor, cfg):
     return freeze_scene(scene)
 
 
-def launch_counters(device) -> torch.Tensor:
-    """The two int64 a regen or tile-sync launch takes: [0] the traced
-    segments, [1] the counter its lanes fetch their pixels from. Fresh
-    zeros, made on the current stream, so launches back to back on one
-    stream each start from 0."""
-    return torch.zeros((2,), dtype=torch.int64, device=device)
+def launch_counters(device, words: int = 2) -> torch.Tensor:
+    """The int64 words a path launch takes: [0] the traced segments, [1]
+    the counter its lanes fetch their pixels from, and a fused launch's
+    [2] and [3] (``words`` 4), its warps' trips and the lanes that traced a
+    segment in them. Fresh zeros, made on the current stream, so launches
+    back to back on one stream each start from 0."""
+    return torch.zeros((words,), dtype=torch.int64, device=device)
 
 
 def kernel_instance(launcher: str, *, sampled: bool, emission: bool,

@@ -19,7 +19,10 @@ select the kernel's sampler, emission, spawn and lights instances
 place here). The launch reads its tables and switches from a
 ``mega_regen.launch_plan`` of kind ``CAMERA``. ``LAUNCHES`` counts kernel
 launches only, ``mega_regen.INSTANCE_LAUNCHES`` them by the instance they
-ran.
+ran. Every launch counts its warps' trips and the lanes that traced a
+segment in them (shadow segments aside) and adds them to a per-device
+pair (``lane_counts``); ``lane_share`` reads the share of lanes at work,
+which lockstep lowers.
 """
 
 from __future__ import annotations
@@ -33,16 +36,36 @@ from tpurt_torch import adaptive, tracing, wavefront
 from tpurt_torch.camera import check_camera
 from tpurt_torch.config import check_slice
 from tpurt_torch.kernels.mega_regen import (CAMERA, launch, launch_counters,
-                                            launch_plan, struct_ref)
+                                            launch_plan, per_device,
+                                            struct_ref)
 from tpurt_torch.scene import freeze_scene
 
 LAUNCHES = 0
+_LANES = {}   # device -> int64 (warp trips, lanes that traced a segment)
+              # of the fused launches on it, added to by every launch
+
+
+def lane_counts(device) -> torch.Tensor:
+    """The fused kernel's (trips, lanes) accumulator on ``device``: made
+    on the first call, then kept; every launch adds to it."""
+    return per_device(_LANES, device, lambda: torch.zeros(
+        (2,), dtype=torch.int64))
+
+
+def lane_share():
+    """The lanes that traced a segment over 32 times the warp trips,
+    summed over every fused launch of the process (a fraction; reads the
+    device, so it waits for the launches), or None if none ran."""
+    if not LAUNCHES or not _LANES:
+        return None
+    trips, lanes = (int(x) for x in sum(t.cpu() for t in _LANES.values()))
+    return lanes / (32 * trips) if trips else None
 
 
 def _launch(scene, cfg, camera, state, base_seed, spp: int, aux=None):
     """The kernel on a copy of the state's rgb_sum; ``aux``: the (2, P)
     float32 budgets and counts of budget mode. Returns (rgb_sum, rays
-    int64 scalar)."""
+    int64 scalar); adds the launch's (trips, lanes) to ``lane_counts``."""
     dev = state.device
     with tracing.span("path.prepare"):
         if dev.type != "cuda":
@@ -56,7 +79,7 @@ def _launch(scene, cfg, camera, state, base_seed, spp: int, aux=None):
         rgb = rgb.clone(memory_format=torch.contiguous_format)
         fs = freeze_scene(scene)
         plan = launch_plan(fs, cfg, camera, dev, CAMERA)
-        counters = launch_counters(dev)
+        counters = launch_counters(dev, 4)
         args = (rgb.data_ptr(), rgb.shape[0], cfg.width, cfg.height,
                 plan.table.data_ptr(), len(plan.geo.flat_rows),
                 len(fs.materials), len(fs.lights),
@@ -68,6 +91,7 @@ def _launch(scene, cfg, camera, state, base_seed, spp: int, aux=None):
                 struct_ref(plan.lights),
                 torch.cuda.current_stream(dev).cuda_stream)
     launch(plan, "wf_fused", args, dev)
+    lane_counts(dev).add_(counters[2:])
     return rgb, counters[0]
 
 
