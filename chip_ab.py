@@ -21,9 +21,15 @@ torch.profiler, and the host's time to issue the calls (no wait for the
 card), so a cell whose events time the host shows it. Then bench config 5
 (the dispersive scene, photons off, 1080p, depth 30): the fused kernel's
 device milliseconds under torch.profiler at 1 and 4 spp and for one budget
-launch (seeded budgets 0-4), the wall milliseconds of a 1-spp
-``wavefront_pallas`` render (``tt.render``, synchronised; mean of 3 after
-a warm-up) and its sweep launches' device milliseconds, and the wall
+launch (seeded budgets 0-4), the fused tail cell (the uniform launches'
+kernel at 4, 7, 8, 64 and 1024 spp: the tail instance,
+``csrc/fused_tail.cu``, where the checkout has it and the launch takes it,
+else ``fused_kernel``, each with its median device ms over 9, 7 or 5
+launches and its lane share; the tail instance's ptxas registers, spills
+and static shared memory, its launch's shared memory, blocks per SM and
+grid, and the tail share of its launches), the wall milliseconds of a
+1-spp ``wavefront_pallas`` render (``tt.render``, synchronised; mean of 3
+after a warm-up) and its sweep launches' device milliseconds, and the wall
 milliseconds of a 1-spp render of the plain pool (``backend=
 "wavefront"``; mean of 2). Then the device milliseconds of the hero and
 emission instances at chip_smoke's [wf-hero] and [emission] shapes (the
@@ -318,6 +324,40 @@ budgets = torch.from_numpy(vals).to(dev)
 t = device_ms(lambda: wavefront_fused.wavefront_render_budget_fused(
     scene, cfg, camera, st0, 1234, budgets, 4), "fused_kernel")
 out.append(f"config5-fused-budget {t:.4f}")
+# the fused tail cell: the uniform launches' kernel (the tail instance,
+# csrc/fused_tail.cu, where the checkout has it and the launch takes it,
+# else fused_kernel) at 4, 7, 8, 64 and 1024 spp, each with the kernel
+# that ran, its median device ms and its lane share, the tail instance's
+# ptxas registers, spills and static shared memory and its launch shape,
+# and the tail share of its launches
+from tpurt_torch.scene import freeze_scene
+tail = hasattr(wavefront_fused, "tail_engages")
+tail0 = wavefront_fused.tail_counts(dev).clone() if tail else None
+cell, args = [], {}
+for spp, reps in ((4, 9), (7, 9), (8, 9), (64, 7), (1024, 5)):
+    lanes0 = wavefront_fused.lane_counts(dev).clone()
+    ran = "fused_kernel"
+    if tail and wavefront_fused.tail_engages(
+            freeze_scene(scene), cfg, spp):
+        ran = "fused_tail_kernel"
+    med, shape = launch_shape(
+        lambda: wavefront_fused.wavefront_render_fused(
+            scene, cfg, camera, st0, 1234, spp), ran, reps)
+    if ran == "fused_tail_kernel":
+        args = shape
+    trips, lanes = (wavefront_fused.lane_counts(dev) - lanes0).tolist()
+    cell.append(f"{spp}spp {ran} {med:.4f} ms lanes "
+                f"{lanes / (32 * trips):.4f}")
+share = "n/a"
+if tail:
+    paths, tails = (wavefront_fused.tail_counts(dev) - tail0).tolist()
+    share = f"{tails / paths:.4f}" if paths else "n/a"
+out.append(
+    "fused-tail-cell " + "; ".join(cell) + "; tail instance "
+    + ptxas("17fused_tail_kernel")
+    + f"; shared memory a block {args.get('shared memory')} B, "
+    f"{args.get('blocks per SM')} blocks per SM, grid {args.get('grid')}, "
+    f"{args.get('registers per thread')} registers; tail share {share}")
 cfg_p = cfg.with_(backend="wavefront_pallas")
 t = wall_ms(lambda: tt.render(scene, cfg_p, camera, tt.init_state(cfg_p, dev),
                               1234, 1))

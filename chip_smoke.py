@@ -31,9 +31,14 @@ kernel, then its 1080p path), [wf-sweep] (one whole sweep of the pool,
 claim, bounce, splat and control words, against ``wavefront._step``),
 [wf-pool], [wf-fused] (also against the regen kernel with photons off),
 [wf-budget], [wf-pallas] (the 1080p path: sweeps, host reads, wall time
-by sweeps per read), [config5], [many-lights] (tpurt's many-light scene
-with 20 lights, its rows in shared memory, and 128, past that budget: the
-regen, fused and sweep kernels against their plain versions), [wf-hero]
+by sweeps per read), [config5], [wf-fused-tail] (the fused kernel's tail
+instance, which uniform launches of ``TAIL_MIN_SPP`` samples a pixel or
+more on config 5 run: against the plain pool and the regen kernel with
+photons off at 1080p, its device time at that many samples and at 64,
+and config 5 through the public entry points), [many-lights] (tpurt's
+many-light scene with 20 lights, its rows in shared memory, and 128,
+past that budget: the regen, fused and sweep kernels against their plain
+versions), [wf-hero]
 (bench config 4's hero wavelengths and dispersion on config 5's scene and
 pool: the sweep and fused kernels' sampler instances, 4 spp, a budget
 launch and wavefront_pallas at 1080p against their plain versions),
@@ -143,22 +148,24 @@ INST_CAM = ((0.0, 10.0, -14.0), (0.0, 1.0, 8.0))
 # part of the kernel's name. GLEAF, the last flag of the regen kernel's
 # instances, makes the G-leaf ones end in "true>".
 REGEN_MODES = ("regen", "regen_budget")
+FUSED_MODES = ("wf_fused", "wf_fused_budget")
 INSTANCES = {
     "regen_emit": (REGEN_MODES, "regen_emit_kernel"),
     "tile_sync_emit": (("tile_sync",), "regen_emit_kernel"),
     "wf_sweep_sampler": (("wf_sweep",), "pool_step_kernel<true, false"),
     "wf_sweep_emit": (("wf_sweep",),
                       "pool_step_kernel<true, true, Sampler, Emission>"),
-    "wf_fused_sampler": (("wf_fused",), "fused_sampler_kernel<false>"),
-    "wf_fused_emit": (("wf_fused",), "fused_sampler_kernel<true>"),
+    "wf_fused_sampler": (FUSED_MODES, "fused_sampler_kernel<false>"),
+    "wf_fused_emit": (FUSED_MODES, "fused_sampler_kernel<true>"),
     "regen_spawn": (REGEN_MODES, "regen_spawn_kernel"),
     "tile_sync_spawn": (("tile_sync",), "regen_spawn_kernel"),
     "wf_sweep_spawn": (("wf_sweep",), "Spawn>"),
-    "wf_fused_spawn": (("wf_fused",), "fused_spawn_kernel"),
+    "wf_fused_spawn": (FUSED_MODES, "fused_spawn_kernel"),
     "regen_lights": (REGEN_MODES, "regen_lights_kernel"),
     "tile_sync_lights": (("tile_sync",), "regen_lights_kernel"),
     "wf_sweep_lights": (("wf_sweep",), "Lights>"),
-    "wf_fused_lights": (("wf_fused",), "fused_lights_kernel"),
+    "wf_fused_lights": (FUSED_MODES, "fused_lights_kernel"),
+    "wf_fused_tail": (("wf_fused",), "fused_tail_kernel"),
     "mxu_leaf": (REGEN_MODES, "true>"),
 }
 
@@ -297,6 +304,7 @@ def ptxas_report(log: str) -> list:
                                 ("fused_sampler", "fused_sampler"),
                                 ("fused_spawn", "fused_spawn"),
                                 ("fused_lights", "fused_lights"),
+                                ("fused_tail", "fused_tail"),
                                 ("fused", "fused"), ("probe", "probe"),
                                 ("tonemap", "tonemap")):
                 if part in name:
@@ -600,6 +608,8 @@ def main() -> int:
                         "tpurt/kernels/wavefront_pallas.py:102"),
            "wf_fused": ("tpurt_torch/csrc/wavefront_fused.cu",
                         "tpurt/kernels/wavefront_pallas.py:572"),
+           "wf_fused_tail": ("tpurt_torch/csrc/fused_tail.cu",
+                             "tpurt/kernels/wavefront_pallas.py:903"),
            "regen_emit": ("tpurt_torch/csrc/path_emit.cu",
                           "tpurt/kernels/mega_regen.py:84"),
            "regen_emit_gleaf": ("tpurt_torch/csrc/path_emit.cu",
@@ -1258,7 +1268,76 @@ def wavefront_phases(dev, report, gpu) -> dict:
           f"{named_ms(by_name, 'tonemap_kernel'):.3f} ms, device busy "
           f"{busy:.2f} ms (idle share {idle_share(wall, busy)}, of the "
           f"launches recorded)")
+    launches.update(fused_tail_phase(scene, cfg5, cam5, report, gpu))
     return launches
+
+
+def fused_tail_phase(scene, cfg5, cam5, report, gpu) -> dict:
+    """[wf-fused-tail] the fused kernel's tail instance, which a uniform
+    launch of ``mega_regen.TAIL_MIN_SPP`` samples a pixel or more runs on
+    bench config 5: at 1080p and that many samples against the plain pool
+    (rays and sample counts exact, the image rule; the pool's time is the
+    row's plain time) and the regen kernel with photons off (rgb_sum and
+    rays bit for bit), its device time at that many samples and at 64,
+    then config 5 through the public entry points at that many samples.
+    Fills ``report`` and returns the launch count."""
+    import tpurt_torch as tt
+    from tpurt_torch import wavefront
+    from tpurt_torch.kernels import mega_regen, wavefront_fused
+    from tpurt_torch.render import state_to_planes
+    spp = mega_regen.TAIL_MIN_SPP
+    st0 = tt.init_state(cfg5)
+    n = cfg5.n_pixels
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    sp = wavefront.wavefront_render(scene, cfg5, cam5, st0, 1234, spp)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    before = mega_regen.INSTANCE_LAUNCHES["wf_fused", "fused_tail_kernel"]
+    sk = wavefront_fused.wavefront_render_fused(scene, cfg5, cam5, st0,
+                                                1234, spp)
+    planes = state_to_planes(st0)
+    rr = int(mega_regen.regen_call(scene, cfg5.with_(backend="pallas"), cam5,
+                                   planes, 1234, spp, 0, 2.0, cfg5.depth))
+    torch.cuda.synchronize()
+    ran = mega_regen.INSTANCE_LAUNCHES[
+        "wf_fused", "fused_tail_kernel"] - before
+    med, frac, mx = image_gap(sk.rgb_sum[:n].cpu().numpy(),
+                              sp.rgb_sum[:n].cpu().numpy())
+    same = torch.equal(sk.rgb_sum, planes[0:3].T) and int(sk.rays) == rr
+    print(f"[wf-fused-tail] 1080p depth 30 {spp} spp: {ran} launch of the "
+          f"tail instance; against the plain pool: image median {med:.2e}, "
+          f"{frac:.2%} pixels > 1e-2, max {mx:.3g}; = regen kernel with "
+          f"photons off, rgb_sum bit for bit and rays: {same} "
+          f"({int(sk.rays)} vs {rr})")
+    check_rays("tail instance vs plain pool", int(sk.rays), int(sp.rays))
+    if not (ran == 1 and same and med < 1e-4 and frac < 0.02
+            and bool((sk.n_samples[:n] == spp).all())):
+        raise AssertionError("the tail instance differs")
+    tail_ms = {}
+    for s in (spp, 64):
+        lanes0 = wavefront_fused.lane_counts(st0.device).clone()
+        call_ms, by_name, _ = profiled(
+            lambda s=s: wavefront_fused._launch(scene, cfg5, cam5, st0, 1234,
+                                                s), 3)
+        trips, lanes = (wavefront_fused.lane_counts(st0.device)
+                        - lanes0).tolist()
+        tail_ms[s] = launch_device_ms(by_name, "fused_tail_kernel", 3) \
+            or call_ms
+        print(f"  {s} spp: kernel {tail_ms[s]:.4f} ms of device time "
+              f"({recorded('fused_tail_kernel')} of 3 launches recorded; "
+              f"{call_ms:.3f} ms per wrapper call), lane share "
+              f"{lanes / (32 * trips):.4f}")
+    report["wf_fused_tail"] = dict(
+        max_abs_err=mx, ms=tail_ms[spp], plain_ms=plain_ms,
+        # rgb_sum (P, 3) read and written
+        **bound(n * 12 * 2, int(sk.rays) * OPS_PER_SEGMENT))
+    print(f"  {spp} spp: plain pool {plain_ms:.1f} ms; bound "
+          f"{report['wf_fused_tail']['bound_ms']:.4f} ms")
+    return drive("config5-tail", scene, cfg5, cam5, spp, ["wf_fused_tail"],
+                 gpu)
 
 
 def many_light_phases() -> None:

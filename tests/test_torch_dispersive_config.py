@@ -18,8 +18,9 @@ fused wavefront kernel, photons off, 1080p, depth 30), its cell
   seeds: equal rays, state within 1e-6 of each value's largest magnitude
   (the plain pool's order), image within 1e-4; the reference computed in
   bfloat16 lies beyond a limit of the cell.
-- The configuration's launch plan names ``fused_kernel``, the instance
-  bench config 5 ships.
+- The configuration's launch plan names ``fused_tail_kernel`` for its
+  uniform launches, the instance bench config 5's still runs, and
+  ``fused_kernel`` for its budget launches.
 - ``wavefront_fused.lane_share`` and the ``fused_lane_share`` reader on
   the CPU; on a CUDA device, the counter of fused launches: lanes equal to
   the traced segments on a scene without lights (no shadow segments),
@@ -199,10 +200,13 @@ def test_the_launch_plan_names_fused_kernel():
     fs = freeze_scene(tt.dispersive_scene(device=CPU))
     plan = mega_regen.build_plan(fs, cfg, _camera(cfg), CPU,
                                  mega_regen.CAMERA)
-    assert plan.instances["wf_fused"] == "fused_kernel"
-    assert mega_regen.kernel_instance(
-        "wf_fused", sampled=False, emission=False, spawn=False, lights=False,
-        gleaf=False, triangles=False) == "fused_kernel"
+    assert plan.instances["wf_fused"] == mega_regen.TAIL_KERNEL
+    assert plan.instances["wf_fused_budget"] == "fused_kernel"
+    for launcher, want in (("wf_fused", mega_regen.TAIL_KERNEL),
+                           ("wf_fused_budget", "fused_kernel")):
+        assert mega_regen.kernel_instance(
+            launcher, sampled=False, emission=False, spawn=False,
+            lights=False, gleaf=False, triangles=False) == want
 
 
 # ----- the lane counter and its reader (CPU) -----

@@ -360,7 +360,7 @@ def test_camera_plan_holds_what_the_wavefront_launchers_built(case):
         "photons": 0, "cie": mega_regen.cie_table(CPU).data_ptr(),
         "lib": None})
     assert plan.tri.gmat is None and plan.geo_args.gmat is None
-    assert set(plan.instances) == {"wf_fused", "wf_sweep"}
+    assert set(plan.instances) == {"wf_fused", "wf_fused_budget", "wf_sweep"}
     hits, builds = mega_regen.PLAN_HITS, mega_regen.PLAN_BUILDS
     assert mega_regen.launch_plan(fs, cfg, cam, CPU,
                                   mega_regen.CAMERA) is plan

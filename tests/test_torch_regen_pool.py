@@ -2,7 +2,8 @@
 ``csrc/path_pool.cu regen_pool_kernel``) and the instance rule of the four
 path launchers (``mega_regen.kernel_instance``): which kernel each
 launcher's plan names for each flag set, which launches take the pool
-(``mega_regen.pool_engages``), its launch count and lane counter on the
+(``mega_regen.pool_engages``) and the fused kernel's tail pool
+(``wavefront_fused.tail_engages``), its launch count and lane counter on the
 CPU; and, on a CUDA device, the kernel the profiler sees each launcher run
 against its plan's name, and the pool instance against the plain version
 (``integrate.render_plain``), all 16 state planes and the ray count bit
@@ -151,35 +152,41 @@ for scene in ("dispersive", "lights20", "torus"):   # each switch alone
         (scene, "power"): (POWER,
                            *["regen_lights_kernel<false, false>"] * 3)})
 SWEEP = "pool_step_kernel<{}, {}, Sampler, Emission{}>"
-CAMERA_INSTANCES = {   # wf_fused, wf_sweep
-    ("cornell", "ref"): ({}, "fused_kernel", "pool_step_kernel<false, false>"),
-    ("cornell", "hero"): (HERO, "fused_sampler_kernel<false>",
+TAIL = mega_regen.TAIL_KERNEL
+CAMERA_INSTANCES = {   # wf_fused, wf_fused_budget, wf_sweep
+    ("cornell", "ref"): ({}, TAIL, "fused_kernel",
+                         "pool_step_kernel<false, false>"),
+    ("cornell", "hero"): (HERO, *["fused_sampler_kernel<false>"] * 2,
                           SWEEP.format("true", "false", "")),
     ("dispersive", "disp-cam"): (dict(dispersion_in_camera_path=True),
-                                 "fused_sampler_kernel<false>",
+                                 *["fused_sampler_kernel<false>"] * 2,
                                  SWEEP.format("true", "false", "")),
-    ("cornell", "sky"): (SKY, "fused_sampler_kernel<true>",
+    ("cornell", "sky"): (SKY, *["fused_sampler_kernel<true>"] * 2,
                          SWEEP.format("true", "true", "")),
     ("cornell", "ramp"): (dict(sky_gradient=True),
-                          "fused_sampler_kernel<true>",
+                          *["fused_sampler_kernel<true>"] * 2,
                           SWEEP.format("true", "true", "")),
-    ("cornell", "qmc"): (QMC, "fused_spawn_kernel<false>",
+    ("cornell", "qmc"): (QMC, *["fused_spawn_kernel<false>"] * 2,
                          SWEEP.format("false", "false", ", Spawn")),
-    ("cornell", "rr-scale"): (dict(photon_rr_scale=0.5), "fused_kernel",
+    ("cornell", "rr-scale"): (dict(photon_rr_scale=0.5), TAIL,
+                              "fused_kernel",
                               "pool_step_kernel<false, false>"),
-    ("cornell", "hero-qmc"): ({**HERO, **QMC}, "fused_spawn_kernel<true>",
+    ("cornell", "hero-qmc"): ({**HERO, **QMC},
+                              *["fused_spawn_kernel<true>"] * 2,
                               SWEEP.format("true", "true", ", Spawn")),
-    ("cornell", "power"): (POWER, "fused_lights_kernel<false>",
+    ("cornell", "power"): (POWER, *["fused_lights_kernel<false>"] * 2,
                            SWEEP.format("false", "false", ", Spawn, Lights")),
-    ("cornell", "power-sky"): ({**POWER, **SKY}, "fused_lights_kernel<true>",
+    ("cornell", "power-sky"): ({**POWER, **SKY},
+                               *["fused_lights_kernel<true>"] * 2,
                                SWEEP.format("true", "true",
                                             ", Spawn, Lights")),
-    ("torus", "ref"): ({}, "fused_kernel", "pool_step_kernel<false, false>"),
-    ("torus", "gleaf"): (GLEAF, "fused_kernel",
+    ("torus", "ref"): ({}, TAIL, "fused_kernel",
+                       "pool_step_kernel<false, false>"),
+    ("torus", "gleaf"): (GLEAF, TAIL, "fused_kernel",
                          "pool_step_kernel<false, false>"),
 }
 PHOTON_LAUNCHERS = ("regen", "regen_budget", "tile_sync")
-CAMERA_LAUNCHERS = ("wf_fused", "wf_sweep")
+CAMERA_LAUNCHERS = ("wf_fused", "wf_fused_budget", "wf_sweep")
 INSTANCE_CASES = [
     pytest.param(launcher, case, id=f"{launcher}-{case[0]}-{case[1]}")
     for table, launchers in ((PHOTON_INSTANCES, PHOTON_LAUNCHERS),
@@ -199,8 +206,8 @@ def _instance_case(launcher, case, device):
     else:
         flags, *names = CAMERA_INSTANCES[case]
         kw = dict(enable_photons=False, backend=(
-            "wavefront_fused" if launcher == "wf_fused"
-            else "wavefront_pallas"))
+            "wavefront_pallas" if launcher == "wf_sweep"
+            else "wavefront_fused"))
         want = names[CAMERA_LAUNCHERS.index(launcher)]
     return SCENES[scene](device), _cornell_cfg(**{**flags, **kw}), want
 
@@ -224,6 +231,10 @@ def test_pool_engages_is_the_launchers_rule(launcher, case):
     if launcher in ("regen", "regen_budget"):
         assert mega_regen.pool_engages(
             fs, cfg, launcher == "regen") == (want == POOL)
+    if launcher in ("wf_fused", "wf_fused_budget"):
+        assert wavefront_fused.tail_engages(
+            fs, cfg, mega_regen.TAIL_MIN_SPP if launcher == "wf_fused"
+            else None) == (want == TAIL)
 
 
 def test_lane_share_is_none_before_a_pool_launch(monkeypatch):
@@ -333,9 +344,11 @@ def test_photon_instances_are_the_profilers(cuda, launcher, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("launcher, case", _of(CAMERA_LAUNCHERS))
 def test_camera_instances_are_the_profilers(cuda, launcher, case):
-    """One launch of the fused kernel or one sweep of the sweep kernel
-    runs the kernel its plan names, and counts it; a second fused launch
-    with the same scene, config and camera finds its plan kept."""
+    """One launch of the fused kernel (uniform, of the fewest samples a
+    pixel the tail instance takes, or a budget launch) or one sweep of the
+    sweep kernel runs the kernel its plan names, and counts it; a second
+    fused launch with the same scene, config and camera finds its plan
+    kept."""
     scene, cfg, want = _instance_case(launcher, case, cuda)
     cfg = cfg.with_(wf_pool=2048)
     fs = freeze_scene(scene)
@@ -343,7 +356,14 @@ def test_camera_instances_are_the_profilers(cuda, launcher, case):
     st = tt.init_state(cfg, cuda)
     if launcher == "wf_fused":
         def call():
-            wavefront_fused.wavefront_render_fused(scene, cfg, cam, st, 7, 1)
+            wavefront_fused.wavefront_render_fused(
+                scene, cfg, cam, st, 7, mega_regen.TAIL_MIN_SPP)
+    elif launcher == "wf_fused_budget":
+        budgets = torch.ones_like(st.n_samples)
+
+        def call():
+            wavefront_fused.wavefront_render_budget_fused(
+                scene, cfg, cam, st, 7, budgets, 1)
     else:
         work = wavefront.PoolWork(camera=cam, base_seed=7, spp=1,
                                   n_valid=cfg.n_pixels)
@@ -360,7 +380,7 @@ def test_camera_instances_are_the_profilers(cuda, launcher, case):
     plan = mega_regen.launch_plan(fs, cfg, cam, cuda, mega_regen.CAMERA)
     assert ran == {plan.instances[launcher]} == {want}
     assert mega_regen.INSTANCE_LAUNCHES[launcher, want] == before + 1
-    if launcher == "wf_fused":
+    if launcher != "wf_sweep":
         hits, builds = mega_regen.PLAN_HITS, mega_regen.PLAN_BUILDS
         call()
         assert (mega_regen.PLAN_HITS - hits,

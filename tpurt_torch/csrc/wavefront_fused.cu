@@ -26,8 +26,12 @@
 // by their mode, scatter + Russian roulette). Camera
 // paths only: no vispoints, no photon pass.
 //
-// Seven instances: fused_kernel, the reference sampler without emission
-// (launches with neither, as bench config 5 ships, keep its machine code);
+// Eight instances: fused_tail_kernel (fused_tail.cu), the uniform
+// launches of TAIL_MIN_SPP samples a pixel or more under the reference
+// sampler and without switches, bench config 5's still as shipped;
+// fused_kernel, the reference sampler without emission for the other
+// launches without switches (budget launches, fewer samples), which keep
+// its machine code;
 // fused_sampler_kernel<EMIT>, with the sampler flags (the hero's averaged
 // emission until a dielectric collapses the path, the Cauchy IOR) and,
 // with EMIT, the emission (run_pixels' EMIT); fused_spawn_kernel<SAMPLER>,
@@ -56,21 +60,35 @@
 // in budget mode, where pixels differ in samples); uniform launches keep a
 // warp's lanes in lockstep and budget launches let them drift apart
 // (SampleConsts.lockstep, set from the mode as in the regen kernel:
-// PERF.md has the A/B).
+// PERF.md has the A/B). A lockstep warp still waits for its longest path:
+// on bench config 5 its lanes were busy in 70% of their trips, the idle
+// ones in tail trips where a few stragglers chain through glass. So the
+// tail instance (fused_tail.cuh) lets the rest of a warp start its next
+// sample once at most a few of its lanes are on a path, the stragglers
+// finishing theirs beside it, and fetches pixels for the whole warp at
+// once: only the tails leave lockstep. A block-wide pool of the tails
+// (its first design) and a pool for the whole kernel (path_pool.cuh) each
+// cost more than lockstep loses here (PERF.md). It engages on observable
+// input alone (aux null, spp at least TAIL_MIN_SPP, no switches;
+// wavefront_fused.py tail_engages): budget launches already run free, a
+// launch of few samples a pixel has few tails to take out, and the flag
+// instances sit at their register caps.
 //
 // Modes: uniform (aux null: `spp` samples from iteration `it0`) and budget
 // (aux (2, P) float32: pixel p takes aux[p] samples from its count
-// aux[P + p]). `counters`: four uint64 on the device, zero before the
+// aux[P + p]). `counters`: five uint64 on the device, zero before the
 // launch: [0] the traced segments, [1] the work counter, [2] the warps'
 // trips of the loop and [3] the lanes that traced a segment in them
 // (shadow segments aside), so that [3] / (32 [2]) is the share of lanes at
-// work, which lockstep lowers. Each warp keeps both in one word of shared
-// memory (path.cuh cam_tally) and adds them once; no other instance of
+// work, which lockstep lowers, and [4] the tail instance's tail segments:
+// those of paths that went on after their warp moved on (which [3] counts
+// too). Each warp keeps its counts in shared memory (path.cuh cam_tally,
+// fused_tail.cuh's own words) and adds them once; no other instance of
 // run_pixels counts them.
 
 #include <cuda_runtime.h>
 
-#include "path.cuh"
+#include "fused_tail.cuh"
 
 namespace tpurt {
 
@@ -170,6 +188,9 @@ extern "C" int tpurt_wf_fused_launch(
         n_mat, n_light, c, *sampler, emission ? *emission : none, *geom,
         counters);
   }
+  if (!aux && spp >= TAIL_MIN_SPP)
+    return launch_fused_tail(rgb, table, cie, staged, n_sph, n_mat, n_light,
+                             c, *geom, counters, s);
   return launch_persistent(fused_kernel, smem, (long long)width * height, s,
                            rgb, table, cie, staged, n_sph, n_mat, n_light, c,
                            *geom, counters);

@@ -111,9 +111,10 @@ _SIGNATURES = {
         _P,             # aux (2, P) f32 budget, count: budget mode, or NULL
         _I, _F,         # depth, rr_threshold
         _P,             # geometry tables: a bvh.GeomArgs on the host
-        _P,             # four uint64 on the device, zeroed on the stream
+        _P,             # five uint64 on the device, zeroed on the stream
                         # before the launch and added to: rays, the work
-                        # counter, warp trips, lanes that traced a segment
+                        # counter, warp trips, lanes that traced a segment,
+                        # the tail instance's tail segments
         _P,             # CIE table (81, 3) f32 on the device
         _P,             # camera-path sampler switches: a
                         # mega_regen.SamplerArgs (camera_sampler_args)

@@ -76,10 +76,15 @@ LAUNCHERS = {
     "tile_sync": (PHOTON, "tpurt_step_launch", "mega_step", "LAUNCHES"),
     "wf_fused": (CAMERA, "tpurt_wf_fused_launch", "wavefront_fused",
                  "LAUNCHES"),
+    "wf_fused_budget": (CAMERA, "tpurt_wf_fused_launch", "wavefront_fused",
+                        "LAUNCHES"),
     "wf_sweep": (CAMERA, "tpurt_wf_step_launch", "wavefront_sweep",
                  "LAUNCHES"),
 }
 POOL_KERNEL = "regen_pool_kernel"
+TAIL_KERNEL = "fused_tail_kernel"
+TAIL_MIN_SPP = 8   # the fewest samples a pixel of a uniform fused launch
+                   # the tail instance takes (csrc/fused_tail.cuh)
 N_CHANNELS = 16
 CAM_FLOATS = 12
 MAT_STRIDE = 8
@@ -360,9 +365,11 @@ def checked_scene(scene, planes: torch.Tensor, cfg):
 def launch_counters(device, words: int = 2) -> torch.Tensor:
     """The int64 words a path launch takes: [0] the traced segments, [1]
     the counter its lanes fetch their pixels from, and a fused launch's
-    [2] and [3] (``words`` 4), its warps' trips and the lanes that traced a
-    segment in them. Fresh zeros, made on the current stream, so launches
-    back to back on one stream each start from 0."""
+    [2], [3] and [4] (``words`` 5), its warps' trips, the lanes that traced
+    a segment in them and, in the tail instance, its tail segments (of
+    paths that went on after their warp moved on). Fresh zeros, made on
+    the current stream, so launches back to back on one stream each start
+    from 0."""
     return torch.zeros((words,), dtype=torch.int64, device=device)
 
 
@@ -378,19 +385,24 @@ def kernel_instance(launcher: str, *, sampled: bool, emission: bool,
     csrc/wavefront_fused.cu ``tpurt_wf_fused_launch`` and
     csrc/wavefront_sweep.cu ``tpurt_wf_step_launch``: lights switches,
     then spawn switches, then emission switches, then the pool (a uniform
-    regen launch without triangle rows), then the sampler or the reference
-    instance. ``sampled``: ``sampler_on``; the lights and spawn instances
+    regen launch without triangle rows) or the tail instance (a uniform
+    fused launch; the launcher runs it at ``TAIL_MIN_SPP`` samples a pixel
+    or more, ``fused_kernel`` below, so a plan names the instance of such
+    a launch), then the sampler or the reference instance. ``sampled``: ``sampler_on``; the lights and spawn
+    instances
     take their full body where emission or the sampler is on; ``gleaf``:
     the G-matrix leaf test of the photon kernels."""
     b = lambda x: "true" if x else "false"  # noqa: E731
     full = b(emission or sampled)
-    if launcher == "wf_fused":
+    if launcher in ("wf_fused", "wf_fused_budget"):
         if lights:
             return f"fused_lights_kernel<{full}>"
         if spawn:
             return f"fused_spawn_kernel<{full}>"
         if emission or sampled:
             return f"fused_sampler_kernel<{b(emission)}>"
+        if launcher == "wf_fused":
+            return TAIL_KERNEL
         return "fused_kernel"
     if launcher == "wf_sweep":
         if lights or spawn:
@@ -565,9 +577,11 @@ def photon_args(plan: LaunchPlan, launcher: str, fs, cfg, planes,
                       plan.lanes, stream)
 
 
-def launch(plan: LaunchPlan, launcher: str, args: tuple, device) -> None:
+def launch(plan: LaunchPlan, launcher: str, args: tuple, device,
+           instance: str | None = None) -> None:
     """Run ``launcher``'s C function on ``args`` in the ``path.launch``
-    span, raise its error, and count the launch: its instance in
+    span, raise its error, and count the launch: its instance (the plan's,
+    or ``instance`` where the launch's own input picks it) in
     ``INSTANCE_LAUNCHES`` (and ``POOL_LAUNCHES``), ``bvh.count_walk`` and
     the launcher's total."""
     global POOL_LAUNCHES
@@ -575,7 +589,7 @@ def launch(plan: LaunchPlan, launcher: str, args: tuple, device) -> None:
     with tracing.span("path.launch", device):
         err = getattr(plan.lib, fn)(*args)
     build.check_launch(plan.lib, err, fn)
-    instance = plan.instances[launcher]
+    instance = instance or plan.instances[launcher]
     INSTANCE_LAUNCHES[launcher, instance] += 1
     if instance == POOL_KERNEL:
         POOL_LAUNCHES += 1
